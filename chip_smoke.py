@@ -4,14 +4,20 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the three hand-written CUDA kernels from `gamer_tpu_torch/ops/csrc`
-   with nvcc for sm_90a (one nvcc per source, started together);
-2. hold each kernel against its plain PyTorch version at the flagship shapes:
-   fp32 inputs at 1e-4 and bf16 inputs (plain version run in fp32 on the same
-   bf16 values) at 2e-2, both as max |kernel - plain| / max |plain|, TF32 off;
-   attention also at S = 2048 and S = 8192 (B = 1). Each kernel is timed
-   (CUDA events) beside its plain version and, where one exists, one PyTorch
-   library call of the same function;
+1. build the six hand-written CUDA kernel libraries from
+   `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
+   started together);
+2. hold each forward kernel (a, h, j) against its plain PyTorch version at
+   the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
+   run in fp32 on the same bf16 values) at 2e-2, both as
+   max |kernel - plain| / max |plain|, TF32 off; attention also at S = 2048
+   and S = 8192 (B = 1). Each kernel is timed (CUDA events) beside its plain
+   version and, where one exists, one PyTorch library call of the same
+   function;
+2b. the same for the backward kernels (b, i, k) against autograd through
+   the plain versions, with dropout 0 and 0.2 (the same seed on both sides),
+   attention also at B 1 x S 2048 and 8192 (the lengths of the TPU's
+   streaming and XL kernels c-g, which kernels a and b cover);
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -19,7 +25,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    must be finite and agree within 1e-2 relative;
 4. trie-constrained beam search (20 beams, batch 128, 4 code levels of 256,
    several thousand items, left-padded prompts of up to 100 blocks): shapes,
-   finite sorted scores, every returned code path in the trie.
+   finite sorted scores, every returned code path in the trie;
+5. the training step of flagship Qwen3Multi through `Trainer` (bf16, batch
+   64 x 101 blocks, dropout 0.2, AdamW lr 5e-4, 10 updates on one batch):
+   per step exactly 12/12/8/8/1/1 launches of kernels a/b/h/i/j/k, finite
+   losses, the mean of the last 3 below the first; then one fp32 step at
+   batch 16, kernel path against plain path on the same weights and dropout
+   seeds (loss within 1e-5, every parameter's grad within 1e-3);
+6. the long-history step: one fp32 forward and backward at B 4 x S 2050
+   and B 1 x S 5000, kernel path (a and b launches counted) against the
+   plain path (grads within 1e-3).
 
 Prints the times, then `{"kernels": [...]}`, then the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -39,44 +54,25 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 F32_TOL, BF16_TOL, LOSS_TOL = 1e-4, 2e-2, 1e-2
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-3  # fp32 train step, kernel path vs plain path
+DROP_SEED, DROP_RATE = 1234, 0.2
 NEG = -1e30  # score of a dead beam (gamer_tpu_torch/decode/beam.py)
 BEAM_BATCH, NUM_BEAMS, LEVELS, LEVEL_SIZE, N_ITEMS, PROMPT_BLOCKS = 128, 20, 4, 256, 4096, 100
 
 
 def flagship_config(**overrides):
-    """Flagship Qwen3Multi widths (config/s2s-models/Qwen3Multi/config.json
-    with the 1024-code + 17-token vocabulary of the flagship data)."""
-    from gamer_tpu_torch.models.generative.qwen_family import build_config
+    """Flagship Qwen3Multi widths (`gamer_tpu_torch.entry.flagship_config`)
+    in bf16, dropout off unless overridden."""
+    from gamer_tpu_torch.entry import flagship_config as config
 
-    kw = dict(vocab_size=1024 + 17, hidden_size=256, num_hidden_layers=8,
-              num_attention_heads=6, num_key_value_heads=3, head_dim=64,
-              intermediate_size=512, dropout_rate=0.0, num_positions=5, num_experts=6,
-              num_behavior=3, behavior_embedding_dim=64, behavior_base=14,
-              model_max_length=1024, dtype="bfloat16")
-    kw.update(overrides)
-    return build_config("Qwen3Multi", **kw)
+    return config(**{"dtype": "bfloat16", **overrides})
 
 
 def make_batch(cfg, batch_size: int, blocks: int, seed: int = 0) -> dict:
-    """A right-padded-free scoring batch of item blocks [<behavior>, codes]."""
-    rng = np.random.default_rng(seed)
-    P = cfg.num_positions
-    S = blocks * P
-    ids = rng.integers(cfg.behavior_base + cfg.num_behavior, cfg.vocab_size,
-                       (batch_size, S)).astype(np.int32)
-    ids[:, ::P] = rng.integers(cfg.behavior_base, cfg.behavior_base + cfg.num_behavior,
-                               (batch_size, blocks))
-    sessions = np.repeat(np.sort(rng.integers(0, 5, (batch_size, blocks)), axis=1), P, axis=1)
-    actions = np.repeat(rng.integers(1, 4, (batch_size, blocks)), P, axis=1)
-    return {
-        "input_ids": ids,
-        "attention_mask": np.ones((batch_size, S), np.int32),
-        "session_ids": sessions.astype(np.int32),
-        "actions": actions.astype(np.int32),
-        "extended_session_ids": np.arange(S, dtype=np.int32)[None].repeat(batch_size, 0),
-        "labels": ids.copy(),
-        "row_valid": np.ones((batch_size,), np.int32),
-    }
+    """A padding-free batch of item blocks [<behavior>, codes]."""
+    from gamer_tpu_torch.entry import make_batch as batch
+
+    return batch(cfg, batch_size, blocks, np.random.default_rng(seed))
 
 
 def make_trie_and_prompts(cfg, batch_size: int, n_items: int, levels: int, level_size: int,
@@ -194,6 +190,24 @@ def _check(name, kernel, plain, args32, args16):
     return err16
 
 
+def _attn_inputs(dev, cfg, B: int, S: int, seed: int, rnd):
+    """q, k, v (fp32, from `rnd`) and the four mask streams of a batch with
+    some right-padded rows and random sessions and actions."""
+    import torch
+
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    rng = np.random.default_rng(seed)
+    attn = np.ones((B, S), np.int32)
+    attn[1::4, S - S // 7:] = 0  # some right-padded rows
+    blocks = -(-S // 5)
+    sess = np.repeat(np.sort(rng.integers(0, 5, (B, blocks)), 1), 5, 1)[:, :S]
+    act = np.repeat(rng.integers(1, 4, (B, blocks)), 5, 1)[:, :S]
+    rel = np.cumsum(attn, 1) - 1
+    blk = np.where(attn == 1, rel // 5, -1)
+    streams = [torch.as_tensor(x.astype(np.int32), device=dev) for x in (attn, sess, act, blk)]
+    return rnd(B, S, H * D), rnd(B, S, Hkv * D), rnd(B, S, Hkv * D), streams
+
+
 def kernel_phase(dev) -> dict:
     """Phase 2: every kernel against its plain version, and its timings."""
     import torch
@@ -212,27 +226,14 @@ def kernel_phase(dev) -> dict:
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     # ---- a: attention, flagship B=64 x S=505 and B=1 at S = 2048, 8192
-    def attn_inputs(B, S, seed):
-        rng = np.random.default_rng(seed)
-        attn = np.ones((B, S), np.int32)
-        attn[1::4, S - S // 7:] = 0  # some right-padded rows
-        blocks = -(-S // 5)
-        sess = np.repeat(np.sort(rng.integers(0, 5, (B, blocks)), 1), 5, 1)[:, :S]
-        act = np.repeat(rng.integers(1, 4, (B, blocks)), 5, 1)[:, :S]
-        rel = np.cumsum(attn, 1) - 1
-        blk = np.where(attn == 1, rel // 5, -1)
-        streams = [torch.as_tensor(x.astype(np.int32), device=dev)
-                   for x in (attn, sess, act, blk)]
-        q, k, v = rnd(B, S, H * D), rnd(B, S, Hkv * D), rnd(B, S, Hkv * D)
-        return q, k, v, streams
-
+    attn_inputs = lambda B, S, seed: _attn_inputs(dev, cfg, B, S, seed, rnd)
     attn_ms = {}
     for (B, S, kinds) in ((64, 505, ("causal", "multi", "session", "session_multi")),
                           (1, 2048, ("causal", "multi")), (1, 8192, ("causal",))):
         q, k, v, streams = attn_inputs(B, S, S)
         for kind in kinds:
-            a32 = (q, k, v, *streams, H, kind)
-            a16 = (q.bfloat16(), k.bfloat16(), v.bfloat16(), *streams, H, kind)
+            a32 = (q, k, v, *streams, 0, H, kind)
+            a16 = (q.bfloat16(), k.bfloat16(), v.bfloat16(), *streams, 0, H, kind)
             err = _check(f"fused_mask_attention[{kind},B={B},S={S}]", fused_mask_attention,
                          fused_mask_attention_plain, a32, a16)
             if B == 64 and kind in ("causal", "multi"):
@@ -303,6 +304,317 @@ def kernel_phase(dev) -> dict:
     return entries
 
 
+def _grad_check(name: str, got, want, tol: float) -> float:
+    """Every tensor of `got` against `want` as max |d| / max |want|; returns
+    the largest max abs error, raises above `tol`."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for g_, w_ in zip(got, want):
+        err, rel = _rel_err(g_, w_)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+    ok = worst_rel <= tol
+    print(f"check {name}: rel err {worst_rel:.3e} (tol {tol}) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return worst_abs
+
+
+def _grad_ms(out, leaves, grad_out, iters: int = 10) -> float:
+    """Time of the backward of a recorded graph (CUDA events)."""
+    import torch
+
+    return _cuda_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True,
+                                                allow_unused=True), iters)
+
+
+def backward_phase(dev) -> dict:
+    """Phase 2b: the backward kernels b, i, k against autograd through the
+    plain versions (fp32 at F32_TOL, bf16 at BF16_TOL, dropout 0 and 0.2),
+    and their timings; attention also at the long lengths (rows c-g)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+    from gamer_tpu_torch.ops.masks import streams_allowed
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(dev)
+    cfg = flagship_config()
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    entries, long_s = {}, {}
+
+    # ---- b (with a's lse and dropout): flagship B=64 x S=505, long S at B=1
+    b_ms = {}
+    for (B, S, kinds) in ((64, 505, ("causal", "multi")), (1, 2048, ("causal", "multi")),
+                          (1, 8192, ("causal",))):
+        q, k, v, streams = _attn_inputs(dev, cfg, B, S, 10 + S, rnd)
+        dout = rnd(B, S, H * D)
+        for kind in kinds:
+            errs = []
+            for rate in (0.0, DROP_RATE):
+                for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+                    leaves = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+                    out = FA.fused_mask_attention(*leaves, *streams, DROP_SEED, H, kind, rate)
+                    grads = torch.autograd.grad(out, leaves, dout.to(dtype))
+                    up = [t.detach().float() for t in leaves]
+                    want_out = FA.fused_mask_attention_plain(*up, *streams, DROP_SEED, H, kind,
+                                                             rate)
+                    want = FA.fused_mask_attention_bwd_plain(
+                        *up, dout.to(dtype).float(), *streams, DROP_SEED, H, kind, rate)
+                    torch.cuda.synchronize()
+                    errs.append(_grad_check(
+                        f"attention a+b[{kind},B={B},S={S},rate={rate},{dtype}]",
+                        (out, *grads), (want_out, *want), tol))
+                    del out, grads, want_out, want
+            # timings in bf16 at the training rate
+            q16, k16, v16, d16 = q.bfloat16(), k.bfloat16(), v.bfloat16(), dout.bfloat16()
+            args = (*streams, DROP_SEED, H, kind, DROP_RATE)
+            out, lse = FA._launch_fwd(q16, k16, v16, streams, DROP_SEED, H, kind, DROP_RATE,
+                                      with_lse=True)
+            ms = _cuda_ms(lambda: FA.fused_mask_attention_bwd(q16, k16, v16, out, d16, lse, *args))
+            fwd_ms = _cuda_ms(lambda: FA._launch_fwd(q16, k16, v16, streams, DROP_SEED, H, kind,
+                                                     DROP_RATE, with_lse=True))
+            leaves = [t.clone().requires_grad_(True) for t in (q16, k16, v16)]
+            plain_fwd_ms = _cuda_ms(lambda: FA.fused_mask_attention_plain(*leaves, *args), iters=2)
+            with torch.enable_grad():
+                pout = FA.fused_mask_attention_plain(*leaves, *args)
+            plain_ms = _grad_ms(pout, leaves, d16, iters=2)
+            del pout
+            allowed = streams_allowed(kind, *streams)
+            heads = lambda t, n: t.detach().view(B, S, n, D).transpose(1, 2).requires_grad_(True)
+            q4, k4, v4 = heads(q16, H), heads(k16, Hkv), heads(v16, Hkv)
+            with torch.enable_grad():
+                lout = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=allowed,
+                                                      enable_gqa=True)
+            lib_ms = _grad_ms(lout, (q4, k4, v4), d16.view(B, S, H, D).transpose(1, 2), iters=5)
+            lib_fwd_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=allowed, enable_gqa=True), iters=5)
+            del lout
+            pairs = float(allowed.sum().item()) * H  # allowed (query, key) pairs, all heads
+            io = 2 * (q16.numel() + k16.numel() + v16.numel())
+            bound, by = _bound_ms(2 * io + 2 * d16.numel() + 4 * 2 * B * H * S + 16 * B * S,
+                                  10.0 * D * pairs)
+            fbound, fby = _bound_ms(io + 2 * q16.numel() + 4 * B * H * S + 16 * B * S,
+                                    4.0 * D * pairs)
+            print(f"time fused_mask_attention_bwd[{kind}] B={B} S={S} bf16 rate {DROP_RATE}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa(bool mask) backward "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); forward with lse: kernel "
+                  f"{fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms, "
+                  f"bound {fbound:.4f} ms ({fby})", flush=True)
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                          bound_by=by, max_abs_err=max(errs))
+            if B == 64:
+                b_ms[kind] = timing
+            elif kind == "causal":  # the self-attention kind: 8 of the 12 calls a step
+                long_s[(S, "bwd")] = timing
+                long_s[(S, "fwd")] = dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
+                                          bound_ms=fbound, bound_by=fby, max_abs_err=max(errs))
+            del out, lse
+    entries["fused_mask_attention_bwd"] = {
+        key: (8 * b_ms["causal"][key] + 4 * b_ms["multi"][key]) / 12
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    entries["fused_mask_attention_bwd"]["bound_by"] = b_ms["causal"]["bound_by"]
+    entries["fused_mask_attention_bwd"]["max_abs_err"] = max(v["max_abs_err"] for v in b_ms.values())
+
+    # ---- i: MoE backward, flagship expert-major shapes, with and without bias
+    P, T, Dm, Fd, NB = cfg.num_positions, 64 * 101, cfg.hidden_size, cfg.intermediate_size, 4
+    xp, wgu = rnd(P, T, Dm), rnd(P, Dm, 2 * Fd, scale=Dm ** -0.5)
+    wd, btab = rnd(P, Fd, Dm, scale=Fd ** -0.5), rnd(P, NB, 2 * Fd, scale=0.5)
+    gout = rnd(P, T, Dm)
+    beh = torch.as_tensor(np.random.default_rng(4).integers(0, NB, (P, T)).astype(np.int32),
+                          device=dev)
+    i_ms, errs = [], []
+    for use_bias in (True, False):
+        for rate in (0.0, DROP_RATE):
+            for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+                leaves = [t.to(dtype).requires_grad_(True) for t in (xp, wgu, wd, btab)]
+                out = FM.fused_moe_ffn(*leaves, beh, DROP_SEED, rate=rate, use_bias=use_bias)
+                grads = torch.autograd.grad(out, leaves, gout.to(dtype))
+                up = [t.detach().float() for t in leaves]
+                want = FM.fused_moe_ffn_bwd_plain(*up, beh, gout.to(dtype).float(), DROP_SEED,
+                                                  rate, use_bias)
+                want_out = FM.fused_moe_ffn_plain(*up, beh, use_bias, DROP_SEED, rate)
+                torch.cuda.synchronize()
+                n = 4 if use_bias else 3  # without bias dbtab is 0 on both sides
+                errs.append(_grad_check(
+                    f"moe h+i[bias={use_bias},rate={rate},{dtype}]", (out, *grads[:n]),
+                    (want_out, *want[:n]), tol))
+                if not use_bias:
+                    assert (grads[3] == 0).all() and (want[3] == 0).all()
+        a16 = [t.bfloat16() for t in (xp, wgu, wd, btab)]
+        ms = _cuda_ms(lambda: FM.fused_moe_ffn_bwd(*a16, beh, gout.bfloat16(), DROP_SEED,
+                                                    DROP_RATE, use_bias))
+        leaves = [t.clone().requires_grad_(True) for t in a16]
+        with torch.enable_grad():
+            pout = FM.fused_moe_ffn_plain(*leaves, beh, use_bias, DROP_SEED, DROP_RATE)
+        plain_ms = _grad_ms(pout, leaves, gout.bfloat16(), iters=3)
+        i_ms.append((ms, plain_ms))
+        print(f"time fused_moe_ffn_bwd P={P} T={T} bf16 bias={use_bias} rate {DROP_RATE}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    n_bytes = 2 * 2 * (xp.numel() + wgu.numel() + wd.numel() + btab.numel()) \
+        + 2 * 2 * gout.numel() + 4 * beh.numel()
+    bound, by = _bound_ms(n_bytes, 2.0 * P * T * (3 * Dm * 2 * Fd + 2 * Fd * Dm))
+    entries["fused_moe_ffn_bwd"] = dict(
+        ms=float(np.mean([m for m, _ in i_ms])), plain_ms=float(np.mean([p for _, p in i_ms])),
+        library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=max(errs))
+    print(f"bound fused_moe_ffn_bwd: {bound:.4f} ms ({by})", flush=True)
+
+    # ---- k: CE backward, flagship N = 64 x 504 rows, V = 1041
+    N, V = 64 * 504, cfg.vocab_size
+    h, table = rnd(N, Dm), rnd(V, Dm, scale=Dm ** -0.5)
+    rng = np.random.default_rng(5)
+    tgt = torch.as_tensor(rng.integers(0, V, N).astype(np.int32), device=dev)
+    val = torch.as_tensor((rng.random(N) > 0.2).astype(np.int32), device=dev)
+    gnll = torch.rand(N, generator=g).to(dev) / N
+    errs = []
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (h, table)]
+        nll, _ = FC.fused_ce_rows(*leaves, tgt, val, 1.0)
+        grads = torch.autograd.grad(nll, leaves, gnll)
+        want = FC.fused_ce_rows_bwd_plain(*(t.detach().float() for t in leaves), tgt, val, gnll,
+                                          1.0)
+        torch.cuda.synchronize()
+        errs.append(_grad_check(f"ce j+k[{dtype}]", grads, want, tol))
+    h16, t16 = h.bfloat16(), table.bfloat16()
+    _, lse = FC._launch_fwd(h16, t16, tgt, val, 1.0)
+    ms = _cuda_ms(lambda: FC.fused_ce_rows_bwd(h16, t16, tgt, val, lse, gnll, 1.0))
+    leaves = [t.clone().requires_grad_(True) for t in (h16, t16)]
+    with torch.enable_grad():
+        pnll, _ = FC.fused_ce_rows_plain(*leaves, tgt, val, 1.0)
+        logits = leaves[0] @ leaves[1].T
+        lnll = torch.logsumexp(logits.float(), dim=-1) - logits.float().gather(
+            1, tgt.long()[:, None])[:, 0]
+    plain_ms = _grad_ms(pnll, leaves, gnll, iters=3)
+    lib_ms = _grad_ms(lnll, leaves, gnll)
+    n_bytes = 2 * 2 * (h.numel() + table.numel()) + 4 * 4 * N
+    bound, by = _bound_ms(n_bytes, 3 * 2.0 * N * V * Dm)
+    entries["fused_ce_rows_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                        bound_ms=bound, bound_by=by, max_abs_err=max(errs))
+    print(f"time fused_ce_rows_bwd N={N} V={V} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+          f" matmul+logsumexp backward {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    return entries, long_s
+
+
+def _step_launches(cfg) -> dict:
+    """Wrapper calls of one training step: an attention forward and backward
+    per self- and cross-attention, an MoE forward and backward per sparse
+    layer, one CE forward and backward."""
+    attn, moe = cfg.num_hidden_layers + len(cfg.cross_attention_layers), len(cfg.sparse_layers)
+    return {"fused_mask_attention": attn, "fused_mask_attention_bwd": attn,
+            "fused_moe_ffn": moe, "fused_moe_ffn_bwd": moe,
+            "fused_ce_rows": 1, "fused_ce_rows_bwd": 1}
+
+
+def _step_grads(model, loss_fn, batch, seed: int):
+    """Loss and {name: grad} of one training forward and backward."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(batch, torch.Generator().manual_seed(seed))
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+def _paths_agree(label: str, cfg, batch, dev, seed: int, counters: dict,
+                 expected: dict, plain_remat: bool = False) -> None:
+    """One fp32 training step through the kernels (launch counts reset just
+    before and checked just after) and through the plain path, on the same
+    weights and dropout seeds: loss within STEP_LOSS_TOL, every grad within
+    STEP_GRAD_TOL (max |d| / max |plain|)."""
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+
+    model = QwenFamilyModel(cfg, device=dev, seed=seed)
+    for w in counters.values():
+        w.launches = 0
+    loss, grads = _step_grads(model, make_loss_fn(model, cfg, deterministic=False), batch, seed)
+    launches = {name: w.launches for name, w in counters.items()}
+    print(f"{label} launches: {launches}", flush=True)
+    assert launches == expected, f"kernel launches {launches}, expected {expected}"
+    del model
+    plain_cfg = cfg.replace(attention_impl="jnp", moe_impl="jnp", ce_impl="jnp",
+                            remat=plain_remat)
+    plain = QwenFamilyModel(plain_cfg, device=dev, seed=seed)
+    plain_loss, plain_grads = _step_grads(
+        plain, make_loss_fn(plain, plain_cfg, deterministic=False), batch, seed)
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    worst = max((_rel_err(grads[n], plain_grads[n])[1], n) for n in grads)
+    print(f"{label}: loss {loss:.7f} (kernels) vs {plain_loss:.7f} (plain), rel diff "
+          f"{rel:.3e} (tol {STEP_LOSS_TOL}); worst grad rel err {worst[0]:.3e} ({worst[1]}, "
+          f"tol {STEP_GRAD_TOL})", flush=True)
+    assert np.isfinite(loss) and rel <= STEP_LOSS_TOL, f"{label}: losses disagree"
+    assert worst[0] <= STEP_GRAD_TOL, f"{label}: grads disagree"
+
+
+def train_phase(dev, counters: dict, card: str) -> dict:
+    """Phase 5: `Trainer` steps of flagship Qwen3Multi in bf16 with dropout,
+    then one fp32 step of the kernel path against the plain path."""
+    import torch
+
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = flagship_config(dropout_rate=DROP_RATE)
+    expected = _step_launches(cfg)
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    batch = make_batch(cfg, 64, 101)
+    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                      OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
+                                      total_steps=10),
+                      TrainLoopConfig(seed=0))
+    assert all(p.dtype == torch.float32 for p in model.parameters()), "parameters must stay fp32"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(10):
+        for w in counters.values():
+            w.launches = 0
+        t = time.perf_counter()
+        loss = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches = {name: w.launches for name, w in counters.items()}
+        assert launches == expected, f"train-step launches {launches}, expected {expected}"
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times)) * 1e3
+    print(f"train step launches (each of 10 steps): {launches}", flush=True)
+    print(f"train Qwen3Multi bf16 B=64 S=505 dropout {DROP_RATE}: losses "
+          f"{[round(x, 5) for x in losses]}; {step_ms:.3f} ms/step (median of 10, host time), "
+          f"{64 / (step_ms / 1e3):.1f} sequences/s, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (card {card})", flush=True)
+    assert np.isfinite(losses).all(), "non-finite training loss"
+    assert np.mean(losses[-3:]) < losses[0], "the training loss did not fall"
+    assert trainer.updates == 10
+    del trainer, model
+
+    cfg32 = flagship_config(dtype="float32", dropout_rate=DROP_RATE)
+    _paths_agree("train step fp32 B=16 S=505", cfg32, make_batch(cfg32, 16, 101, seed=1), dev, 1,
+                 counters, expected)
+    return dict(launches=launches, step_ms=step_ms, peak=peak, losses=losses)
+
+
+def long_phase(dev, counters: dict) -> dict:
+    """Phase 6: one fp32 training step at S 2050 and at S 5000 (the lengths
+    of the TPU's streaming and XL attention kernels c-g), kernel path against
+    the plain path (which recomputes each layer to fit)."""
+    cfg = flagship_config(dtype="float32", dropout_rate=DROP_RATE, model_max_length=8192)
+    expected = _step_launches(cfg)
+    launches = {}
+    for B, blocks in ((4, 410), (1, 1000)):
+        S = blocks * cfg.num_positions
+        _paths_agree(f"long-history step fp32 B={B} S={S}", cfg,
+                     make_batch(cfg, B, blocks, seed=2), dev, 2, counters, expected,
+                     plain_remat=True)
+        launches[S] = {k: counters[k].launches for k in ("fused_mask_attention",
+                                                          "fused_mask_attention_bwd")}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -313,9 +625,9 @@ def main() -> int:
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.ops import _build
-    from gamer_tpu_torch.ops.fused_attention import fused_mask_attention
-    from gamer_tpu_torch.ops.fused_ce import fused_ce_rows
-    from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -336,12 +648,15 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     entries = kernel_phase(dev)
+    # 2b. backward kernels against autograd through the plain versions
+    bwd_entries, long_s = backward_phase(dev)
+    entries.update(bwd_entries)
 
     # 3. scoring forward, kernels then plain path, same weights
     cfg = flagship_config()
     batch = make_batch(cfg, 64, 101)
-    wrappers = {"fused_mask_attention": fused_mask_attention, "fused_moe_ffn": fused_moe_ffn,
-                "fused_ce_rows": fused_ce_rows}
+    wrappers = {"fused_mask_attention": FA.fused_mask_attention, "fused_moe_ffn": FM.fused_moe_ffn,
+                "fused_ce_rows": FC.fused_ce_rows}
     model, loss_fn = run_forward(cfg, dev)
     loss_fn(batch)  # warm-up (kernel load)
     torch.cuda.synchronize()
@@ -406,17 +721,43 @@ def main() -> int:
           f"{BEAM_BATCH * NUM_BEAMS / search_s:.1f} beams/s (median host time, card {card})",
           flush=True)
 
-    sources = {"fused_mask_attention": ("gamer_tpu_torch/ops/csrc/fused_attention_fwd.cu",
-                                        "gamer_tpu/ops/pallas_attention.py:814"),
-               "fused_moe_ffn": ("gamer_tpu_torch/ops/csrc/fused_moe_fwd.cu",
-                                 "gamer_tpu/ops/pallas_moe.py:183"),
-               "fused_ce_rows": ("gamer_tpu_torch/ops/csrc/fused_ce_fwd.cu",
-                                 "gamer_tpu/ops/pallas_ce.py:117")}
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-                    max_abs_err=entries[name]["max_abs_err"], ms=entries[name]["ms"],
-                    plain_ms=entries[name]["plain_ms"], bound_ms=entries[name]["bound_ms"],
-                    bound_by=entries[name]["bound_by"], library_ms=entries[name]["library_ms"])
+    del bmodel, search
+
+    # 5. training steps; 6. the long-history step
+    counters = {"fused_mask_attention": FA.fused_mask_attention,
+                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    train = train_phase(dev, counters, card)
+    long_launches = long_phase(dev, counters)
+
+    csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
+    attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"
+    sources = {"fused_mask_attention": (attn_fwd, tpu + "pallas_attention.py:136"),
+               "fused_mask_attention_bwd": (attn_bwd, tpu + "pallas_attention.py:171"),
+               "fused_moe_ffn": (csrc + "fused_moe_fwd.cu", tpu + "pallas_moe.py:73"),
+               "fused_moe_ffn_bwd": (csrc + "fused_moe_bwd.cu", tpu + "pallas_moe.py:88"),
+               "fused_ce_rows": (csrc + "fused_ce_fwd.cu", tpu + "pallas_ce.py:53"),
+               "fused_ce_rows_bwd": (csrc + "fused_ce_bwd.cu", tpu + "pallas_ce.py:67")}
+    row = lambda name, src, rep, n, e: dict(
+        name=name, route="cuda", source=src, replaces=rep, launches=n,
+        max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+        bound_by=e["bound_by"], library_ms=e["library_ms"])
+    kernels = [row(name, src, rep, train["launches"][name], entries[name])
                for name, (src, rep) in sources.items()]
+    # c-g: the TPU's long-S kernels, covered by a and b; launches from the
+    # long-history steps, times at B 1 x S 2048 / 8192 of phase 2b
+    short, xl = sorted(long_launches)
+    for letter, fn, line, src, kind, S_run, S_time in (
+            ("c", "_stream_fwd_kernel", 259, attn_fwd, "fused_mask_attention", short, 2048),
+            ("d", "_stream_dq_kernel", 330, attn_bwd, "fused_mask_attention_bwd", short, 2048),
+            ("e", "_stream_dkv_kernel", 387, attn_bwd, "fused_mask_attention_bwd", short, 2048),
+            ("f", "_stream_fwd_kernel_xl", 465, attn_fwd, "fused_mask_attention", xl, 8192),
+            ("g", "_stream_dq_kernel_xl", 536, attn_bwd, "fused_mask_attention_bwd", xl, 8192)):
+        timing = long_s[(S_time, "bwd" if kind.endswith("bwd") else "fwd")]
+        kernels.append(row(f"{kind}[{letter}: {fn}, launched at S={S_run}, timed at B=1 S={S_time}]",
+                           src, f"{tpu}pallas_attention.py:{line}", long_launches[S_run][kind],
+                           timing))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

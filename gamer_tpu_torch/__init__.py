@@ -6,8 +6,11 @@ ported path is a hand-written CUDA C++ kernel under `ops/csrc/`, built with
 `nvcc` for `sm_90a` at first use (`ops/_build.py`). Each kernel wrapper
 launches its kernel for CUDA tensors and runs the kernel's plain PyTorch
 version for CPU tensors; there is no silent fallback between the two.
+Kernels with a backward sit behind `torch.autograd.Function`s whose backward
+is a kernel too.
 
-Entry points (`QwenFamilyModel`, and through it `make_loss_fn` and
-`constrained_beam_search`) run on `cuda` unless the caller passes
-`device="cpu"`; without CUDA and without that argument they raise.
+Entry points (`QwenFamilyModel`, and through it `make_loss_fn`,
+`train.loop.Trainer`, `entry.entry` and `constrained_beam_search`) run on
+`cuda` unless the caller passes `device="cpu"`; without CUDA and without that
+argument they raise.
 """

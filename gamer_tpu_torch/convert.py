@@ -1,4 +1,4 @@
-"""Parameters of the JAX package -> the port's `state_dict`.
+"""Parameters of the JAX package <-> the port's `state_dict`.
 
 The JAX `QwenFamilyModel.init` returns {"params": {...}} whose top-level keys
 are flax module paths such as "layers_3/self_attn" or "embed_tokens", holding
@@ -11,8 +11,11 @@ numpy-convertible arrays. The mapping to the port's parameter names:
   Embed  .../embedding           -> nn.Embedding .weight
   experts_gate/up/down [E, ...]  -> kept stacked, same layout
 
-Only numpy crosses the boundary, so this module imports neither JAX nor the
-JAX package; the tests use it to run both packages on the same weights.
+`to_flax` maps the other way (port tensors, e.g. parameters or their
+grads, into the flax tree of a template), and `flax_path` names a port
+parameter as flax does. Only numpy crosses the boundary, so this module
+imports neither JAX nor the JAX package; the tests use it to run both
+packages on the same weights and to compare grads and updates name by name.
 """
 
 from __future__ import annotations
@@ -60,6 +63,39 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
     """Copy JAX parameters into `model` (every parameter must be matched);
-    values are cast to the model's dtype and moved to its device."""
+    values are cast to the model's (fp32) dtype and moved to its device."""
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model
+
+
+def to_flax(tensors: Mapping[str, torch.Tensor], template: Mapping[str, Any]) -> dict:
+    """Port tensors by parameter name -> numpy arrays in the nested layout of
+    `template` (a flax params tree, with or without the outer "params")."""
+    def build(tree: Mapping[str, Any], prefix: str) -> dict:
+        out = {}
+        for key, value in tree.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, Mapping):
+                out[key] = build(value, path)
+            else:
+                name, transpose = torch_name(path)
+                a = tensors[name].detach().float().cpu().numpy()
+                out[key] = a.T if transpose else a
+        return out
+
+    if "params" in template:
+        return {"params": build(template["params"], "")}
+    return build(template, "")
+
+
+def flax_path(model: torch.nn.Module, name: str) -> str:
+    """The flax path of port parameter `name` (inverse of `torch_name`):
+    a Linear's weight is "kernel", an Embedding's "embedding", any other
+    module's "weight" (the RMSNorms) "scale"."""
+    mod_name, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        mod = model.get_submodule(mod_name)
+        leaf = ("kernel" if isinstance(mod, torch.nn.Linear)
+                else "embedding" if isinstance(mod, torch.nn.Embedding) else "scale")
+    path = re.sub(r"(^|\.)layers\.(\d+)", r"\1layers_\2", mod_name)
+    return "/".join([*path.split("."), leaf]) if path else leaf

@@ -10,10 +10,18 @@ reference decoders are one model plus a preset table of five switches
   behavior_injection_layers behavior embedding injected into the FFN input
   rope_on_extended_session  RoPE positions = extended_session_ids
 
-Masks, routing and rope positions come from `prepare_train_inputs` (scoring)
-or the decode driver (`decode/beam.py`); KV caches are passed in and returned.
-This slice ports the deterministic forward: a training forward (dropout) and
-the MoeAction preset raise NotImplementedError.
+Masks, routing and rope positions come from `prepare_train_inputs` (training
+and scoring) or the beam-search loop (`decode/beam.py`); KV caches are passed
+in and returned. The training forward (`deterministic=False`) drops attention
+probabilities, the MoE activation and the three residual branches by the
+stateless hash, one int32 seed per site drawn in a fixed order from a
+caller-given `torch.Generator`; `cfg.remat` recomputes each layer in the
+backward (`torch.utils.checkpoint`), which the hash masks make exact. Every
+remat policy acts as "full" (recompute the whole layer). The MoeAction preset
+raises NotImplementedError.
+
+Parameters are stored in fp32, as the JAX package stores them; the modules
+cast them to `cfg.dtype` at use, so a bf16 run updates fp32 master weights.
 
 `attention_impl`, `moe_impl` and `ce_impl` keep the JAX config's names and
 values: "jnp" selects the plain PyTorch path (materialized masks, einsum MoE,
@@ -28,11 +36,13 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
-from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm
+from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
@@ -79,13 +89,14 @@ class QwenFamilyConfig(Config):
     attention_impl: str = "auto"
     moe_impl: str = "auto"
     ce_impl: str = "auto"
-    # residual dropout mask source of the JAX package ("bits" | "hash");
-    # kept for config round-trips, read by the training slice
+    # residual dropout mask source of the JAX package ("bits" | "hash"); kept
+    # for config round-trips: the port always uses the hash
     dropout_impl: str = "hash"
     # embed-table row count, >= vocab_size (0 = vocab_size); padded rows are
     # never looked up and never produce logits
     padded_vocab_size: int = 0
-    # gradient checkpointing of the JAX trainer; kept for config round-trips
+    # recompute each layer in the backward (gradient checkpointing); every
+    # policy of the JAX package ("full" | "attn" | "dots") acts as "full"
     remat: bool = False
     remat_policy: str = "attn"
 
@@ -143,7 +154,7 @@ def build_config(backbone: str, **overrides: Any) -> QwenFamilyConfig:
 
 class DecoderLayer(nn.Module):
     """Self-attention, optional behavior cross-attention, routed MLP; each
-    sub-block pre-normed and residual."""
+    sub-block pre-normed and residual (with hash dropout in training)."""
 
     def __init__(self, cfg: QwenFamilyConfig, i: int):
         super().__init__()
@@ -152,7 +163,8 @@ class DecoderLayer(nn.Module):
             cfg.hidden_size, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
             rope_theta=cfg.rope_theta, rms_eps=cfg.rms_norm_eps,
             attention_bias=cfg.attention_bias, is_cross=is_cross,
-            num_behavior=cfg.num_behavior, use_kernel=cfg.attention_impl != "jnp")
+            num_behavior=cfg.num_behavior, use_kernel=cfg.attention_impl != "jnp",
+            dropout_rate=cfg.attn_dropout_rate)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.self_attn = attn(False)
         if self.is_cross:
@@ -164,29 +176,42 @@ class DecoderLayer(nn.Module):
             is_sparse=i in cfg.sparse_layers, mlp_type=cfg.mlp_type,
             hidden_act=cfg.hidden_act, behavior_injection=i in cfg.behavior_injection_layers,
             num_behavior=cfg.num_behavior, behavior_dim=cfg.behavior_embedding_dim,
-            use_kernel=cfg.moe_impl != "jnp")
+            use_kernel=cfg.moe_impl != "jnp", dropout_rate=cfg.dropout_rate)
+        self.dropout_rate = cfg.dropout_rate
+        # dropout sites, in seed order: self-attention probs and residual,
+        # cross-attention probs and residual, MLP activation and residual
+        self.dropout_sites = 6 if self.is_cross else 4
         self.self_mask_kind = cfg.self_mask_kind
         self.cross_mask_kind = cfg.cross_mask_kind
         self.num_positions = cfg.num_positions
 
     def forward(self, x, rope_positions, self_allowed, cross_allowed, position_index,
-                behavior_index, action_index, streams, caches, cache_index, route_mode):
+                behavior_index, action_index, streams, caches, cache_index, route_mode,
+                seeds=None):
+        """`seeds`: this layer's `dropout_sites` dropout seeds, or None for
+        the deterministic forward."""
+        det = seeds is None
+        seed = iter(seeds or ())
+        drop = lambda y: y if det else hash_dropout(y, next(seed), self.dropout_rate)
         h, new_self = self.self_attn(
             self.input_layernorm(x), rope_positions, self_allowed,
             kv_cache=None if caches is None else caches["self"], cache_index=cache_index,
-            mask_kind=self.self_mask_kind, streams=streams)
-        x = x + h
+            mask_kind=self.self_mask_kind, streams=streams, deterministic=det,
+            dropout_seed=0 if det else next(seed))
+        x = x + drop(h)
         new_cross = None
         if self.is_cross:
             h, new_cross = self.cross_attn(
                 self.post_self_attention_layernorm(x), rope_positions, cross_allowed,
                 action_index=action_index,
                 kv_cache=None if caches is None else caches["cross"], cache_index=cache_index,
-                mask_kind=self.cross_mask_kind, streams=streams)
-            x = x + h
+                mask_kind=self.cross_mask_kind, streams=streams, deterministic=det,
+                dropout_seed=0 if det else next(seed))
+            x = x + drop(h)
         h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
-                     route_mode=route_mode, num_positions=self.num_positions)
-        return x + h, new_self, new_cross
+                     route_mode=route_mode, num_positions=self.num_positions,
+                     deterministic=det, dropout_seed=0 if det else next(seed))
+        return x + drop(h), new_self, new_cross
 
 
 class QwenFamilyModel(nn.Module):
@@ -194,7 +219,8 @@ class QwenFamilyModel(nn.Module):
 
     `device=None` means CUDA and raises without it; the tests pass
     `device="cpu"`. Weights are drawn from a CPU `torch.Generator` seeded with
-    `seed` (the same values on every device), then stored in `cfg.dtype`.
+    `seed` (the same values on every device) and stored in fp32; the forward
+    computes in `cfg.dtype`.
     """
 
     def __init__(self, cfg: QwenFamilyConfig, device: str | torch.device | None = None,
@@ -214,7 +240,6 @@ class QwenFamilyModel(nn.Module):
                 self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         self.to_empty(device=device)
         self.reset_parameters(torch.Generator().manual_seed(seed))
-        self.to(cfg.torch_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -263,20 +288,37 @@ class QwenFamilyModel(nn.Module):
         logits_last_only: bool = False,
         return_hidden: bool = False,
         streams: Optional[dict] = None,  # fused-attention integer mask streams
+        generator: Optional[torch.Generator] = None,  # dropout seeds (training)
     ) -> dict:
-        if not deterministic:
-            raise NotImplementedError("the training forward (dropout) waits for the training slice")
+        """`deterministic=False` (training) draws one int32 dropout seed a
+        site from `generator` (a CPU generator), in layer order."""
         if expert_index is not None:
             raise NotImplementedError("MoeAction routing is not ported yet")
-        x = self.embed_tokens(input_ids)
+        cfg = self.cfg
+        seeds = None
+        if not deterministic:
+            if generator is None:
+                raise ValueError("the training forward needs a torch.Generator for its dropout seeds")
+            n_sites = sum(layer.dropout_sites for layer in self.layers)
+            seeds = iter(torch.randint(0, 2 ** 31 - 1, (n_sites,), generator=generator).tolist())
+        x = embed(self.embed_tokens, input_ids, cfg.torch_dtype)
         new_caches = {"self": [], "cross": []} if caches is not None else None
+        remat = cfg.remat and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_caches = None
             if caches is not None:
                 layer_caches = {"self": caches["self"][i], "cross": caches["cross"][i]}
-            x, new_self, new_cross = layer(
-                x, rope_positions, self_allowed, cross_allowed, position_index, behavior_index,
-                action_index, streams, layer_caches, cache_index, route_mode)
+            layer_seeds = None
+            if seeds is not None:
+                layer_seeds = [next(seeds) for _ in range(layer.dropout_sites)]
+            args = (x, rope_positions, self_allowed, cross_allowed, position_index,
+                    behavior_index, action_index, streams, layer_caches, cache_index,
+                    route_mode, layer_seeds)
+            if remat:
+                x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
+                    layer, *args, use_reentrant=False)
+            else:
+                x, new_self, new_cross = layer(*args)
             if new_caches is not None:
                 new_caches["self"].append(new_self)
                 new_caches["cross"].append(new_cross)
@@ -288,7 +330,7 @@ class QwenFamilyModel(nn.Module):
         if self.cfg.tie_word_embeddings:
             logits = x @ self.lm_table().to(x.dtype).T
         else:
-            logits = self.lm_head(x)
+            logits = dense(self.lm_head, x)
         return {"logits": logits, "caches": new_caches}
 
 

@@ -5,6 +5,9 @@ boolean *allowed* mask (built by `ops/masks.py`) on the plain path, or the
 integer mask streams on the kernel path (`ops/fused_attention.py`), and
 threads KV caches explicitly: a cache is a dict of tensors passed in and
 returned, so the decode driver owns all state.
+
+Parameters stay in fp32 (as the JAX package's); each module casts its weights
+to the dtype of its input at use, as flax's `dtype=` modules do.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gamer_tpu_torch.ops import fused_attention as fa
 from gamer_tpu_torch.ops.masks import NEG_INF
 
 
@@ -31,6 +35,17 @@ class RMSNorm(nn.Module):
         var = x.float().square().mean(dim=-1, keepdim=True)
         y = x * torch.rsqrt(var + self.eps).to(x.dtype)
         return y * self.weight.to(x.dtype)
+
+
+def dense(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`mod` applied in x's dtype (flax `nn.Dense(dtype=...)` on fp32 params)."""
+    bias = None if mod.bias is None else mod.bias.to(x.dtype)
+    return F.linear(x, mod.weight.to(x.dtype), bias)
+
+
+def embed(mod: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of `mod`'s fp32 table, cast to `dtype` (flax `nn.Embed(dtype=...)`)."""
+    return F.embedding(ids.long(), mod.weight).to(dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
@@ -62,9 +77,13 @@ def attend(
     v: torch.Tensor,  # [B, Sk, Hkv, D]
     allowed: torch.Tensor,  # [B or 1, 1, Sq, Sk] bool
     scale: float,
+    keep: Optional[torch.Tensor] = None,  # [B, H, Sq, Sk] bool dropout keep mask
+    keep_prob: float = 1.0,
 ) -> torch.Tensor:
     """Masked GQA attention core with an fp32 softmax. Rows with no allowed
-    key output zero, not the softmax's uniform average over every key."""
+    key output zero, not the softmax's uniform average over every key.
+    `keep` (training) drops attention probabilities, rescaling the kept ones
+    by 1/keep_prob; query head h of the mask is kv head h // G, group h % G."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, d)
@@ -73,6 +92,9 @@ def attend(
     scores = scores + torch.where(allowed5, 0.0, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(allowed5.any(dim=-1, keepdim=True), probs, 0.0)
+    if keep is not None:
+        keep5 = keep.reshape(keep.shape[0], hkv, h // hkv, sq, keep.shape[-1])
+        probs = torch.where(keep5, probs / keep_prob, 0.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
 
@@ -127,15 +149,19 @@ class GQAAttention(nn.Module):
     before norm/rope, and the output is gated by silu(gating(x)).
 
     `use_kernel` selects the fused attention (CUDA kernel on the card, its
-    plain version on the CPU) on the scoring path (no KV cache): the mask is
-    then evaluated from the integer streams instead of `allowed`.
+    plain version on the CPU) on the train/scoring path (no KV cache): the
+    mask is then evaluated from the integer streams instead of `allowed`.
+    With `deterministic=False`, attention probabilities are dropped at
+    `dropout_rate` by the stateless hash keyed on the call's `dropout_seed`,
+    on the kernel and the plain path alike.
     """
 
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int, head_dim: int,
                  rope_theta: float = 1e6, rms_eps: float = 1e-6,
                  attention_bias: bool = False, is_cross: bool = False,
-                 num_behavior: int = 0, use_kernel: bool = True):
+                 num_behavior: int = 0, use_kernel: bool = True, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -157,9 +183,9 @@ class GQAAttention(nn.Module):
 
     def _output(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         b, s = out.shape[:2]
-        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = dense(self.o_proj, out.reshape(b, s, self.num_heads * self.head_dim))
         if self.is_cross:
-            out = out * F.silu(self.gating(x))
+            out = out * F.silu(dense(self.gating, x))
         return out
 
     def forward(
@@ -172,18 +198,20 @@ class GQAAttention(nn.Module):
         cache_index: Optional[int] = None,
         mask_kind: Optional[str] = None,
         streams: Optional[dict] = None,
+        deterministic: bool = True,
+        dropout_seed: int = 0,
     ) -> tuple[torch.Tensor, Optional[dict]]:
         b, s, _ = x.shape
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(x)
-        k = self.k_proj(x)
-        v = self.v_proj(x)
+        q = dense(self.q_proj, x)
+        k = dense(self.k_proj, x)
+        v = dense(self.v_proj, x)
         if self.is_cross:
             if action_index is None:
                 raise ValueError("cross attention needs action_index")
-            q = q + self.q_behavior_embedding(action_index)
-            k = k + self.k_behavior_embedding(action_index)
-            v = v + self.v_behavior_embedding(action_index)
+            q = q + embed(self.q_behavior_embedding, action_index, q.dtype)
+            k = k + embed(self.k_behavior_embedding, action_index, k.dtype)
+            v = v + embed(self.v_behavior_embedding, action_index, v.dtype)
         q = self.q_norm(q.reshape(b, s, H, D))
         k = self.k_norm(k.reshape(b, s, Hkv, D))
         v = v.reshape(b, s, Hkv, D)
@@ -220,14 +248,17 @@ class GQAAttention(nn.Module):
             new_cache = {"k": k_all, "v": v_all}
             k, v = k_all, v_all
 
+        rate = 0.0 if deterministic else self.dropout_rate
         if (self.use_kernel and kv_cache is None and mask_kind is not None
                 and streams is not None):
-            from gamer_tpu_torch.ops.fused_attention import fused_mask_attention
-
-            out = fused_mask_attention(
+            out = fa.fused_mask_attention(
                 q.reshape(b, s, H * D), k.reshape(b, s, Hkv * D), v.reshape(b, s, Hkv * D),
                 streams["attention_mask"], streams["session_ids"], streams["actions"],
-                streams["block_ids"], H, mask_kind)
+                streams["block_ids"], dropout_seed, H, mask_kind, rate)
         else:
-            out = attend(q, k, v, allowed, D ** -0.5)
+            keep = None
+            if rate > 0.0:
+                keep = fa.attention_keep_mask(dropout_seed, b, H, s, k.shape[1], rate, x.device)
+            out = attend(q, k, v, allowed, D ** -0.5, keep=keep,
+                         keep_prob=fa.keep_fraction(rate))
         return self._output(x, out), new_cache

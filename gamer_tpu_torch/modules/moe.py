@@ -7,13 +7,21 @@ dense batched product ("periodic" path). Decode uses the general "onehot"
 path: every expert runs on every token and a one-hot over the routing picks
 the output.
 
-Paths in this slice: periodic (plain torch, `use_kernel=False`), fused
-periodic (the CUDA kernel of `ops/fused_moe.py`, with behavior injection as a
-per-behavior bias table), and onehot. The MoeAction factorized path,
-`mlp_type="t5"` and `shared_expert` raise NotImplementedError.
+Paths: periodic (plain torch, `use_kernel=False`), fused periodic (the CUDA
+kernels of `ops/fused_moe.py`, with behavior injection as a per-behavior bias
+table), and onehot. The MoeAction factorized path, `mlp_type="t5"` and
+`shared_expert` raise NotImplementedError.
+
+Dropout on the SwiGLU activation (`deterministic=False`): the fused path
+passes its seed and rate to the kernel; the plain periodic path draws the
+kernel's own hash mask (`ops/fused_moe.moe_keep_mask`), so both paths drop
+the same elements for the same seed; the dense and one-hot paths use the
+residual hash dropout (`modules/dropout.py`). The JAX package draws "bits"
+dropout from its rng stream on its plain paths.
 
 Expert weights stay stacked with a leading experts axis, in the JAX layout:
-gate/up [E, d_in, d_ff], down [E, d_ff, d_out].
+gate/up [E, d_in, d_ff], down [E, d_ff, d_out], stored in fp32 and cast to
+the input's dtype at use.
 """
 
 from __future__ import annotations
@@ -23,6 +31,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.layers import embed
+from gamer_tpu_torch.ops.fused_attention import keep_fraction
+from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, moe_keep_mask
 
 _ACTS = {"silu": F.silu, "relu": F.relu,
          "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -38,8 +51,9 @@ class PositionRoutedMLP(nn.Module):
                  mlp_type: str = "qwen3", hidden_act: str = "silu",
                  behavior_injection: bool = False, num_behavior: int = 0,
                  behavior_dim: int = 0, shared_expert: bool = False,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if mlp_type != "qwen3":
             raise NotImplementedError(f"mlp_type={mlp_type!r} is not ported yet")
         if shared_expert:
@@ -59,36 +73,37 @@ class PositionRoutedMLP(nn.Module):
             self.behavior_embedding = nn.Embedding(num_behavior + 1, behavior_dim)
 
     def _swiglu(self, x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-                down: torch.Tensor) -> torch.Tensor:
+                down: torch.Tensor, rate: float = 0.0, seed: int = 0) -> torch.Tensor:
         """x [..., d_in] @ one expert's weights."""
         gu = x @ torch.cat([gate, up], dim=-1)
         h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
-        return h @ down
+        return hash_dropout(h, seed, rate) @ down
+
+    def _weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+        return tuple(w.to(dtype) for w in (self.experts_gate, self.experts_up,
+                                           self.experts_down))
 
     def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
-                        P: int) -> torch.Tensor:
+                        P: int, rate: float, seed: int) -> torch.Tensor:
         """Periodic path through the fused FFN kernel: behavior injection
         becomes the exactly-equivalent per-behavior bias table
         (concat(x, e_b) @ [Wx; Wb] == x @ Wx + e_b @ Wb)."""
-        from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn
-
         b, s, d = x.shape
         n = s // P
         T = b * n
         xp = x.reshape(b, n, P, d).permute(2, 0, 1, 3).reshape(P, T, d)
-        gate, up, down = (w[1:P + 1] for w in (self.experts_gate, self.experts_up,
-                                               self.experts_down))
+        gate, up, down = (w[1:P + 1] for w in self._weights(x.dtype))
         wgu = torch.cat([gate[:, :d], up[:, :d]], dim=-1)
         if self.behavior_injection:
-            table = self.behavior_embedding.weight  # [NB+1, bdim]
+            table = self.behavior_embedding.weight.to(x.dtype)  # [NB+1, bdim]
             wb = torch.cat([gate[:, d:], up[:, d:]], dim=-1)
-            btab = torch.einsum("ae,pef->paf", table.to(wb.dtype), wb)
+            btab = torch.einsum("ae,pef->paf", table, wb)
             beh = behavior_index.reshape(b, n, P).permute(2, 0, 1).reshape(P, T)
             beh = beh.to(torch.int32)
         else:
             btab = torch.zeros((P, 1, wgu.shape[-1]), dtype=wgu.dtype, device=x.device)
             beh = torch.zeros((P, T), dtype=torch.int32, device=x.device)
-        out = fused_moe_ffn(xp, wgu, down, btab, beh, self.hidden_act,
+        out = fused_moe_ffn(xp, wgu, down, btab, beh, seed, self.hidden_act, rate,
                             use_bias=self.behavior_injection)
         return out.reshape(P, b, n, -1).permute(1, 2, 0, 3).reshape(b, s, -1)
 
@@ -100,6 +115,8 @@ class PositionRoutedMLP(nn.Module):
         expert_index: Optional[torch.Tensor] = None,  # MoeAction routing
         route_mode: str = "onehot",  # "periodic" | "onehot"
         num_positions: Optional[int] = None,
+        deterministic: bool = True,
+        dropout_seed: int = 0,
     ) -> torch.Tensor:
         if expert_index is not None:
             raise NotImplementedError("MoeAction routing (expert_index) is not ported yet")
@@ -109,18 +126,19 @@ class PositionRoutedMLP(nn.Module):
         if route_mode == "periodic" and (P is None or x.shape[1] % P):
             raise ValueError("the periodic path needs S % num_positions == 0")
 
+        rate = 0.0 if deterministic else self.dropout_rate
         if self.is_sparse and route_mode == "periodic" and self.use_kernel:
-            return self._fused_periodic(x, behavior_index, P).to(x.dtype)
+            return self._fused_periodic(x, behavior_index, P, rate, dropout_seed).to(x.dtype)
 
         if self.behavior_injection:
-            bemb = self.behavior_embedding(behavior_index)
-            x_in = torch.cat([x, bemb.to(x.dtype)], dim=-1)
+            x_in = torch.cat([x, embed(self.behavior_embedding, behavior_index, x.dtype)], dim=-1)
         else:
             x_in = x
-        gate, up, down = self.experts_gate, self.experts_up, self.experts_down
+        gate, up, down = self._weights(x.dtype)
 
         if not self.is_sparse:
-            return self._swiglu(x_in, gate[0], up[0], down[0]).to(x.dtype)
+            return self._swiglu(x_in, gate[0], up[0], down[0], rate,
+                                dropout_seed).to(x.dtype)
 
         if route_mode == "periodic":
             # token t routes to expert (t % P) + 1: pad/eos rows of a
@@ -131,6 +149,9 @@ class PositionRoutedMLP(nn.Module):
             wgu = torch.cat([gate[1:P + 1], up[1:P + 1]], dim=-1)
             gu = torch.einsum("pbnd,pdf->pbnf", xp, wgu)
             h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
+            if rate > 0.0:
+                keep = moe_keep_mask(dropout_seed, P, b * (s // P), self.d_ff, rate, x.device)
+                h = torch.where(keep.view(h.shape), h * (1.0 / keep_fraction(rate)), 0.0)
             out = torch.einsum("pbnf,pfd->pbnd", h, down[1:P + 1])
             return out.permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype)
         if route_mode != "onehot":
@@ -139,7 +160,8 @@ class PositionRoutedMLP(nn.Module):
         # general path: every expert on every token, selected per token; exact
         # for any routing, used for decode steps and unaligned layouts
         E = gate.shape[0]
-        stacked = torch.stack([self._swiglu(x_in, gate[e], up[e], down[e])
+        # one seed per expert draw: the experts' masks are independent
+        stacked = torch.stack([self._swiglu(x_in, gate[e], up[e], down[e], rate, dropout_seed + e)
                                for e in range(E)], dim=0)  # [E, B, S, Dout]
         sel = F.one_hot(position_index.long(), E).to(stacked.dtype)  # [B, S, E]
         out = torch.einsum("ebsd,bse->bsd", stacked, sel)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -22,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("fused_attention_fwd", "fused_moe_fwd", "fused_ce_fwd")
+KERNEL_SOURCES = ("fused_attention_fwd", "fused_attention_bwd", "fused_moe_fwd", "fused_moe_bwd",
+                  "fused_ce_fwd", "fused_ce_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +43,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -112,3 +114,14 @@ def dtype_code(t: torch.Tensor) -> int:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of a tensor's device, as the int ctypes passes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def row_splits(rows: int, tiles: int, device: torch.device, multiple: int = 32) -> tuple[int, int]:
+    """(splits, rows a split) dividing a reduction over `rows` so that
+    `tiles` output tiles times the splits fill the device's SMs about four
+    times over; each split is a multiple of `multiple` rows and, when there
+    are enough, at least 256."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(math.ceil(4 * sms / max(tiles, 1)), math.ceil(rows / 256)))
+    chunk = math.ceil(math.ceil(rows / want) / multiple) * multiple
+    return math.ceil(rows / chunk), chunk

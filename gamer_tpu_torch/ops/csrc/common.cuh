@@ -4,7 +4,8 @@
 // library with a plain C interface (ops/_build.py), loaded with ctypes. The
 // C entry points take raw device pointers and the caller's CUDA stream, launch
 // on that stream, never synchronise, allocate nothing, and return the
-// cudaError_t of the launch (0 on success).
+// cudaError_t of the launch (0 on success); an entry point that launches
+// several kernels returns the first error.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +37,67 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Stateless dropout hash, bit-exact with gamer_tpu/ops/pallas_attention.py
+// `_fmix32` / `dropout_keep_tile`: x = row*M3 + col*M1 + bh*M2 + seed in
+// uint32 (wrapping), then xorshift-multiply-xorshift; an element is kept when
+// the result is >= thresh = min(round(rate * 2^32), 2^32 - 1). A pure function
+// of the coordinates, so the forward and every backward kernel draw the same
+// mask whatever their tiling.
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 15;
+  return x;
+}
+__device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t bh, uint32_t row, uint32_t col,
+                                          uint32_t thresh) {
+  const uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA6Bu + bh * 0xC2B2AE35u + seed;
+  return fmix32(x) >= thresh;
+}
+
+// The GAMER attention mask kinds (ops/masks.py), as `_mask_tile` of
+// gamer_tpu/ops/pallas_attention.py evaluates them from the int streams.
+enum AttnKind : int { kCausal = 0, kSession = 1, kMulti = 2, kSessionMulti = 3 };
+
+__device__ __forceinline__ bool attn_allowed(int kind, int qpos, int kpos, int q_sid, int k_sid,
+                                             int q_act, int k_act, int q_blk, int k_blk,
+                                             int k_ok) {
+  const bool causal = qpos >= kpos;
+  bool a;
+  if (kind == kCausal) {
+    a = causal;
+  } else if (kind == kSession) {
+    a = (q_blk == k_blk && q_blk >= 0 && causal) || (k_sid < q_sid);
+  } else if (kind == kMulti) {
+    a = causal && (k_act < q_act);
+  } else {
+    a = (k_sid < q_sid) && (k_act < q_act);
+  }
+  return a && k_ok;
+}
+
+// The fixed-order second step of a split reduction: out[i] = sum over s of
+// ws[s * count + i], in order of s, cast to OutT (deterministic).
+template <typename OutT>
+__global__ void reduce_splits_kernel(const float* __restrict__ ws, OutT* __restrict__ out,
+                                     size_t count, int nsplit) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < nsplit; ++k) s += ws[k * count + i];
+    out[i] = from_f<OutT>(s);
+  }
+}
+
+template <typename OutT>
+cudaError_t reduce_splits(const float* ws, OutT* out, size_t count, int nsplit,
+                          cudaStream_t stream) {
+  const size_t want = (count + 255) / 256;
+  reduce_splits_kernel<OutT><<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, stream>>>(
+      ws, out, count, nsplit);
+  return cudaGetLastError();
 }
 
 }  // namespace gamer

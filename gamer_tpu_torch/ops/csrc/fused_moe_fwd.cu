@@ -4,11 +4,15 @@
 // (row tile, expert p):
 //     gu = x @ Wgu[p] + btab[p, beh]     (gate | up, one product, f32)
 //     h  = silu(gu[:, :F]) * gu[:, F:]
+//     h  = keep ? h / keep_frac : 0      (training: hash dropout)
 //     y  = h @ Wd[p]
 // The [T, 2F] gate/up activations never reach global memory: the kernel walks
 // F in chunks of 32, computes that chunk's gate and up columns for its 64
 // rows, forms h in shared memory, and accumulates its share of y in
-// registers, all in fp32.
+// registers, all in fp32. The dropout mask is the stateless hash of
+// (seed, expert p, absolute row t, column f) (common.cuh `hash_keep`), as
+// pallas_moe.py:80-82 keys it; T has no row padding here, so the coordinates
+// of real rows are the JAX kernel's.
 //
 // Layout: x [P, T, D], wgu [P, D, 2F], wd [P, F, Dout], btab [P, NB, 2F],
 // beh [P, T] int32 (bias row id; ids outside [0, NB) add nothing, as in the
@@ -43,7 +47,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT) moe_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, T* __restrict__ out, int T_rows,
-    int D, int F, int Dout, int NB, int use_bias) {
+    int D, int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh,
+    float inv_keep) {
   extern __shared__ float smem[];
   float* Xs = smem;                                  // [TM][D+1]
   float* Ws = Xs + TM * (D + 1);                     // [KT][2*FC+1]
@@ -128,7 +133,13 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
           uv += to_f(btp[bid[r] * F2 + F + f]);
         }
         const float silu = gv / (1.f + expf(-gv));
-        Hs[r * (FC + 1) + tx + 16 * jj] = f < F ? silu * uv : 0.f;
+        float hv = f < F ? silu * uv : 0.f;
+        if (thresh > 0u)
+          hv = gamer::hash_keep(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(t0 + r),
+                                static_cast<uint32_t>(f), thresh)
+                   ? hv * inv_keep
+                   : 0.f;
+        Hs[r * (FC + 1) + tx + 16 * jj] = hv;
       }
     }
     for (int idx = tid; idx < FC * DT; idx += NT) {
@@ -167,7 +178,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
 template <typename T>
 int launch(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
            void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-           cudaStream_t stream) {
+           uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -176,25 +187,29 @@ int launch(const void* x, const void* wgu, const void* wd, const void* btab, con
   dim3 grid((T_rows + TM - 1) / TM, P, (Dout + DT - 1) / DT);
   moe_fwd_kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wgu), static_cast<const T*>(wd),
-      static_cast<const T*>(btab), beh, static_cast<T*>(out), T_rows, D, F, Dout, NB, use_bias);
+      static_cast<const T*>(btab), beh, static_cast<T*>(out), T_rows, D, F, Dout, NB, use_bias,
+      seed, thresh, inv_keep);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: gamer::DType shared by x, wgu, wd, btab and out. The x tile lives in
-// shared memory, which bounds D (D <= 512 fits).
+// shared memory, which bounds D (D <= 512 fits). thresh = 0 turns dropout
+// off; inv_keep = 1 / keep fraction.
 extern "C" int gamer_fused_moe_fwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, void* out, int P,
                                    int T_rows, int D, int F, int Dout, int NB, int use_bias,
+                                   unsigned int seed, unsigned int thresh, float inv_keep,
                                    int dtype, void* stream) {
   if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || D > 512)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == gamer::kFloat32)
-    return launch<float>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, st);
+    return launch<float>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, seed,
+                         thresh, inv_keep, st);
   if (dtype == gamer::kBFloat16)
     return launch<__nv_bfloat16>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB,
-                                 use_bias, st);
+                                 use_bias, seed, thresh, inv_keep, st);
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,21 @@
-"""Fused masked GQA attention forward (kernel a of the port).
+"""Fused masked GQA attention: kernel a (forward) and kernel b (backward).
 
-`fused_mask_attention` is the counterpart of the forward of
-`gamer_tpu/ops/pallas_attention.py` `fused_mask_attention`: q [B, S, H*D],
-k/v [B, S, Hkv*D] in the projection-native layout, the mask evaluated from the
-integer streams, rows with no allowed key giving 0. For CUDA tensors it
-launches the hand-written kernel `csrc/fused_attention_fwd.cu`; for CPU
-tensors it runs `fused_mask_attention_plain`, the same function in plain
-PyTorch (masks from `ops/masks.py`, then `modules/layers.attend`).
+`fused_mask_attention` is the counterpart of `gamer_tpu/ops/pallas_attention.py`
+`fused_mask_attention`: q [B, S, H*D], k/v [B, S, Hkv*D] in the
+projection-native layout, the mask evaluated from the integer streams, rows
+with no allowed key giving 0 (and 0 grads), optional attention-prob dropout
+keyed on `dropout_seed` by the stateless hash `dropout_keep_tile`. For CUDA
+tensors it launches `csrc/fused_attention_fwd.cu` (saving the per-row
+logsumexp when a gradient is needed) behind a `torch.autograd.Function` whose
+backward launches `csrc/fused_attention_bwd.cu` (`fused_mask_attention_bwd`);
+both kernels serve every S. For CPU tensors it runs
+`fused_mask_attention_plain`, the same function in plain PyTorch (masks from
+`ops/masks.py`, the same hash mask, then `modules/layers.attend`), whose
+backward is autograd.
 
-Dropout on the attention probabilities and the backward wait for the
-training slice: a nonzero `dropout_rate` raises.
+The hash helpers here are bit-exact with the JAX package's: on the CPU and in
+plain PyTorch the uint32 arithmetic runs in int64 and wraps with
+`& 0xFFFFFFFF`.
 """
 
 from __future__ import annotations
@@ -22,40 +28,84 @@ from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops.masks import streams_allowed
 
 KINDS = {"causal": 0, "session": 1, "multi": 2, "session_multi": 3}
-HEAD_DIMS = (32, 64, 128)  # head dims the kernel is compiled for
+HEAD_DIMS = (32, 64, 128)  # head dims the kernels are compiled for
+
+_M1, _M2, _M3 = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B1
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """The single-mul mixer `_fmix32` of the JAX kernels, on int64 holding uint32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    return x ^ (x >> 15)
+
+
+def drop_threshold(rate: float) -> int:
+    """uint32 drop threshold: an element is kept when its hash is >= it."""
+    return min(int(round(rate * 4294967296.0)), 4294967295)
+
+
+def keep_fraction(rate: float) -> float:
+    """Exact keep probability after uint32 threshold quantization."""
+    return (4294967296 - drop_threshold(rate)) / 4294967296.0
+
+
+def hash_keep(seed: int, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Keep mask of the hash of (seed, bh, row, col), broadcasting int tensors."""
+    x = (_mul32(rows, _M3) + _mul32(cols, _M1) + _mul32(bh, _M2) + (int(seed) & _U32)) & _U32
+    return fmix32(x) >= drop_threshold(rate)
+
+
+def dropout_keep_tile(seed: int, bh: int, r0: int, c0: int, shape, rate: float,
+                      device=None) -> torch.Tensor:
+    """Boolean keep-mask tile for query rows [r0, r0+shape[0]) x key columns
+    [c0, c0+shape[1]) of attention matrix (batch*num_heads + head) == bh; a
+    pure function of absolute coordinates, so any tiling draws the same mask."""
+    rows = torch.arange(r0, r0 + shape[0], dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(c0, c0 + shape[1], dtype=torch.int64, device=device)[None, :]
+    return hash_keep(seed, torch.tensor(bh, dtype=torch.int64, device=device), rows, cols, rate)
+
+
+def attention_keep_mask(seed: int, B: int, H: int, Sq: int, Sk: int, rate: float,
+                        device=None) -> torch.Tensor:
+    """[B, H, Sq, Sk] keep mask of every (batch, head) attention matrix."""
+    bh = torch.arange(B * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
+    rows = torch.arange(Sq, dtype=torch.int64, device=device).view(1, 1, Sq, 1)
+    cols = torch.arange(Sk, dtype=torch.int64, device=device).view(1, 1, 1, Sk)
+    return hash_keep(seed, bh, rows, cols, rate)
 
 
 def fused_mask_attention_plain(q, k, v, attention_mask, session_ids, actions, block_ids,
-                               num_heads: int, kind: str = "causal") -> torch.Tensor:
-    """Plain PyTorch version of the kernel: materialize `allowed`, then attend."""
+                               dropout_seed: int = 0, num_heads: int = 1,
+                               kind: str = "causal",
+                               dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the kernels: materialize `allowed` and the
+    hash keep mask, then attend (fp32 math); differentiable by autograd."""
     from gamer_tpu_torch.modules.layers import attend
 
     B, S, HD = q.shape
     D = HD // num_heads
     Hkv = k.shape[2] // D
     allowed = streams_allowed(kind, attention_mask, session_ids, actions, block_ids)
+    keep = None
+    if dropout_rate > 0.0:
+        keep = attention_keep_mask(dropout_seed, B, num_heads, S, S, dropout_rate, q.device)
     out = attend(q.reshape(B, S, num_heads, D), k.reshape(B, S, Hkv, D),
-                 v.reshape(B, S, Hkv, D), allowed, D ** -0.5)
+                 v.reshape(B, S, Hkv, D), allowed, D ** -0.5, keep=keep,
+                 keep_prob=keep_fraction(dropout_rate))
     return out.reshape(B, S, HD)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                          ctypes.c_void_p]
-
-
-def fused_mask_attention(q, k, v, attention_mask, session_ids, actions, block_ids,
-                         num_heads: int, kind: str = "causal",
-                         dropout_rate: float = 0.0) -> torch.Tensor:
-    """q [B, S, H*D], k/v [B, S, Hkv*D], streams [B, S] -> out [B, S, H*D]."""
-    if dropout_rate != 0.0:
-        raise NotImplementedError("attention dropout waits for the training slice")
+def _check(q, k, v, streams, num_heads, kind):
     if kind not in KINDS:
         raise ValueError(f"unknown attention mask kind {kind!r}")
-    if q.device.type == "cpu":
-        return fused_mask_attention_plain(q, k, v, attention_mask, session_ids, actions,
-                                          block_ids, num_heads, kind)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_mask_attention runs on cuda or cpu, not {q.device}")
     B, S, HD = q.shape
     D = HD // num_heads
     if HD % num_heads or D not in HEAD_DIMS:
@@ -65,19 +115,119 @@ def fused_mask_attention(q, k, v, attention_mask, session_ids, actions, block_id
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    streams = [t.to(device=q.device, dtype=torch.int32).contiguous()
-               for t in (attention_mask, session_ids, actions, block_ids)]
+    streams = [t.to(device=q.device, dtype=torch.int32).contiguous() for t in streams]
     if any(t.shape != (B, S) for t in streams):
         raise ValueError("mask streams must be [B, S]")
+    return B, S, D, Hkv, streams
+
+
+def _dropout_args(seed: int, rate: float) -> tuple[int, int, float]:
+    if rate <= 0.0:
+        return 0, 0, 1.0
+    return int(seed) & _U32, drop_threshold(rate), 1.0 / keep_fraction(rate)
+
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
+    B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
-        _build.launch("fused_attention_fwd", _ARGTYPES, q.data_ptr(), k.data_ptr(),
+        _build.launch("fused_attention_fwd", _FWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), *(t.data_ptr() for t in streams), out.data_ptr(),
-                      B, S, num_heads, Hkv, D, KINDS[kind], D ** -0.5,
+                      lse.data_ptr() if with_lse else None, B, S, num_heads, Hkv, D,
+                      KINDS[kind], D ** -0.5, *_dropout_args(seed, rate),
                       _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention.launches += 1
-    return out
+    return out, lse
 
 
-fused_mask_attention.launches = 0  # kernel launches, for run reports
+def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_ids, actions,
+                             block_ids, dropout_seed: int = 0, num_heads: int = 1,
+                             kind: str = "causal", dropout_rate: float = 0.0):
+    """Kernel b: (dq, dk, dv) of `fused_mask_attention` from its output `out`
+    and saved logsumexp `lse` [B, H, S] (CUDA tensors only)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mask_attention_bwd launches a CUDA kernel; got {q.device}")
+    streams = (attention_mask, session_ids, actions, block_ids)
+    B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
+    if dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, num_heads, S):
+        raise ValueError("dout/out must be shaped like q and lse [B, H, S]")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    # delta = rowsum(dO * O) per head, a plain reduce as in the JAX package
+    delta = (dout.float() * out.float()).view(B, S, num_heads, D).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    lse = lse.float().contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _build.launch("fused_attention_bwd", _BWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      *(t.data_ptr() for t in streams), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, S, num_heads, Hkv, D, KINDS[kind], D ** -0.5,
+                      *_dropout_args(dropout_seed, dropout_rate), _build.dtype_code(q),
+                      _build.stream_of(q))
+    fused_mask_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def fused_mask_attention_bwd_plain(q, k, v, dout, attention_mask, session_ids, actions,
+                                   block_ids, dropout_seed: int = 0, num_heads: int = 1,
+                                   kind: str = "causal", dropout_rate: float = 0.0):
+    """Plain version of kernel b: autograd through the plain forward."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = fused_mask_attention_plain(q, k, v, attention_mask, session_ids, actions,
+                                         block_ids, dropout_seed, num_heads, kind, dropout_rate)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Kernel a forward (with lse), kernel b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn, sid, act, blk, seed, num_heads, kind, rate):
+        out, lse = _launch_fwd(q, k, v, (attn, sid, act, blk), seed, num_heads, kind, rate,
+                               with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, attn, sid, act, blk)
+        ctx.args = (seed, num_heads, kind, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, attn, sid, act, blk = ctx.saved_tensors
+        dq, dk, dv = fused_mask_attention_bwd(q, k, v, out, dout, lse, attn, sid, act, blk,
+                                              *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+def fused_mask_attention(q, k, v, attention_mask, session_ids, actions, block_ids,
+                         dropout_seed: int = 0, num_heads: int = 1, kind: str = "causal",
+                         dropout_rate: float = 0.0) -> torch.Tensor:
+    """q [B, S, H*D], k/v [B, S, Hkv*D], streams [B, S] -> out [B, S, H*D].
+
+    `dropout_rate` > 0 drops attention probabilities by the hash keyed on
+    `dropout_seed` (the backward regenerates the same mask). Differentiable
+    in q, k and v."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown attention mask kind {kind!r}")
+    if q.device.type == "cpu":
+        return fused_mask_attention_plain(q, k, v, attention_mask, session_ids, actions,
+                                          block_ids, dropout_seed, num_heads, kind, dropout_rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mask_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, attention_mask, session_ids, actions, block_ids,
+                                     dropout_seed, num_heads, kind, dropout_rate)
+    return _launch_fwd(q, k, v, (attention_mask, session_ids, actions, block_ids), dropout_seed,
+                       num_heads, kind, dropout_rate, with_lse=False)[0]
+
+
+fused_mask_attention.launches = 0  # kernel a launches, for run reports
+fused_mask_attention_bwd.launches = 0  # kernel b launches

@@ -1,21 +1,26 @@
-"""Fused tied-head cross-entropy forward (kernel j of the port).
+"""Fused tied-head cross-entropy: kernel j (forward) and kernel k (backward).
 
-`fused_ce_rows` is the counterpart of the forward of
-`gamer_tpu/ops/pallas_ce.py` `fused_ce_rows`: per row of the final hidden
-states h [N, D] against the tied table [V, D], fp32 logits scaled by inv_t
-that are never stored, their logsumexp, and nll = lse - logit[target] on valid
-rows (0 elsewhere). For CUDA tensors it launches `csrc/fused_ce_fwd.cu`; for
-CPU tensors it runs `fused_ce_rows_plain`. Neither N nor V needs padding.
-The backward waits for the training slice.
+`fused_ce_rows` is the counterpart of `gamer_tpu/ops/pallas_ce.py`
+`fused_ce_rows`: per row of the final hidden states h [N, D] against the tied
+table [V, D], fp32 logits scaled by inv_t that are never stored, their
+logsumexp, and nll = lse - logit[target] on valid rows (0 elsewhere). For
+CUDA tensors it launches `csrc/fused_ce_fwd.cu` behind a
+`torch.autograd.Function` whose backward launches `csrc/fused_ce_bwd.cu`
+(`fused_ce_rows_bwd`): dh = (softmax - onehot) * g * inv_t . E and an fp32 dE
+cast to the table's dtype. For CPU tensors it runs `fused_ce_rows_plain`,
+whose backward is autograd. Neither N nor V needs padding.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from gamer_tpu_torch.ops import _build
+
+TM, VC, D_MAX = 64, 64, 256  # row tile, vocab tile and widest D of the backward kernel
 
 
 def fused_ce_rows_plain(h, table, targets, valid, inv_t: float):
@@ -29,16 +34,7 @@ def fused_ce_rows_plain(h, table, targets, valid, inv_t: float):
     return nll, lse
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                          ctypes.c_void_p]
-
-
-def fused_ce_rows(h, table, targets, valid, inv_t: float):
-    """h [N, D], table [V, D], targets/valid [N] int -> (nll [N], lse [N]) fp32."""
-    if h.device.type == "cpu":
-        return fused_ce_rows_plain(h, table, targets, valid, inv_t)
-    if h.device.type != "cuda":
-        raise ValueError(f"fused_ce_rows runs on cuda or cpu, not {h.device}")
+def _check(h, table, targets, valid):
     N, D = h.shape
     V = table.shape[0]
     if table.shape != (V, D) or targets.shape != (N,) or valid.shape != (N,):
@@ -46,17 +42,88 @@ def fused_ce_rows(h, table, targets, valid, inv_t: float):
                          f"targets {tuple(targets.shape)} valid {tuple(valid.shape)}")
     if table.dtype != h.dtype:
         raise TypeError("h and table must share one dtype")
-    h, table = h.contiguous(), table.contiguous()
-    targets = targets.to(dtype=torch.int32).contiguous()
-    valid = valid.to(dtype=torch.int32).contiguous()
+    return (N, D, V, h.contiguous(), table.contiguous(),
+            targets.to(dtype=torch.int32).contiguous(), valid.to(dtype=torch.int32).contiguous())
+
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                              ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _launch_fwd(h, table, targets, valid, inv_t):
+    N, D, V, h, table, targets, valid = _check(h, table, targets, valid)
     nll = torch.empty(N, dtype=torch.float32, device=h.device)
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
-        _build.launch("fused_ce_fwd", _ARGTYPES, h.data_ptr(), table.data_ptr(),
+        _build.launch("fused_ce_fwd", _FWD_ARGTYPES, h.data_ptr(), table.data_ptr(),
                       targets.data_ptr(), valid.data_ptr(), nll.data_ptr(), lse.data_ptr(),
                       N, D, V, float(inv_t), _build.dtype_code(h), _build.stream_of(h))
     fused_ce_rows.launches += 1
     return nll, lse
 
 
-fused_ce_rows.launches = 0  # kernel launches, for run reports
+def fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
+    """Kernel k: (dh, dtable) of the nll of `fused_ce_rows` for its incoming
+    gradient g [N] and saved lse [N] (CUDA tensors only; D <= 256)."""
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_ce_rows_bwd launches a CUDA kernel; got {h.device}")
+    N, D, V, h, table, targets, valid = _check(h, table, targets, valid)
+    if D > D_MAX:
+        raise ValueError(f"the CE backward kernel takes D <= {D_MAX}, not {D}")
+    # the dE half splits the rows so that its vocab tiles fill the card
+    nsplit, rows = _build.row_splits(N, math.ceil(V / VC), h.device, multiple=TM)
+    per_split = rows // TM
+    ws = torch.empty(nsplit * V * D, dtype=torch.float32, device=h.device)
+    dh, de = torch.empty_like(h), torch.empty_like(table)
+    lse, g = lse.float().contiguous(), g.float().contiguous()
+    with torch.cuda.device(h.device):
+        _build.launch("fused_ce_bwd", _BWD_ARGTYPES, h.data_ptr(), table.data_ptr(),
+                      targets.data_ptr(), valid.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                      dh.data_ptr(), de.data_ptr(), ws.data_ptr(), N, D, V, float(inv_t),
+                      nsplit, per_split, _build.dtype_code(h), _build.stream_of(h))
+    fused_ce_rows_bwd.launches += 1
+    return dh, de
+
+
+def fused_ce_rows_bwd_plain(h, table, targets, valid, g, inv_t: float):
+    """Plain version of kernel k: autograd through the plain forward."""
+    with torch.enable_grad():
+        h, table = (t.detach().requires_grad_(True) for t in (h, table))
+        nll, _ = fused_ce_rows_plain(h, table, targets, valid, inv_t)
+        return torch.autograd.grad(nll, (h, table), g)
+
+
+class _FusedCE(torch.autograd.Function):
+    """Kernel j forward, kernel k backward (the gradient flows from nll)."""
+
+    @staticmethod
+    def forward(ctx, h, table, targets, valid, inv_t):
+        nll, lse = _launch_fwd(h, table, targets, valid, inv_t)
+        ctx.save_for_backward(h, table, targets, valid, lse)
+        ctx.inv_t = inv_t
+        ctx.mark_non_differentiable(lse)
+        return nll, lse
+
+    @staticmethod
+    def backward(ctx, g, _glse):
+        h, table, targets, valid, lse = ctx.saved_tensors
+        dh, de = fused_ce_rows_bwd(h, table, targets, valid, lse, g, ctx.inv_t)
+        return dh, de, None, None, None
+
+
+def fused_ce_rows(h, table, targets, valid, inv_t: float):
+    """h [N, D], table [V, D], targets/valid [N] int -> (nll [N], lse [N]) fp32;
+    nll is differentiable in h and table."""
+    if h.device.type == "cpu":
+        return fused_ce_rows_plain(h, table, targets, valid, inv_t)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_ce_rows runs on cuda or cpu, not {h.device}")
+    if torch.is_grad_enabled() and (h.requires_grad or table.requires_grad):
+        return _FusedCE.apply(h, table, targets, valid, inv_t)
+    return _launch_fwd(h, table, targets, valid, inv_t)
+
+
+fused_ce_rows.launches = 0  # kernel j launches, for run reports
+fused_ce_rows_bwd.launches = 0  # kernel k launches

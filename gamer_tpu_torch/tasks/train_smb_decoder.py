@@ -2,9 +2,9 @@
 
 PyTorch counterpart of `use_fused_ce` and `make_loss_fn` in
 `gamer_tpu/tasks/train_smb_decoder.py`: the temperature-scaled causal-LM loss
-of a batch and its valid-target count, with dropout off (the eval loss the
-trainer computes). The trainer, the optimizer and the CLI wait for the
-training slice.
+of a batch and its valid-target count, either the training loss (dropout on,
+differentiable; `train/loop.Trainer` consumes it) or the eval loss (dropout
+off, no grad). The data plane and the CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,21 +25,28 @@ def use_fused_ce(cfg: QwenFamilyConfig) -> bool:
 
 def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
                  deterministic: bool = True):
-    """Returns loss_fn(batch) -> (loss, {"denom": valid-target count}).
+    """Returns loss_fn(batch, generator=None) -> (loss, {"denom": valid-target
+    count}).
 
-    `batch` holds [B, S] `input_ids`, `attention_mask`, `labels` (and, per
-    preset, `session_ids`, `actions`, `extended_session_ids`, `row_valid`),
-    as tensors or numpy arrays; they move to the model's device."""
-    if not deterministic:
-        raise NotImplementedError("the training loss (dropout) waits for the training slice")
+    `deterministic=False` is the training loss: dropout on, its seeds drawn
+    from `generator` (a CPU `torch.Generator`), differentiable in the
+    model's parameters. `deterministic=True` is the eval loss: dropout off,
+    no grad. `batch` holds [B, S] `input_ids`, `attention_mask`, `labels`
+    (and, per preset, `session_ids`, `actions`, `extended_session_ids`,
+    `row_valid`), as tensors or numpy arrays; they move to the model's
+    device."""
     cfg = cfg or model.cfg
     fused = use_fused_ce(cfg)
 
-    @torch.no_grad()
-    def loss_fn(batch: dict):
+    def loss_fn(batch: dict, generator: torch.Generator | None = None):
+        with torch.set_grad_enabled(not deterministic and torch.is_grad_enabled()):
+            return _loss(batch, generator)
+
+    def _loss(batch: dict, generator):
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         inputs = prepare_train_inputs(cfg, batch)
-        out = model(**inputs, route_mode="periodic", return_hidden=fused)
+        out = model(**inputs, route_mode="periodic", return_hidden=fused,
+                    deterministic=deterministic, generator=generator)
         if fused:
             table = model.lm_table().to(cfg.torch_dtype)
             loss, denom = fused_causal_lm_loss_with_denom(

@@ -1,0 +1,203 @@
+"""Generic training loop.
+
+PyTorch counterpart of `gamer_tpu/train/loop.py`: one train step (forward,
+backward, optimizer), gradient accumulation as `optax.MultiSteps` does it
+(k micro-step grads averaged as a running mean, one optimizer update per k
+micro-steps, the schedule counting updates), per-epoch (or every-N-updates)
+eval as a global token mean with dropout off, early stopping with patience,
+the best parameters kept in memory, and the JSONL metric stream.
+
+The loop consumes `loss_fn(batch, generator) -> (loss, aux)`, differentiable
+in the model's parameters; each micro-step's dropout seeds come from a CPU
+`torch.Generator` seeded by `(loop seed, micro-step)`. Checkpoints, resume
+and snapshots are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from gamer_tpu_torch.core.config import Config
+from gamer_tpu_torch.core.metrics import MetricWriter
+from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+logger = logging.getLogger("gamer_tpu_torch.train")
+
+
+class TrainLoopConfig(Config):
+    epochs: int = 200
+    patience: int = 20  # early-stop after N evals without improvement (<= 0: off)
+    # "epoch": eval every eval_every_epochs; "steps": eval every
+    # eval_every_steps optimizer updates, mid-epoch
+    eval_strategy: str = "epoch"
+    eval_every_epochs: int = 1
+    eval_every_steps: int = 2000
+    eval_delay: int = 0  # skip evals before this epoch (epoch mode) / update (steps mode)
+    log_every_steps: int = 50
+    gradient_accumulation_steps: int = 1
+    metric_mode: str = "min"  # "min" (valid loss) or "max" (ranking metric)
+    seed: int = 42
+
+
+class Trainer:
+    def __init__(
+        self,
+        loss_fn: Callable[[dict, torch.Generator], tuple[torch.Tensor, dict]],
+        model: torch.nn.Module,
+        opt_cfg: OptimizerConfig,
+        loop_cfg: TrainLoopConfig,
+        metric_writer: MetricWriter | None = None,
+        eval_fn: Callable[[torch.nn.Module], tuple[float, dict]] | None = None,
+        eval_loss_fn: Callable[[dict], tuple[torch.Tensor, dict]] | None = None,
+    ):
+        self.loss_fn = loss_fn
+        # the eval loss runs with dropout off: early stopping and the best
+        # parameters must not follow dropout noise
+        self.eval_loss_fn = eval_loss_fn
+        self.model = model
+        self.opt_cfg = opt_cfg
+        self.cfg = loop_cfg
+        self.writer = metric_writer
+        self.eval_fn = eval_fn
+        self.optimizer = make_optimizer(opt_cfg, model)
+        self.params = dict(model.named_parameters())
+        self.step = 0  # micro-steps taken
+        self._acc: dict[str, torch.Tensor] | None = None
+        self._best_state: dict[str, torch.Tensor] | None = None
+
+    # ------------------------------------------------------------------ steps
+
+    def generator(self, step: int) -> torch.Generator:
+        """The dropout-seed generator of micro-step `step`."""
+        return torch.Generator().manual_seed((self.cfg.seed * 1_000_003 + step) % (2 ** 63))
+
+    def train_step(self, batch: dict) -> torch.Tensor:
+        """One micro-step: forward, backward, accumulate; an optimizer
+        update every `gradient_accumulation_steps` micro-steps. Returns the
+        (detached) loss."""
+        k = max(self.cfg.gradient_accumulation_steps, 1)
+        mini = self.step % k
+        for p in self.params.values():
+            p.grad = None
+        loss, _ = self.loss_fn(batch, self.generator(self.step))
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in self.params.items()}
+        if self._acc is None:
+            self._acc = grads
+        else:  # running mean, as optax.MultiSteps: acc + (g - acc) / (n + 1)
+            for n, g in grads.items():
+                self._acc[n].add_((g - self._acc[n]) / (mini + 1))
+        for p in self.params.values():
+            p.grad = None
+        if mini == k - 1:
+            self.optimizer.step(self._acc)
+            self._acc = None
+        self.step += 1
+        return loss.detach()
+
+    @property
+    def updates(self) -> int:
+        """Optimizer updates applied."""
+        return self.optimizer.count
+
+    # ------------------------------------------------------------------ loops
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterable[dict]) -> float:
+        """Global mean loss over batches: batch means re-weighted by the
+        loss's valid-target count (aux "denom"), else by valid rows, so the
+        result is one token mean whatever the batch split."""
+        total = weight = None
+        loss_fn = self.eval_loss_fn or (lambda b: self.loss_fn(b, self.generator(0)))
+        for batch in batches:
+            loss, aux = loss_fn(batch)
+            w = aux["denom"] if "denom" in aux else float(
+                np.asarray(batch.get("row_valid", np.ones(1))).sum())
+            w = torch.as_tensor(w, dtype=torch.float32, device=loss.device)
+            contrib = loss.float() * w
+            total = contrib if total is None else total + contrib
+            weight = w if weight is None else weight + w
+        if total is None:
+            return 0.0
+        return float(total) / max(float(weight), 1.0)
+
+    def fit(self, train_batches: Callable[[int], Iterator[dict]],
+            eval_batches: Callable[[], Iterator[dict]] | None = None) -> dict:
+        cfg = self.cfg
+        best = np.inf if cfg.metric_mode == "min" else -np.inf
+        better = (lambda a, b: a < b) if cfg.metric_mode == "min" else (lambda a, b: a > b)
+        evals_since_best = 0
+        history: list[dict] = []
+        accum = max(cfg.gradient_accumulation_steps, 1)
+
+        def run_eval(epoch: int, epoch_loss: float | None) -> bool:
+            """One eval, best tracking and the early-stop check; True = stop."""
+            nonlocal best, evals_since_best
+            metric = None
+            if self.eval_fn is not None:
+                metric, extras = self.eval_fn(self.model)
+                if self.writer:
+                    self.writer.log({"eval/metric": metric,
+                                     **{f"eval/{k}": v for k, v in extras.items()}},
+                                    step=self.step)
+            elif eval_batches is not None:
+                metric = self.evaluate(eval_batches())
+                if self.writer:
+                    self.writer.log({"eval/loss": metric}, step=self.step)
+            if metric is None:
+                return False
+            logger.info("epoch %d: eval metric %.4f (best %.4f)", epoch, metric, best)
+            entry = {"epoch": epoch, "eval": metric, "step": self.step}
+            if epoch_loss is not None:
+                entry["train_loss"] = epoch_loss
+            history.append(entry)
+            if better(metric, best):
+                best = metric
+                evals_since_best = 0
+                self._best_state = {k: v.detach().clone()
+                                    for k, v in self.model.state_dict().items()}
+                return False
+            evals_since_best += 1
+            if cfg.patience > 0 and evals_since_best >= cfg.patience:
+                logger.info("early stopping at epoch %d", epoch)
+                return True
+            return False
+
+        stop = False
+        for epoch in range(cfg.epochs):
+            t0 = time.time()
+            n_steps, loss_acc = 0, None
+            for batch in train_batches(epoch):
+                loss = self.train_step(batch)
+                loss_acc = loss if loss_acc is None else loss_acc + loss
+                n_steps += 1
+                if self.writer and n_steps % cfg.log_every_steps == 0:
+                    self.writer.log({"train/loss": float(loss), "epoch": epoch}, step=self.step)
+                if (cfg.eval_strategy == "steps"
+                        and self.step % (cfg.eval_every_steps * accum) == 0
+                        and self.step // accum >= cfg.eval_delay):
+                    stop = run_eval(epoch, None)
+                    if stop:
+                        break
+            if stop:
+                break
+            epoch_loss = float(loss_acc) / n_steps if n_steps else 0.0
+            logger.info("epoch %d: train loss %.4f (%d steps, %.1fs)", epoch, epoch_loss,
+                        n_steps, time.time() - t0)
+            if (cfg.eval_strategy == "epoch" and (epoch + 1) % cfg.eval_every_epochs == 0
+                    and epoch >= cfg.eval_delay):
+                if run_eval(epoch, epoch_loss):
+                    break
+        return {"best_metric": float(best), "history": history, "steps": self.step}
+
+    def best_params(self) -> dict[str, Any]:
+        """The state dict of the best eval so far (the current one if none)."""
+        if self._best_state is not None:
+            return self._best_state
+        return {k: v.detach() for k, v in self.model.state_dict().items()}

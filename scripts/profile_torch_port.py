@@ -4,12 +4,13 @@
 
 Traces, with torch.profiler (CPU + CUDA activities), three steady-state
 iterations of the flagship Qwen3Multi scoring forward (bf16, batch 64 x
-S = 505, through the hand-written kernels) and one 20-beam constrained search
-(batch 128, the shapes of `chip_smoke.py`). For each it prints the wall time
-per iteration (timed without the profiler), the device busy share (summed
-kernel time over that wall time, one stream) and the device kernels by
-total time. Needs CUDA; builds the kernels
-first.
+S = 505, through the hand-written kernels), three training steps of the same
+model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
+`chip_smoke.py` phase 5) and one 20-beam constrained search (batch 128, the
+shapes of `chip_smoke.py`). For each it prints the wall time per iteration
+(timed without the profiler), the device busy share (summed kernel time over
+that wall time, one stream) and the device kernels by total time. Needs
+CUDA; builds the kernels first.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle; {sum(e.count for e in kernels) // iters} launches")
     for e in sorted(kernels, key=dev, reverse=True)[:top]:
         ms = dev(e) / 1e3 / iters
-        name = e.key.split("(")[0][:80]
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:80]
         print(f"  {ms:9.4f} ms {100 * ms / busy_ms:5.1f}%  {e.count // iters:5d} calls  {name}")
 
 
@@ -72,6 +73,20 @@ def main() -> int:
     batch = cs.make_batch(cfg, 64, 101)
     model, loss_fn = cs.run_forward(cfg, "cuda")
     _profile(lambda: loss_fn(batch), 3, "scoring forward Qwen3Multi bf16 B=64 S=505")
+
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    train_cfg = cs.flagship_config(dropout_rate=cs.DROP_RATE)
+    train_model = QwenFamilyModel(train_cfg, device="cuda")
+    trainer = Trainer(make_loss_fn(train_model, train_cfg, deterministic=False), train_model,
+                      OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant"),
+                      TrainLoopConfig(seed=0))
+    _profile(lambda: trainer.train_step(batch), 3,
+             f"train step Qwen3Multi bf16 B=64 S=505 dropout {cs.DROP_RATE}", top=24)
+    del trainer, train_model
     trie, prompts, behaviors = cs.make_trie_and_prompts(
         cfg, cs.BEAM_BATCH, cs.N_ITEMS, cs.LEVELS, cs.LEVEL_SIZE, cs.PROMPT_BLOCKS)
     search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=cs.NUM_BEAMS))

@@ -35,7 +35,7 @@ def test_plain_version_matches_jax_kernel(kind):
     arrays = _inputs()
     want = jax_fused(*(jnp.asarray(a) for a in arrays), 0, H, kind, True)
     launches = FA.fused_mask_attention.launches
-    got = FA.fused_mask_attention(*(torch.as_tensor(a) for a in arrays), H, kind)
+    got = FA.fused_mask_attention(*(torch.as_tensor(a) for a in arrays), 0, H, kind)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert FA.fused_mask_attention.launches == launches, "a CPU call launches no kernel"
     if kind in ("multi", "session_multi"):
@@ -45,7 +45,10 @@ def test_plain_version_matches_jax_kernel(kind):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     t = [torch.as_tensor(a) for a in _inputs()]
-    with pytest.raises(NotImplementedError):
-        FA.fused_mask_attention(*t, H, "causal", dropout_rate=0.1)
+    # dropout is taken: finite, seeded, and different from rate 0
+    a = FA.fused_mask_attention(*t, 3, H, "causal", dropout_rate=0.1)
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, FA.fused_mask_attention(*t, 3, H, "causal", dropout_rate=0.1))
+    assert not torch.equal(a, FA.fused_mask_attention(*t, 0, H, "causal"))
     with pytest.raises(ValueError):
-        FA.fused_mask_attention(*t, H, "action_same")
+        FA.fused_mask_attention(*t, 0, H, "action_same")

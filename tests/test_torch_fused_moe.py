@@ -32,8 +32,11 @@ def test_plain_version_matches_jax_kernel(use_bias):
     got = FM.fused_moe_ffn(*(torch.as_tensor(a) for a in (xp, wgu, wd, btab, beh)),
                            use_bias=use_bias)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):
-        FM.fused_moe_ffn(*(torch.as_tensor(a) for a in (xp, wgu, wd, btab, beh)), rate=0.2)
+    # hash dropout is taken: seeded, and different from rate 0
+    args = [torch.as_tensor(a) for a in (xp, wgu, wd, btab, beh)]
+    dropped = FM.fused_moe_ffn(*args, 5, rate=0.2, use_bias=use_bias)
+    assert torch.equal(dropped, FM.fused_moe_ffn(*args, 5, rate=0.2, use_bias=use_bias))
+    assert not torch.equal(dropped, got)
 
 
 # (route_mode, JAX impl, port use_kernel)

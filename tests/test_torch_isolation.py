@@ -84,3 +84,22 @@ def test_chip_smoke_phases_on_cpu():
     for behavior in (behaviors, 2):
         codes, scores = search(prompts, behavior)
         cs.check_beams(trie, codes, scores, 3, 5)
+
+
+def test_chip_smoke_train_step_on_cpu():
+    """The kernel-path-vs-plain-path training step of phases 5 and 6 at a
+    tiny size: on the CPU no kernel launches and the two paths agree."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    counters = {"a": FA.fused_mask_attention, "b": FA.fused_mask_attention_bwd,
+                "h": FM.fused_moe_ffn, "i": FM.fused_moe_ffn_bwd,
+                "j": FC.fused_ce_rows, "k": FC.fused_ce_rows_bwd}
+    cfg = cs.flagship_config(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                             num_key_value_heads=2, head_dim=32, intermediate_size=128,
+                             dtype="float32", dropout_rate=cs.DROP_RATE)
+    for remat in (False, True):
+        cs._paths_agree("tiny", cfg, cs.make_batch(cfg, 2, 6, seed=1), "cpu", 1, counters,
+                        {k: 0 for k in counters}, plain_remat=remat)

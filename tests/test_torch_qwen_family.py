@@ -114,8 +114,13 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         TQ.QwenFamilyModel(TQ.build_config("Qwen3MoeAction", **tiny_kwargs()), device="cpu")
     model = TQ.QwenFamilyModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_loss_fn(model, deterministic=False)
+    # the training loss is ported: it needs a generator and has grads
+    train_loss = make_loss_fn(model, deterministic=False)
+    with pytest.raises(ValueError):
+        train_loss(make_batch(cfg))
+    loss, _ = train_loss(make_batch(cfg), torch.Generator().manual_seed(0))
+    loss.backward()
+    assert all(p.grad is not None for p in model.parameters())
     # the same seed draws the same weights
     again = TQ.QwenFamilyModel(cfg, device="cpu")
     for (name, a), b in zip(model.state_dict().items(), again.state_dict().values()):
