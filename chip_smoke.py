@@ -6,7 +6,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. build the six hand-written CUDA kernel libraries from
    `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
-   started together);
+   started together), and count each library's tensor-core instructions
+   (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: the
+   attention libraries (a, b) must have some;
 2. hold each forward kernel (a, h, j) against its plain PyTorch version at
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
@@ -17,7 +19,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2b. the same for the backward kernels (b, i, k) against autograd through
    the plain versions, with dropout 0 and 0.2 (the same seed on both sides),
    attention also at B 1 x S 2048 and 8192 (the lengths of the TPU's
-   streaming and XL kernels c-g, which kernels a and b cover);
+   streaming and XL kernels c-g, which kernels a and b cover); two bf16
+   launches of a and b at B 64 x S 505, dropout 0.2, must be bit-identical;
+   the attention times are printed with their achieved TFLOP/s and share of
+   the bound;
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +172,48 @@ def _bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _rate(flops: float, ms: float, bound: float) -> str:
+    """Achieved TFLOP/s and share of the bound of a kernel time."""
+    return f"{flops / ms / 1e9:.2f} TFLOP/s, {100 * bound / ms:.2f}% of bound"
+
+
+def _cuobjdump() -> str:
+    """cuobjdump beside nvcc, else the copy in Triton's package; raises if
+    neither exists."""
+    from gamer_tpu_torch.ops import _build
+
+    cands = [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"cuobjdump not found (looked at {cands})")
+
+
+def tensor_core_counts() -> dict:
+    """{library: {"HMMA": n, "HGMMA": n}} from each built library's SASS;
+    raises if an attention library has no tensor-core instruction."""
+    from gamer_tpu_torch.ops import _build
+
+    tool, counts = _cuobjdump(), {}
+    for name in _build.KERNEL_SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
+        print(f"sass {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA "
+              f"tensor-core instructions", flush=True)
+    for name in ("fused_attention_fwd", "fused_attention_bwd"):
+        if not sum(counts[name].values()):
+            raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
+    return counts
+
+
 def _check(name, kernel, plain, args32, args16):
     """kernel vs plain on fp32 inputs (F32_TOL) and on bf16 inputs, plain in
     fp32 (BF16_TOL); returns the bf16 max abs error."""
@@ -251,9 +299,9 @@ def kernel_phase(dev) -> dict:
                     qh, kh, vh, attn_mask=allowed, enable_gqa=True))
                 attn_ms[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                      bound_ms=bound, bound_by=by, max_abs_err=err)
-                print(f"time fused_mask_attention[{kind}] B={B} S={S} bf16: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, sdpa(bool mask) {lib_ms:.4f} ms, "
-                      f"bound {bound:.4f} ms ({by})", flush=True)
+                print(f"time fused_mask_attention[{kind}] B={B} S={S} bf16: kernel {ms:.4f} ms "
+                      f"({_rate(flops, ms, bound)}), plain {plain_ms:.4f} ms, sdpa(bool mask) "
+                      f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
     # the scoring forward runs 8 causal + 4 multi calls: report their mean
     entries["fused_mask_attention"] = {
         key: (8 * attn_ms["causal"][key] + 4 * attn_ms["multi"][key]) / 12
@@ -399,10 +447,23 @@ def backward_phase(dev) -> dict:
             fbound, fby = _bound_ms(io + 2 * q16.numel() + 4 * B * H * S + 16 * B * S,
                                     4.0 * D * pairs)
             print(f"time fused_mask_attention_bwd[{kind}] B={B} S={S} bf16 rate {DROP_RATE}: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa(bool mask) backward "
-                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); forward with lse: kernel "
-                  f"{fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms, "
-                  f"bound {fbound:.4f} ms ({fby})", flush=True)
+                  f"kernel {ms:.4f} ms ({_rate(10.0 * D * pairs, ms, bound)}), plain "
+                  f"{plain_ms:.4f} ms, sdpa(bool mask) backward {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}); forward with lse: kernel {fwd_ms:.4f} ms "
+                  f"({_rate(4.0 * D * pairs, fwd_ms, fbound)}), plain {plain_fwd_ms:.4f} ms, "
+                  f"sdpa {lib_fwd_ms:.4f} ms, bound {fbound:.4f} ms ({fby})", flush=True)
+            if B == 64:  # two bf16 launches of a and b on the same inputs: bit-identical
+                out2, lse2 = FA._launch_fwd(q16, k16, v16, streams, DROP_SEED, H, kind,
+                                            DROP_RATE, with_lse=True)
+                runs = [FA.fused_mask_attention_bwd(q16, k16, v16, out, d16, lse, *args)
+                        for _ in range(2)]
+                same = torch.equal(out, out2) and torch.equal(lse, lse2) and all(
+                    torch.equal(x, y) for x, y in zip(*runs))
+                print(f"check determinism a+b[{kind},B={B},S={S},rate={DROP_RATE},bf16]: two "
+                      f"launches {'bit-identical' if same else 'DIFFER'}", flush=True)
+                if not same:
+                    raise AssertionError("attention kernels a/b are not deterministic")
+                del out2, lse2, runs
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                           bound_by=by, max_abs_err=max(errs))
             if B == 64:
@@ -645,6 +706,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"build: {len(logs)} libraries compiled in {time.perf_counter() - t0:.1f} s", flush=True)
+    tensor_core_counts()
 
     # 2. kernels against their plain versions
     entries = kernel_phase(dev)

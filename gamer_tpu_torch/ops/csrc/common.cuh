@@ -56,6 +56,15 @@ __device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t bh, uint32_t r
   const uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA6Bu + bh * 0xC2B2AE35u + seed;
   return fmix32(x) >= thresh;
 }
+// The same hash split in a per-row part and a per-column step (uint32
+// addition wraps, so the sum is the same in any order): a tile computes
+// hash_row once a row and hash_keep_at per element.
+__device__ __forceinline__ uint32_t hash_row(uint32_t seed, uint32_t bh, uint32_t row) {
+  return row * 0x9E3779B1u + bh * 0xC2B2AE35u + seed;
+}
+__device__ __forceinline__ bool hash_keep_at(uint32_t row_part, uint32_t col, uint32_t thresh) {
+  return fmix32(row_part + col * 0x85EBCA6Bu) >= thresh;
+}
 
 // The GAMER attention mask kinds (ops/masks.py), as `_mask_tile` of
 // gamer_tpu/ops/pallas_attention.py evaluates them from the int streams.
@@ -76,6 +85,83 @@ __device__ __forceinline__ bool attn_allowed(int kind, int qpos, int kpos, int q
     a = (k_sid < q_sid) && (k_act < q_act);
   }
   return a && k_ok;
+}
+
+// The mask on one thread's share of an m16n8 accumulator tile of the
+// tensor-core attention kernels (C layout in mma.cuh: element e of column
+// tile j sits in this thread's row e / 2 and column c = 8j + 2*(lane % 4) +
+// e % 2). Streams travel as int4 (valid, sid, act, blk): a query is valid
+// when it lies before S, a key when it is also not padded. Each allowed
+// element becomes s * mul - sub, the others -inf, so exp2 of the result is
+// the probability or exactly 0. KIND is a compile-time kind; the `kind`
+// overloads switch once a tile, not once an element.
+__device__ __forceinline__ bool allowed4(int kind, int qpos, int kpos, int4 qi, int4 ki) {
+  return qi.x && attn_allowed(kind, qpos, kpos, qi.y, ki.y, qi.z, ki.z, qi.w, ki.w, ki.x);
+}
+
+// Rows are queries (rpos, rinf: this thread's two), columns keys c0 + c
+// (cinf[c]); sub is per row.
+template <int KIND, int NJ>
+__device__ __forceinline__ void mask_tile_qrows_k(float (&s)[NJ][4], const int (&rpos)[2],
+                                                const int4 (&rinf)[2], const int4* cinf, int c0,
+                                                float mul, const float (&sub)[2], int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 8 * j + 2 * (lane % 4) + cc;
+      const int4 ci = cinf[c];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 2 * i + cc;
+        s[j][e] = allowed4(KIND, rpos[i], c0 + c, rinf[i], ci) ? fmaf(s[j][e], mul, -sub[i])
+                                                               : -INFINITY;
+      }
+    }
+}
+template <int NJ>
+__device__ __forceinline__ void mask_tile_qrows(int kind, float (&s)[NJ][4], const int (&rpos)[2],
+                                                const int4 (&rinf)[2], const int4* cinf, int c0,
+                                                float mul, const float (&sub)[2], int lane) {
+  switch (kind) {
+    case kCausal: mask_tile_qrows_k<kCausal>(s, rpos, rinf, cinf, c0, mul, sub, lane); break;
+    case kSession: mask_tile_qrows_k<kSession>(s, rpos, rinf, cinf, c0, mul, sub, lane); break;
+    case kMulti: mask_tile_qrows_k<kMulti>(s, rpos, rinf, cinf, c0, mul, sub, lane); break;
+    default: mask_tile_qrows_k<kSessionMulti>(s, rpos, rinf, cinf, c0, mul, sub, lane);
+  }
+}
+
+// Rows are keys (rpos, rinf), columns queries c0 + c (cinf[c]); sub is per
+// column (csub[c].x).
+template <int KIND, int NJ>
+__device__ __forceinline__ void mask_tile_krows_k(float (&s)[NJ][4], const int (&rpos)[2],
+                                                const int4 (&rinf)[2], const int4* cinf, int c0,
+                                                float mul, const float2* csub, int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 8 * j + 2 * (lane % 4) + cc;
+      const int4 ci = cinf[c];
+      const float sub = csub[c].x;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 2 * i + cc;
+        s[j][e] = allowed4(KIND, c0 + c, rpos[i], ci, rinf[i]) ? fmaf(s[j][e], mul, -sub)
+                                                               : -INFINITY;
+      }
+    }
+}
+template <int NJ>
+__device__ __forceinline__ void mask_tile_krows(int kind, float (&s)[NJ][4], const int (&rpos)[2],
+                                                const int4 (&rinf)[2], const int4* cinf, int c0,
+                                                float mul, const float2* csub, int lane) {
+  switch (kind) {
+    case kCausal: mask_tile_krows_k<kCausal>(s, rpos, rinf, cinf, c0, mul, csub, lane); break;
+    case kSession: mask_tile_krows_k<kSession>(s, rpos, rinf, cinf, c0, mul, csub, lane); break;
+    case kMulti: mask_tile_krows_k<kMulti>(s, rpos, rinf, cinf, c0, mul, csub, lane); break;
+    default: mask_tile_krows_k<kSessionMulti>(s, rpos, rinf, cinf, c0, mul, csub, lane);
+  }
 }
 
 // The fixed-order second step of a split reduction: out[i] = sum over s of

@@ -9,16 +9,21 @@
 // and 0 elsewhere, never exp of an -inf difference.
 //
 // A TPU grid runs in order and can carry dk/dv across query chunks in VMEM
-// scratch; CUDA blocks run in no order. So the work is split in two kernels,
-// each owning its outputs, with no atomics and a fixed summation order
+// scratch; CUDA blocks run in no order. So the work is split in kernels that
+// each own their outputs, with no atomics and a fixed summation order
 // (deterministic):
+//   delta kernel: delta = rowsum(dO * O) per (row, head) in fp32 from the
+//               operand-dtype tensors, into a [B, H, S] scratch;
 //   dkv kernel: one CTA per (64-key tile, kv head, batch row) loops over the
-//               G query heads of its GQA group and over the query tiles,
-//               accumulating dK and dV in registers;
+//               (query head of its GQA group, query tile) pairs, accumulating
+//               dK and dV in registers. Where the grid would not fill the card
+//               (B 1 x S 2048 gives 96 such CTAs on 132 SMs), the wrapper
+//               asks for `nsplit` > 1: each CTA takes a contiguous share of the
+//               pairs, writes fp32 partials to a scratch, and
+//               `gamer::reduce_splits` adds them in split order;
 //   dq kernel:  one CTA per (64-query tile, head, batch row) loops over the
 //               key tiles, accumulating dQ in registers.
-// Per tile (delta = rowsum(dO * O), formed by the caller as in
-// `_bwd_streaming`):
+// Per tile:
 //   P_use = keep ? P / keep_frac : 0       (dropout regenerated by the hash)
 //   dV   += P_use^T dO
 //   dP    = dO V^T
@@ -26,24 +31,63 @@
 //   dQ   += dS K * scale,  dK += dS^T Q * scale
 // Tiles the causal kinds ("causal", "multi") rule out are skipped: query
 // tiles before a key tile in the dkv kernel, key tiles after a query tile in
-// the dq kernel. Rows past S and keys past S or padded are masked.
+// the dq kernel; the tiles with the most work launch first (the first key
+// tiles, the last query tiles). Rows past S and keys past S or padded are
+// masked.
+//
+// Dispatch by dtype, in the C entry point before any launch:
+//  - bf16: `attn_dkv_tc_kernel` and `attn_dq_tc_kernel` on the tensor cores
+//    (mma.sync m16n8k16, fp32 accumulators; mma.cuh), 4 warps a CTA. The dkv
+//    kernel keeps its K and V tile in shared memory and each warp owns 16
+//    keys: S^T = K Q^T and dP^T = V dO^T come out with keys as rows, so
+//    P_use^T and dS^T are already A fragments for dV += P_use^T dO and
+//    dK += dS^T Q (dO and Q through ldmatrix.trans), with no trip through
+//    shared memory. The dq kernel owns 16 query rows a warp and forms
+//    dQ += dS K (K through ldmatrix.trans). The Q/dO tiles (dkv) and K/V
+//    tiles (dq) are double-buffered with 16-byte cp.async. P_use and dS are
+//    rounded to bf16 for their products, as the TPU kernel rounds them
+//    (pallas_attention.py:213,221).
+//  - fp32: `attn_dkv_kernel` and `attn_dq_kernel`, fp32 FMA on the CUDA
+//    cores from shared memory, P and dS kept in fp32.
 //
 // Bound on H100: about 10*H*D operations per allowed pair (both kernels
 // recompute the scores) against q, k, v, dO, dq, dk, dv moved once; bytes
-// bound narrowly at the flagship shape. This first version computes in fp32
-// on the CUDA cores (FMA from shared memory) and keeps P and dS in fp32 where
-// the TPU kernel rounds dS to the operand dtype; tensor cores are later work.
+// bound narrowly at the flagship shape, so mma.sync's rate is ample; wgmma
+// and TMA are the next step.
+//
+// Where this goes wrong, and what the bf16 kernels do about it:
+//  - fragment coordinates: in the dkv kernel an accumulator element is
+//    (key k0 + warp*16 + lane/4 (+8), query q0 + 8j + 2*(lane%4) + {0,1}),
+//    in the dq kernel (query row, key column) the other way round; the mask
+//    and the dropout hash (keyed on (b*H + h, query, key)) read them, and
+//    only rate 0.2 checks with one seed on both sides would show a wrong map;
+//  - ragged tiles: cp.async zero-fills rows past S in shared memory, so no
+//    stale NaN or Inf meets a zero probability inside an mma;
+//  - rows with no allowed key: the forward's lse is +1e30 and P is formed
+//    only on allowed pairs, so P = 0 and their dQ is exactly 0;
+//  - GQA: dK and dV sum over the group's query heads in a fixed order, in one
+//    CTA or, split, in split order;
+//  - head dims: the dkv kernel holds dK and dV (D fp32 registers a thread),
+//    so it walks a query tile in steps of QC columns (64 at D 32, 32 at D 64,
+//    16 at D 128) to bound the S^T and dP^T registers. Both kernels are
+//    capped at 168 registers for D <= 64 (3 CTAs of 128 threads an SM);
+//    ptxas reports a 12-byte spill for the dkv kernel at D 64 under that cap
+//    and 8 bytes at D 128 (255 registers); without the cap the D 64 kernel
+//    needs no spill but fits only 2 CTAs an SM.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using gamer::from_f;
 using gamer::to_f;
+using namespace gamer::tc;
 
 constexpr int BQ = 64;   // query rows a tile
 constexpr int BK = 64;   // keys a tile
-constexpr int NT = 256;  // threads: 16 row groups x 16 column lanes
+constexpr int NT = 256;  // fp32 kernel threads: 16 row groups x 16 column lanes
+constexpr int TC_NT = 128;  // bf16 kernel threads: 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Streams {
   const int* attn;
@@ -84,8 +128,8 @@ struct Tiles {
 };
 
 // Query tile q0 of head h: q, dO rows, lse, delta and the query-side streams.
-template <typename T, int D>
-__device__ void load_q_tile(const Tiles<D>& t, const T* q, const T* dout, const float* lse,
+template <int D>
+__device__ void load_q_tile(const Tiles<D>& t, const float* q, const float* dout, const float* lse,
                             const float* delta, const Streams& st, int q0, int h, int b, int S,
                             int H) {
   const size_t qstride = static_cast<size_t>(H) * D;
@@ -94,8 +138,8 @@ __device__ void load_q_tile(const Tiles<D>& t, const T* q, const T* dout, const 
     const int r = idx / D, c = idx % D, qi = q0 + r;
     const bool in = qi < S;
     const size_t off = (row0 + qi) * qstride + h * D + c;
-    t.Qs[r * (D + 1) + c] = in ? to_f(q[off]) : 0.f;
-    t.dOs[r * (D + 1) + c] = in ? to_f(dout[off]) : 0.f;
+    t.Qs[r * (D + 1) + c] = in ? q[off] : 0.f;
+    t.dOs[r * (D + 1) + c] = in ? dout[off] : 0.f;
   }
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const int qi = q0 + r;
@@ -111,17 +155,17 @@ __device__ void load_q_tile(const Tiles<D>& t, const T* q, const T* dout, const 
 }
 
 // Key tile k0 of kv head hk: k, v rows and the key-side streams.
-template <typename T, int D>
-__device__ void load_k_tile(const Tiles<D>& t, const T* k, const T* v, const Streams& st, int k0,
-                            int hk, int b, int S, int Hkv) {
+template <int D>
+__device__ void load_k_tile(const Tiles<D>& t, const float* k, const float* v, const Streams& st,
+                            int k0, int hk, int b, int S, int Hkv) {
   const size_t kstride = static_cast<size_t>(Hkv) * D;
   const size_t row0 = static_cast<size_t>(b) * S;
   for (int idx = threadIdx.x; idx < BK * D; idx += NT) {
     const int r = idx / D, c = idx % D, ki = k0 + r;
     const bool in = ki < S;
     const size_t off = (row0 + ki) * kstride + hk * D + c;
-    t.Ks[r * (D + 1) + c] = in ? to_f(k[off]) : 0.f;
-    t.Vs[r * (D + 1) + c] = in ? to_f(v[off]) : 0.f;
+    t.Ks[r * (D + 1) + c] = in ? k[off] : 0.f;
+    t.Vs[r * (D + 1) + c] = in ? v[off] : 0.f;
   }
   for (int r = threadIdx.x; r < BK; r += NT) {
     const int ki = k0 + r;
@@ -190,11 +234,11 @@ __device__ void tile_grads(const Tiles<D>& t, int kind, int q0, int k0, float sc
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) attn_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    Streams st, T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv, int kind,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    Streams st, float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv, int kind,
     float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
@@ -205,7 +249,7 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   constexpr int DC = D / 16;
 
-  load_k_tile<T, D>(t, k, v, st, k0, hk, b, S, Hkv);
+  load_k_tile<D>(t, k, v, st, k0, hk, b, S, Hkv);
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -218,7 +262,7 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
     const int h = hk * G + g;
     for (int q0 = q_begin; q0 < S; q0 += BQ) {
       __syncthreads();  // previous tile's reads are done
-      load_q_tile<T, D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
+      load_q_tile<D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
       __syncthreads();
       tile_grads<D>(t, kind, q0, k0, scale, static_cast<uint32_t>(b * H + h), seed, thresh,
                     inv_keep);
@@ -256,17 +300,17 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const size_t off = (row0 + ki) * kstride + hk * D + tx + 16 * j;
-      dk[off] = from_f<T>(dk_acc[i][j] * scale);
-      dv[off] = from_f<T>(dv_acc[i][j]);
+      dk[off] = dk_acc[i][j] * scale;
+      dv[off] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) attn_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    Streams st, T* __restrict__ dq, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    Streams st, float* __restrict__ dq, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
     uint32_t thresh, float inv_keep) {
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
@@ -277,7 +321,7 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   constexpr int DC = D / 16;
 
-  load_q_tile<T, D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
+  load_q_tile<D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
   float dq_acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -288,7 +332,7 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
   const int k_end = (kind == gamer::kCausal || kind == gamer::kMulti) ? q_last + 1 : S;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();
-    load_k_tile<T, D>(t, k, v, st, k0, hk, b, S, Hkv);
+    load_k_tile<D>(t, k, v, st, k0, hk, b, S, Hkv);
     __syncthreads();
     tile_grads<D>(t, kind, q0, k0, scale, static_cast<uint32_t>(b * H + h), seed, thresh,
                   inv_keep);
@@ -315,74 +359,528 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
     if (qi >= S) continue;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      dq[(row0 + qi) * qstride + h * D + tx + 16 * j] = from_f<T>(dq_acc[i][j] * scale);
+      dq[(row0 + qi) * qstride + h * D + tx + 16 * j] = dq_acc[i][j] * scale;
+  }
+}
+
+// delta[b, h, s] = sum_d dO * O in fp32: LPR lanes a (row, head), each
+// reading 16 bytes of both, summed by shuffles in a fixed order.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) attn_delta_kernel(const T* __restrict__ out,
+                                                         const T* __restrict__ dout,
+                                                         float* __restrict__ delta, int S, int H,
+                                                         size_t rows) {
+  constexpr int EPV = 16 / sizeof(T);  // elements a 16-byte load
+  constexpr int LPR = D / EPV;         // lanes a row (4 to 32, divides 32)
+  const size_t gid = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const size_t row = gid / LPR;  // (b * S + s) * H + h
+  float acc = 0.f;
+  if (row < rows) {
+    const size_t off = row * D + (gid % LPR) * EPV;
+    const uint4 ov = *reinterpret_cast<const uint4*>(out + off);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + off);
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) acc = fmaf(to_f(oe[e]), to_f(ge[e]), acc);
+  }
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (row < rows && gid % LPR == 0) {
+    const size_t bs = row / H, b = bs / S;
+    const int h = static_cast<int>(row % H), s = static_cast<int>(bs % S);
+    delta[(b * H + h) * S + s] = acc;
+  }
+}
+
+// ---- bf16 on the tensor cores
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K, V [BK][D+8]; 2 stages of Q, dO [BQ][D+8], of (lse * log2 e, delta)
+  // and of the query streams (in, sid, act, blk)
+  return sizeof(bf16) * (2 * BK + 4 * BQ) * (D + 8) + 2 * BQ * (sizeof(float2) + sizeof(int4));
+}
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  // Q, dO [BQ][D+8]; 2 stages of K, V [BK][D+8] and of the key streams
+  // (ok, sid, act, blk)
+  return sizeof(bf16) * (2 * BQ + 4 * BK) * (D + 8) + 2 * BK * sizeof(int4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, Streams st, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ ws, int nsplit, int S, int H, int Hkv, int kind, float scale,
+    uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int LD = D + 8;
+  constexpr int NDT = D / 8;               // 8-wide dK/dV column tiles
+  constexpr int QC = D > 64 ? 16 : D > 32 ? 32 : 64;  // query columns a step (registers)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                  // [BK][LD]
+  bf16* Vs = Ks + BK * LD;                                       // [BK][LD]
+  bf16* QOs = Vs + BK * LD;                                      // stage s: Q, dO [BQ][LD]
+  float2* qld = reinterpret_cast<float2*>(QOs + 4 * BQ * LD);    // stage s: [BQ]
+  int4* qst = reinterpret_cast<int4*>(qld + 2 * BQ);             // stage s: [BQ]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int kt = blockIdx.z;  // key tile 0 first: it has the most query tiles
+  const int k0 = kt * BK;
+  const int hk = blockIdx.x / nsplit, split = blockIdx.x % nsplit;
+  const int b = blockIdx.y;
+  const int G = H / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t qstride = static_cast<size_t>(H) * D;
+  const size_t kstride = static_cast<size_t>(Hkv) * D;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const bool drop = thresh > 0u;
+  const float sl2 = scale * LOG2E;
+
+  // the (query head, query tile) pairs of this CTA: query tiles from the key
+  // tile on for the causal kinds (BQ == BK), split into nsplit shares
+  const int qt0 = (kind == gamer::kCausal || kind == gamer::kMulti) ? kt : 0;
+  const int nqe = nq - qt0;
+  const long long pairs = static_cast<long long>(G) * nqe;
+  const int i_begin = static_cast<int>(pairs * split / nsplit);
+  const int n = static_cast<int>(pairs * (split + 1) / nsplit) - i_begin;
+
+  // this thread's two keys: k0 + warp*16 + lane/4 and + 8
+  int kpos[2];
+  int4 kinf[2];  // (ok, sid, act, blk)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = k0 + warp * 16 + lane / 4 + 8 * i;
+    const size_t r = row0 + kpos[i];
+    kinf[i] = kpos[i] < S ? make_int4(st.attn[r] == 1, st.sid[r], st.act[r], st.blk[r])
+                          : make_int4(0, 0, 0, -1);
+  }
+
+  load_tile_async<BK, D, TC_NT>(Ks, k + row0 * kstride + hk * D, kstride, k0, S);
+  load_tile_async<BK, D, TC_NT>(Vs, v + row0 * kstride + hk * D, kstride, k0, S);
+  auto load_q = [&](int it) {
+    const int idx = i_begin + it, h = hk * G + idx / nqe, q0 = (qt0 + idx % nqe) * BQ;
+    const int s = it & 1;
+    load_tile_async<BQ, D, TC_NT>(QOs + (2 * s) * BQ * LD, q + row0 * qstride + h * D, qstride,
+                                  q0, S);
+    load_tile_async<BQ, D, TC_NT>(QOs + (2 * s + 1) * BQ * LD, dout + row0 * qstride + h * D,
+                                  qstride, q0, S);
+    for (int r = threadIdx.x; r < BQ; r += TC_NT) {
+      const int qi = q0 + r;
+      const size_t hr = (static_cast<size_t>(b) * H + h) * S + qi;
+      const bool in = qi < S;
+      qld[s * BQ + r] = in ? make_float2(lse[hr] * LOG2E, delta[hr]) : make_float2(0.f, 0.f);
+      qst[s * BQ + r] = in ? make_int4(1, st.sid[row0 + qi], st.act[row0 + qi], st.blk[row0 + qi])
+                           : make_int4(0, 0, 0, -1);
+    }
+  };
+  if (n > 0) load_q(0);
+  cp_async_commit();
+
+  float dk_acc[NDT][4], dv_acc[NDT][4];
+#pragma unroll
+  for (int c = 0; c < NDT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) load_q(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // pair it (and K, V) have landed
+    __syncthreads();
+    const int idx = i_begin + it, h = hk * G + idx / nqe, q0 = (qt0 + idx % nqe) * BQ;
+    const uint32_t bh = static_cast<uint32_t>(b * H + h);
+    const int s = it & 1;
+    const bf16* Qs = QOs + (2 * s) * BQ * LD;
+    const bf16* dOs = Qs + BQ * LD;
+    const float2* ql = qld + s * BQ;
+    const int4* qs = qst + s * BQ;
+
+#pragma unroll
+    for (int qc = 0; qc < BQ; qc += QC) {
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x QC queries
+      float sT[QC / 8][4], dpT[QC / 8][4];
+#pragma unroll
+      for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, a_addr(Ks, LD, warp * 16, kk, lane));
+        ldsm_x4(va, a_addr(Vs, LD, warp * 16, kk, lane));
+#pragma unroll
+        for (int np = 0; np < QC / 16; ++np) {
+          uint32_t qb[4], ob[4];
+          ldsm_x4(qb, bn_addr(Qs, LD, qc + np * 16, kk, lane));
+          ldsm_x4(ob, bn_addr(dOs, LD, qc + np * 16, kk, lane));
+          mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+          mma_bf16(dpT[2 * np], va, ob[0], ob[1]);
+          mma_bf16(dpT[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P_use^T into sT, dS^T into dpT (fp32); sT * scale - lse, or -inf
+      gamer::mask_tile_krows(kind, sT, kpos, kinf, qs + qc, q0 + qc, sl2, ql + qc, lane);
+#pragma unroll
+      for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = exp2f(sT[j][e]);
+      if (drop) {  // branch-free per element: one uniform test a step
+#pragma unroll
+        for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int c = qc + 8 * j + 2 * (lane % 4) + cc;  // query q0 + c
+            const float dlt = ql[c].y;
+            const uint32_t qh = gamer::hash_row(seed, bh, static_cast<uint32_t>(q0 + c));
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 2 * i + cc;
+              const float p = sT[j][e];
+              const float p_use =
+                  gamer::hash_keep_at(qh, static_cast<uint32_t>(kpos[i]), thresh) ? p * inv_keep
+                                                                                  : 0.f;
+              dpT[j][e] = p_use * dpT[j][e] - p * dlt;
+              sT[j][e] = p_use;
+            }
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpT[j][e] = sT[j][e] * (dpT[j][e] - ql[qc + 8 * j + 2 * (lane % 4) + (e & 1)].y);
+      }
+      // dV += P_use^T dO, dK += dS^T Q over these QC queries
+#pragma unroll
+      for (int kc = 0; kc < QC / 16; ++kc) {
+        const uint32_t pa[4] = {pack_bf16(sT[2 * kc][0], sT[2 * kc][1]),
+                                pack_bf16(sT[2 * kc][2], sT[2 * kc][3]),
+                                pack_bf16(sT[2 * kc + 1][0], sT[2 * kc + 1][1]),
+                                pack_bf16(sT[2 * kc + 1][2], sT[2 * kc + 1][3])};
+        const uint32_t da[4] = {pack_bf16(dpT[2 * kc][0], dpT[2 * kc][1]),
+                                pack_bf16(dpT[2 * kc][2], dpT[2 * kc][3]),
+                                pack_bf16(dpT[2 * kc + 1][0], dpT[2 * kc + 1][1]),
+                                pack_bf16(dpT[2 * kc + 1][2], dpT[2 * kc + 1][3])};
+#pragma unroll
+        for (int np = 0; np < NDT / 2; ++np) {
+          uint32_t ob[4], qb[4];
+          ldsm_x4_trans(ob, bk_addr(dOs, LD, qc + kc * 16, np * 16, lane));
+          ldsm_x4_trans(qb, bk_addr(Qs, LD, qc + kc * 16, np * 16, lane));
+          mma_bf16(dv_acc[2 * np], pa, ob[0], ob[1]);
+          mma_bf16(dv_acc[2 * np + 1], pa, ob[2], ob[3]);
+          mma_bf16(dk_acc[2 * np], da, qb[0], qb[1]);
+          mma_bf16(dk_acc[2 * np + 1], da, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage s is refilled by the next iteration's prefetch
+  }
+  cp_async_wait<0>();
+
+  const size_t count = static_cast<size_t>(gridDim.y) * S * kstride;  // B * S * Hkv * D
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= S) continue;
+    const size_t off = (row0 + kpos[i]) * kstride + hk * D + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < NDT; ++c) {
+      const float k0v = dk_acc[c][2 * i] * scale, k1v = dk_acc[c][2 * i + 1] * scale;
+      const float v0v = dv_acc[c][2 * i], v1v = dv_acc[c][2 * i + 1];
+      if (nsplit == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * c) = __floats2bfloat162_rn(k0v, k1v);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * c) = __floats2bfloat162_rn(v0v, v1v);
+      } else {  // fp32 partials: dK at ws[split], dV at ws[nsplit + split]
+        *reinterpret_cast<float2*>(ws + split * count + off + 8 * c) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(ws + (nsplit + split) * count + off + 8 * c) =
+            make_float2(v0v, v1v);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, Streams st, bf16* __restrict__ dq, int S, int H, int Hkv,
+    int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int LD = D + 8;
+  constexpr int NDT = D / 8;  // 8-wide dQ column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);           // [BQ][LD]
+  bf16* dOs = Qs + BQ * LD;                               // [BQ][LD]
+  bf16* KVs = dOs + BQ * LD;                              // stage s: K, V [BK][LD]
+  int4* kst = reinterpret_cast<int4*>(KVs + 4 * BK * LD);  // stage s: [BK]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * BQ;  // longest rows first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t qstride = static_cast<size_t>(H) * D;
+  const size_t kstride = static_cast<size_t>(Hkv) * D;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const bf16* kg = k + row0 * kstride + hk * D;
+  const bf16* vg = v + row0 * kstride + hk * D;
+  const bool drop = thresh > 0u;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  const float sl2 = scale * LOG2E;
+
+  // this thread's two query rows: warp*16 + lane/4 and + 8, their streams
+  // (in, sid, act, blk), lse * log2 e, delta and dropout hash row part
+  int qpos[2];
+  int4 qinf[2];
+  float lse2[2], dlt[2];
+  uint32_t qhash[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = q0 + warp * 16 + lane / 4 + 8 * i;
+    const bool in = qpos[i] < S;
+    const size_t r = row0 + qpos[i], hr = (static_cast<size_t>(b) * H + h) * S + qpos[i];
+    qinf[i] = in ? make_int4(1, st.sid[r], st.act[r], st.blk[r]) : make_int4(0, 0, 0, -1);
+    lse2[i] = in ? lse[hr] * LOG2E : 0.f;
+    dlt[i] = in ? delta[hr] : 0.f;
+    qhash[i] = gamer::hash_row(seed, bh, static_cast<uint32_t>(qpos[i]));
+  }
+
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int k_end = (kind == gamer::kCausal || kind == gamer::kMulti) ? q_last + 1 : S;
+  const int ntiles = (k_end + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    const int s = t & 1, kb = t * BK;
+    load_tile_async<BK, D, TC_NT>(KVs + (2 * s) * BK * LD, kg, kstride, kb, S);
+    load_tile_async<BK, D, TC_NT>(KVs + (2 * s + 1) * BK * LD, vg, kstride, kb, S);
+    for (int r = threadIdx.x; r < BK; r += TC_NT) {
+      const int ki = kb + r;
+      kst[s * BK + r] = ki < S ? make_int4(st.attn[row0 + ki] == 1, st.sid[row0 + ki],
+                                           st.act[row0 + ki], st.blk[row0 + ki])
+                               : make_int4(0, 0, 0, -1);
+    }
+  };
+
+  load_tile_async<BQ, D, TC_NT>(Qs, q + row0 * qstride + h * D, qstride, q0, S);
+  load_tile_async<BQ, D, TC_NT>(dOs, dout + row0 * qstride + h * D, qstride, q0, S);
+  load_kv(0);
+  cp_async_commit();
+
+  float dq_acc[NDT][4];
+#pragma unroll
+  for (int c = 0; c < NDT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_kv(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q, dO) have landed
+    __syncthreads();
+    const int s = t & 1, k0 = t * BK;
+    const bf16* Ks = KVs + (2 * s) * BK * LD;
+    const bf16* Vs = Ks + BK * LD;
+    const int4* ks = kst + s * BK;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, a_addr(Qs, LD, warp * 16, kk, lane));
+      ldsm_x4(oa, a_addr(dOs, LD, warp * 16, kk, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, bn_addr(Ks, LD, np * 16, kk, lane));
+        ldsm_x4(vb, bn_addr(Vs, LD, np * 16, kk, lane));
+        mma_bf16(sc[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+    // dS into sc (fp32); sc * scale - lse, or -inf, first
+    gamer::mask_tile_qrows(kind, sc, qpos, qinf, ks, k0, sl2, lse2, lane);
+    if (drop) {  // branch-free per element: one uniform test a tile
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sc[j][e]);
+          const float p_use =
+              gamer::hash_keep_at(qhash[e >> 1],
+                                  static_cast<uint32_t>(k0 + 8 * j + 2 * (lane % 4) + (e & 1)),
+                                  thresh)
+                  ? p * inv_keep
+                  : 0.f;
+          sc[j][e] = p_use * dp[j][e] - p * dlt[e >> 1];
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = exp2f(sc[j][e]) * (dp[j][e] - dlt[e >> 1]);
+    }
+    // dQ += dS K: K through ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t da[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NDT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, bk_addr(Ks, LD, kc * 16, np * 16, lane));
+        mma_bf16(dq_acc[2 * np], da, kb[0], kb[1]);
+        mma_bf16(dq_acc[2 * np + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // stage s is refilled by the next iteration's prefetch
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= S) continue;
+    bf16* row = dq + (row0 + qpos[i]) * qstride + h * D + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < NDT; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) =
+          __floats2bfloat162_rn(dq_acc[c][0 + 2 * i] * scale, dq_acc[c][1 + 2 * i] * scale);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, Streams st, void* dq, void* dk, void* dv, int B, int S, int H,
-           int Hkv, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attn_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(dout);
-  attn_dkv_kernel<T, D><<<dim3((S + BK - 1) / BK, Hkv, B), NT, smem, stream>>>(
-      qt, kt, vt, ot, lse, delta, st, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, kind,
-      scale, seed, thresh, inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_dq_kernel<T, D><<<dim3((S + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
-      qt, kt, vt, ot, lse, delta, st, static_cast<T*>(dq), S, H, Hkv, kind, scale, seed, thresh,
-      inv_keep);
+cudaError_t launch_delta(const void* out, const void* dout, float* delta, int B, int S, int H,
+                         cudaStream_t stream) {
+  constexpr int LPR = D * static_cast<int>(sizeof(T)) / 16;
+  const size_t rows = static_cast<size_t>(B) * S * H;
+  const size_t blocks = (rows * LPR + 255) / 256;
+  attn_delta_kernel<T, D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, S, H, rows);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, Streams st, void* dq, void* dk, void* dv,
-               int B, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
-               uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, st, dq, dk, dv, B, S, H, Hkv, kind,
-                                  scale, seed, thresh, inv_keep, stream);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, st, dq, dk, dv, B, S, H, Hkv, kind,
-                                  scale, seed, thresh, inv_keep, stream);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, st, dq, dk, dv, B, S, H, Hkv,
-                                    kind, scale, seed, thresh, inv_keep, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const float* lse, float* delta, Streams st, void* dq, void* dk, void* dv,
+               float* ws, int B, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
+               uint32_t thresh, float inv_keep, int nsplit, cudaStream_t stream) {
+  if (nsplit != 1) return cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(attn_dkv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = launch_delta<float, D>(out, dout, delta, B, S, H, stream);
+  if (err != cudaSuccess) return err;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(dout);
+  attn_dkv_kernel<D><<<dim3((S + BK - 1) / BK, Hkv, B), NT, smem, stream>>>(
+      qt, kt, vt, ot, lse, delta, st, static_cast<float*>(dk), static_cast<float*>(dv), S, H,
+      Hkv, kind, scale, seed, thresh, inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_dq_kernel<D><<<dim3((S + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+      qt, kt, vt, ot, lse, delta, st, static_cast<float*>(dq), S, H, Hkv, kind, scale, seed,
+      thresh, inv_keep);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                const float* lse, float* delta, Streams st, void* dq, void* dk, void* dv,
+                float* ws, int B, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
+                uint32_t thresh, float inv_keep, int nsplit, cudaStream_t stream) {
+  if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  constexpr size_t smem_kv = dkv_tc_smem_bytes<D>(), smem_q = dq_tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(attn_dkv_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  err = launch_delta<bf16, D>(out, dout, delta, B, S, H, stream);
+  if (err != cudaSuccess) return err;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* ot = static_cast<const bf16*>(dout);
+  attn_dkv_tc_kernel<D><<<dim3(Hkv * nsplit, B, (S + BK - 1) / BK), TC_NT, smem_kv, stream>>>(
+      qt, kt, vt, ot, lse, delta, st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, nsplit,
+      S, H, Hkv, kind, scale, seed, thresh, inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (nsplit > 1) {
+    const size_t count = static_cast<size_t>(B) * S * Hkv * D;
+    err = gamer::reduce_splits(ws, static_cast<bf16*>(dk), count, nsplit, stream);
+    if (err != cudaSuccess) return err;
+    err = gamer::reduce_splits(ws + nsplit * count, static_cast<bf16*>(dv), count, nsplit, stream);
+    if (err != cudaSuccess) return err;
   }
+  attn_dq_tc_kernel<D><<<dim3(H, B, (S + BQ - 1) / BQ), TC_NT, smem_q, stream>>>(
+      qt, kt, vt, ot, lse, delta, st, static_cast<bf16*>(dq), S, H, Hkv, kind, scale, seed,
+      thresh, inv_keep);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v/dout/dq/dk/dv in dtype (gamer::DType), layouts as the forward; lse
-// and delta fp32 [B, H, S]. dropout as the forward (thresh = 0: off).
+// q/k/v/out/dout/dq/dk/dv in dtype (gamer::DType: bf16 -> tensor-core
+// kernels, fp32 -> CUDA-core kernels), layouts as the forward; out is the
+// forward's output, lse its fp32 [B, H, S] logsumexp; delta is an fp32
+// [B, H, S] scratch that this call fills with rowsum(dO * O). dropout as the
+// forward (thresh = 0: off). nsplit: shares of each dK/dV CTA's pairs (bf16
+// only; 1 for fp32); for nsplit > 1, ws is an fp32 scratch of
+// 2 * nsplit * B * S * Hkv * D. The pointers of the dtype tensors must be
+// 16-byte aligned (16-byte copies).
 extern "C" int gamer_fused_attention_bwd(const void* q, const void* k, const void* v,
-                                         const void* dout, const float* lse, const float* delta,
-                                         const int* attn, const int* sid, const int* act,
-                                         const int* blk, void* dq, void* dk, void* dv, int B,
-                                         int S, int H, int Hkv, int D, int kind, float scale,
-                                         unsigned int seed, unsigned int thresh, float inv_keep,
+                                         const void* out, const void* dout, const float* lse,
+                                         float* delta, const int* attn, const int* sid,
+                                         const int* act, const int* blk, void* dq, void* dk,
+                                         void* dv, float* ws, int B, int S, int H, int Hkv, int D,
+                                         int kind, float scale, unsigned int seed,
+                                         unsigned int thresh, float inv_keep, int nsplit,
                                          int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || kind < 0 || kind > 3)
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || kind < 0 || kind > 3 ||
+      nsplit <= 0 || B > 65535 || (S + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
   const Streams st{attn, sid, act, blk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == gamer::kFloat32)
-    return dispatch_d<float>(D, q, k, v, dout, lse, delta, st, dq, dk, dv, B, S, H, Hkv, kind,
-                             scale, seed, thresh, inv_keep, s);
-  if (dtype == gamer::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, st, dq, dk, dv, B, S, H,
-                                     Hkv, kind, scale, seed, thresh, inv_keep, s);
+#define GAMER_BWD_ARGS                                                                        \
+  q, k, v, out, dout, lse, delta, st, dq, dk, dv, ws, B, S, H, Hkv, kind, scale, seed, thresh, \
+      inv_keep, nsplit, s
+  if (dtype == gamer::kFloat32) {
+    switch (D) {
+      case 32: return launch_f32<32>(GAMER_BWD_ARGS);
+      case 64: return launch_f32<64>(GAMER_BWD_ARGS);
+      case 128: return launch_f32<128>(GAMER_BWD_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == gamer::kBFloat16) {
+    switch (D) {
+      case 32: return launch_bf16<32>(GAMER_BWD_ARGS);
+      case 64: return launch_bf16<64>(GAMER_BWD_ARGS);
+      case 128: return launch_bf16<128>(GAMER_BWD_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+#undef GAMER_BWD_ARGS
   return cudaErrorInvalidValue;
 }

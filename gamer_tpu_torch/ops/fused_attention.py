@@ -8,7 +8,9 @@ keyed on `dropout_seed` by the stateless hash `dropout_keep_tile`. For CUDA
 tensors it launches `csrc/fused_attention_fwd.cu` (saving the per-row
 logsumexp when a gradient is needed) behind a `torch.autograd.Function` whose
 backward launches `csrc/fused_attention_bwd.cu` (`fused_mask_attention_bwd`);
-both kernels serve every S. For CPU tensors it runs
+both kernels serve every S. The C entry points pick the kernel by dtype
+before any launch: bf16 runs on the tensor cores, fp32 on the CUDA cores
+(full fp32). For CPU tensors it runs
 `fused_mask_attention_plain`, the same function in plain PyTorch (masks from
 `ops/masks.py`, the same hash mask, then `modules/layers.attend`), whose
 backward is autograd.
@@ -21,6 +23,7 @@ plain PyTorch the uint32 arithmetic runs in int64 and wraps with
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -129,13 +132,33 @@ def _dropout_args(seed: int, rate: float) -> tuple[int, int, float]:
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address (the kernels copy 16-byte
+    vectors); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def dkv_splits(B: int, S: int, Hkv: int, G: int, kind: str, sms: int) -> int:
+    """Shares into which the bf16 dK/dV kernel splits each CTA's (query
+    head, query tile) pairs: enough that the longest CTA (key tile 0) holds
+    no more than an even share of the work over `sms` SMs at three CTAs each,
+    at most 8: on 132 SMs 1 at the flagship B 64 x S 505, 8 at B 1 x S 2048."""
+    nk = -(-S // 64)
+    longest = G * nk
+    causal = kind in ("causal", "multi")
+    total = G * B * Hkv * (nk * (nk + 1) // 2 if causal else nk * nk)
+    return max(1, min(8, longest, math.ceil(3 * sms * longest / total)))
 
 
 def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -159,20 +182,26 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
     if dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, num_heads, S):
         raise ValueError("dout/out must be shaped like q and lse [B, H, S]")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    dout = dout.to(q.dtype).contiguous()
-    # delta = rowsum(dO * O) per head, a plain reduce as in the JAX package
-    delta = (dout.float() * out.float()).view(B, S, num_heads, D).sum(-1).transpose(1, 2)
-    delta = delta.contiguous()
+    q, k, v, out = _aligned(q), _aligned(k), _aligned(v), _aligned(out.to(q.dtype))
+    dout = _aligned(dout.to(q.dtype))
     lse = lse.float().contiguous()
+    # rowsum(dO * O) per (head, row), filled by the library's delta kernel
+    delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
+    nsplit = 1
+    if q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nsplit = dkv_splits(B, S, Hkv, num_heads // Hkv, kind, sms)
+    ws = (torch.empty(2 * nsplit * k.numel(), dtype=torch.float32, device=q.device)
+          if nsplit > 1 else None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _build.launch("fused_attention_bwd", _BWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      *(t.data_ptr() for t in streams), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), B, S, num_heads, Hkv, D, KINDS[kind], D ** -0.5,
-                      *_dropout_args(dropout_seed, dropout_rate), _build.dtype_code(q),
-                      _build.stream_of(q))
+                      v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), *(t.data_ptr() for t in streams), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), ws.data_ptr() if ws is not None else None,
+                      B, S, num_heads, Hkv, D, KINDS[kind], D ** -0.5,
+                      *_dropout_args(dropout_seed, dropout_rate), nsplit,
+                      _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -52,3 +52,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert not torch.equal(a, FA.fused_mask_attention(*t, 0, H, "causal"))
     with pytest.raises(ValueError):
         FA.fused_mask_attention(*t, 0, H, "action_same")
+
+
+@pytest.mark.parametrize("B,S,kind,want", [(64, 505, "causal", 1), (1, 2048, "causal", 8),
+                                           (1, 8192, "causal", 3), (1, 2048, "session", 5),
+                                           (1, 5, "multi", 2)])
+def test_dkv_splits_fill_the_card(B, S, kind, want):
+    """The bf16 dK/dV kernel splits its pairs only where the grid would not
+    fill 132 SMs, at most 8 ways and never into more shares than pairs."""
+    assert FA.dkv_splits(B, S, 3, 2, kind, 132) == want
+
+
+def test_aligned_copies_only_misaligned_views():
+    t = torch.zeros(64, dtype=torch.bfloat16)
+    assert FA._aligned(t).data_ptr() == t.data_ptr()
+    view = t[1:33]  # 2 bytes past an aligned address
+    moved = FA._aligned(view)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)

@@ -177,3 +177,89 @@ def test_ce_backward_kernel_matches_plain(dev, dtype):
     _close(dh, rdh, dtype)
     _close(de, rde, dtype)
     assert (dh[val == 0] == 0).all()
+
+
+# ---- the bf16 tensor-core kernels of a and b (mma.sync): fragment
+# coordinates (dropout 0.2 on the same seed), ragged and sub-tile S, a batch
+# row with no allowed key, GQA groups 1-3, every head dim, split and unsplit
+# dK/dV, determinism
+
+def _tc_inputs(dev, B, S, G, D, seed):
+    rng = np.random.default_rng(seed)
+    Hkv = 2
+    attn = np.ones((B, S), np.int32)
+    attn[0, max(S - 9, 1):] = 0  # right padding
+    attn[B - 1] = 0  # a batch row with no key at all
+    sess = np.sort(rng.integers(0, 4, (B, S)), axis=1)
+    # actions cycle 1..7 from a random phase: under "multi" the action-1 rows
+    # have no allowed key and the others several, even at S 5 (a row with
+    # one key has dq = 0 up to rounding, which no relative check can read)
+    phase = rng.integers(0, 7, (B, 1))
+    phase[B // 2] = 0  # a row whose actions rise 1, 2, 3, ... from its start
+    act = (np.arange(S) + phase) % 7 + 1
+    blk = np.where(attn == 1, (np.cumsum(attn, 1) - 1) // 5, -1)
+    streams = [torch.as_tensor(x.astype(np.int32), device=dev) for x in (attn, sess, act, blk)]
+    q, k, v = (torch.as_tensor(rng.standard_normal((B, S, h * D)), dtype=torch.float32,
+                               device=dev).bfloat16() for h in (G * Hkv, Hkv, Hkv))
+    return q, k, v, streams, G * Hkv
+
+
+def _tc_check(dev, B, S, G, D, rate, kind, seed):
+    q, k, v, streams, H = _tc_inputs(dev, B, S, G, D, seed)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fused_mask_attention(*leaves, *streams, 1234, H, kind, rate)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed)).to(dev).bfloat16()
+    grads = torch.autograd.grad(out, leaves, dout)
+    up = [t.float() for t in (q, k, v)]
+    ref_out = fused_mask_attention_plain(*up, *streams, 1234, H, kind, rate)
+    ref = FA.fused_mask_attention_bwd_plain(*up, dout.float(), *streams, 1234, H, kind, rate)
+    torch.cuda.synchronize()
+    for got, want in zip((out, *grads), (ref_out, *ref)):
+        assert torch.isfinite(got.float()).all()
+        _close(got, want, torch.bfloat16)
+    for t in (out, *grads):  # the batch row with no allowed key: exactly 0
+        assert (t[B - 1] == 0).all()
+    empty = ref_out.abs().amax(-1) == 0
+    assert (out[empty] == 0).all() and (grads[0][empty] == 0).all()
+    return out, grads
+
+
+@pytest.mark.parametrize("kind", ["causal", "multi"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("S", [505, 5])
+def test_attention_tc_kernels_match_plain(dev, S, G, D, rate, kind):
+    """bf16 a and b (tensor cores) against the plain version in fp32 on the
+    same bf16 values, output and the three grads, at 2e-2."""
+    _tc_check(dev, 3, S, G, D, rate, kind, S + 10 * G + D)
+
+
+@pytest.mark.parametrize("kind", ["causal", "session_multi"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_tc_unsplit_dkv_matches_plain(dev, monkeypatch, kind, rate):
+    """The dK/dV kernel without splits (one CTA sums every pair, as at the
+    flagship batch) agrees with the plain version as the split one does."""
+    split_out, split_grads = _tc_check(dev, 3, 505, 2, 64, rate, kind, 77)
+    monkeypatch.setattr(FA, "dkv_splits", lambda *args: 1)
+    out, grads = _tc_check(dev, 3, 505, 2, 64, rate, kind, 77)
+    assert torch.equal(out, split_out)  # the forward does not split
+    for g, s in zip(grads, split_grads):
+        _close(g, s, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S", [(4, 505), (1, 2048)])
+def test_attention_tc_kernels_are_deterministic(dev, B, S):
+    """Two bf16 launches of a and of b on the same inputs are bit-identical
+    (no atomics; split partials added in a fixed order)."""
+    q, k, v, streams, H = _tc_inputs(dev, B, S, 2, 64, 5)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev).bfloat16()
+    runs = []
+    for _ in range(2):
+        out, lse = FA._launch_fwd(q, k, v, streams, 99, H, "causal", 0.2, with_lse=True)
+        grads = FA.fused_mask_attention_bwd(q, k, v, out, dout, lse, *streams, 99, H, "causal",
+                                            0.2)
+        runs.append((out, lse, *grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
