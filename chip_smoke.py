@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
    started together), and count each library's tensor-core instructions
    (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: the
-   attention libraries (a, b) must have some;
+   attention (a, b) and CE (j, k) libraries must have some;
 2. hold each forward kernel (a, h, j) against its plain PyTorch version at
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
@@ -20,9 +20,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the plain versions, with dropout 0 and 0.2 (the same seed on both sides),
    attention also at B 1 x S 2048 and 8192 (the lengths of the TPU's
    streaming and XL kernels c-g, which kernels a and b cover); two bf16
-   launches of a and b at B 64 x S 505, dropout 0.2, must be bit-identical;
-   the attention times are printed with their achieved TFLOP/s and share of
-   the bound;
+   launches of a and b at B 64 x S 505, dropout 0.2, and of j and k at the
+   flagship CE shape must be bit-identical; the attention and CE times are
+   printed with their achieved TFLOP/s and share of the bound;
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -198,7 +198,7 @@ def _cuobjdump() -> str:
 
 def tensor_core_counts() -> dict:
     """{library: {"HMMA": n, "HGMMA": n}} from each built library's SASS;
-    raises if an attention library has no tensor-core instruction."""
+    raises if an attention or CE library has no tensor-core instruction."""
     from gamer_tpu_torch.ops import _build
 
     tool, counts = _cuobjdump(), {}
@@ -208,7 +208,7 @@ def tensor_core_counts() -> dict:
         counts[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
         print(f"sass {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA "
               f"tensor-core instructions", flush=True)
-    for name in ("fused_attention_fwd", "fused_attention_bwd"):
+    for name in ("fused_attention_fwd", "fused_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"):
         if not sum(counts[name].values()):
             raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
     return counts
@@ -341,14 +341,16 @@ def kernel_phase(dev) -> dict:
     a32, a16 = (h, table, tgt, val, 1.0), (h.bfloat16(), table.bfloat16(), tgt, val, 1.0)
     err = _check("fused_ce_rows", fused_ce_rows, fused_ce_rows_plain, a32, a16)
     n_bytes = 2 * (h.numel() + table.numel()) + 4 * (2 * N) + 4 * (2 * N)
-    bound, by = _bound_ms(n_bytes, 2.0 * N * V * Dm)
+    flops = 2.0 * N * V * Dm
+    bound, by = _bound_ms(n_bytes, flops)
     ms = _cuda_ms(lambda: fused_ce_rows(*a16))
     plain_ms = _cuda_ms(lambda: fused_ce_rows_plain(*a16), iters=3)
     lib_ms = _cuda_ms(lambda: torch.logsumexp((a16[0] @ a16[1].T).float(), dim=-1))
     entries["fused_ce_rows"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                     bound_ms=bound, bound_by=by, max_abs_err=err)
-    print(f"time fused_ce_rows N={N} V={V} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"matmul+logsumexp {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    print(f"time fused_ce_rows N={N} V={V} bf16: kernel {ms:.4f} ms ({_rate(flops, ms, bound)}), "
+          f"plain {plain_ms:.4f} ms, matmul+logsumexp {lib_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by})", flush=True)
     return entries
 
 
@@ -550,11 +552,23 @@ def backward_phase(dev) -> dict:
     plain_ms = _grad_ms(pnll, leaves, gnll, iters=3)
     lib_ms = _grad_ms(lnll, leaves, gnll)
     n_bytes = 2 * 2 * (h.numel() + table.numel()) + 4 * 4 * N
-    bound, by = _bound_ms(n_bytes, 3 * 2.0 * N * V * Dm)
+    flops = 3 * 2.0 * N * V * Dm
+    bound, by = _bound_ms(n_bytes, flops)
     entries["fused_ce_rows_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                         bound_ms=bound, bound_by=by, max_abs_err=max(errs))
-    print(f"time fused_ce_rows_bwd N={N} V={V} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" matmul+logsumexp backward {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    print(f"time fused_ce_rows_bwd N={N} V={V} bf16: kernel {ms:.4f} ms "
+          f"({_rate(flops, ms, bound)}), plain {plain_ms:.4f} ms, matmul+logsumexp backward "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    # two bf16 launches of j and of k on the same inputs: bit-identical
+    runs = []
+    for _ in range(2):
+        nll, lse2 = FC._launch_fwd(h16, t16, tgt, val, 1.0)
+        runs.append((nll, lse2, *FC.fused_ce_rows_bwd(h16, t16, tgt, val, lse2, gnll, 1.0)))
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"check determinism j+k[N={N},V={V},bf16]: two launches "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise AssertionError("CE kernels j/k are not deterministic")
     return entries, long_s
 
 

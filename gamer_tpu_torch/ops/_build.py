@@ -116,6 +116,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address (the bf16 kernels copy
+    16-byte vectors); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def row_splits(rows: int, tiles: int, device: torch.device, multiple: int = 32) -> tuple[int, int]:
     """(splits, rows a split) dividing a reduction over `rows` so that
     `tiles` output tiles times the splits fill the device's SMs about four

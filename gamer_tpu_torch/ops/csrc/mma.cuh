@@ -20,7 +20,7 @@
 // Shared-memory tiles are bf16 rows of D + 8 elements (LD): the 16-byte pad
 // shifts consecutive rows by 4 banks, so the eight 16-byte rows one
 // `ldmatrix` 8x8 matrix reads fall in eight distinct bank quads (no
-// conflicts) for D = 32, 64 and 128.
+// conflicts) for D = 32, 64, 128 and 256.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,15 +102,17 @@ __device__ __forceinline__ const bf16* bk_addr(const bf16* tile, int ld, int k0,
 
 // Copy rows [r0, r0 + ROWS) of a bf16 matrix (row stride `stride`
 // elements, `g` at column 0 of this head) into a [ROWS][D + 8] shared tile
-// with 16-byte cp.async by NT threads; rows >= S are zero-filled.
+// with 16-byte cp.async by NT threads; rows >= S are zero-filled, and so
+// are columns >= width (a multiple of 8) where the matrix is narrower than
+// the tile, so products over all D columns stay exact.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* g, size_t stride, int r0,
-                                                int S) {
+                                                int S, int width = D) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = (i % CPR) * 8;
-    const bool in = r0 + r < S;
+    const bool in = r0 + r < S && c < width;
     cp_async_16(tile + r * (D + 8) + c, in ? g + static_cast<size_t>(r0 + r) * stride + c : g, in);
   }
 }

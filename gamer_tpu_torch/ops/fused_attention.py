@@ -137,13 +137,6 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """`t` contiguous at a 16-byte aligned address (the kernels copy 16-byte
-    vectors); a view at an odd offset is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def dkv_splits(B: int, S: int, Hkv: int, G: int, kind: str, sms: int) -> int:
     """Shares into which the bf16 dK/dV kernel splits each CTA's (query
     head, query tile) pairs: enough that the longest CTA (key tile 0) holds
@@ -158,7 +151,7 @@ def dkv_splits(B: int, S: int, Hkv: int, G: int, kind: str, sms: int) -> int:
 
 def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -182,8 +175,8 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
     if dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, num_heads, S):
         raise ValueError("dout/out must be shaped like q and lse [B, H, S]")
-    q, k, v, out = _aligned(q), _aligned(k), _aligned(v), _aligned(out.to(q.dtype))
-    dout = _aligned(dout.to(q.dtype))
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
+    out, dout = _build.aligned(out.to(q.dtype)), _build.aligned(dout.to(q.dtype))
     lse = lse.float().contiguous()
     # rowsum(dO * O) per (head, row), filled by the library's delta kernel
     delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)

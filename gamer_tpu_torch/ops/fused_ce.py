@@ -7,8 +7,12 @@ logsumexp, and nll = lse - logit[target] on valid rows (0 elsewhere). For
 CUDA tensors it launches `csrc/fused_ce_fwd.cu` behind a
 `torch.autograd.Function` whose backward launches `csrc/fused_ce_bwd.cu`
 (`fused_ce_rows_bwd`): dh = (softmax - onehot) * g * inv_t . E and an fp32 dE
-cast to the table's dtype. For CPU tensors it runs `fused_ce_rows_plain`,
-whose backward is autograd. Neither N nor V needs padding.
+cast to the table's dtype. The C entry points pick the kernels by dtype
+before any launch: bf16 runs on the tensor cores (D a multiple of 16 up to
+256; dlog rounded to bf16 before its two products, as the TPU kernel does),
+fp32 on the CUDA cores (full fp32). For CPU tensors it runs
+`fused_ce_rows_plain`, whose backward is autograd. Neither N nor V needs
+padding.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from gamer_tpu_torch.ops import _build
 
-TM, VC, D_MAX = 64, 64, 256  # row tile, vocab tile and widest D of the backward kernel
+TM, VC = 64, 64  # row tile and vocab tile of the kernels
+D_MAX = 256  # widest D of the backward kernels and of the bf16 forward
 
 
 def fused_ce_rows_plain(h, table, targets, valid, inv_t: float):
@@ -42,8 +47,22 @@ def _check(h, table, targets, valid):
                          f"targets {tuple(targets.shape)} valid {tuple(valid.shape)}")
     if table.dtype != h.dtype:
         raise TypeError("h and table must share one dtype")
-    return (N, D, V, h.contiguous(), table.contiguous(),
+    if h.dtype == torch.bfloat16 and (D % 16 or D > D_MAX):
+        raise ValueError(f"the bf16 CE kernels take D a multiple of 16 up to {D_MAX}, not {D}")
+    return (N, D, V, _build.aligned(h), _build.aligned(table),
             targets.to(dtype=torch.int32).contiguous(), valid.to(dtype=torch.int32).contiguous())
+
+
+def de_splits(N: int, V: int, sms: int) -> tuple[int, int]:
+    """(splits, rows a split) of the dE kernel's rows: its ceil(V / 64)
+    vocab tiles times the splits fit two waves of two CTAs on each of `sms`
+    SMs (no third, nearly empty wave trails the two), each split whole
+    64-row tiles and, where there are enough rows, at least 256.
+    On 132 SMs at the flagship N 32,256 and V 1041: 30 splits of 1088 rows,
+    510 CTAs."""
+    want = max(1, min(4 * sms // math.ceil(V / VC), math.ceil(N / 256)))
+    rows = math.ceil(math.ceil(N / want) / TM) * TM
+    return math.ceil(N / rows), rows
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
@@ -66,14 +85,16 @@ def _launch_fwd(h, table, targets, valid, inv_t):
 
 def fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
     """Kernel k: (dh, dtable) of the nll of `fused_ce_rows` for its incoming
-    gradient g [N] and saved lse [N] (CUDA tensors only; D <= 256)."""
+    gradient g [N] and saved lse [N] (CUDA tensors only; D <= 256, a
+    multiple of 16 in bf16)."""
     if h.device.type != "cuda":
         raise ValueError(f"fused_ce_rows_bwd launches a CUDA kernel; got {h.device}")
     N, D, V, h, table, targets, valid = _check(h, table, targets, valid)
     if D > D_MAX:
         raise ValueError(f"the CE backward kernel takes D <= {D_MAX}, not {D}")
     # the dE half splits the rows so that its vocab tiles fill the card
-    nsplit, rows = _build.row_splits(N, math.ceil(V / VC), h.device, multiple=TM)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    nsplit, rows = de_splits(N, V, sms)
     per_split = rows // TM
     ws = torch.empty(nsplit * V * D, dtype=torch.float32, device=h.device)
     dh, de = torch.empty_like(h), torch.empty_like(table)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from gamer_tpu.ops.pallas_attention import fused_mask_attention as jax_fused
+from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops import fused_attention as FA
 
 B, S, H, Hkv, D = 3, 40, 4, 2, 32
@@ -65,7 +66,7 @@ def test_dkv_splits_fill_the_card(B, S, kind, want):
 
 def test_aligned_copies_only_misaligned_views():
     t = torch.zeros(64, dtype=torch.bfloat16)
-    assert FA._aligned(t).data_ptr() == t.data_ptr()
+    assert _build.aligned(t).data_ptr() == t.data_ptr()
     view = t[1:33]  # 2 bytes past an aligned address
-    moved = FA._aligned(view)
+    moved = _build.aligned(view)
     assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)

@@ -263,3 +263,82 @@ def test_attention_tc_kernels_are_deterministic(dev, B, S):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---- the bf16 tensor-core kernels of j and k (mma.sync): targets in every
+# 64-column vocab chunk and in the ragged last one, a target past V, N and V
+# off the tiles and below one tile, every padded width, split and unsplit dE,
+# determinism
+
+def _ce_tc_inputs(dev, N, V, D, seed):
+    rng = np.random.default_rng(seed)
+    h = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32, device=dev).bfloat16()
+    table = torch.as_tensor(rng.standard_normal((V, D)) / np.sqrt(D), dtype=torch.float32,
+                            device=dev).bfloat16()
+    tgt = rng.integers(0, V, N)
+    valid = (rng.random(N) > 0.3).astype(np.int32)
+    # one target in each chunk, V - 1, and V + 3 (a padded column of the last
+    # chunk when V % 64 != 0, which must match nothing), on valid rows
+    special = np.concatenate([np.minimum(np.arange(0, V, 64) + seed % 64, V - 1), [V - 1, V + 3]])
+    rows = rng.permutation(N)[:len(special) + 1]
+    tgt[rows[:-1]] = special[:len(rows) - 1]
+    valid[rows[:-1]] = 1
+    valid[rows[-1]] = 0  # and an invalid row
+    as_dev = lambda x: torch.as_tensor(x.astype(np.int32), device=dev)
+    gnll = torch.as_tensor(rng.random(N), dtype=torch.float32, device=dev)
+    return h, table, as_dev(tgt), as_dev(valid), gnll
+
+
+def _ce_tc_check(dev, N, V, D, inv_t, seed):
+    h, table, tgt, val, gnll = _ce_tc_inputs(dev, N, V, D, seed)
+    nll, lse = FC._launch_fwd(h, table, tgt, val, inv_t)
+    dh, de = FC.fused_ce_rows_bwd(h, table, tgt, val, lse, gnll, inv_t)
+    rnll, rlse = fused_ce_rows_plain(h.float(), table.float(), tgt, val, inv_t)
+    rdh, rde = FC.fused_ce_rows_bwd_plain(h.float(), table.float(), tgt, val, gnll, inv_t)
+    torch.cuda.synchronize()
+    for got, want in ((nll, rnll), (lse, rlse), (dh, rdh), (de, rde)):
+        assert torch.isfinite(got.float()).all()
+        _close(got, want, torch.bfloat16)
+    assert (nll[val == 0] == 0).all() and (dh[val == 0] == 0).all()
+    return de
+
+
+@pytest.mark.parametrize("inv_t", [1.0, 1 / 0.7])
+@pytest.mark.parametrize("N,V", [(5, 17), (200, 333), (1000, 1041)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_ce_tc_kernels_match_plain(dev, D, N, V, inv_t):
+    """bf16 j and k (tensor cores) against the plain version in fp32 on the
+    same bf16 values: nll, lse, dh and dE at 2e-2; invalid rows get exactly
+    0 nll and 0 dh."""
+    _ce_tc_check(dev, N, V, D, inv_t, N + V + D)
+
+
+def test_ce_tc_unsplit_de_matches_plain(dev, monkeypatch):
+    """The dE kernel without row splits (one CTA sums every row of its vocab
+    tile) agrees with the plain version as the split one does."""
+    N, V, D = 1000, 1041, 256
+    split = _ce_tc_check(dev, N, V, D, 1 / 0.7, 3)
+    assert FC.de_splits(N, V, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
+    monkeypatch.setattr(FC, "de_splits", lambda n, v, sms: (1, -(-n // FC.TM) * FC.TM))
+    _close(_ce_tc_check(dev, N, V, D, 1 / 0.7, 3), split, torch.bfloat16)
+
+
+def test_ce_tc_kernels_are_deterministic(dev):
+    """Two bf16 launches of j and of k on the same inputs are bit-identical
+    (no atomics; split partials added in a fixed order)."""
+    h, table, tgt, val, gnll = _ce_tc_inputs(dev, 4096, 1041, 256, 9)
+    runs = []
+    for _ in range(2):
+        nll, lse = FC._launch_fwd(h, table, tgt, val, 1 / 0.7)
+        runs.append((nll, lse, *FC.fused_ce_rows_bwd(h, table, tgt, val, lse, gnll, 1 / 0.7)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_ce_bf16_rejects_widths_the_kernels_do_not_take(dev):
+    h, table, tgt, val, _ = _ce_tc_inputs(dev, 64, 100, 256, 1)
+    for width in (40, 272):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fused_ce_rows(h[:, :1].expand(64, width).contiguous(),
+                          table[:, :1].expand(100, width).contiguous(), tgt, val, 1.0)
