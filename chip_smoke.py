@@ -7,8 +7,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. build the six hand-written CUDA kernel libraries from
    `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
    started together), and count each library's tensor-core instructions
-   (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: the
-   attention (a, b) and CE (j, k) libraries must have some;
+   (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: every
+   library (attention a, b; MoE h, i; CE j, k) must have some;
 2. hold each forward kernel (a, h, j) against its plain PyTorch version at
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
@@ -20,9 +20,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the plain versions, with dropout 0 and 0.2 (the same seed on both sides),
    attention also at B 1 x S 2048 and 8192 (the lengths of the TPU's
    streaming and XL kernels c-g, which kernels a and b cover); two bf16
-   launches of a and b at B 64 x S 505, dropout 0.2, and of j and k at the
-   flagship CE shape must be bit-identical; the attention and CE times are
-   printed with their achieved TFLOP/s and share of the bound;
+   launches of a and b at B 64 x S 505, dropout 0.2, of h and i at the
+   flagship MoE shape with bias and dropout 0.2, and of j and k at the
+   flagship CE shape must be bit-identical; every time is printed with its
+   achieved TFLOP/s and share of the bound, and the MoE times beside a
+   yardstick: the same products alone as cuBLAS bf16 `torch.bmm` calls (2
+   for h, 5 for i), without the elementwise work, so not the function;
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -198,7 +201,7 @@ def _cuobjdump() -> str:
 
 def tensor_core_counts() -> dict:
     """{library: {"HMMA": n, "HGMMA": n}} from each built library's SASS;
-    raises if an attention or CE library has no tensor-core instruction."""
+    raises if a library has no tensor-core instruction."""
     from gamer_tpu_torch.ops import _build
 
     tool, counts = _cuobjdump(), {}
@@ -208,10 +211,17 @@ def tensor_core_counts() -> dict:
         counts[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
         print(f"sass {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA "
               f"tensor-core instructions", flush=True)
-    for name in ("fused_attention_fwd", "fused_attention_bwd", "fused_ce_fwd", "fused_ce_bwd"):
+    for name in _build.KERNEL_SOURCES:
         if not sum(counts[name].values()):
             raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
     return counts
+
+
+def _products_ms(products) -> float:
+    """Time of a list of (A, B) bf16 products as cuBLAS `torch.bmm` calls."""
+    import torch
+
+    return _cuda_ms(lambda: [torch.bmm(a, b) for a, b in products])
 
 
 def _check(name, kernel, plain, args32, args16):
@@ -327,10 +337,15 @@ def kernel_phase(dev) -> dict:
             bound, by = _bound_ms(n_bytes, flops)
             ms = _cuda_ms(lambda: kern(*a16))
             plain_ms = _cuda_ms(lambda: fused_moe_ffn_plain(*a16), iters=3)
+            h16 = rnd(P, T, Fd).bfloat16()
+            bmm_ms = _products_ms([(a16[0], a16[1]), (h16, a16[2])])
             entries["fused_moe_ffn"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                             bound_ms=bound, bound_by=by, max_abs_err=err)
-            print(f"time fused_moe_ffn P={P} T={T} bf16: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+            print(f"time fused_moe_ffn P={P} T={T} bf16: kernel {ms:.4f} ms "
+                  f"({_rate(flops, ms, bound)}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}); yardstick, its 2 products alone as cuBLAS bf16 bmm (no "
+                  f"elementwise work, not the function): {bmm_ms:.4f} ms "
+                  f"({_rate(flops, bmm_ms, bound)})", flush=True)
 
     # ---- j: tied-head CE, flagship N = 64 x 504 rows, V = 1041
     N, V = 64 * 504, cfg.vocab_size
@@ -488,6 +503,10 @@ def backward_phase(dev) -> dict:
     gout = rnd(P, T, Dm)
     beh = torch.as_tensor(np.random.default_rng(4).integers(0, NB, (P, T)).astype(np.int32),
                           device=dev)
+    n_bytes = 2 * 2 * (xp.numel() + wgu.numel() + wd.numel() + btab.numel()) \
+        + 2 * 2 * gout.numel() + 4 * beh.numel()
+    flops = 2.0 * P * T * (3 * Dm * 2 * Fd + 2 * Fd * Dm)
+    bound, by = _bound_ms(n_bytes, flops)
     i_ms, errs = [], []
     for use_bias in (True, False):
         for rate in (0.0, DROP_RATE):
@@ -515,14 +534,31 @@ def backward_phase(dev) -> dict:
         plain_ms = _grad_ms(pout, leaves, gout.bfloat16(), iters=3)
         i_ms.append((ms, plain_ms))
         print(f"time fused_moe_ffn_bwd P={P} T={T} bf16 bias={use_bias} rate {DROP_RATE}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    n_bytes = 2 * 2 * (xp.numel() + wgu.numel() + wd.numel() + btab.numel()) \
-        + 2 * 2 * gout.numel() + 4 * beh.numel()
-    bound, by = _bound_ms(n_bytes, 2.0 * P * T * (3 * Dm * 2 * Fd + 2 * Fd * Dm))
+              f"kernel {ms:.4f} ms ({_rate(flops, ms, bound)}), plain {plain_ms:.4f} ms",
+              flush=True)
+    # yardstick: the function's 5 products alone (gate/up recompute, dh, dx,
+    # dWgu, dWd) as cuBLAS bf16 bmm on operands of the same shapes
+    x16, w16, d16, g16 = (t.bfloat16() for t in (xp, wgu, wd, gout))
+    dgu16, h16 = rnd(P, T, 2 * Fd).bfloat16(), rnd(P, T, Fd).bfloat16()
+    bmm_ms = _products_ms([(x16, w16), (g16, d16.transpose(1, 2)), (dgu16, w16.transpose(1, 2)),
+                           (x16.transpose(1, 2), dgu16), (h16.transpose(1, 2), g16)])
+    print(f"yardstick fused_moe_ffn_bwd P={P} T={T}: its 5 products alone as cuBLAS bf16 bmm "
+          f"(no elementwise work, not the function) {bmm_ms:.4f} ms "
+          f"({_rate(flops, bmm_ms, bound)}); bound {bound:.4f} ms ({by})", flush=True)
+    # two bf16 launches of h and of i on the same inputs: bit-identical
+    b16 = btab.bfloat16()
+    runs = [(FM._launch_fwd(x16, w16, d16, b16, beh, DROP_SEED, DROP_RATE, True),
+             *FM.fused_moe_ffn_bwd(x16, w16, d16, b16, beh, g16, DROP_SEED, DROP_RATE, True))
+            for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"check determinism h+i[P={P},T={T},bias,rate={DROP_RATE},bf16]: two launches "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise AssertionError("MoE kernels h/i are not deterministic")
+    del runs
     entries["fused_moe_ffn_bwd"] = dict(
         ms=float(np.mean([m for m, _ in i_ms])), plain_ms=float(np.mean([p for _, p in i_ms])),
         library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=max(errs))
-    print(f"bound fused_moe_ffn_bwd: {bound:.4f} ms ({by})", flush=True)
 
     # ---- k: CE backward, flagship N = 64 x 504 rows, V = 1041
     N, V = 64 * 504, cfg.vocab_size

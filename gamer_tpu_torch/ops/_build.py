@@ -123,12 +123,12 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def row_splits(rows: int, tiles: int, device: torch.device, multiple: int = 32) -> tuple[int, int]:
-    """(splits, rows a split) dividing a reduction over `rows` so that
-    `tiles` output tiles times the splits fill the device's SMs about four
-    times over; each split is a multiple of `multiple` rows and, when there
-    are enough, at least 256."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(math.ceil(4 * sms / max(tiles, 1)), math.ceil(rows / 256)))
-    chunk = math.ceil(math.ceil(rows / want) / multiple) * multiple
+def split_rows(rows: int, tiles: int, sms: int, step: int) -> tuple[int, int]:
+    """(splits, rows a split) of a sum over `rows` that a kernel splits
+    across CTAs beside its `tiles` output tiles: tiles times the splits fit
+    two waves of two CTAs on each of `sms` SMs (no third, nearly empty wave
+    trails the two), each split whole `step`-row slices and, where there
+    are enough rows, about 256 rows or more."""
+    want = max(1, min(4 * sms // max(tiles, 1), math.ceil(rows / 256)))
+    chunk = math.ceil(math.ceil(rows / want) / step) * step
     return math.ceil(rows / chunk), chunk

@@ -11,30 +11,61 @@
 // The TPU kernel sums dWgu, dWd and dbtab in VMEM across its sequential
 // row-tile grid. CUDA blocks run in no order, so this library works in two
 // passes with a fixed summation order (deterministic, no atomics):
-//   pass 1  `moe_bwd_act_kernel`, one CTA per (64-row tile, expert, 32-column
-//           chunk of F): recomputes gate/up for its columns, forms dh from
-//           gout and Wd, and writes dgu [P, T, 2F] and h_drop [P, T, F] in
-//           the operand dtype. At the flagship shape (P 5, T 6464, F 512)
-//           that is 66 MB and 33 MB of bf16 written and read back, the
-//           traffic the one-pass TPU kernel avoided; it buys a backward with
-//           no cross-block reduction of the activations.
-//   pass 2  hand-written blocked products (`gemm_kernel`, 64 x 64 output
-//           tiles, fp32 sums): dx = dgu Wgu^T directly into dx; dWgu and dWd
+//   pass 1  recomputes gate/up for a tile of rows and a chunk of F, forms dh
+//           from gout and Wd, and writes dgu [P, T, 2F] and h_drop [P, T, F]
+//           in the operand dtype. At the flagship shape (P 5, T 6464, F 512)
+//           that is 66 MB and 33 MB of bf16 written and read back, about
+//           0.06 ms of traffic the one-pass TPU kernel avoided; it buys a
+//           backward with no cross-block reduction of the activations.
+//   pass 2  blocked products: dx = dgu Wgu^T directly into dx; dWgu and dWd
 //           split over T into fp32 partial sums so enough CTAs fill the 132
-//           SMs, then `gamer::reduce_splits` adds the splits in order and casts to
-//           the weights' dtype. `dbtab_kernel` sums dgu by behavior id the
-//           same way.
+//           SMs, then `gamer::reduce_splits` adds the splits in order and
+//           casts to the weights' dtype. dbtab is summed the same way.
 // The dropout mask is the forward's hash of (seed, p, t, f), regenerated.
 //
 // Bound on H100: operations. 2*P*T*(3*D*2F + 2*F*Dout) multiply-adds (gate/up
-// recompute, dx, dWgu; dh, dWd) against x, gout, the weights and the
-// gradients moved once. This first version runs on the CUDA cores in fp32
-// (FMA from shared memory); tensor cores are later work.
+// recompute, dx, dWgu; dh, dWd), 67.8 GFLOP at the flagship, against x,
+// gout, the weights and the gradients moved once.
+//
+// Dispatch by dtype, in the C entry point before any launch:
+//  - bf16, on the tensor cores (mma.sync m16n8k16, fp32 accumulators;
+//    mma.cuh, moe_tc.cuh):
+//    pass 1 `moe_bwd_act_tc_kernel`, one CTA per (64-row tile, expert,
+//      64-column chunk of F), 4 warps of 16 rows. Two products, each streamed
+//      over its depth in double-buffered 64-wide slices by 16-byte cp.async:
+//      g|u = x . Wgu[:, chunk] (the chunk's gate and up columns side by side,
+//      ldmatrix.trans) and dh = gout . Wd[chunk]^T (Wd stored [f][dout], plain
+//      ldmatrix). The epilogue on the accumulator fragments adds the bias,
+//      forms silu and silu', the keep mask with 1/keep on h and dh, and dgu in
+//      fp32. dbtab's partial sums over the tile's rows are taken from the fp32
+//      dgu, as the TPU kernel does (pallas_moe.py:124-130): the fp32 dgu
+//      goes to shared memory and each thread sums one column over the 64 rows
+//      in order, per behavior id, into a per-row-tile fp32 workspace that
+//      `reduce_splits` adds. dgu and h_drop are rounded to bf16
+//      (pallas_moe.py:113,121) and stored as bf16 pairs.
+//      The grid re-reads x and gout from L2 once per F chunk (8 at F 512)
+//      rather than every weight once per row tile: a CTA that walked all of
+//      F would hold x and gout (64 KB at 64 rows) beside its weight stages,
+//      one CTA an SM, where this one needs 53 KB and runs three an SM. dx is
+//      not fused into pass 1: it sums over all of F, which this grid splits.
+//    pass 2 `moe_gemm_tc_kernel<AT, BT>`, one templated product: 128 x 128
+//      output tiles, 8 warps of 64 x 32, 32-deep k slices in three cp.async
+//      stages; plain ldmatrix for an operand stored [m][k] or [n][k],
+//      ldmatrix.trans for one stored [k][m] or [k][n]: dx = dgu . Wgu^T
+//      (plain, plain; bf16 out), dWgu = x^T . dgu and dWd = h_drop^T . gout
+//      (trans, trans; fp32 partials split over T).
+//  - fp32, on the CUDA cores (fp32 FMA from shared memory), so fp32 callers
+//    get full fp32: pass 1 `moe_bwd_act_kernel` (64 rows x 32 columns of F a
+//    CTA), pass 2 `gemm_kernel` (64 x 64 tiles, strided loads for the
+//    transposed operands) and `dbtab_kernel` (dbtab from the stored dgu).
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "moe_tc.cuh"
 
 namespace {
 
+using namespace gamer::tc;
 using gamer::from_f;
 using gamer::to_f;
 
@@ -328,14 +359,377 @@ int run(const T* x, const T* wgu, const T* wd, const T* btab, const int* beh, co
   return cudaSuccess;
 }
 
+// ---- bf16 on the tensor cores
+
+constexpr int TC_NT = 128;  // pass 1 threads: 4 warps x 16 rows
+constexpr int P1_FC = 64;   // pass 1: F columns a CTA (gate and up each)
+constexpr int P1_KT = 64;   // pass 1: depth of a streamed slice
+constexpr int P1_LA = P1_KT + 8;      // x or gout slice [TM][P1_LA]
+constexpr int P1_LG = 2 * P1_FC + 8;  // gate|up slice of Wgu [P1_KT][P1_LG]
+constexpr int P1_LV = P1_KT + 8;      // Wd slice [P1_FC][P1_LV]
+constexpr int P1_STAGE =              // bf16 elements a stage
+    TM * P1_LA + (P1_KT * P1_LG > P1_FC * P1_LV ? P1_KT * P1_LG : P1_FC * P1_LV);
+constexpr int P1_LDG = 2 * P1_FC + 8;  // fp32 dgu tile [TM][P1_LDG] of the dbtab sums
+static_assert(TC_NT == 2 * P1_FC, "the dbtab sums take one thread a dgu column");
+
+size_t p1_smem_bytes(int NB) {
+  const size_t stages = 2 * sizeof(bf16) * P1_STAGE;
+  const size_t sums = sizeof(float) * (TM * P1_LDG + static_cast<size_t>(NB) * 2 * P1_FC) +
+                      sizeof(int) * TM;
+  return stages > sums ? stages : sums;
+}
+
+__global__ void __launch_bounds__(TC_NT, 3) moe_bwd_act_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
+    const bf16* __restrict__ btab, const int* __restrict__ beh, const bf16* __restrict__ gout,
+    bf16* __restrict__ dgu, bf16* __restrict__ hdrop, float* __restrict__ wsb, int T_rows, int D,
+    int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int NJ = P1_FC / 8;  // 8-wide column tiles of g, u and dh
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);  // stage s: x or gout slice, then weights
+
+  const int t0 = blockIdx.x * TM, p = blockIdx.y, f0 = blockIdx.z * P1_FC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t F2 = 2 * static_cast<size_t>(F);
+  const int fcols = min(P1_FC, F - f0);
+  const bf16* xp = x + (static_cast<size_t>(p) * T_rows + t0) * D;
+  const bf16* gp = gout + (static_cast<size_t>(p) * T_rows + t0) * Dout;
+  const bf16* wgup = wgu + static_cast<size_t>(p) * D * F2 + f0;
+  const bf16* wdp = wd + (static_cast<size_t>(p) * F + f0) * Dout;
+  const int na = (D + P1_KT - 1) / P1_KT;         // slices of g|u = x . Wgu over d
+  const int ns = na + (Dout + P1_KT - 1) / P1_KT;  // then of dh = gout . Wd^T over dout
+
+  auto load = [&](int s) {
+    bf16* a = stages + (s & 1) * P1_STAGE;
+    bf16* b = a + TM * P1_LA;
+    if (s < na) {
+      const int k0 = s * P1_KT;
+      const bf16* w = wgup + static_cast<size_t>(k0) * F2;
+      load_block_async<TM, P1_KT, TC_NT>(a, P1_LA, xp + k0, D, T_rows - t0, D - k0);
+      load_block_async<P1_KT, P1_FC, TC_NT>(b, P1_LG, w, F2, D - k0, fcols);               // gate
+      load_block_async<P1_KT, P1_FC, TC_NT>(b + P1_FC, P1_LG, w + F, F2, D - k0, fcols);  // up
+    } else {
+      const int k0 = (s - na) * P1_KT;
+      load_block_async<TM, P1_KT, TC_NT>(a, P1_LA, gp + k0, Dout, T_rows - t0, Dout - k0);
+      load_block_async<P1_FC, P1_KT, TC_NT>(b, P1_LV, wdp + k0, Dout, fcols, Dout - k0);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  float g[NJ][4], u[NJ][4], dh[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[j][e] = u[j][e] = dh[j][e] = 0.f;
+
+  for (int s = 0; s < ns; ++s) {
+    if (s + 1 < ns) load(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // slice s has landed
+    __syncthreads();
+    const bf16* a = stages + (s & 1) * P1_STAGE;
+    const bf16* b = a + TM * P1_LA;
+    if (s < na) {
+#pragma unroll
+      for (int kk = 0; kk < P1_KT; kk += 16) {
+        uint32_t xa[4];
+        ldsm_x4(xa, a_addr(a, P1_LA, warp * 16, kk, lane));
+        gamer::moe::gate_up_step<NJ>(g, u, xa, b, P1_LG, kk, P1_FC, lane);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < P1_KT; kk += 16) {
+        uint32_t ga[4];
+        ldsm_x4(ga, a_addr(a, P1_LA, warp * 16, kk, lane));
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t wb[4];
+          ldsm_x4(wb, bn_addr(b, P1_LV, np * 16, kk, lane));
+          mma_bf16(dh[2 * np], ga, wb[0], wb[1]);
+          mma_bf16(dh[2 * np + 1], ga, wb[2], wb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage s & 1 is refilled by the next iteration's prefetch
+  }
+  cp_async_wait<0>();
+
+  // epilogue on the fragments: this thread's rows t0 + warp*16 + lane/4 (+8)
+  int row[2];
+  const bf16* brow[2];
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = t0 + warp * 16 + lane / 4 + 8 * i;
+    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(p) * NB * F2,
+                                   beh + static_cast<size_t>(p) * T_rows, row[i], T_rows, NB,
+                                   use_bias, F2);
+    hrow[i] = gamer::hash_row(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row[i]));
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int f = f0 + 8 * j + 2 * (lane % 4);  // column of e = 0 and 2; e = 1, 3 at f + 1
+    const bool in = 8 * j < fcols;
+    float2 bg[2], bu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) gamer::moe::bias_pair(in ? brow[i] : nullptr, f, F, bg[i], bu[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const float gv = g[j][e] + ((e & 1) ? bg[i].y : bg[i].x);
+      const float uv = u[j][e] + ((e & 1) ? bu[i].y : bu[i].x);
+      const float sig = gamer::moe::sigmoid(gv), a = gv * sig;
+      float hv = a * uv, dhv = dh[j][e];
+      if (thresh > 0u) {
+        const bool keep = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f + (e & 1)), thresh);
+        hv = keep ? hv * inv_keep : 0.f;
+        dhv = keep ? dhv * inv_keep : 0.f;
+      }
+      g[j][e] = dhv * uv * sig * (1.f + gv * (1.f - sig));  // dg
+      u[j][e] = dhv * a;                                     // du
+      dh[j][e] = hv;                                         // h_drop
+    }
+  }
+  // dgu and h_drop rounded to bf16, stored as pairs
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= T_rows) continue;
+    const size_t r = static_cast<size_t>(p) * T_rows + row[i];
+    bf16* dgr = dgu + r * F2 + f0 + 2 * (lane % 4);
+    bf16* hr = hdrop + r * F + f0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (8 * j >= fcols) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dgr + 8 * j) =
+          __floats2bfloat162_rn(g[j][2 * i], g[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dgr + F + 8 * j) =
+          __floats2bfloat162_rn(u[j][2 * i], u[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(hr + 8 * j) =
+          __floats2bfloat162_rn(dh[j][2 * i], dh[j][2 * i + 1]);
+    }
+  }
+  if (!use_bias) return;
+
+  // dbtab partial sums of this row tile from the fp32 dgu: the tile goes to
+  // shared memory (over the drained stages), then thread c sums column c
+  // (gate columns of the chunk, then up) over the 64 rows in order, per id
+  float* Dg = reinterpret_cast<float*>(smem_raw);            // [TM][P1_LDG]
+  float* sums = Dg + TM * P1_LDG;                            // [NB][2 * P1_FC]
+  int* bid = reinterpret_cast<int*>(sums + NB * 2 * P1_FC);  // [TM]
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* d = Dg + (warp * 16 + lane / 4 + 8 * i) * P1_LDG + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(d) = make_float2(g[j][2 * i], g[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(d + P1_FC) = make_float2(u[j][2 * i], u[j][2 * i + 1]);
+    }
+  const int c = threadIdx.x;
+  if (c < TM) {
+    const int t = t0 + c;
+    const int id = t < T_rows ? beh[static_cast<size_t>(p) * T_rows + t] : -1;
+    bid[c] = (id >= 0 && id < NB) ? id : -1;
+  }
+  for (int a = 0; a < NB; ++a) sums[a * 2 * P1_FC + c] = 0.f;
+  __syncthreads();
+  for (int r = 0; r < TM; ++r) {
+    const int b = bid[r];
+    if (b >= 0) sums[b * 2 * P1_FC + c] += Dg[r * P1_LDG + c];
+  }
+  const int fl = c % P1_FC;
+  if (fl < fcols) {
+    float* out = wsb + (static_cast<size_t>(blockIdx.x) * gridDim.y + p) * NB * F2 +
+                 (c < P1_FC ? 0 : F) + f0 + fl;
+    for (int a = 0; a < NB; ++a) out[a * F2] = sums[a * 2 * P1_FC + c];
+  }
+}
+
+// Pass 2: C[split][p] (M x N) = sum over the split's k of A(p) . B(p), bf16
+// operands, fp32 sums. AT: A stored [k][m] (ldmatrix.trans), else [m][k];
+// BT: B stored [k][n] (ldmatrix.trans), else [n][k]; lda, ldb their row
+// strides and sa_p, sb_p the strides of an expert. The dimension stored in
+// columns must be a multiple of 8 (16-byte copies).
+constexpr int GM = 128, GN = 128, GK = 32;  // output tile, depth of a k slice
+constexpr int G_NT = 256;                   // 8 warps: 2 (m) x 4 (n) of 64 x 32
+constexpr int G_STAGES = 3;                 // cp.async stages of the k slices
+static_assert(GK == KT, "the splits are multiples of KT rows");
+
+struct TcGemmArgs {
+  int M, N, K, P, kchunk;
+  long long lda, ldb, sa_p, sb_p;
+};
+
+template <bool AT, bool BT>
+struct GemmTiles {
+  static constexpr int LA = (AT ? GM : GK) + 8, A_ELEMS = (AT ? GK : GM) * LA;
+  static constexpr int LB = (BT ? GN : GK) + 8, B_ELEMS = (BT ? GK : GN) * LB;
+  static constexpr size_t smem_bytes = sizeof(bf16) * G_STAGES * (A_ELEMS + B_ELEMS);
+};
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <bool AT, bool BT, typename OutT>
+__global__ void __launch_bounds__(G_NT, 2) moe_gemm_tc_kernel(const bf16* __restrict__ A,
+                                                              const bf16* __restrict__ B,
+                                                              OutT* __restrict__ C, TcGemmArgs g) {
+  using L = GemmTiles<AT, BT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // stage s: A slice
+  bf16* Bs = As + G_STAGES * L::A_ELEMS;         // stage s: B slice
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
+  const int p = blockIdx.z % g.P, split = blockIdx.z / g.P;
+  const int kb = split * g.kchunk, ke = min(g.K, kb + g.kchunk);
+  const int nk = max(0, (ke - kb + GK - 1) / GK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // the warp's 64 x 32 of the tile
+  const bf16* Ap = A + p * g.sa_p;
+  const bf16* Bp = B + p * g.sb_p;
+
+  auto load = [&](int s) {
+    const int k0 = kb + s * GK;
+    bf16* a = As + (s % G_STAGES) * L::A_ELEMS;
+    bf16* b = Bs + (s % G_STAGES) * L::B_ELEMS;
+    if constexpr (AT)
+      load_block_async<GK, GM, G_NT>(a, L::LA, Ap + k0 * g.lda + m0, g.lda, ke - k0, g.M - m0);
+    else
+      load_block_async<GM, GK, G_NT>(a, L::LA, Ap + m0 * g.lda + k0, g.lda, g.M - m0, ke - k0);
+    if constexpr (BT)
+      load_block_async<GK, GN, G_NT>(b, L::LB, Bp + k0 * g.ldb + n0, g.ldb, ke - k0, g.N - n0);
+    else
+      load_block_async<GN, GK, G_NT>(b, L::LB, Bp + n0 * g.ldb + k0, g.ldb, g.N - n0, ke - k0);
+  };
+
+  float acc[4][4][4];  // [m16 tile][n8 tile][element]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<G_STAGES - 2>();  // slice kt has landed
+    __syncthreads();                // and every warp is done with slice kt - 1
+    if (kt + G_STAGES - 1 < nk) load(kt + G_STAGES - 1);  // into the stage of slice kt - 1
+    cp_async_commit();
+    const bf16* a = As + (kt % G_STAGES) * L::A_ELEMS;
+    const bf16* b = Bs + (kt % G_STAGES) * L::B_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 16) {
+      uint32_t bf[2][4];
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        if constexpr (BT)
+          ldsm_x4_trans(bf[ni], bk_addr(b, L::LB, kk, wn + ni * 16, lane));
+        else
+          ldsm_x4(bf[ni], bn_addr(b, L::LB, wn + ni * 16, kk, lane));
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t af[4];
+        if constexpr (AT)
+          ldsm_x4_trans(af, at_addr(a, L::LA, kk, wm + mi * 16, lane));
+        else
+          ldsm_x4(af, a_addr(a, L::LA, wm + mi * 16, kk, lane));
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          mma_bf16(acc[mi][2 * ni], af, bf[ni][0], bf[ni][1]);
+          mma_bf16(acc[mi][2 * ni + 1], af, bf[ni][2], bf[ni][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  OutT* Cp = C + (static_cast<size_t>(split) * g.P + p) * g.M * g.N;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + wm + mi * 16 + lane / 4 + 8 * i;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = n0 + wn + nj * 8 + 2 * (lane % 4);
+        if (n < g.N)
+          store_pair(Cp + static_cast<size_t>(m) * g.N + n, acc[mi][nj][2 * i],
+                     acc[mi][nj][2 * i + 1]);
+      }
+    }
+}
+
+template <bool AT, bool BT, typename OutT>
+cudaError_t gemm_tc(const bf16* A, const bf16* B, OutT* C, TcGemmArgs g, int nsplit,
+                    cudaStream_t s) {
+  constexpr size_t smem = GemmTiles<AT, BT>::smem_bytes;
+  GAMER_TRY(cudaFuncSetAttribute(moe_gemm_tc_kernel<AT, BT, OutT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem)));
+  moe_gemm_tc_kernel<AT, BT, OutT>
+      <<<dim3((g.N + GN - 1) / GN, (g.M + GM - 1) / GM, g.P * nsplit), G_NT, smem, s>>>(A, B, C,
+                                                                                       g);
+  return cudaGetLastError();
+}
+
+// n_b / kc_b: the bf16 route sums dbtab per 64-row tile in pass 1, so its
+// splits are the row tiles (n_b = ceil(T / 64)); kc_b is not read.
+int run_bf16(const bf16* x, const bf16* wgu, const bf16* wd, const bf16* btab, const int* beh,
+             const bf16* gout, bf16* dx, bf16* dwgu, bf16* dwd, bf16* dbtab, bf16* dgu,
+             bf16* hdrop, float* ws, int P, int T_rows, int D, int F, int Dout, int NB,
+             int use_bias, uint32_t seed, uint32_t thresh, float inv_keep, int n_gu, int kc_gu,
+             int n_d, int kc_d, int n_b, int /*kc_b*/, cudaStream_t s) {
+  const long long F2 = 2LL * F;
+  const size_t smem = p1_smem_bytes(NB);
+  GAMER_TRY(cudaFuncSetAttribute(moe_bwd_act_tc_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem)));
+  moe_bwd_act_tc_kernel<<<dim3(n_b, P, (F + P1_FC - 1) / P1_FC), TC_NT, smem, s>>>(
+      x, wgu, wd, btab, beh, gout, dgu, hdrop, ws, T_rows, D, F, Dout, NB, use_bias, seed, thresh,
+      inv_keep);
+  GAMER_TRY(cudaGetLastError());
+  if (use_bias)
+    GAMER_TRY(gamer::reduce_splits<bf16>(ws, dbtab, static_cast<size_t>(P) * NB * F2, n_b, s));
+  // dx [T, D] = dgu [T, 2F] . Wgu[p]^T  (dgu [m][k], Wgu[p] [n][k])
+  GAMER_TRY(gemm_tc<false, false, bf16>(
+      dgu, wgu, dx, TcGemmArgs{T_rows, D, static_cast<int>(F2), P, static_cast<int>(F2), F2, F2,
+                               T_rows * F2, D * F2},
+      1, s));
+  // dWgu [D, 2F] = x^T . dgu, split over T  (x [k][m], dgu [k][n])
+  GAMER_TRY(gemm_tc<true, true, float>(
+      x, dgu, ws, TcGemmArgs{D, static_cast<int>(F2), T_rows, P, kc_gu, D, F2,
+                             static_cast<long long>(T_rows) * D, T_rows * F2},
+      n_gu, s));
+  GAMER_TRY(gamer::reduce_splits<bf16>(ws, dwgu, static_cast<size_t>(P) * D * F2, n_gu, s));
+  // dWd [F, Dout] = h_drop^T . gout, split over T  (h_drop [k][m], gout [k][n])
+  GAMER_TRY(gemm_tc<true, true, float>(
+      hdrop, gout, ws, TcGemmArgs{F, Dout, T_rows, P, kc_d, F, Dout,
+                                  static_cast<long long>(T_rows) * F,
+                                  static_cast<long long>(T_rows) * Dout},
+      n_d, s));
+  return gamer::reduce_splits<bf16>(ws, dwd, static_cast<size_t>(P) * F * Dout, n_d, s);
+}
+
 }  // namespace
 
-// All tensors contiguous in dtype (gamer::DType) except beh (int32 [P, T])
-// and ws (fp32 scratch of at least max(n_gu*P*D*2F, n_d*P*F*Dout,
-// n_b*P*NB*2F) floats). dgu [P, T, 2F] and hdrop [P, T, F] are scratch too.
-// n_* / kc_* are the number of splits over T and the rows a split covers
-// (a multiple of 32 for the products) of dWgu, dWd and dbtab. With
-// use_bias = 0, dbtab is not written.
+// All tensors contiguous in dtype (gamer::DType: bf16 -> tensor-core
+// kernels, fp32 -> CUDA-core kernels) except beh (int32 [P, T]) and ws (fp32
+// scratch of at least max(n_gu*P*D*2F, n_d*P*F*Dout, n_b*P*NB*2F) floats).
+// dgu [P, T, 2F] and hdrop [P, T, F] are scratch too. n_* / kc_* are the
+// number of splits over T and the rows a split covers (a multiple of 32 for
+// the products) of dWgu, dWd and dbtab; in bf16 n_b must be ceil(T / 64),
+// the row tiles of pass 1. bf16: D, F and Dout multiples of 16, the bf16
+// tensors 16-byte aligned. With use_bias = 0, dbtab is not written.
 extern "C" int gamer_fused_moe_bwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, const void* gout, void* dx,
                                    void* dwgu, void* dwd, void* dbtab, void* dgu, void* hdrop,
@@ -347,15 +741,22 @@ extern "C" int gamer_fused_moe_bwd(const void* x, const void* wgu, const void* w
       n_d <= 0 || n_b <= 0 || kc_gu % KT || kc_d % KT)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GAMER_RUN(TYPE)                                                                     \
-  run<TYPE>(static_cast<const TYPE*>(x), static_cast<const TYPE*>(wgu),                    \
+#define GAMER_RUN(FN, TYPE)                                                                 \
+  FN(static_cast<const TYPE*>(x), static_cast<const TYPE*>(wgu),                           \
             static_cast<const TYPE*>(wd), static_cast<const TYPE*>(btab), beh,             \
             static_cast<const TYPE*>(gout), static_cast<TYPE*>(dx), static_cast<TYPE*>(dwgu), \
             static_cast<TYPE*>(dwd), static_cast<TYPE*>(dbtab), static_cast<TYPE*>(dgu),   \
             static_cast<TYPE*>(hdrop), ws, P, T_rows, D, F, Dout, NB, use_bias, seed, thresh, \
             inv_keep, n_gu, kc_gu, n_d, kc_d, n_b, kc_b, s)
-  if (dtype == gamer::kFloat32) return GAMER_RUN(float);
-  if (dtype == gamer::kBFloat16) return GAMER_RUN(__nv_bfloat16);
+  if (dtype == gamer::kFloat32) return GAMER_RUN(run<float>, float);
+  if (dtype == gamer::kBFloat16) {
+    const void* ptrs[] = {x, wgu, wd, btab, gout, dx, dwgu, dwd, dbtab, dgu, hdrop};
+    uintptr_t addr = 0;
+    for (const void* t : ptrs) addr |= reinterpret_cast<uintptr_t>(t);
+    if (D % 16 || F % 16 || Dout % 16 || addr % 16 || n_b != (T_rows + TM - 1) / TM)
+      return cudaErrorInvalidValue;
+    return GAMER_RUN(run_bf16, bf16);
+  }
 #undef GAMER_RUN
   return cudaErrorInvalidValue;
 }

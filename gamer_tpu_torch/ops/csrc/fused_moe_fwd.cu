@@ -6,28 +6,59 @@
 //     h  = silu(gu[:, :F]) * gu[:, F:]
 //     h  = keep ? h / keep_frac : 0      (training: hash dropout)
 //     y  = h @ Wd[p]
-// The [T, 2F] gate/up activations never reach global memory: the kernel walks
-// F in chunks of 32, computes that chunk's gate and up columns for its 64
-// rows, forms h in shared memory, and accumulates its share of y in
-// registers, all in fp32. The dropout mask is the stateless hash of
-// (seed, expert p, absolute row t, column f) (common.cuh `hash_keep`), as
-// pallas_moe.py:80-82 keys it; T has no row padding here, so the coordinates
-// of real rows are the JAX kernel's.
+// The [T, 2F] gate/up activations never reach global memory: a CTA walks F
+// in chunks, computes that chunk's gate and up columns for its rows, forms h
+// and accumulates y = h @ Wd in registers. The dropout mask is the
+// stateless hash of (seed, expert p, absolute row t, column f) (common.cuh),
+// as pallas_moe.py:80-82 keys it; T has no row padding here, so the
+// coordinates of real rows are the JAX kernel's.
 //
 // Layout: x [P, T, D], wgu [P, D, 2F], wd [P, F, Dout], btab [P, NB, 2F],
 // beh [P, T] int32 (bias row id; ids outside [0, NB) add nothing, as in the
-// JAX kernel's per-id select), out [P, T, Dout]. One CTA per (64-row tile,
-// expert, 256-column tile of Dout).
+// JAX kernel's per-id select), out [P, T, Dout].
 //
 // Bound on H100: operations. 2*P*T*(D*2F + F*Dout) multiply-adds for
 // P*T*(D + Dout) activations and the weights moved once; at the flagship
-// shape that is hundreds of operations per byte. This first version uses the
-// CUDA cores (fp32 FMA from shared memory); tensor cores (wgmma) come later.
+// shape (P 5, T 6464, D 256, F 512, Dout 256) 25.4 GFLOP against 35 MB.
+//
+// Dispatch by dtype, in the C entry point before any launch:
+//  - bf16: `moe_fwd_tc_kernel`, on the tensor cores (mma.sync m16n8k16,
+//    fp32 accumulators; mma.cuh, moe_tc.cuh). One CTA per (64-row tile,
+//    expert, output-column tile of up to 256), 4 warps of 16 rows. The x
+//    tile is loaded once ([64][DP + 8], D padded to DP = 64, 128 or 256 with
+//    zeros); F is walked in chunks of 16, the chunk's gate|up columns of Wgu
+//    ([DP][16 | 16], ldmatrix.trans) and its 16 rows of Wd ([16][NO + 8],
+//    ldmatrix.trans) double-buffered by 16-byte cp.async. Per chunk a warp
+//    computes g and u of its 16 rows (16 k16 steps at D 256), adds the bias
+//    row, forms h = silu(g) * u in fp32, applies the dropout keep and 1/keep,
+//    rounds h to bf16 as the TPU kernel does (pallas_moe.py:83), and the
+//    packed accumulator fragments are directly the A operand of y += h . Wd
+//    over the chunk (one k16 step). y stays in fp32 registers across F and is
+//    stored once as bf16.
+//  - fp32: `moe_fwd_kernel`, fp32 FMA on the CUDA cores from shared memory
+//    (64 rows x 32 F columns a chunk, h in shared memory), so fp32 callers
+//    get full fp32.
+//
+// What bounds the bf16 design, and what it does about it:
+//  - registers: a warp's 16 x 256 fp32 y is 128 registers a thread, so the
+//    chunk is narrow (16 gate + 16 up columns, 16 registers) and x is read
+//    from shared memory for every product, not held in registers;
+//  - the weight stream: every CTA reads its expert's whole Wgu and Wd (768
+//    KB at the flagship) from L2, about 388 MB a call at 64 rows a CTA.
+//    Taller row tiles would halve that but leave 255 CTAs for 132 SMs at one
+//    CTA an SM; 64 rows give 505 CTAs at two an SM (92 KB of shared memory
+//    each);
+//  - ragged edges: cp.async zero-fills x rows past T, Wgu rows past D and
+//    Wd columns past Dout, so no stale value enters a product; rows past T
+//    take no bias and are not stored.
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "moe_tc.cuh"
 
 namespace {
 
+using namespace gamer::tc;
 using gamer::from_f;
 using gamer::to_f;
 
@@ -36,6 +67,8 @@ constexpr int FC = 32;   // F columns a chunk (gate and up each)
 constexpr int KT = 32;   // depth of a gate/up weight slice
 constexpr int DT = 256;  // output columns a CTA
 constexpr int NT = 256;  // threads: 16 row groups x 16 column lanes
+constexpr int TC_NT = 128;  // bf16 kernel threads: 4 warps x 16 rows
+constexpr int TC_FC = 16;   // bf16 chunk: F columns (gate and up each), one k16 step of y
 
 size_t smem_bytes(int D) {
   return sizeof(float) * (static_cast<size_t>(TM) * (D + 1) + KT * (2 * FC + 1) +
@@ -192,24 +225,201 @@ int launch(const void* x, const void* wgu, const void* wd, const void* btab, con
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores
+
+template <int DP, int NO>
+constexpr size_t tc_smem_bytes() {
+  // the x tile, then 2 stages of (gate|up columns of Wgu, rows of Wd)
+  return sizeof(bf16) * (TM * (DP + 8) + 2 * (DP * (2 * TC_FC + 8) + TC_FC * (NO + 8)));
+}
+
+template <int DP, int NO>
+__global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
+    const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
+    int T_rows, int D, int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh,
+    float inv_keep) {
+  constexpr int LX = DP + 8;           // x tile row stride
+  constexpr int LW = 2 * TC_FC + 8;    // gate|up tile row stride
+  constexpr int LV = NO + 8;           // Wd tile row stride
+  constexpr int KS = DP / 16;          // k16 steps of the gate/up product
+  constexpr int NJ = NO / 8;           // 8-wide y column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [TM][LX]
+  bf16* Ws = Xs + TM * LX;                       // stage s: [DP][LW]
+  bf16* Vs = Ws + 2 * DP * LW;                   // stage s: [TC_FC][LV]
+
+  const int t0 = blockIdx.x * TM, p = blockIdx.y, c0 = blockIdx.z * NO;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t F2 = 2 * static_cast<size_t>(F);
+  const bf16* wgup = wgu + static_cast<size_t>(p) * D * F2;
+  const bf16* wdp = wd + static_cast<size_t>(p) * F * Dout + c0;
+  const int ncols = min(NO, Dout - c0);
+  const int nc = F / TC_FC;
+
+  // this thread's two rows, t0 + warp*16 + lane/4 and + 8: bias row, hash row part
+  int row[2];
+  const bf16* brow[2];
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = t0 + warp * 16 + lane / 4 + 8 * i;
+    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(p) * NB * F2,
+                                   beh + static_cast<size_t>(p) * T_rows, row[i], T_rows, NB,
+                                   use_bias, F2);
+    hrow[i] = gamer::hash_row(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row[i]));
+  }
+
+  auto load_chunk = [&](int c) {
+    const int st = c & 1, f0 = c * TC_FC;
+    bf16* w = Ws + st * DP * LW;
+    load_block_async<DP, TC_FC, TC_NT>(w, LW, wgup + f0, F2, D, TC_FC);           // gate
+    load_block_async<DP, TC_FC, TC_NT>(w + TC_FC, LW, wgup + F + f0, F2, D, TC_FC);  // up
+    load_block_async<TC_FC, NO, TC_NT>(Vs + st * TC_FC * LV, LV,
+                                       wdp + static_cast<size_t>(f0) * Dout, Dout, TC_FC, ncols);
+  };
+  load_block_async<TM, DP, TC_NT>(Xs, LX, x + (static_cast<size_t>(p) * T_rows + t0) * D, D,
+                                  T_rows - t0, D);
+  load_chunk(0);
+  cp_async_commit();
+
+  float y[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) load_chunk(c + 1);
+    cp_async_commit();
+    const int f0 = c * TC_FC;
+    // the chunk's bias, read before the product so that its latency hides
+    float2 bg[2][2], bu[2][2];  // [row i][column tile j]: columns f0 + 8j + 2*(lane%4) + {0,1}
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        gamer::moe::bias_pair(brow[i], f0 + 8 * j + 2 * (lane % 4), F, bg[i][j], bu[i][j]);
+    cp_async_wait<1>();  // chunk c (and the x tile) have landed
+    __syncthreads();
+    const bf16* Wt = Ws + (c & 1) * DP * LW;
+    const bf16* Vt = Vs + (c & 1) * TC_FC * LV;
+
+    float g[2][4], u[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[j][e] = u[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk * 16 < D) {
+        uint32_t xa[4];
+        ldsm_x4(xa, a_addr(Xs, LX, warp * 16, kk * 16, lane));
+        gamer::moe::gate_up_step<2>(g, u, xa, Wt, LW, kk * 16, TC_FC, lane);
+      }
+    }
+
+    // h = dropout(silu(g + bias) * (u + bias)) in fp32, rounded to bf16 into
+    // the A fragment of y += h . Wd[chunk]
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float gv = g[j][e] + ((e & 1) ? bg[i][j].y : bg[i][j].x);
+        const float uv = u[j][e] + ((e & 1) ? bu[i][j].y : bu[i][j].x);
+        float hv = gv * gamer::moe::sigmoid(gv) * uv;
+        if (thresh > 0u) {
+          const int f = f0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          hv = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f), thresh) ? hv * inv_keep
+                                                                              : 0.f;
+        }
+        g[j][e] = hv;
+      }
+    const uint32_t ha[4] = {pack_bf16(g[0][0], g[0][1]), pack_bf16(g[0][2], g[0][3]),
+                            pack_bf16(g[1][0], g[1][1]), pack_bf16(g[1][2], g[1][3])};
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, bk_addr(Vt, LV, 0, np * 16, lane));
+      mma_bf16(y[2 * np], ha, vb[0], vb[1]);
+      mma_bf16(y[2 * np + 1], ha, vb[2], vb[3]);
+    }
+    __syncthreads();  // stage c & 1 is refilled by the next iteration's prefetch
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= T_rows) continue;
+    bf16* orow = out + (static_cast<size_t>(p) * T_rows + row[i]) * Dout + c0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (8 * j < ncols)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(y[j][2 * i], y[j][2 * i + 1]);
+  }
+}
+
+template <int DP, int NO>
+int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
+                void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
+                uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<DP, NO>();
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_tc_kernel<DP, NO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_rows + TM - 1) / TM, P, (Dout + NO - 1) / NO);
+  moe_fwd_tc_kernel<DP, NO><<<grid, TC_NT, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wgu), static_cast<const bf16*>(wd),
+      static_cast<const bf16*>(btab), beh, static_cast<bf16*>(out), T_rows, D, F, Dout, NB,
+      use_bias, seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
+
+#define GAMER_FWD_ARGS \
+  x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, seed, thresh, inv_keep, st
+
+// the output-column tile for Dout
+template <int DP>
+int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
+                  void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
+                  uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
+  if (Dout <= 64) return launch_bf16<DP, 64>(GAMER_FWD_ARGS);
+  if (Dout <= 128) return launch_bf16<DP, 128>(GAMER_FWD_ARGS);
+  return launch_bf16<DP, 256>(GAMER_FWD_ARGS);
+}
+
 }  // namespace
 
-// dtype: gamer::DType shared by x, wgu, wd, btab and out. The x tile lives in
-// shared memory, which bounds D (D <= 512 fits). thresh = 0 turns dropout
+// dtype: gamer::DType shared by x, wgu, wd, btab and out (bf16 ->
+// tensor-core kernel, fp32 -> CUDA-core kernel). fp32: the x tile lives in
+// shared memory, which bounds D (D <= 512 fits). bf16: D, F and Dout
+// multiples of 16, D <= 256 (any Dout: columns past 256 take more CTAs), the
+// bf16 tensors 16-byte aligned (16-byte copies). thresh = 0 turns dropout
 // off; inv_keep = 1 / keep fraction.
 extern "C" int gamer_fused_moe_fwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, void* out, int P,
                                    int T_rows, int D, int F, int Dout, int NB, int use_bias,
                                    unsigned int seed, unsigned int thresh, float inv_keep,
                                    int dtype, void* stream) {
-  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || D > 512)
+  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gamer::kFloat32)
-    return launch<float>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, seed,
-                         thresh, inv_keep, st);
-  if (dtype == gamer::kBFloat16)
-    return launch<__nv_bfloat16>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB,
-                                 use_bias, seed, thresh, inv_keep, st);
+  if (dtype == gamer::kFloat32) {
+    if (D > 512) return cudaErrorInvalidValue;
+    return launch<float>(GAMER_FWD_ARGS);
+  }
+  if (dtype == gamer::kBFloat16) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wgu) |
+                           reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(btab) |
+                           reinterpret_cast<uintptr_t>(out);
+    if (D % 16 || F % 16 || Dout % 16 || D > 256 || addr % 16) return cudaErrorInvalidValue;
+    if (D <= 64) return launch_bf16_d<64>(GAMER_FWD_ARGS);
+    if (D <= 128) return launch_bf16_d<128>(GAMER_FWD_ARGS);
+    return launch_bf16_d<256>(GAMER_FWD_ARGS);
+  }
   return cudaErrorInvalidValue;
 }
+#undef GAMER_FWD_ARGS

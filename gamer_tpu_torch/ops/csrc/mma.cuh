@@ -99,22 +99,39 @@ __device__ __forceinline__ const bf16* bk_addr(const bf16* tile, int ld, int k0,
                                                int lane) {
   return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
 }
+//  A operand from a tile stored [k][m] (ldmatrix.trans): the same four
+//  matrices as a_addr, each read transposed.
+__device__ __forceinline__ const bf16* at_addr(const bf16* tile, int ld, int k0, int m0,
+                                               int lane) {
+  return tile + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8;
+}
 
-// Copy rows [r0, r0 + ROWS) of a bf16 matrix (row stride `stride`
-// elements, `g` at column 0 of this head) into a [ROWS][D + 8] shared tile
-// with 16-byte cp.async by NT threads; rows >= S are zero-filled, and so
-// are columns >= width (a multiple of 8) where the matrix is narrower than
-// the tile, so products over all D columns stay exact.
-template <int ROWS, int D, int NT>
-__device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* g, size_t stride, int r0,
-                                                int S, int width = D) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
+// Copy a ROWS x COLS block of a bf16 matrix (row stride `stride` elements,
+// `g` at the block's first element) into a shared tile of row stride `ld`,
+// with 16-byte cp.async by NT threads; rows >= `rows` and columns >= `cols`
+// (a multiple of 8) are zero-filled, so a ragged edge adds nothing to a
+// product.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_block_async(bf16* tile, int ld, const bf16* g, size_t stride,
+                                                 int rows, int cols) {
+  constexpr int CPR = COLS / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = (i % CPR) * 8;
-    const bool in = r0 + r < S && c < width;
-    cp_async_16(tile + r * (D + 8) + c, in ? g + static_cast<size_t>(r0 + r) * stride + c : g, in);
+    const bool in = r < rows && c < cols;
+    cp_async_16(tile + r * ld + c, in ? g + static_cast<size_t>(r) * stride + c : g, in);
   }
+}
+
+// Copy rows [r0, r0 + ROWS) of a bf16 matrix (row stride `stride`
+// elements, `g` at column 0 of this head) into a [ROWS][D + 8] shared tile;
+// rows >= S are zero-filled, and so are columns >= width where the matrix
+// is narrower than the tile, so products over all D columns stay exact.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* g, size_t stride, int r0,
+                                                int S, int width = D) {
+  load_block_async<ROWS, D, NT>(tile, D + 8, g + static_cast<size_t>(r0) * stride, stride, S - r0,
+                                width);
 }
 
 }  // namespace tc

@@ -60,9 +60,7 @@ def de_splits(N: int, V: int, sms: int) -> tuple[int, int]:
     64-row tiles and, where there are enough rows, at least 256.
     On 132 SMs at the flagship N 32,256 and V 1041: 30 splits of 1088 rows,
     510 CTAs."""
-    want = max(1, min(4 * sms // math.ceil(V / VC), math.ceil(N / 256)))
-    rows = math.ceil(math.ceil(N / want) / TM) * TM
-    return math.ceil(N / rows), rows
+    return _build.split_rows(N, math.ceil(V / VC), sms, TM)
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,

@@ -8,8 +8,13 @@ on (seed, expert p, row t, column f). For CUDA tensors it launches
 `csrc/fused_moe_fwd.cu` behind a `torch.autograd.Function` whose backward
 launches `csrc/fused_moe_bwd.cu` (`fused_moe_ffn_bwd`): dx plus dWgu, dWd and
 dbtab summed in fp32 and cast to the weights' dtype, as the TPU kernel does.
-For CPU tensors it runs `fused_moe_ffn_plain`, whose backward is autograd.
-Unlike the TPU kernel, T needs no padding to a tile multiple.
+The C entry points pick the kernels by dtype before any launch: bf16 runs on
+the tensor cores (D, F and Dout multiples of 16, D up to 256; h rounded to
+bf16 before the down product, dgu and h_drop before the products that read
+them, dbtab summed from the fp32 dgu, as the TPU kernel does), fp32 on the
+CUDA cores (full fp32). For CPU tensors it runs `fused_moe_ffn_plain`, whose
+backward is autograd. Unlike the TPU kernel, T needs no padding to a tile
+multiple.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import torch.nn.functional as F
 from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops.fused_attention import (
     _dropout_args, hash_keep, keep_fraction)
+
+TM = 64  # row tile of the kernels; the bf16 backward sums dbtab per row tile
+D_MAX = 256  # widest D of the bf16 kernels
 
 
 def moe_keep_mask(seed: int, P: int, T: int, F: int, rate: float, device=None) -> torch.Tensor:
@@ -60,7 +68,33 @@ def _check(xp, wgu, wdown, btab, beh):
                          f"wdown {tuple(wdown.shape)} btab {tuple(btab.shape)} beh {tuple(beh.shape)}")
     if any(t.dtype != xp.dtype for t in (wgu, wdown, btab)):
         raise TypeError("xp, wgu, wdown and btab must share one dtype")
-    return P, T, D, Fd, Dout, NB
+    if xp.dtype == torch.bfloat16 and (D % 16 or Fd % 16 or Dout % 16 or D > D_MAX):
+        raise ValueError(f"the bf16 MoE kernels take D, F and Dout multiples of 16 and D up to "
+                         f"{D_MAX}, not D {D}, F {Fd}, Dout {Dout}")
+    return (P, T, D, Fd, Dout, NB, *(_build.aligned(t) for t in (xp, wgu, wdown, btab)),
+            beh.to(dtype=torch.int32).contiguous())
+
+
+def weight_grad_splits(T: int, P: int, D: int, F: int, Dout: int, sms: int,
+                       bf16: bool) -> tuple[int, int, int, int, int, int]:
+    """(n_gu, kc_gu, n_d, kc_d, n_b, kc_b): the splits over T, and the rows a
+    split covers, of kernel i's dWgu, dWd and dbtab sums on `sms` SMs
+    (`_build.split_rows`: output tiles times splits fit two waves of two CTAs
+    an SM, whole 32-row k slices). The products' output tiles are 128 x 128
+    in bf16 (tensor cores) and 64 x 64 in fp32; bf16 sums dbtab per 64-row
+    tile in pass 1, fp32 in a kernel of 256 columns a CTA. On 132 SMs at the
+    flagship (P 5, T 6464, D = Dout 256, F 512) in bf16: dWgu 80 tiles in 6
+    splits of 1088 rows (480 CTAs), dWd 40 tiles in 13 splits of 512 (520),
+    dbtab in the 101 row tiles."""
+    tile = 128 if bf16 else 64
+    tiles = lambda m, n: P * math.ceil(m / tile) * math.ceil(n / tile)
+    n_gu, kc_gu = _build.split_rows(T, tiles(D, 2 * F), sms, 32)
+    n_d, kc_d = _build.split_rows(T, tiles(F, Dout), sms, 32)
+    if bf16:
+        n_b, kc_b = math.ceil(T / TM), TM
+    else:
+        n_b, kc_b = _build.split_rows(T, P * math.ceil(2 * F / 256), sms, 1)
+    return n_gu, kc_gu, n_d, kc_d, n_b, kc_b
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
@@ -70,9 +104,7 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
 
 
 def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias):
-    P, T, D, Fd, Dout, NB = _check(xp, wgu, wdown, btab, beh)
-    xp, wgu, wdown, btab = (t.contiguous() for t in (xp, wgu, wdown, btab))
-    beh = beh.to(dtype=torch.int32).contiguous()
+    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh)
     out = torch.empty((P, T, Dout), dtype=xp.dtype, device=xp.device)
     with torch.cuda.device(xp.device):
         _build.launch("fused_moe_fwd", _FWD_ARGTYPES, xp.data_ptr(), wgu.data_ptr(),
@@ -90,17 +122,13 @@ def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: floa
     gradients are summed in fp32 and come out in the weights' dtype."""
     if xp.device.type != "cuda":
         raise ValueError(f"fused_moe_ffn_bwd launches a CUDA kernel; got {xp.device}")
-    P, T, D, Fd, Dout, NB = _check(xp, wgu, wdown, btab, beh)
+    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh)
     if gout.shape != (P, T, Dout):
         raise ValueError(f"gout must be [P, T, Dout], got {tuple(gout.shape)}")
-    xp, wgu, wdown, btab = (t.contiguous() for t in (xp, wgu, wdown, btab))
-    beh = beh.to(dtype=torch.int32).contiguous()
-    gout = gout.to(xp.dtype).contiguous()
-    # T is split so that the weight-gradient products fill the card
-    splits = lambda tiles, multiple=32: _build.row_splits(T, tiles, xp.device, multiple)
-    n_gu, kc_gu = splits(P * math.ceil(D / 64) * math.ceil(2 * Fd / 64))
-    n_d, kc_d = splits(P * math.ceil(Fd / 64) * math.ceil(Dout / 64))
-    n_b, kc_b = splits(P * math.ceil(2 * Fd / 256), multiple=1)
+    gout = _build.aligned(gout.to(xp.dtype))
+    sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
+    n_gu, kc_gu, n_d, kc_d, n_b, kc_b = weight_grad_splits(T, P, D, Fd, Dout, sms,
+                                                           xp.dtype == torch.bfloat16)
     ws_size = max(n_gu * P * D * 2 * Fd, n_d * P * Fd * Dout, n_b * P * NB * 2 * Fd)
     ws = torch.empty(ws_size, dtype=torch.float32, device=xp.device)
     dgu = torch.empty((P, T, 2 * Fd), dtype=xp.dtype, device=xp.device)

@@ -10,11 +10,11 @@ model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
 shapes of `chip_smoke.py`). For each it prints the wall time per iteration
 (timed without the profiler), the device busy share (summed kernel time over
 that wall time, one stream), the device kernels by total time and the sums
-of the attention and CE kernels (a: `attn_fwd*`; b: `attn_dkv*`, `attn_dq*`,
-`attn_delta*`; j: `ce_fwd*`; k: `ce_dh*`, `ce_de*`). The split reduce that
-b (at small batch) and k (always) end with is shared by name with the MoE
-kernels and is not counted in either group. Needs CUDA; builds the kernels
-first.
+of the attention, MoE and CE kernels (a: `attn_fwd*`; b: `attn_dkv*`,
+`attn_dq*`, `attn_delta*`; h: `moe_fwd*`; i: `moe_bwd*`, `moe_gemm*`; j:
+`ce_fwd*`; k: `ce_dh*`, `ce_de*`). The split reduce that b (at small batch),
+i and k end with is one kernel by name for all three and is counted in no
+group. Needs CUDA; builds the kernels first.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
         print(f"  {ms:9.4f} ms {100 * ms / busy_ms:5.1f}%  {e.count // iters:5d} calls  {name}")
     groups = {"attention a": ("attn_fwd",),
               "attention b": ("attn_dkv", "attn_dq", "attn_delta"),
+              "MoE h": ("moe_fwd",), "MoE i": ("moe_bwd", "moe_gemm"),
               "CE j": ("ce_fwd",), "CE k": ("ce_dh", "ce_de")}
     for label, keys in groups.items():
         ms = sum(dev(e) for e in kernels if any(k in e.key for k in keys)) / 1e3 / iters

@@ -1,7 +1,8 @@
 """Port parity: the fused MoE FFN (gamer_tpu_torch.ops.fused_moe) on the CPU,
 i.e. the kernel's plain version, against the JAX Pallas kernel in interpret
 mode, and PositionRoutedMLP's periodic, fused and one-hot paths against the
-JAX module. fp32, tolerance 1e-5."""
+JAX module. fp32, tolerance 1e-5; bf16 inputs through the kernel and its VJP;
+the weight-gradient products' splits over T."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,63 @@ def test_plain_version_matches_jax_kernel(use_bias):
     dropped = FM.fused_moe_ffn(*args, 5, rate=0.2, use_bias=use_bias)
     assert torch.equal(dropped, FM.fused_moe_ffn(*args, 5, rate=0.2, use_bias=use_bias))
     assert not torch.equal(dropped, got)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_plain_version_bf16_matches_jax_kernel(use_bias, rate):
+    """bf16 inputs (made in fp32 with numpy, rounded once, the same values on
+    both sides) through the plain version and its autograd, and through the
+    JAX kernel and its VJP in interpret mode: out, dx, dWgu, dWd and dbtab
+    at 2e-2 of their max. The TPU kernel rounds h to bf16 before the down
+    product (pallas_moe.py:83) and dgu and h_drop before the products that
+    read them (:113-121); the plain version keeps them in fp32, which the
+    tolerance covers. Ids outside [0, NB) add and receive nothing."""
+    P, T, D, F, NB = 2, TM, 128, 128, 4
+    rng = np.random.default_rng(11)
+    arrays = [rng.standard_normal((P, T, D)) * 0.5, rng.standard_normal((P, D, 2 * F)) / np.sqrt(D),
+              rng.standard_normal((P, F, D)) / np.sqrt(F), rng.standard_normal((P, NB, 2 * F)) * 0.3]
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    beh = rng.integers(-1, NB + 1, (P, T)).astype(np.int32)
+    gout = rng.standard_normal((P, T, D)).astype(np.float32)
+    f = lambda *w: jax_fused(*w, jnp.asarray(beh.reshape(P, T // TM, TM)), 9, "silu", rate,
+                             use_bias, True)
+    out, vjp = jax.vjp(f, *jargs)
+    want = [out, *vjp(jnp.asarray(gout, jnp.bfloat16))]
+
+    leaves = [torch.tensor(np.asarray(a.astype(jnp.float32))).bfloat16().requires_grad_(True)
+              for a in jargs]
+    got = FM.fused_moe_ffn(*leaves, torch.as_tensor(beh), 9, rate=rate, use_bias=use_bias)
+    grads = torch.autograd.grad(got, leaves, torch.as_tensor(gout).bfloat16(), allow_unused=True,
+                                materialize_grads=True)
+    assert got.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in grads)
+    for name, g, w in zip(("out", "dx", "dwgu", "dwd", "dbtab"), (got, *grads), want):
+        g, w = g.detach().float().numpy(), np.asarray(w.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+    if not use_bias:
+        assert (np.asarray(want[4], np.float32) == 0).all() and (grads[3] == 0).all()
+
+
+@pytest.mark.parametrize("T,P,D,F,bf16,want", [
+    (64 * 101, 5, 256, 512, True, (6, 1088, 13, 512, 101, 64)),  # the flagship, bf16
+    (64 * 101, 5, 256, 512, False, (1, 6464, 3, 2176, 26, 249)),  # and fp32
+    (99, 2, 64, 64, True, (1, 128, 1, 128, 2, 64)),  # too few rows to split
+    (5, 2, 64, 64, False, (1, 32, 1, 32, 1, 5)),
+    (10 ** 6, 8, 256, 1024, True, (2, 500000, 4, 250016, 15625, 64)),  # few splits fill the card
+])
+def test_weight_grad_splits_fill_two_waves(T, P, D, F, bf16, want):
+    """Each product's output tiles times its splits fit two waves of two CTAs
+    on 132 SMs; splits are whole 32-row k slices (dbtab: 64-row tiles in
+    bf16, any rows in fp32) and together cover every row once."""
+    got = FM.weight_grad_splits(T, P, D, F, D, 132, bf16)
+    assert got == want
+    tile = 128 if bf16 else 64
+    tiles = [P * -(-D // tile) * -(-2 * F // tile), P * -(-F // tile) * -(-D // tile)]
+    for (splits, rows), n_tiles in zip((got[0:2], got[2:4]), tiles):
+        assert rows % 32 == 0 and splits * rows >= T > (splits - 1) * rows
+        assert splits * n_tiles <= 4 * 132 or splits == 1
+    n_b, kc_b = got[4:]
+    assert n_b * kc_b >= T > (n_b - 1) * kc_b and (kc_b == FM.TM or not bf16)
 
 
 # (route_mode, JAX impl, port use_kernel)

@@ -73,8 +73,10 @@ def test_attention_kernel_matches_plain(dev, dtype, kind, S, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_moe_kernel_matches_plain(dev, dtype, use_bias):
+    """Ragged T; Dout past one 256-column tile (the bf16 kernels take
+    multiples of 16, the fp32 ones any width)."""
     g = torch.Generator().manual_seed(0)
-    P, T, D, F, Dout, NB = 3, 99, 96, 80, 300, 4
+    P, T, D, F, Dout, NB = 3, 99, 96, 80, 300 if dtype == torch.float32 else 304, 4
     rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
     xp, wgu, wd, btab = rnd(P, T, D), rnd(P, D, 2 * F) * D ** -0.5, rnd(P, F, Dout), rnd(P, NB, 2 * F)
     beh = torch.randint(-1, NB + 1, (P, T), generator=g).to(dev, torch.int32)
@@ -132,9 +134,10 @@ def test_attention_backward_kernel_matches_plain(dev, dtype, rate, kind, S, D):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_moe_backward_kernel_matches_plain(dev, dtype, rate, use_bias):
     """Kernels h and i against autograd through the plain version; T, F
-    and Dout are not tile multiples, some bias ids lie outside [0, NB)."""
+    and Dout are not tile multiples (multiples of 16 in bf16), some bias ids
+    lie outside [0, NB)."""
     g = torch.Generator().manual_seed(1)
-    P, T, D, F, Dout, NB = 3, 99, 96, 80, 136, 4
+    P, T, D, F, Dout, NB = 3, 99, 96, 80, 136 if dtype == torch.float32 else 144, 4
     rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
     xp, wgu, wd, btab = rnd(P, T, D), rnd(P, D, 2 * F) * D ** -0.5, rnd(P, F, Dout), rnd(P, NB, 2 * F)
     beh = torch.randint(-1, NB + 1, (P, T), generator=g).to(dev, torch.int32)
@@ -342,3 +345,83 @@ def test_ce_bf16_rejects_widths_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError, match="multiple of 16"):
             fused_ce_rows(h[:, :1].expand(64, width).contiguous(),
                           table[:, :1].expand(100, width).contiguous(), tgt, val, 1.0)
+
+
+# ---- the bf16 tensor-core kernels of h and i (mma.sync): every padded width
+# of D and of the output tile, T below one row tile, ragged and at the
+# flagship, bias ids outside [0, NB), dropout on one seed, split and unsplit
+# weight-gradient products, determinism
+
+def _moe_tc_inputs(dev, P, T, D, F, Dout, NB, seed):
+    rng = np.random.default_rng(seed)
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).bfloat16()
+    xp = as_dev(rng.standard_normal((P, T, D)))
+    wgu = as_dev(rng.standard_normal((P, D, 2 * F)) / np.sqrt(D))
+    wd = as_dev(rng.standard_normal((P, F, Dout)) / np.sqrt(F))
+    btab = as_dev(rng.standard_normal((P, NB, 2 * F)) * 0.5)
+    beh = torch.as_tensor(rng.integers(-1, NB + 1, (P, T)).astype(np.int32), device=dev)
+    gout = as_dev(rng.standard_normal((P, T, Dout)))
+    return xp, wgu, wd, btab, beh, gout
+
+
+def _moe_tc_check(dev, P, T, D, F, Dout, rate, use_bias, seed):
+    """bf16 h and i against the plain version in fp32 on the same bf16
+    values: out, dx, dWgu, dWd (and dbtab with bias) at 2e-2."""
+    xp, wgu, wd, btab, beh, gout = _moe_tc_inputs(dev, P, T, D, F, Dout, 4, seed)
+    out = FM._launch_fwd(xp, wgu, wd, btab, beh, 77, rate, use_bias)
+    grads = FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, 77, rate, use_bias)
+    up = [t.float() for t in (xp, wgu, wd, btab)]
+    ref_out = fused_moe_ffn_plain(*up, beh, use_bias, 77, rate)
+    ref = FM.fused_moe_ffn_bwd_plain(*up, beh, gout.float(), 77, rate, use_bias)
+    torch.cuda.synchronize()
+    n = 4 if use_bias else 3
+    for got, want in zip((out, *grads[:n]), (ref_out, *ref[:n])):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        _close(got, want, torch.bfloat16)
+    if not use_bias:
+        assert (grads[3] == 0).all()
+    return out, grads
+
+
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", [5, 99, 6464])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_moe_tc_kernels_match_plain(dev, width, T, rate, use_bias):
+    """D = F = Dout = width (each padded width of the x tile and of the
+    output tile); T below one row tile, ragged, and the flagship's."""
+    _moe_tc_check(dev, 2, T, width, width, width, rate, use_bias, T + width)
+
+
+def test_moe_tc_unsplit_weight_grads_match_plain(dev, monkeypatch):
+    """dWgu and dWd without splits over T (one CTA sums every row of its
+    tile) agree with the plain version as the split ones do."""
+    P, T, D, F = 2, 6464, 256, 512
+    split = _moe_tc_check(dev, P, T, D, F, D, 0.2, True, 3)[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = FM.weight_grad_splits(T, P, D, F, D, sms, True)
+    assert splits[0] > 1 and splits[2] > 1
+    whole = -(-T // 32) * 32
+    monkeypatch.setattr(FM, "weight_grad_splits", lambda *args: (1, whole, 1, whole, *splits[4:]))
+    unsplit = _moe_tc_check(dev, P, T, D, F, D, 0.2, True, 3)[1]
+    for a, b in zip(unsplit, split):
+        _close(a, b, torch.bfloat16)
+
+
+def test_moe_tc_kernels_are_deterministic(dev):
+    """Two bf16 launches of h and of i on the same inputs (bias, dropout
+    0.2) are bit-identical (no atomics; partials added in a fixed order)."""
+    xp, wgu, wd, btab, beh, gout = _moe_tc_inputs(dev, 5, 6464, 256, 512, 256, 4, 9)
+    runs = [(FM._launch_fwd(xp, wgu, wd, btab, beh, 5, 0.2, True),
+             *FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, 5, 0.2, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_moe_bf16_rejects_widths_the_kernels_do_not_take(dev):
+    for D, F, Dout in ((40, 64, 64), (272, 64, 64), (64, 72, 64), (64, 64, 100)):
+        xp, wgu, wd, btab, beh, _ = _moe_tc_inputs(dev, 1, 8, D, F, Dout, 2, 1)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fused_moe_ffn(xp, wgu, wd, btab, beh)
