@@ -13,8 +13,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
    max |kernel - plain| / max |plain|, TF32 off; attention also at S = 2048
-   and S = 8192 (B = 1). Each kernel is timed (CUDA events) beside its plain
-   version and, where one exists, one PyTorch library call of the same
+   and S = 8192 (B = 1), and h at each activation (silu, tanh-gelu, relu)
+   with bias and dropout 0.2. Each kernel is timed (CUDA events) beside its
+   plain version and, where one exists, one PyTorch library call of the same
    function;
 2b. the same for the backward kernels (b, i, k) against autograd through
    the plain versions, with dropout 0 and 0.2 (the same seed on both sides),
@@ -25,7 +26,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    flagship CE shape must be bit-identical; every time is printed with its
    achieved TFLOP/s and share of the bound, and the MoE times beside a
    yardstick: the same products alone as cuBLAS bf16 `torch.bmm` calls (2
-   for h, 5 for i), without the elementwise work, so not the function;
+   for h, 5 for i), without the elementwise work, so not the function; i
+   also at gelu and relu (bias, dropout 0.2);
+2c. the widths past the flagship's, forward and backward in both dtypes
+   against the plain versions, with their bf16 times and bounds: MoE h/i at
+   hidden 512 (D = Dout 512, F 1024) and at D 200, F 344 (the pad route), CE
+   j/k at D 512 and 1024, attention a/b at head dims 48, 96 and 256 (B 8 x
+   S 505);
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -42,10 +49,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    seeds (loss within 1e-5, every parameter's grad within 1e-3);
 6. the long-history step: one fp32 forward and backward at B 4 x S 2050
    and B 1 x S 5000, kernel path (a and b launches counted) against the
-   plain path (grads within 1e-3).
+   plain path (grads within 1e-3);
+7. the task pipeline through `python -m gamer_tpu_torch`'s `main(argv)` at
+   the flagship widths (`task_phase`): a synthetic dataset from the port's
+   generator, one bf16 epoch of train_SMB_decoder at batch 64 (per-step
+   launches as in phase 5, the C++ collation, the saved checkpoints, the
+   reloaded "best" giving the best eval loss), test_SMB_decoder with 20
+   beams and test_SMB_rule; prints the step time with host collation, the
+   eval's wall time and beams/s, and the metrics.
 
-Prints the times, then `{"kernels": [...]}`, then the card's name and power
-limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
+Prints the times and the total wall time, then `{"kernels": [...]}`, then the
+card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 """
 
@@ -347,6 +361,19 @@ def kernel_phase(dev) -> dict:
                   f"elementwise work, not the function): {bmm_ms:.4f} ms "
                   f"({_rate(flops, bmm_ms, bound)})", flush=True)
 
+    # ---- h at each activation (silu, tanh-gelu, relu), bias and dropout 0.2
+    for act in ("silu", "gelu", "relu"):
+        kern = lambda x, w1, w2, bt, bh: fused_moe_ffn(x, w1, w2, bt, bh, DROP_SEED, act, DROP_RATE,
+                                                       True)
+        plain = lambda x, w1, w2, bt, bh: fused_moe_ffn_plain(x, w1, w2, bt, bh, True, DROP_SEED,
+                                                              DROP_RATE, act)
+        a16 = (xp.bfloat16(), wgu.bfloat16(), wd.bfloat16(), btab.bfloat16(), beh)
+        _check(f"fused_moe_ffn[{act},bias,rate={DROP_RATE}]", kern, plain,
+               (xp, wgu, wd, btab, beh), a16)
+        ms = _cuda_ms(lambda: kern(*a16))
+        print(f"time fused_moe_ffn[{act}] P={P} T={T} bf16 bias rate {DROP_RATE}: kernel "
+              f"{ms:.4f} ms ({_rate(flops, ms, bound)})", flush=True)
+
     # ---- j: tied-head CE, flagship N = 64 x 504 rows, V = 1041
     N, V = 64 * 504, cfg.vocab_size
     h, table = rnd(N, Dm), rnd(V, Dm, scale=Dm ** -0.5)
@@ -536,6 +563,25 @@ def backward_phase(dev) -> dict:
         print(f"time fused_moe_ffn_bwd P={P} T={T} bf16 bias={use_bias} rate {DROP_RATE}: "
               f"kernel {ms:.4f} ms ({_rate(flops, ms, bound)}), plain {plain_ms:.4f} ms",
               flush=True)
+    # i at the other activations (bias, dropout 0.2); silu's time is the
+    # first of i_ms
+    for act in ("gelu", "relu"):
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            leaves = [t.to(dtype).requires_grad_(True) for t in (xp, wgu, wd, btab)]
+            out = FM.fused_moe_ffn(*leaves, beh, DROP_SEED, act, DROP_RATE, True)
+            grads = torch.autograd.grad(out, leaves, gout.to(dtype))
+            up = [t.detach().float() for t in leaves]
+            want = FM.fused_moe_ffn_bwd_plain(*up, beh, gout.to(dtype).float(), DROP_SEED,
+                                              DROP_RATE, True, act)
+            want_out = FM.fused_moe_ffn_plain(*up, beh, True, DROP_SEED, DROP_RATE, act)
+            torch.cuda.synchronize()
+            errs.append(_grad_check(f"moe h+i[{act},bias,rate={DROP_RATE},{dtype}]",
+                                    (out, *grads), (want_out, *want), tol))
+        a16 = [t.bfloat16() for t in (xp, wgu, wd, btab)]
+        ms = _cuda_ms(lambda: FM.fused_moe_ffn_bwd(*a16, beh, gout.bfloat16(), DROP_SEED,
+                                                    DROP_RATE, True, act))
+        print(f"time fused_moe_ffn_bwd[{act}] P={P} T={T} bf16 bias rate {DROP_RATE}: kernel "
+              f"{ms:.4f} ms ({_rate(flops, ms, bound)}); silu {i_ms[0][0]:.4f} ms", flush=True)
     # yardstick: the function's 5 products alone (gate/up recompute, dh, dx,
     # dWgu, dWd) as cuBLAS bf16 bmm on operands of the same shapes
     x16, w16, d16, g16 = (t.bfloat16() for t in (xp, wgu, wd, gout))
@@ -606,6 +652,99 @@ def backward_phase(dev) -> dict:
     if not same:
         raise AssertionError("CE kernels j/k are not deterministic")
     return entries, long_s
+
+
+def _width_case(name: str, fn, plain_fn, inputs: list, gout, flops: tuple, n_bytes: tuple,
+                card: str) -> None:
+    """One width case of phase 2c: `fn(*inputs)` through the kernels (forward
+    and autograd backward) against `plain_fn` in fp32, on fp32 inputs at
+    F32_TOL and on bf16 inputs at BF16_TOL; then the bf16 forward and
+    backward times beside their bounds (flops and bytes: forward, backward)."""
+    import torch
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        g = gout.to(out.dtype)
+        grads = torch.autograd.grad(out, leaves, g)
+        up = [t.detach().float().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            want_out = plain_fn(*up)
+            want = torch.autograd.grad(want_out, up, g.float())
+        torch.cuda.synchronize()
+        _grad_check(f"width {name} fwd+bwd [{dtype}]", (out, *grads), (want_out, *want), tol)
+        del out, grads, want_out, want
+    leaves = [t.detach().bfloat16().requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(lambda: fn(*leaves))
+    with torch.enable_grad():
+        out = fn(*leaves)
+    bwd_ms = _grad_ms(out, leaves, gout.to(out.dtype))
+    fb, fby = _bound_ms(n_bytes[0], flops[0])
+    bb, bby = _bound_ms(n_bytes[1], flops[1])
+    print(f"time width {name} bf16: forward {fwd_ms:.4f} ms ({_rate(flops[0], fwd_ms, fb)}; "
+          f"bound {fb:.4f} ms, {fby}), backward {bwd_ms:.4f} ms ({_rate(flops[1], bwd_ms, bb)}; "
+          f"bound {bb:.4f} ms, {bby}) (card {card})", flush=True)
+
+
+def width_phase(dev, card: str) -> None:
+    """Phase 2c: the widths past the flagship's, each through the kernels
+    forward and backward against the plain versions: MoE h/i at hidden 512
+    (D = Dout 512, F 1024, the streamed forward) and at D 200, F 344 (the pad
+    route), CE j/k at D 512 and 1024 (the wide kernels), attention a/b at
+    head dims 48, 96 (padded) and 256 at B 8 x S 505; bias and dropout 0.2
+    where the kernel has them."""
+    import torch
+
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(dev)
+    P, T, NB = 5, 64 * 101, 4
+    beh = torch.as_tensor(np.random.default_rng(6).integers(0, NB, (P, T)).astype(np.int32),
+                          device=dev)
+    for D, Fd in ((512, 1024), (200, 344)):
+        inputs = [rnd(P, T, D), rnd(P, D, 2 * Fd, scale=D ** -0.5),
+                  rnd(P, Fd, D, scale=Fd ** -0.5), rnd(P, NB, 2 * Fd, scale=0.5)]
+        io = 2 * (sum(t.numel() for t in inputs) + P * T * D) + 4 * beh.numel()
+        _width_case(f"moe h+i D={D} F={Fd} Dout={D} P={P} T={T}",
+                    lambda *w: FM.fused_moe_ffn(*w, beh, DROP_SEED, "silu", DROP_RATE, True),
+                    lambda *w: FM.fused_moe_ffn_plain(*w, beh, True, DROP_SEED, DROP_RATE),
+                    inputs, rnd(P, T, D),
+                    (2.0 * P * T * (D * 2 * Fd + Fd * D), 2.0 * P * T * (3 * D * 2 * Fd + 2 * Fd * D)),
+                    (io, 2 * io), card)
+    N, V = 64 * 504, 1041
+    rng = np.random.default_rng(7)
+    tgt = torch.as_tensor(rng.integers(0, V, N).astype(np.int32), device=dev)
+    val = torch.as_tensor((rng.random(N) > 0.2).astype(np.int32), device=dev)
+    for D in (512, 1024):
+        inputs = [rnd(N, D), rnd(V, D, scale=D ** -0.5)]
+        io = 2 * (N * D + V * D) + 16 * N
+        _width_case(f"ce j+k D={D} N={N} V={V}",
+                    lambda h, e: FC.fused_ce_rows(h, e, tgt, val, 1.0)[0],
+                    lambda h, e: FC.fused_ce_rows_plain(h, e, tgt, val, 1.0)[0],
+                    inputs, torch.rand(N, generator=g).to(dev) / N,
+                    (2.0 * N * V * D, 3 * 2.0 * N * V * D), (io, 2 * io), card)
+    B, S = 8, 505
+    for D in (48, 96, 256):
+        cfg = flagship_config(head_dim=D)
+        H = cfg.num_attention_heads
+        q, k, v, streams = _attn_inputs(dev, cfg, B, S, D, rnd)
+        from gamer_tpu_torch.ops.masks import streams_allowed
+
+        pairs = float(streams_allowed("causal", *streams).sum().item()) * H
+        io = 2 * (q.numel() + k.numel() + v.numel())
+        _width_case(f"attention a+b head_dim={D} B={B} S={S} causal",
+                    lambda *t: FA.fused_mask_attention(*t, *streams, DROP_SEED, H, "causal",
+                                                       DROP_RATE),
+                    lambda *t: FA.fused_mask_attention_plain(*t, *streams, DROP_SEED, H, "causal",
+                                                             DROP_RATE),
+                    [q, k, v], rnd(B, S, H * D),
+                    (4.0 * D * pairs, 10.0 * D * pairs),
+                    (io + 2 * q.numel() + 4 * B * H * S + 16 * B * S,
+                     2 * io + 2 * q.numel() + 8 * B * H * S + 16 * B * S), card)
 
 
 def _step_launches(cfg) -> dict:
@@ -726,6 +865,138 @@ def long_phase(dev, counters: dict) -> dict:
     return launches
 
 
+# phase 7's dataset: 4 levels of 256 codes (vocab 1041, as the flagship's), 3
+# behaviors, histories of 110-170 items, 700 users (3500 training examples:
+# 55 steps at batch 64)
+PHASE7_SPEC = dict(n_users=700, n_items=6000, n_clusters=256, num_levels=4,
+                   level_sizes=(256,) * 4, min_len=110, max_len=170, emb_dim=8, seed=0)
+PHASE7_TRAIN = ("--backbone", "Qwen3Multi", "--batch_size", "64", "--dtype", "bfloat16")
+
+
+def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PHASE7_SPEC,
+               train_args=PHASE7_TRAIN, extra_args=(), min_steps: int = 40,
+               num_beams: int = 20) -> None:
+    """Phase 7: the task pipeline of `python -m gamer_tpu_torch` at the
+    flagship widths, in process through `main(argv)`: a synthetic dataset
+    from the port's generator (`PHASE7_SPEC`; --max_his_len 100 gives
+    prompts of 100 blocks), one bf16 epoch of train_SMB_decoder (Qwen3Multi
+    from config/s2s-models/Qwen3Multi, batch 64), test_SMB_decoder with 20
+    beams at batch 128 from the saved "best", and test_SMB_rule --unique.
+    Gates: finite losses, each training step's launches exactly those of
+    phase 5 (none on the CPU), the C++ collation, the saved files, merged
+    metrics in [0, 1], and the model reloaded from "best" giving the
+    in-memory best eval loss within 1e-6 relative. `spec`, `train_args`,
+    `extra_args` (e.g. --device cpu) and the counts let a test run it tiny."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch import native
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.data.batching import DecoderBatcher
+    from gamer_tpu_torch.data.loading_smb import load_smb_train
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+    from gamer_tpu_torch.tasks.test_smb_decoder import load_generative_model
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train import loop as TL
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase7_", dir=here)
+    data, out = os.path.join(root, "data"), os.path.join(root, "ckpt")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    assert native._load() is not None and native.AVAILABLE, "the C++ collation did not build"
+    cli = lambda argv: main([*argv, *extra_args])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    # per-step launches and step stamps (host collation included), evals apart
+    steps, stamps, evals = [], [], []
+    step0, eval0 = TL.Trainer.train_step, TL.Trainer.evaluate
+
+    def snapshot():
+        return {k: w.launches for k, w in counters.items()}
+
+    def train_step(self, batch):
+        before = snapshot()
+        stamps.append(time.perf_counter())
+        loss = step0(self, batch)
+        steps.append({k: v - before[k] for k, v in snapshot().items()})
+        return loss
+
+    def evaluate(self, batches):
+        before = snapshot()
+        loss = eval0(self, batches)
+        evals.append({k: v - before[k] for k, v in snapshot().items()})
+        return loss
+
+    common = ["--dataset", "Synth", "--data_path", data, "--max_his_len", "100"]
+    TL.Trainer.train_step, TL.Trainer.evaluate = train_step, evaluate
+    try:
+        t = time.perf_counter()
+        res = cli(["train_SMB_decoder", *common, "--tasks", "smb_explicit_decoder_4",
+                   "--base_model", os.path.join(here, "config", "s2s-models", "Qwen3Multi"),
+                   *train_args, "--epochs", "1", "--output_dir", out])
+        sync()
+        fit_s = time.perf_counter() - t
+    finally:
+        TL.Trainer.train_step, TL.Trainer.evaluate = step0, eval0
+    losses = [h["train_loss"] for h in res["history"]] + [res["best_metric"]]
+    assert np.isfinite(losses).all(), f"non-finite losses {losses}"
+    cfg = QwenFamilyConfig.from_file(out)
+    expected = _step_launches(cfg) if dev.type == "cuda" else {k: 0 for k in counters}
+    assert len(steps) >= min_steps, f"only {len(steps)} training steps"
+    assert all(st == expected for st in steps), f"per-step launches {steps[:3]} != {expected}"
+    for name in ("best", "last", "config.json", "vocab.json"):
+        assert os.path.exists(os.path.join(out, name)), f"{name} was not saved"
+    step_ms = float(np.median(np.diff(stamps[1:]))) * 1e3
+    print(f"phase 7 train_SMB_decoder {' '.join(train_args)}: {len(steps)} steps + eval: "
+          f"train loss {res['history'][0]['train_loss']:.5f}, best valid loss "
+          f"{res['best_metric']:.6f}; launches each step {steps[0]}, eval {evals}; step "
+          f"{step_ms:.3f} ms median with host collation ({64 / (step_ms / 1e3):.1f} "
+          f"sequences/s; phase 5 random-batch step {phase5_ms:.3f} ms); fit {fit_s:.1f} s; "
+          f"native collation {native.AVAILABLE} (card {card})", flush=True)
+
+    # the model reloaded from "best" gives the in-memory best eval loss
+    model, cfg, _, _ = load_generative_model(out, "best", dev)
+    d = load_smb_train("Synth", data, 100, ".index.json", "smb_explicit_decoder_4")
+    seq_len = DecoderBatcher.for_examples(d.train + d.valid,
+                                          pad_multiple=math.lcm(d.builder.tc, 8)).seq_len
+    store = native.ExampleStore(d.valid, d.corpus.vocab.behavior_token_ids)
+    trainer = TL.Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
+                         TL.TrainLoopConfig(),
+                         eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
+    batch = int(train_args[train_args.index("--batch_size") + 1])
+    reloaded = trainer.evaluate(store.iterate(batch, seq_len))
+    rel = abs(reloaded - res["best_metric"]) / abs(res["best_metric"])
+    print(f"phase 7 reload: eval loss from 'best' {reloaded:.8f} vs in-memory best "
+          f"{res['best_metric']:.8f}, rel diff {rel:.3e} (tol 1e-6); seq_len {seq_len}",
+          flush=True)
+    assert rel <= 1e-6, "the reloaded checkpoint does not give the best eval loss"
+    del model, trainer
+
+    t = time.perf_counter()
+    ev = cli(["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path", out,
+              "--num_beams", str(num_beams), "--test_batch_size", "128",
+              "--results_file", os.path.join(root, "test.json")])
+    sync()
+    eval_s = time.perf_counter() - t
+    rule = cli(["test_SMB_rule", *common, "--test_task", "smb_explicit", "--unique",
+                "--results_file", os.path.join(root, "rule.json")])
+    for label, r in (("test_SMB_decoder", ev), ("test_SMB_rule", rule)):
+        assert r["merged"] and all(0.0 <= v <= 1.0 for v in r["merged"].values()), (label, r)
+    rows = sum(ev["counts"].values())
+    print(f"phase 7 test_SMB_decoder {num_beams} beams batch 128: {rows} rows in {eval_s:.3f} s "
+          f"wall ({rows * num_beams / eval_s:.1f} beams/s); merged "
+          f"{ {k: round(v, 5) for k, v in ev['merged'].items()} }; test_SMB_rule --unique merged "
+          f"{ {k: round(v, 5) for k, v in rule['merged'].items()} } (card {card})", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -740,6 +1011,7 @@ def main() -> int:
     from gamer_tpu_torch.ops import fused_ce as FC
     from gamer_tpu_torch.ops import fused_moe as FM
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -763,6 +1035,8 @@ def main() -> int:
     # 2b. backward kernels against autograd through the plain versions
     bwd_entries, long_s = backward_phase(dev)
     entries.update(bwd_entries)
+    # 2c. the widths past the flagship's
+    width_phase(dev, card)
 
     # 3. scoring forward, kernels then plain path, same weights
     cfg = flagship_config()
@@ -842,6 +1116,8 @@ def main() -> int:
                 "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
     train = train_phase(dev, counters, card)
     long_launches = long_phase(dev, counters)
+    # 7. the task pipeline through the CLI
+    task_phase(dev, counters, card, train["step_ms"])
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"
@@ -870,6 +1146,7 @@ def main() -> int:
         kernels.append(row(f"{kind}[{letter}: {fn}, launched at S={S_run}, timed at B=1 S={S_time}]",
                            src, f"{tpu}pallas_attention.py:{line}", long_launches[S_run][kind],
                            timing))
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,11 +35,8 @@ from torch import nn
 from gamer_tpu_torch.modules.dropout import hash_dropout
 from gamer_tpu_torch.modules.layers import embed
 from gamer_tpu_torch.ops.fused_attention import keep_fraction
+from gamer_tpu_torch.ops.fused_moe import ACTS as _ACTS
 from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, moe_keep_mask
-
-_ACTS = {"silu": F.silu, "relu": F.relu,
-         "gelu": lambda x: F.gelu(x, approximate="tanh"),
-         "gelu_new": lambda x: F.gelu(x, approximate="tanh")}
 
 
 class PositionRoutedMLP(nn.Module):

@@ -69,7 +69,10 @@
 //    CTA or, split, in split order;
 //  - head dims: the dkv kernel holds dK and dV (D fp32 registers a thread),
 //    so it walks a query tile in steps of QC columns (64 at D 32, 32 at D 64,
-//    16 at D 128) to bound the S^T and dP^T registers. Both kernels are
+//    16 at D 128 and 256) to bound the S^T and dP^T registers. At D 256 both
+//    bf16 kernels split the output columns over two CTAs (`TcCols`), each
+//    recomputing the scores, and the fp32 kernels take 32-row tiles
+//    (`F32Tile`) so that four tiles fit in shared memory. Both kernels are
 //    capped at 168 registers for D <= 64 (3 CTAs of 128 threads an SM);
 //    ptxas reports a 12-byte spill for the dkv kernel at D 64 under that cap
 //    and 8 bytes at D 128 (255 registers); without the cap the D 64 kernel
@@ -96,10 +99,20 @@ struct Streams {
   const int* blk;
 };
 
+// The fp32 kernels' square tile: R rows (and R columns) a thread of the
+// 16 x 16 thread grid, TB = 16 R query rows and keys a tile. Four query and
+// key tiles of D floats must fit in shared memory, so D 256 takes 32-row
+// tiles (R 2) and the narrower dims 64-row ones.
+template <int D>
+struct F32Tile {
+  static constexpr int R = D > 128 ? 2 : 4;
+  static constexpr int TB = 16 * R;
+};
+
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ) +
-         sizeof(int) * (4 * BK + 4 * BQ);
+  constexpr int TB = F32Tile<D>::TB;
+  return sizeof(float) * (4 * TB * (D + 1) + 2 * TB * (TB + 1) + 2 * TB) + sizeof(int) * 8 * TB;
 }
 
 // Shared-memory carve-up common to both kernels.
@@ -108,22 +121,23 @@ struct Tiles {
   float *Qs, *dOs, *Ks, *Vs, *Ps, *dSs, *lse_s, *delta_s;
   int *k_ok, *k_sid, *k_act, *k_blk, *q_in, *q_sid, *q_act, *q_blk;
   __device__ explicit Tiles(float* smem) {
-    Qs = smem;                    // [BQ][D+1]
-    dOs = Qs + BQ * (D + 1);      // [BQ][D+1]
-    Ks = dOs + BQ * (D + 1);      // [BK][D+1]
-    Vs = Ks + BK * (D + 1);       // [BK][D+1]
-    Ps = Vs + BK * (D + 1);       // [BQ][BK+1]  P_use
-    dSs = Ps + BQ * (BK + 1);     // [BQ][BK+1]  dS
-    lse_s = dSs + BQ * (BK + 1);  // [BQ]
-    delta_s = lse_s + BQ;         // [BQ]
-    k_ok = reinterpret_cast<int*>(delta_s + BQ);
-    k_sid = k_ok + BK;
-    k_act = k_sid + BK;
-    k_blk = k_act + BK;
-    q_in = k_blk + BK;
-    q_sid = q_in + BQ;
-    q_act = q_sid + BQ;
-    q_blk = q_act + BQ;
+    constexpr int TB = F32Tile<D>::TB;
+    Qs = smem;                    // [TB][D+1]
+    dOs = Qs + TB * (D + 1);      // [TB][D+1]
+    Ks = dOs + TB * (D + 1);      // [TB][D+1]
+    Vs = Ks + TB * (D + 1);       // [TB][D+1]
+    Ps = Vs + TB * (D + 1);       // [TB][TB+1]  P_use
+    dSs = Ps + TB * (TB + 1);     // [TB][TB+1]  dS
+    lse_s = dSs + TB * (TB + 1);  // [TB]
+    delta_s = lse_s + TB;         // [TB]
+    k_ok = reinterpret_cast<int*>(delta_s + TB);
+    k_sid = k_ok + TB;
+    k_act = k_sid + TB;
+    k_blk = k_act + TB;
+    q_in = k_blk + TB;
+    q_sid = q_in + TB;
+    q_act = q_sid + TB;
+    q_blk = q_act + TB;
   }
 };
 
@@ -132,16 +146,17 @@ template <int D>
 __device__ void load_q_tile(const Tiles<D>& t, const float* q, const float* dout, const float* lse,
                             const float* delta, const Streams& st, int q0, int h, int b, int S,
                             int H) {
+  constexpr int TB = F32Tile<D>::TB;
   const size_t qstride = static_cast<size_t>(H) * D;
   const size_t row0 = static_cast<size_t>(b) * S;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < TB * D; idx += NT) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
     const bool in = qi < S;
     const size_t off = (row0 + qi) * qstride + h * D + c;
     t.Qs[r * (D + 1) + c] = in ? q[off] : 0.f;
     t.dOs[r * (D + 1) + c] = in ? dout[off] : 0.f;
   }
-  for (int r = threadIdx.x; r < BQ; r += NT) {
+  for (int r = threadIdx.x; r < TB; r += NT) {
     const int qi = q0 + r;
     const bool in = qi < S;
     const size_t hr = (static_cast<size_t>(b) * H + h) * S + qi;
@@ -158,16 +173,17 @@ __device__ void load_q_tile(const Tiles<D>& t, const float* q, const float* dout
 template <int D>
 __device__ void load_k_tile(const Tiles<D>& t, const float* k, const float* v, const Streams& st,
                             int k0, int hk, int b, int S, int Hkv) {
+  constexpr int TB = F32Tile<D>::TB;
   const size_t kstride = static_cast<size_t>(Hkv) * D;
   const size_t row0 = static_cast<size_t>(b) * S;
-  for (int idx = threadIdx.x; idx < BK * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < TB * D; idx += NT) {
     const int r = idx / D, c = idx % D, ki = k0 + r;
     const bool in = ki < S;
     const size_t off = (row0 + ki) * kstride + hk * D + c;
     t.Ks[r * (D + 1) + c] = in ? k[off] : 0.f;
     t.Vs[r * (D + 1) + c] = in ? v[off] : 0.f;
   }
-  for (int r = threadIdx.x; r < BK; r += NT) {
+  for (int r = threadIdx.x; r < TB; r += NT) {
     const int ki = k0 + r;
     const bool in = ki < S;
     t.k_ok[r] = in ? (st.attn[row0 + ki] == 1) : 0;
@@ -182,40 +198,41 @@ __device__ void load_k_tile(const Tiles<D>& t, const float* k, const float* v, c
 template <int D>
 __device__ void tile_grads(const Tiles<D>& t, int kind, int q0, int k0, float scale, uint32_t bh,
                            uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int R = F32Tile<D>::R, TB = F32Tile<D>::TB;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
+    float qa[R], oa[R], kb[R], vb[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       qa[i] = t.Qs[(ty + 16 * i) * (D + 1) + d];
       oa[i] = t.dOs[(ty + 16 * i) * (D + 1) + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       kb[j] = t.Ks[(tx + 16 * j) * (D + 1) + d];
       vb[j] = t.Vs[(tx + 16 * j) * (D + 1) + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
         dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
       }
   }
   const bool drop = thresh > 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const int qpos = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j;
       const int kpos = k0 + c;
       const bool ok = t.q_in[r] &&
@@ -228,8 +245,8 @@ __device__ void tile_grads(const Tiles<D>& t, int kind, int q0, int k0, float sc
                                  static_cast<uint32_t>(kpos), thresh)
                     ? p * inv_keep
                     : 0.f;
-      t.Ps[r * (BK + 1) + c] = p_use;
-      t.dSs[r * (BK + 1) + c] = p_use * dp[i][j] - p * t.delta_s[r];
+      t.Ps[r * (TB + 1) + c] = p_use;
+      t.dSs[r * (TB + 1) + c] = p_use * dp[i][j] - p * t.delta_s[r];
     }
   }
 }
@@ -240,9 +257,10 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     Streams st, float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv, int kind,
     float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int R = F32Tile<D>::R, TB = F32Tile<D>::TB;
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * TB;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / Hkv;
@@ -250,17 +268,17 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
   constexpr int DC = D / 16;
 
   load_k_tile<D>(t, k, v, st, k0, hk, b, S, Hkv);
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[R][DC], dv_acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   // causal kinds: query tiles that end before this key tile see none of it
-  const int q_begin = (kind == gamer::kCausal || kind == gamer::kMulti) ? (k0 / BQ) * BQ : 0;
+  const int q_begin = (kind == gamer::kCausal || kind == gamer::kMulti) ? k0 : 0;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    for (int q0 = q_begin; q0 < S; q0 += BQ) {
+    for (int q0 = q_begin; q0 < S; q0 += TB) {
       __syncthreads();  // previous tile's reads are done
       load_q_tile<D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
       __syncthreads();
@@ -268,12 +286,12 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
                     inv_keep);
       __syncthreads();
 #pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pu[4], ds[4], od[DC], qd[DC];
+      for (int r = 0; r < TB; ++r) {
+        float pu[R], ds[R], od[DC], qd[DC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pu[i] = t.Ps[r * (BK + 1) + ty + 16 * i];
-          ds[i] = t.dSs[r * (BK + 1) + ty + 16 * i];
+        for (int i = 0; i < R; ++i) {
+          pu[i] = t.Ps[r * (TB + 1) + ty + 16 * i];
+          ds[i] = t.dSs[r * (TB + 1) + ty + 16 * i];
         }
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
@@ -281,7 +299,7 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
           qd[j] = t.Qs[r * (D + 1) + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < DC; ++j) {
             dv_acc[i][j] = fmaf(pu[i], od[j], dv_acc[i][j]);
@@ -294,7 +312,7 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
   const size_t kstride = static_cast<size_t>(Hkv) * D;
   const size_t row0 = static_cast<size_t>(b) * S;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int ki = k0 + ty + 16 * i;
     if (ki >= S) continue;
 #pragma unroll
@@ -312,9 +330,10 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     Streams st, float* __restrict__ dq, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
     uint32_t thresh, float inv_keep) {
+  constexpr int R = F32Tile<D>::R, TB = F32Tile<D>::TB;
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -322,15 +341,15 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
   constexpr int DC = D / 16;
 
   load_q_tile<D>(t, q, dout, lse, delta, st, q0, h, b, S, H);
-  float dq_acc[4][DC];
+  float dq_acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) dq_acc[i][j] = 0.f;
 
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + TB, S) - 1;
   const int k_end = (kind == gamer::kCausal || kind == gamer::kMulti) ? q_last + 1 : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = 0; k0 < k_end; k0 += TB) {
     __syncthreads();
     load_k_tile<D>(t, k, v, st, k0, hk, b, S, Hkv);
     __syncthreads();
@@ -338,14 +357,14 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
                   inv_keep);
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float ds[4], kd[DC];
+    for (int c = 0; c < TB; ++c) {
+      float ds[R], kd[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = t.dSs[(ty + 16 * i) * (BK + 1) + c];
+      for (int i = 0; i < R; ++i) ds[i] = t.dSs[(ty + 16 * i) * (TB + 1) + c];
 #pragma unroll
       for (int j = 0; j < DC; ++j) kd[j] = t.Ks[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < DC; ++j) dq_acc[i][j] = fmaf(ds[i], kd[j], dq_acc[i][j]);
     }
@@ -354,7 +373,7 @@ __global__ void __launch_bounds__(NT) attn_dq_kernel(
   const size_t qstride = static_cast<size_t>(H) * D;
   const size_t row0 = static_cast<size_t>(b) * S;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
 #pragma unroll
@@ -370,19 +389,23 @@ __global__ void __launch_bounds__(256) attn_delta_kernel(const T* __restrict__ o
                                                          const T* __restrict__ dout,
                                                          float* __restrict__ delta, int S, int H,
                                                          size_t rows) {
-  constexpr int EPV = 16 / sizeof(T);  // elements a 16-byte load
-  constexpr int LPR = D / EPV;         // lanes a row (4 to 32, divides 32)
+  constexpr int EPV = 16 / sizeof(T);                       // elements a 16-byte load
+  constexpr int LPR = D / EPV < 32 ? D / EPV : 32;           // lanes a row (4 to 32)
+  constexpr int VPL = D / EPV / LPR;                         // 16-byte loads a lane
   const size_t gid = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
   const size_t row = gid / LPR;  // (b * S + s) * H + h
   float acc = 0.f;
   if (row < rows) {
-    const size_t off = row * D + (gid % LPR) * EPV;
-    const uint4 ov = *reinterpret_cast<const uint4*>(out + off);
-    const uint4 gv = *reinterpret_cast<const uint4*>(dout + off);
-    const T* oe = reinterpret_cast<const T*>(&ov);
-    const T* ge = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-    for (int e = 0; e < EPV; ++e) acc = fmaf(to_f(oe[e]), to_f(ge[e]), acc);
+    for (int u = 0; u < VPL; ++u) {
+      const size_t off = row * D + ((gid % LPR) + u * LPR) * EPV;
+      const uint4 ov = *reinterpret_cast<const uint4*>(out + off);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + off);
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) acc = fmaf(to_f(oe[e]), to_f(ge[e]), acc);
+    }
   }
 #pragma unroll
   for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -409,15 +432,24 @@ constexpr size_t dq_tc_smem_bytes() {
   return sizeof(bf16) * (2 * BQ + 4 * BK) * (D + 8) + 2 * BK * sizeof(int4);
 }
 
+// Output columns a bf16 CTA owns: all of D up to 128; at D 256 two CTAs
+// take 128 columns each of dK/dV (dQ), recomputing the scores, because a
+// warp cannot hold 16 x 256 fp32 accumulators of both dK and dV.
 template <int D>
-__global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
+struct TcCols {
+  static constexpr int DO = D > 128 ? 128 : D;
+  static constexpr int NCB = D / DO;  // column blocks
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : 3) attn_dkv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dk, bf16* __restrict__ dv,
     float* __restrict__ ws, int nsplit, int S, int H, int Hkv, int kind, float scale,
     uint32_t seed, uint32_t thresh, float inv_keep) {
   constexpr int LD = D + 8;
-  constexpr int NDT = D / 8;               // 8-wide dK/dV column tiles
+  constexpr int NDT = TcCols<D>::DO / 8;   // 8-wide dK/dV column tiles of this CTA
   constexpr int QC = D > 64 ? 16 : D > 32 ? 32 : 64;  // query columns a step (registers)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                  // [BK][LD]
@@ -429,7 +461,9 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
   const int nq = (S + BQ - 1) / BQ;
   const int kt = blockIdx.z;  // key tile 0 first: it has the most query tiles
   const int k0 = kt * BK;
-  const int hk = blockIdx.x / nsplit, split = blockIdx.x % nsplit;
+  const int dc0 = (blockIdx.x % TcCols<D>::NCB) * TcCols<D>::DO;  // this CTA's columns
+  const int hs = blockIdx.x / TcCols<D>::NCB;
+  const int hk = hs / nsplit, split = hs % nsplit;
   const int b = blockIdx.y;
   const int G = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -568,8 +602,8 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
 #pragma unroll
         for (int np = 0; np < NDT / 2; ++np) {
           uint32_t ob[4], qb[4];
-          ldsm_x4_trans(ob, bk_addr(dOs, LD, qc + kc * 16, np * 16, lane));
-          ldsm_x4_trans(qb, bk_addr(Qs, LD, qc + kc * 16, np * 16, lane));
+          ldsm_x4_trans(ob, bk_addr(dOs, LD, qc + kc * 16, dc0 + np * 16, lane));
+          ldsm_x4_trans(qb, bk_addr(Qs, LD, qc + kc * 16, dc0 + np * 16, lane));
           mma_bf16(dv_acc[2 * np], pa, ob[0], ob[1]);
           mma_bf16(dv_acc[2 * np + 1], pa, ob[2], ob[3]);
           mma_bf16(dk_acc[2 * np], da, qb[0], qb[1]);
@@ -585,7 +619,7 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (kpos[i] >= S) continue;
-    const size_t off = (row0 + kpos[i]) * kstride + hk * D + 2 * (lane % 4);
+    const size_t off = (row0 + kpos[i]) * kstride + hk * D + dc0 + 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < NDT; ++c) {
       const float k0v = dk_acc[c][2 * i] * scale, k1v = dk_acc[c][2 * i + 1] * scale;
@@ -603,13 +637,13 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dkv_tc_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
+__global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : 3) attn_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dq, int S, int H, int Hkv,
     int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
   constexpr int LD = D + 8;
-  constexpr int NDT = D / 8;  // 8-wide dQ column tiles
+  constexpr int NDT = TcCols<D>::DO / 8;  // 8-wide dQ column tiles of this CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);           // [BQ][LD]
   bf16* dOs = Qs + BQ * LD;                               // [BQ][LD]
@@ -618,7 +652,8 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
 
   const int nq = (S + BQ - 1) / BQ;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * BQ;  // longest rows first
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / TcCols<D>::NCB;
+  const int dc0 = (blockIdx.x % TcCols<D>::NCB) * TcCols<D>::DO;  // this CTA's columns
   const int b = blockIdx.y;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -739,7 +774,7 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
 #pragma unroll
       for (int np = 0; np < NDT / 2; ++np) {
         uint32_t kb[4];
-        ldsm_x4_trans(kb, bk_addr(Ks, LD, kc * 16, np * 16, lane));
+        ldsm_x4_trans(kb, bk_addr(Ks, LD, kc * 16, dc0 + np * 16, lane));
         mma_bf16(dq_acc[2 * np], da, kb[0], kb[1]);
         mma_bf16(dq_acc[2 * np + 1], da, kb[2], kb[3]);
       }
@@ -751,7 +786,7 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= S) continue;
-    bf16* row = dq + (row0 + qpos[i]) * qstride + h * D + 2 * (lane % 4);
+    bf16* row = dq + (row0 + qpos[i]) * qstride + h * D + dc0 + 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < NDT; ++c)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) =
@@ -762,7 +797,9 @@ __global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : 3) attn_dq_tc_kernel(
 template <typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, float* delta, int B, int S, int H,
                          cudaStream_t stream) {
-  constexpr int LPR = D * static_cast<int>(sizeof(T)) / 16;
+  constexpr int LPR = D * static_cast<int>(sizeof(T)) / 16 < 32
+                          ? D * static_cast<int>(sizeof(T)) / 16
+                          : 32;
   const size_t rows = static_cast<size_t>(B) * S * H;
   const size_t blocks = (rows * LPR + 255) / 256;
   attn_delta_kernel<T, D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
@@ -790,12 +827,13 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out, con
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* ot = static_cast<const float*>(dout);
-  attn_dkv_kernel<D><<<dim3((S + BK - 1) / BK, Hkv, B), NT, smem, stream>>>(
+  constexpr int TB = F32Tile<D>::TB;
+  attn_dkv_kernel<D><<<dim3((S + TB - 1) / TB, Hkv, B), NT, smem, stream>>>(
       qt, kt, vt, ot, lse, delta, st, static_cast<float*>(dk), static_cast<float*>(dv), S, H,
       Hkv, kind, scale, seed, thresh, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dq_kernel<D><<<dim3((S + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+  attn_dq_kernel<D><<<dim3((S + TB - 1) / TB, H, B), NT, smem, stream>>>(
       qt, kt, vt, ot, lse, delta, st, static_cast<float*>(dq), S, H, Hkv, kind, scale, seed,
       thresh, inv_keep);
   return cudaGetLastError();
@@ -821,7 +859,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* ot = static_cast<const bf16*>(dout);
-  attn_dkv_tc_kernel<D><<<dim3(Hkv * nsplit, B, (S + BK - 1) / BK), TC_NT, smem_kv, stream>>>(
+  constexpr int NCB = TcCols<D>::NCB;
+  attn_dkv_tc_kernel<D><<<dim3(Hkv * nsplit * NCB, B, (S + BK - 1) / BK), TC_NT, smem_kv,
+                          stream>>>(
       qt, kt, vt, ot, lse, delta, st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, nsplit,
       S, H, Hkv, kind, scale, seed, thresh, inv_keep);
   err = cudaGetLastError();
@@ -833,7 +873,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
     err = gamer::reduce_splits(ws + nsplit * count, static_cast<bf16*>(dv), count, nsplit, stream);
     if (err != cudaSuccess) return err;
   }
-  attn_dq_tc_kernel<D><<<dim3(H, B, (S + BQ - 1) / BQ), TC_NT, smem_q, stream>>>(
+  attn_dq_tc_kernel<D><<<dim3(H * NCB, B, (S + BQ - 1) / BQ), TC_NT, smem_q, stream>>>(
       qt, kt, vt, ot, lse, delta, st, static_cast<bf16*>(dq), S, H, Hkv, kind, scale, seed,
       thresh, inv_keep);
   return cudaGetLastError();
@@ -847,7 +887,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 // [B, H, S] scratch that this call fills with rowsum(dO * O). dropout as the
 // forward (thresh = 0: off). nsplit: shares of each dK/dV CTA's pairs (bf16
 // only; 1 for fp32); for nsplit > 1, ws is an fp32 scratch of
-// 2 * nsplit * B * S * Hkv * D. The pointers of the dtype tensors must be
+// 2 * nsplit * B * S * Hkv * D. Head dims 32, 64, 128 and 256 are compiled
+// (the wrapper pads others). The pointers of the dtype tensors must be
 // 16-byte aligned (16-byte copies).
 extern "C" int gamer_fused_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const float* lse,
@@ -870,6 +911,7 @@ extern "C" int gamer_fused_attention_bwd(const void* q, const void* k, const voi
       case 32: return launch_f32<32>(GAMER_BWD_ARGS);
       case 64: return launch_f32<64>(GAMER_BWD_ARGS);
       case 128: return launch_f32<128>(GAMER_BWD_ARGS);
+      case 256: return launch_f32<256>(GAMER_BWD_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -878,6 +920,7 @@ extern "C" int gamer_fused_attention_bwd(const void* q, const void* k, const voi
       case 32: return launch_bf16<32>(GAMER_BWD_ARGS);
       case 64: return launch_bf16<64>(GAMER_BWD_ARGS);
       case 128: return launch_bf16<128>(GAMER_BWD_ARGS);
+      case 256: return launch_bf16<256>(GAMER_BWD_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -60,10 +60,12 @@
 //    max is replaced by 0 in exp2(s - m) while it is -inf, so no
 //    exp(-inf - -inf) is formed and l stays 0;
 //  - GQA: the kv head is h / G for G = H / Hkv, any G;
-//  - head dims 32, 64, 128: O takes D/2 fp32 registers a thread (64 at D
-//    128); Q is read from shared memory per product, not held in registers.
-//    Register caps of 4, 3 and 2 CTAs an SM (D 32, 64, 128) keep every
-//    instantiation free of spills.
+//  - head dims 32, 64, 128, 256 (the wrapper zero-pads the others): O takes
+//    D/2 fp32 registers a thread (128 at D 256); Q is read from shared
+//    memory per product, not held in registers. Register caps of 4, 3 and 2
+//    CTAs an SM (D 32, 64, 128) keep those instantiations free of spills; D
+//    256 runs one CTA an SM (171 KB of shared memory in bf16, 211 KB in
+//    fp32).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -254,7 +256,7 @@ constexpr size_t tc_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(TC_NT, D > 64 ? 2 : D > 32 ? 3 : 4) attn_fwd_tc_kernel(
+__global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : D > 32 ? 3 : 4) attn_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ attn, const int* __restrict__ sid, const int* __restrict__ act,
     const int* __restrict__ blk, bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
@@ -472,8 +474,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* attn, co
 }  // namespace
 
 // dtype: gamer::DType of q/k/v/out (bf16 -> tensor-core kernel, fp32 ->
-// CUDA-core kernel); kind: gamer::AttnKind. Head dims 32, 64 and 128 are
-// compiled. lse may be null (no backward follows). thresh = 0 turns dropout
+// CUDA-core kernel); kind: gamer::AttnKind. Head dims 32, 64, 128 and 256
+// are compiled (the wrapper pads others). lse may be null (no backward follows). thresh = 0 turns dropout
 // off; inv_keep = 1 / keep fraction. The bf16 kernel reads q/k/v with 16-byte
 // copies: the pointers must be 16-byte aligned.
 extern "C" int gamer_fused_attention_fwd(const void* q, const void* k, const void* v,
@@ -493,6 +495,7 @@ extern "C" int gamer_fused_attention_fwd(const void* q, const void* k, const voi
       case 32: return launch_f32<32>(GAMER_FWD_ARGS);
       case 64: return launch_f32<64>(GAMER_FWD_ARGS);
       case 128: return launch_f32<128>(GAMER_FWD_ARGS);
+      case 256: return launch_f32<256>(GAMER_FWD_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -501,6 +504,7 @@ extern "C" int gamer_fused_attention_fwd(const void* q, const void* k, const voi
       case 32: return launch_bf16<32>(GAMER_FWD_ARGS);
       case 64: return launch_bf16<64>(GAMER_FWD_ARGS);
       case 128: return launch_bf16<128>(GAMER_FWD_ARGS);
+      case 256: return launch_bf16<256>(GAMER_FWD_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel gamer_tpu/ops/pallas_moe.py `_bwd_kernel`
 // (pallas_call in `_bwd_rule`). Per expert p, with gu = x Wgu + btab[beh],
-// a = silu(g), h = a*u, h_drop = keep ? h/keep_frac : 0 and gout = dL/dy:
+// a = act(g) (silu, relu or tanh-gelu; moe_tc.cuh), h = a*u, h_drop = keep ? h/keep_frac : 0 and gout = dL/dy:
 //     dh   = gout Wd^T,  dh_drop = keep ? dh/keep_frac : 0
-//     dg   = dh_drop * u * silu'(g),  du = dh_drop * a,  dgu = [dg | du]
+//     dg   = dh_drop * u * act'(g),  du = dh_drop * a,  dgu = [dg | du]
 //     dx   = dgu Wgu^T
 //     dWgu = x^T dgu,  dWd = h_drop^T gout,  dbtab[a] = sum of dgu over rows
 //            whose behavior id is a (ids outside [0, NB) receive nothing)
@@ -36,7 +36,7 @@
 //      g|u = x . Wgu[:, chunk] (the chunk's gate and up columns side by side,
 //      ldmatrix.trans) and dh = gout . Wd[chunk]^T (Wd stored [f][dout], plain
 //      ldmatrix). The epilogue on the accumulator fragments adds the bias,
-//      forms silu and silu', the keep mask with 1/keep on h and dh, and dgu in
+//      forms act and act', the keep mask with 1/keep on h and dh, and dgu in
 //      fp32. dbtab's partial sums over the tile's rows are taken from the fp32
 //      dgu, as the TPU kernel does (pallas_moe.py:124-130): the fp32 dgu
 //      goes to shared memory and each thread sums one column over the 64 rows
@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(NT) moe_bwd_act_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, const T* __restrict__ gout,
     T* __restrict__ dgu, T* __restrict__ hdrop, int T_rows, int D, int F, int Dout, int NB,
-    int use_bias, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int use_bias, int act, uint32_t seed, uint32_t thresh, float inv_keep) {
   __shared__ float As[TM][KT + 1];       // x or gout slice
   __shared__ float Ws[KT][2 * FC + 1];   // gate | up weight slice
   __shared__ float Wds[KT][FC + 1];      // Wd slice, transposed
@@ -187,8 +187,8 @@ __global__ void __launch_bounds__(NT) moe_bwd_act_kernel(
         gv += to_f(btp[bid[r] * F2 + f]);
         uv += to_f(btp[bid[r] * F2 + F + f]);
       }
-      const float sig = 1.f / (1.f + expf(-gv));
-      const float a = gv * sig;
+      float a, da;
+      gamer::moe::act_grad<false>(act, gv, a, da);
       float hv = a * uv, dhv = dh[i][jj];
       if (drop) {
         const bool keep = gamer::hash_keep(seed, static_cast<uint32_t>(p),
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(NT) moe_bwd_act_kernel(
         dhv = keep ? dhv * inv_keep : 0.f;
       }
       const size_t row = static_cast<size_t>(p) * T_rows + t;
-      dgu[row * F2 + f] = from_f<T>(dhv * uv * sig * (1.f + gv * (1.f - sig)));
+      dgu[row * F2 + f] = from_f<T>(dhv * uv * da);
       dgu[row * F2 + F + f] = from_f<T>(dhv * a);
       hdrop[row * F + f] = from_f<T>(hv);
     }
@@ -324,12 +324,13 @@ cudaError_t gemm(const T* A, const T* B, OutT* C, GemmArgs g, int nsplit, cudaSt
 template <typename T>
 int run(const T* x, const T* wgu, const T* wd, const T* btab, const int* beh, const T* gout,
         T* dx, T* dwgu, T* dwd, T* dbtab, T* dgu, T* hdrop, float* ws, int P, int T_rows, int D,
-        int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh, float inv_keep,
-        int n_gu, int kc_gu, int n_d, int kc_d, int n_b, int kc_b, cudaStream_t s) {
+        int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
+        float inv_keep, int n_gu, int kc_gu, int n_d, int kc_d, int n_b, int kc_b,
+        cudaStream_t s) {
   const long long F2 = 2LL * F;
   moe_bwd_act_kernel<T><<<dim3((T_rows + TM - 1) / TM, P, (F + FC - 1) / FC), NT, 0, s>>>(
-      x, wgu, wd, btab, beh, gout, dgu, hdrop, T_rows, D, F, Dout, NB, use_bias, seed, thresh,
-      inv_keep);
+      x, wgu, wd, btab, beh, gout, dgu, hdrop, T_rows, D, F, Dout, NB, use_bias, act, seed,
+      thresh, inv_keep);
   GAMER_TRY(cudaGetLastError());
   // dx [T, D] = dgu [T, 2F] . Wgu[p]^T  (Wgu[p] is [D, 2F])
   GAMER_TRY(gemm<T, T>(dgu, wgu, dx,
@@ -383,7 +384,8 @@ __global__ void __launch_bounds__(TC_NT, 3) moe_bwd_act_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, const bf16* __restrict__ gout,
     bf16* __restrict__ dgu, bf16* __restrict__ hdrop, float* __restrict__ wsb, int T_rows, int D,
-    int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
+    float inv_keep) {
   constexpr int NJ = P1_FC / 8;  // 8-wide column tiles of g, u and dh
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);  // stage s: x or gout slice, then weights
@@ -474,22 +476,27 @@ __global__ void __launch_bounds__(TC_NT, 3) moe_bwd_act_tc_kernel(
     float2 bg[2], bu[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) gamer::moe::bias_pair(in ? brow[i] : nullptr, f, F, bg[i], bu[i]);
+    gamer::moe::with_act(act, [&](auto ac) {
+      constexpr int ACT = decltype(ac)::value;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e >> 1;
-      const float gv = g[j][e] + ((e & 1) ? bg[i].y : bg[i].x);
-      const float uv = u[j][e] + ((e & 1) ? bu[i].y : bu[i].x);
-      const float sig = gamer::moe::sigmoid(gv), a = gv * sig;
-      float hv = a * uv, dhv = dh[j][e];
-      if (thresh > 0u) {
-        const bool keep = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f + (e & 1)), thresh);
-        hv = keep ? hv * inv_keep : 0.f;
-        dhv = keep ? dhv * inv_keep : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float gv = g[j][e] + ((e & 1) ? bg[i].y : bg[i].x);
+        const float uv = u[j][e] + ((e & 1) ? bu[i].y : bu[i].x);
+        float a, da;  // act(g) and act'(g), formed in fp32 before dgu is rounded
+        gamer::moe::act_grad<true>(ACT, gv, a, da);
+        float hv = a * uv, dhv = dh[j][e];
+        if (thresh > 0u) {
+          const bool keep =
+              gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f + (e & 1)), thresh);
+          hv = keep ? hv * inv_keep : 0.f;
+          dhv = keep ? dhv * inv_keep : 0.f;
+        }
+        g[j][e] = dhv * uv * da;  // dg
+        u[j][e] = dhv * a;        // du
+        dh[j][e] = hv;            // h_drop
       }
-      g[j][e] = dhv * uv * sig * (1.f + gv * (1.f - sig));  // dg
-      u[j][e] = dhv * a;                                     // du
-      dh[j][e] = hv;                                         // h_drop
-    }
+    });
   }
   // dgu and h_drop rounded to bf16, stored as pairs
 #pragma unroll
@@ -687,16 +694,16 @@ cudaError_t gemm_tc(const bf16* A, const bf16* B, OutT* C, TcGemmArgs g, int nsp
 int run_bf16(const bf16* x, const bf16* wgu, const bf16* wd, const bf16* btab, const int* beh,
              const bf16* gout, bf16* dx, bf16* dwgu, bf16* dwd, bf16* dbtab, bf16* dgu,
              bf16* hdrop, float* ws, int P, int T_rows, int D, int F, int Dout, int NB,
-             int use_bias, uint32_t seed, uint32_t thresh, float inv_keep, int n_gu, int kc_gu,
-             int n_d, int kc_d, int n_b, int /*kc_b*/, cudaStream_t s) {
+             int use_bias, int act, uint32_t seed, uint32_t thresh, float inv_keep, int n_gu,
+             int kc_gu, int n_d, int kc_d, int n_b, int /*kc_b*/, cudaStream_t s) {
   const long long F2 = 2LL * F;
   const size_t smem = p1_smem_bytes(NB);
   GAMER_TRY(cudaFuncSetAttribute(moe_bwd_act_tc_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem)));
   moe_bwd_act_tc_kernel<<<dim3(n_b, P, (F + P1_FC - 1) / P1_FC), TC_NT, smem, s>>>(
-      x, wgu, wd, btab, beh, gout, dgu, hdrop, ws, T_rows, D, F, Dout, NB, use_bias, seed, thresh,
-      inv_keep);
+      x, wgu, wd, btab, beh, gout, dgu, hdrop, ws, T_rows, D, F, Dout, NB, use_bias, act, seed,
+      thresh, inv_keep);
   GAMER_TRY(cudaGetLastError());
   if (use_bias)
     GAMER_TRY(gamer::reduce_splits<bf16>(ws, dbtab, static_cast<size_t>(P) * NB * F2, n_b, s));
@@ -728,17 +735,19 @@ int run_bf16(const bf16* x, const bf16* wgu, const bf16* wd, const bf16* btab, c
 // dgu [P, T, 2F] and hdrop [P, T, F] are scratch too. n_* / kc_* are the
 // number of splits over T and the rows a split covers (a multiple of 32 for
 // the products) of dWgu, dWd and dbtab; in bf16 n_b must be ceil(T / 64),
-// the row tiles of pass 1. bf16: D, F and Dout multiples of 16, the bf16
-// tensors 16-byte aligned. With use_bias = 0, dbtab is not written.
+// the row tiles of pass 1. act: gamer::moe::Act. Any D, F and Dout in fp32
+// and, in multiples of 16 (the wrapper pads), in bf16: both passes stream
+// their products over depth. The bf16 tensors 16-byte aligned. With
+// use_bias = 0, dbtab is not written.
 extern "C" int gamer_fused_moe_bwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, const void* gout, void* dx,
                                    void* dwgu, void* dwd, void* dbtab, void* dgu, void* hdrop,
                                    float* ws, int P, int T_rows, int D, int F, int Dout, int NB,
-                                   int use_bias, unsigned int seed, unsigned int thresh,
+                                   int use_bias, int act, unsigned int seed, unsigned int thresh,
                                    float inv_keep, int n_gu, int kc_gu, int n_d, int kc_d,
                                    int n_b, int kc_b, int dtype, void* stream) {
   if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || n_gu <= 0 ||
-      n_d <= 0 || n_b <= 0 || kc_gu % KT || kc_d % KT)
+      n_d <= 0 || n_b <= 0 || kc_gu % KT || kc_d % KT || act < 0 || act > 2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GAMER_RUN(FN, TYPE)                                                                 \
@@ -746,7 +755,7 @@ extern "C" int gamer_fused_moe_bwd(const void* x, const void* wgu, const void* w
             static_cast<const TYPE*>(wd), static_cast<const TYPE*>(btab), beh,             \
             static_cast<const TYPE*>(gout), static_cast<TYPE*>(dx), static_cast<TYPE*>(dwgu), \
             static_cast<TYPE*>(dwd), static_cast<TYPE*>(dbtab), static_cast<TYPE*>(dgu),   \
-            static_cast<TYPE*>(hdrop), ws, P, T_rows, D, F, Dout, NB, use_bias, seed, thresh, \
+            static_cast<TYPE*>(hdrop), ws, P, T_rows, D, F, Dout, NB, use_bias, act, seed, thresh, \
             inv_keep, n_gu, kc_gu, n_d, kc_d, n_b, kc_b, s)
   if (dtype == gamer::kFloat32) return GAMER_RUN(run<float>, float);
   if (dtype == gamer::kBFloat16) {

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel gamer_tpu/ops/pallas_moe.py `_fwd_kernel`. Per
 // (row tile, expert p):
 //     gu = x @ Wgu[p] + btab[p, beh]     (gate | up, one product, f32)
-//     h  = silu(gu[:, :F]) * gu[:, F:]
+//     h  = act(gu[:, :F]) * gu[:, F:]    (silu, relu or tanh-gelu; moe_tc.cuh)
 //     h  = keep ? h / keep_frac : 0      (training: hash dropout)
 //     y  = h @ Wd[p]
 // The [T, 2F] gate/up activations never reach global memory: a CTA walks F
@@ -30,14 +30,21 @@
 //    ([DP][16 | 16], ldmatrix.trans) and its 16 rows of Wd ([16][NO + 8],
 //    ldmatrix.trans) double-buffered by 16-byte cp.async. Per chunk a warp
 //    computes g and u of its 16 rows (16 k16 steps at D 256), adds the bias
-//    row, forms h = silu(g) * u in fp32, applies the dropout keep and 1/keep,
+//    row, forms h = act(g) * u in fp32, applies the dropout keep and 1/keep,
 //    rounds h to bf16 as the TPU kernel does (pallas_moe.py:83), and the
 //    packed accumulator fragments are directly the A operand of y += h . Wd
 //    over the chunk (one k16 step). y stays in fp32 registers across F and is
 //    stored once as bf16.
+//  - bf16 with D > 256: `moe_fwd_wide_kernel`, the same function where the
+//    x tile and a chunk's Wgu columns no longer fit in shared memory. One CTA
+//    per (64-row tile, expert, 128 output columns); F is walked in chunks of
+//    64, and each chunk's gate|up product streams x and Wgu over D in 64-deep
+//    slices (stream_tc.cuh) while the chunk's Wd rows load beside them. The
+//    price is that x is read again for every chunk (F / 64 times, from L2).
 //  - fp32: `moe_fwd_kernel`, fp32 FMA on the CUDA cores from shared memory
 //    (64 rows x 32 F columns a chunk, h in shared memory), so fp32 callers
-//    get full fp32.
+//    get full fp32. Up to D 512 the x tile stays in shared memory; wider, it
+//    is streamed with each 32-deep weight slice.
 //
 // What bounds the bf16 design, and what it does about it:
 //  - registers: a warp's 16 x 256 fp32 y is 128 registers a thread, so the
@@ -55,6 +62,7 @@
 #include "common.cuh"
 #include "mma.cuh"
 #include "moe_tc.cuh"
+#include "stream_tc.cuh"
 
 namespace {
 
@@ -70,21 +78,24 @@ constexpr int NT = 256;  // threads: 16 row groups x 16 column lanes
 constexpr int TC_NT = 128;  // bf16 kernel threads: 4 warps x 16 rows
 constexpr int TC_FC = 16;   // bf16 chunk: F columns (gate and up each), one k16 step of y
 
+// XRES: the x tile [TM][D+1] stays in shared memory (D <= 512), else a
+// [TM][KT+1] slice of it is loaded with each weight slice
+template <bool XRES>
 size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(TM) * (D + 1) + KT * (2 * FC + 1) +
-                          TM * (FC + 1) + FC * DT) +
-         sizeof(int) * TM;
+  const size_t xs = static_cast<size_t>(TM) * ((XRES ? D : KT) + 1);
+  return sizeof(float) * (xs + KT * (2 * FC + 1) + TM * (FC + 1) + FC * DT) + sizeof(int) * TM;
 }
 
-template <typename T>
+template <typename T, bool XRES>
 __global__ void __launch_bounds__(NT) moe_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, T* __restrict__ out, int T_rows,
-    int D, int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh,
+    int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
     float inv_keep) {
   extern __shared__ float smem[];
-  float* Xs = smem;                                  // [TM][D+1]
-  float* Ws = Xs + TM * (D + 1);                     // [KT][2*FC+1]
+  const int LX = (XRES ? D : KT) + 1;
+  float* Xs = smem;                                  // [TM][LX]
+  float* Ws = Xs + TM * LX;                          // [KT][2*FC+1]
   float* Hs = Ws + KT * (2 * FC + 1);                // [TM][FC+1]
   float* Wds = Hs + TM * (FC + 1);                   // [FC][DT]
   int* bid = reinterpret_cast<int*>(Wds + FC * DT);  // [TM]
@@ -101,10 +112,11 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
   const T* wdp = wd + static_cast<size_t>(p) * F * Dout;
   const T* btp = btab + static_cast<size_t>(p) * NB * F2;
 
-  for (int idx = tid; idx < TM * D; idx += NT) {
-    const int r = idx / D, c = idx % D, t = t0 + r;
-    Xs[r * (D + 1) + c] = t < T_rows ? to_f(xp[static_cast<size_t>(t) * D + c]) : 0.f;
-  }
+  if (XRES)
+    for (int idx = tid; idx < TM * D; idx += NT) {
+      const int r = idx / D, c = idx % D, t = t0 + r;
+      Xs[r * LX + c] = t < T_rows ? to_f(xp[static_cast<size_t>(t) * D + c]) : 0.f;
+    }
   for (int r = tid; r < TM; r += NT) {
     const int t = t0 + r;
     const int id = t < T_rows ? beh[static_cast<size_t>(p) * T_rows + t] : -1;
@@ -135,12 +147,20 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
         const bool in = (k0 + kk) < D && f < F;
         Ws[kk * (2 * FC + 1) + c] = in ? to_f(wgup[static_cast<size_t>(k0 + kk) * F2 + col]) : 0.f;
       }
+      if (!XRES)
+        for (int idx = tid; idx < TM * KT; idx += NT) {
+          const int r = idx / KT, kk = idx % KT, t = t0 + r;
+          Xs[r * LX + kk] = (t < T_rows && k0 + kk < D)
+                                ? to_f(xp[static_cast<size_t>(t) * D + k0 + kk])
+                                : 0.f;
+        }
       __syncthreads();
       const int kmax = min(KT, D - k0);
+      const int xk = XRES ? k0 : 0;
       for (int kk = 0; kk < kmax; ++kk) {
         float xa[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xa[i] = Xs[(ty + 16 * i) * (D + 1) + k0 + kk];
+        for (int i = 0; i < 4; ++i) xa[i] = Xs[(ty + 16 * i) * LX + xk + kk];
         const float* wrow = Ws + kk * (2 * FC + 1);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -165,8 +185,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
           gv += to_f(btp[bid[r] * F2 + f]);
           uv += to_f(btp[bid[r] * F2 + F + f]);
         }
-        const float silu = gv / (1.f + expf(-gv));
-        float hv = f < F ? silu * uv : 0.f;
+        float hv = f < F ? gamer::moe::act_value<false>(act, gv) * uv : 0.f;
         if (thresh > 0u)
           hv = gamer::hash_keep(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(t0 + r),
                                 static_cast<uint32_t>(f), thresh)
@@ -208,20 +227,20 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool XRES>
 int launch(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
-           void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
+           void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias, int act,
            uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T>,
+  const size_t smem = smem_bytes<XRES>(D);
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T, XRES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((T_rows + TM - 1) / TM, P, (Dout + DT - 1) / DT);
-  moe_fwd_kernel<T><<<grid, NT, smem, stream>>>(
+  moe_fwd_kernel<T, XRES><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wgu), static_cast<const T*>(wd),
       static_cast<const T*>(btab), beh, static_cast<T*>(out), T_rows, D, F, Dout, NB, use_bias,
-      seed, thresh, inv_keep);
+      act, seed, thresh, inv_keep);
   return cudaGetLastError();
 }
 
@@ -237,8 +256,8 @@ template <int DP, int NO>
 __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
-    int T_rows, int D, int F, int Dout, int NB, int use_bias, uint32_t seed, uint32_t thresh,
-    float inv_keep) {
+    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed,
+    uint32_t thresh, float inv_keep) {
   constexpr int LX = DP + 8;           // x tile row stride
   constexpr int LW = 2 * TC_FC + 8;    // gate|up tile row stride
   constexpr int LV = NO + 8;           // Wd tile row stride
@@ -319,23 +338,26 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
       }
     }
 
-    // h = dropout(silu(g + bias) * (u + bias)) in fp32, rounded to bf16 into
+    // h = dropout(act(g + bias) * (u + bias)) in fp32, rounded to bf16 into
     // the A fragment of y += h . Wd[chunk]
+    gamer::moe::with_act(act, [&](auto a) {
+      constexpr int ACT = decltype(a)::value;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float gv = g[j][e] + ((e & 1) ? bg[i][j].y : bg[i][j].x);
-        const float uv = u[j][e] + ((e & 1) ? bu[i][j].y : bu[i][j].x);
-        float hv = gv * gamer::moe::sigmoid(gv) * uv;
-        if (thresh > 0u) {
-          const int f = f0 + 8 * j + 2 * (lane % 4) + (e & 1);
-          hv = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f), thresh) ? hv * inv_keep
-                                                                              : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float gv = g[j][e] + ((e & 1) ? bg[i][j].y : bg[i][j].x);
+          const float uv = u[j][e] + ((e & 1) ? bu[i][j].y : bu[i][j].x);
+          float hv = gamer::moe::act_value<true>(ACT, gv) * uv;
+          if (thresh > 0u) {
+            const int f = f0 + 8 * j + 2 * (lane % 4) + (e & 1);
+            hv = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f), thresh) ? hv * inv_keep
+                                                                                : 0.f;
+          }
+          g[j][e] = hv;
         }
-        g[j][e] = hv;
-      }
+    });
     const uint32_t ha[4] = {pack_bf16(g[0][0], g[0][1]), pack_bf16(g[0][2], g[0][3]),
                             pack_bf16(g[1][0], g[1][1]), pack_bf16(g[1][2], g[1][3])};
 #pragma unroll
@@ -361,10 +383,142 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
   }
 }
 
+// ---- bf16 with D > 256: the streamed route
+
+constexpr int W_FC = 64;   // F columns a chunk (gate and up each)
+constexpr int W_NO = 128;  // output columns a CTA
+constexpr int W_LV = W_NO + 8;
+using WideGU = StreamTiles<2 * W_FC / 8, true>;  // gate tiles 0..7 | up tiles 8..15
+
+constexpr size_t wide_smem_bytes() {
+  return WideGU::smem_bytes + sizeof(bf16) * W_FC * W_LV;  // stream stages, Wd rows
+}
+
+__global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
+    const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
+    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed,
+    uint32_t thresh, float inv_keep) {
+  constexpr int NH = W_FC / 8;   // 8-wide gate (and up) tiles of a chunk
+  constexpr int NJO = W_NO / 8;  // 8-wide y column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* buf = reinterpret_cast<bf16*>(smem_raw);  // the stream's two stages
+  bf16* Vs = buf + 2 * WideGU::STAGE;             // [W_FC][W_LV] the chunk's Wd rows
+
+  const int t0 = blockIdx.x * TM, p = blockIdx.y, c0 = blockIdx.z * W_NO;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t F2 = 2 * static_cast<size_t>(F);
+  const bf16* xp = x + (static_cast<size_t>(p) * T_rows + t0) * D;
+  const bf16* wgup = wgu + static_cast<size_t>(p) * D * F2;
+  const bf16* wdp = wd + static_cast<size_t>(p) * F * Dout + c0;
+  const int ncols = min(W_NO, Dout - c0);
+  const int nc = (F + W_FC - 1) / W_FC;
+
+  int row[2];
+  const bf16* brow[2];
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = t0 + warp * 16 + lane / 4 + 8 * i;
+    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(p) * NB * F2,
+                                   beh + static_cast<size_t>(p) * T_rows, row[i], T_rows, NB,
+                                   use_bias, F2);
+    hrow[i] = gamer::hash_row(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row[i]));
+  }
+
+  float y[NJO][4];
+#pragma unroll
+  for (int j = 0; j < NJO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+
+  for (int c = 0; c < nc; ++c) {
+    const int f0 = c * W_FC, fcols = min(W_FC, F - f0);
+    // the chunk's Wd rows load while gate|up stream in (Vs is free: the
+    // previous chunk ended with a __syncthreads)
+    load_block_async<W_FC, W_NO, TC_NT>(Vs, W_LV, wdp + static_cast<size_t>(f0) * Dout, Dout,
+                                        fcols, ncols);
+    cp_async_commit();
+    float gu[2 * NH][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NH; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gu[j][e] = 0.f;
+    stream_mma<2 * NH, true, TC_NT>(gu, buf, xp, D, T_rows - t0, wgup + f0, wgup + F + f0, F2,
+                                    fcols, D, warp, lane);
+
+    // h = dropout(act(g + bias) * (u + bias)) in fp32, rounded to bf16 into
+    // the A fragments of y += h . Wd[chunk] (tile j is half of k16 step j / 2)
+    uint32_t ha[NH / 2][4];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const int f = f0 + 8 * j + 2 * (lane % 4);  // column of e = 0 and 2; e = 1, 3 at f + 1
+      const bool in = 8 * j < fcols;
+      float2 bg[2], bu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) gamer::moe::bias_pair(in ? brow[i] : nullptr, f, F, bg[i], bu[i]);
+      float hv[4];
+      gamer::moe::with_act(act, [&](auto a) {
+        constexpr int ACT = decltype(a)::value;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float gv = gu[j][e] + ((e & 1) ? bg[i].y : bg[i].x);
+          const float uv = gu[NH + j][e] + ((e & 1) ? bu[i].y : bu[i].x);
+          hv[e] = gamer::moe::act_value<true>(ACT, gv) * uv;
+          if (thresh > 0u)
+            hv[e] = gamer::hash_keep_at(hrow[i], static_cast<uint32_t>(f + (e & 1)), thresh)
+                        ? hv[e] * inv_keep
+                        : 0.f;
+        }
+      });
+      ha[j / 2][(j & 1) * 2] = pack_bf16(hv[0], hv[1]);
+      ha[j / 2][(j & 1) * 2 + 1] = pack_bf16(hv[2], hv[3]);
+    }
+#pragma unroll
+    for (int kc = 0; kc < NH / 2; ++kc)
+#pragma unroll
+      for (int np = 0; np < NJO / 2; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, bk_addr(Vs, W_LV, kc * 16, np * 16, lane));
+        mma_bf16(y[2 * np], ha[kc], vb[0], vb[1]);
+        mma_bf16(y[2 * np + 1], ha[kc], vb[2], vb[3]);
+      }
+    __syncthreads();  // Vs is refilled by the next chunk
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= T_rows) continue;
+    bf16* orow = out + (static_cast<size_t>(p) * T_rows + row[i]) * Dout + c0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < NJO; ++j)
+      if (8 * j < ncols)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(y[j][2 * i], y[j][2 * i + 1]);
+  }
+}
+
+int launch_wide(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
+                void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
+                int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  constexpr size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_rows + TM - 1) / TM, P, (Dout + W_NO - 1) / W_NO);
+  moe_fwd_wide_kernel<<<grid, TC_NT, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wgu), static_cast<const bf16*>(wd),
+      static_cast<const bf16*>(btab), beh, static_cast<bf16*>(out), T_rows, D, F, Dout, NB,
+      use_bias, act, seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
+
 template <int DP, int NO>
 int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                 void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+                int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<DP, NO>();
   cudaError_t err = cudaFuncSetAttribute(moe_fwd_tc_kernel<DP, NO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -374,18 +528,19 @@ int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab
   moe_fwd_tc_kernel<DP, NO><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wgu), static_cast<const bf16*>(wd),
       static_cast<const bf16*>(btab), beh, static_cast<bf16*>(out), T_rows, D, F, Dout, NB,
-      use_bias, seed, thresh, inv_keep);
+      use_bias, act, seed, thresh, inv_keep);
   return cudaGetLastError();
 }
 
-#define GAMER_FWD_ARGS \
-  x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, seed, thresh, inv_keep, st
+#define GAMER_FWD_ARGS                                                                     \
+  x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, act, seed, thresh, inv_keep, \
+      st
 
 // the output-column tile for Dout
 template <int DP>
 int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                   void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                  uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
+                  int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
   if (Dout <= 64) return launch_bf16<DP, 64>(GAMER_FWD_ARGS);
   if (Dout <= 128) return launch_bf16<DP, 128>(GAMER_FWD_ARGS);
   return launch_bf16<DP, 256>(GAMER_FWD_ARGS);
@@ -394,31 +549,33 @@ int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* bt
 }  // namespace
 
 // dtype: gamer::DType shared by x, wgu, wd, btab and out (bf16 ->
-// tensor-core kernel, fp32 -> CUDA-core kernel). fp32: the x tile lives in
-// shared memory, which bounds D (D <= 512 fits). bf16: D, F and Dout
-// multiples of 16, D <= 256 (any Dout: columns past 256 take more CTAs), the
-// bf16 tensors 16-byte aligned (16-byte copies). thresh = 0 turns dropout
-// off; inv_keep = 1 / keep fraction.
+// tensor-core kernels, fp32 -> CUDA-core kernel); act: gamer::moe::Act. Any
+// D, F and Dout in fp32 (the x tile in shared memory up to D 512, streamed
+// beyond). bf16: D, F and Dout multiples of 16 (the wrapper pads), the bf16
+// tensors 16-byte aligned (16-byte copies); D <= 256 takes the resident-x
+// kernel (any Dout: columns past 256 take more CTAs), wider D the streamed
+// one. thresh = 0 turns dropout off; inv_keep = 1 / keep fraction.
 extern "C" int gamer_fused_moe_fwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, void* out, int P,
                                    int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                                   unsigned int seed, unsigned int thresh, float inv_keep,
-                                   int dtype, void* stream) {
-  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0)
+                                   int act, unsigned int seed, unsigned int thresh,
+                                   float inv_keep, int dtype, void* stream) {
+  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || act < 0 || act > 2)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == gamer::kFloat32) {
-    if (D > 512) return cudaErrorInvalidValue;
-    return launch<float>(GAMER_FWD_ARGS);
+    if (D <= 512) return launch<float, true>(GAMER_FWD_ARGS);
+    return launch<float, false>(GAMER_FWD_ARGS);
   }
   if (dtype == gamer::kBFloat16) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wgu) |
                            reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(btab) |
                            reinterpret_cast<uintptr_t>(out);
-    if (D % 16 || F % 16 || Dout % 16 || D > 256 || addr % 16) return cudaErrorInvalidValue;
+    if (D % 16 || F % 16 || Dout % 16 || addr % 16) return cudaErrorInvalidValue;
     if (D <= 64) return launch_bf16_d<64>(GAMER_FWD_ARGS);
     if (D <= 128) return launch_bf16_d<128>(GAMER_FWD_ARGS);
-    return launch_bf16_d<256>(GAMER_FWD_ARGS);
+    if (D <= 256) return launch_bf16_d<256>(GAMER_FWD_ARGS);
+    return launch_wide(GAMER_FWD_ARGS);
   }
   return cudaErrorInvalidValue;
 }

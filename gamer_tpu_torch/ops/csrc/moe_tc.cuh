@@ -1,5 +1,6 @@
-// Pieces shared by the bf16 tensor-core MoE kernels, the forward h
-// (fused_moe_fwd.cu) and pass 1 of the backward i (fused_moe_bwd.cu).
+// Pieces shared by the MoE kernels, the forward h (fused_moe_fwd.cu) and
+// pass 1 of the backward i (fused_moe_bwd.cu): the activation of every
+// route, and the bf16 tensor-core helpers.
 //
 // A gate|up weight tile holds a chunk's gate columns and its up columns side
 // by side, [k = d][gate | up], and is read with ldmatrix.trans. The gate
@@ -8,6 +9,8 @@
 // e%2), so the thread that holds g of (row, f) also holds u of (row, f) and
 // the SwiGLU epilogue needs no exchange between threads.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -59,6 +62,63 @@ __device__ __forceinline__ void bias_pair(const bf16* brow, int f, int F, float2
 
 // sigmoid in fp32 by the fast exp and divide (exactly 0 and 1 far out)
 __device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
+
+// The activation of the SwiGLU, a runtime code uniform over the launch
+// (ops/fused_moe.py ACT_CODES): silu; relu; and the tanh approximation of
+// gelu, which is jax.nn.gelu's default and so serves both "gelu" and
+// "gelu_new" (pallas_moe.py:54-55). FAST picks silu's sigmoid: the bf16
+// kernels' fast one or the fp32 kernels' expf; gelu takes tanhf in both, so
+// fp32 stays within 1e-4 of the plain version.
+enum Act : int { kSilu = 0, kRelu = 1, kGeluTanh = 2 };
+
+template <bool FAST>
+__device__ __forceinline__ float silu_sigmoid(float g) {
+  return FAST ? sigmoid(g) : 1.f / (1.f + expf(-g));
+}
+
+constexpr float kGeluK = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluC = 0.044715f;
+
+// f(std::integral_constant<int, ACT>{}) for the runtime code `act`: one
+// uniform branch, inside which the activation is a compile-time constant.
+// Epilogues on the accumulator fragments run through it, so that no element
+// pays for a test of the code or for the other activations' arithmetic.
+template <typename Fn>
+__device__ __forceinline__ void with_act(int act, Fn&& f) {
+  if (act == kSilu)
+    f(std::integral_constant<int, kSilu>{});
+  else if (act == kRelu)
+    f(std::integral_constant<int, kRelu>{});
+  else
+    f(std::integral_constant<int, kGeluTanh>{});
+}
+
+// a = act(g)
+template <bool FAST>
+__device__ __forceinline__ float act_value(int act, float g) {
+  if (act == kSilu) return g * silu_sigmoid<FAST>(g);
+  if (act == kRelu) return fmaxf(g, 0.f);
+  const float cdf = 0.5f * (1.f + tanhf(kGeluK * (g + kGeluC * g * g * g)));
+  return g * cdf;
+}
+
+// a = act(g) and da = act'(g); relu' is 0 at 0, as jax.vjp(jax.nn.relu) gives
+template <bool FAST>
+__device__ __forceinline__ void act_grad(int act, float g, float& a, float& da) {
+  if (act == kSilu) {
+    const float s = silu_sigmoid<FAST>(g);
+    a = g * s;
+    da = s * (1.f + g * (1.f - s));
+  } else if (act == kRelu) {
+    a = fmaxf(g, 0.f);
+    da = g > 0.f ? 1.f : 0.f;
+  } else {
+    const float t = tanhf(kGeluK * (g + kGeluC * g * g * g));
+    const float cdf = 0.5f * (1.f + t);
+    a = g * cdf;
+    da = cdf + 0.5f * g * (1.f - t * t) * kGeluK * (1.f + 3.f * kGeluC * g * g);
+  }
+}
 
 }  // namespace moe
 }  // namespace gamer

@@ -15,6 +15,14 @@ before any launch: bf16 runs on the tensor cores, fp32 on the CUDA cores
 `ops/masks.py`, the same hash mask, then `modules/layers.attend`), whose
 backward is autograd.
 
+Widths: every head dim up to 256 runs through the kernels. The one rule, in
+`_padded_head_dim`: the kernels are compiled for head dims `HEAD_DIMS`, and
+the wrapper zero-pads q, k and v per head to the next of them and slices the
+output and grads back. The scale stays the true D^-0.5, so the zero columns
+add 0 to every score; at the flagship head dim (64) nothing is padded or
+copied. A head dim over 256 raises ValueError (no shipped or Qwen3 config
+exceeds 128).
+
 The hash helpers here are bit-exact with the JAX package's: on the CPU and in
 plain PyTorch the uint32 arithmetic runs in int64 and wraps with
 `& 0xFFFFFFFF`.
@@ -26,12 +34,13 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops.masks import streams_allowed
 
 KINDS = {"causal": 0, "session": 1, "multi": 2, "session_multi": 3}
-HEAD_DIMS = (32, 64, 128)  # head dims the kernels are compiled for
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are compiled for
 
 _M1, _M2, _M3 = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B1
 _U32 = 0xFFFFFFFF
@@ -111,8 +120,9 @@ def _check(q, k, v, streams, num_heads, kind):
         raise ValueError(f"unknown attention mask kind {kind!r}")
     B, S, HD = q.shape
     D = HD // num_heads
-    if HD % num_heads or D not in HEAD_DIMS:
-        raise ValueError(f"head dim {HD}/{num_heads} is not one of {HEAD_DIMS}")
+    if HD % num_heads or D > HEAD_DIMS[-1]:
+        raise ValueError(f"the attention kernels take head dims up to {HEAD_DIMS[-1]}, "
+                         f"not {HD}/{num_heads}")
     Hkv = k.shape[2] // D
     if k.shape != (B, S, Hkv * D) or v.shape != k.shape or num_heads % Hkv:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
@@ -122,6 +132,22 @@ def _check(q, k, v, streams, num_heads, kind):
     if any(t.shape != (B, S) for t in streams):
         raise ValueError("mask streams must be [B, S]")
     return B, S, D, Hkv, streams
+
+
+def _padded_head_dim(D: int) -> int:
+    """The compiled head dim a head of width D runs at."""
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def _pad_heads(t: torch.Tensor, D: int, Dp: int) -> torch.Tensor:
+    """[B, S, heads * D] -> [B, S, heads * Dp], each head zero-padded."""
+    B, S, HD = t.shape
+    return F.pad(t.reshape(B, S, HD // D, D), (0, Dp - D)).reshape(B, S, HD // D * Dp)
+
+
+def _unpad_heads(t: torch.Tensor, D: int, Dp: int) -> torch.Tensor:
+    B, S, HDp = t.shape
+    return t.reshape(B, S, HDp // Dp, Dp)[..., :D].reshape(B, S, HDp // Dp * D)
 
 
 def _dropout_args(seed: int, rate: float) -> tuple[int, int, float]:
@@ -151,17 +177,20 @@ def dkv_splits(B: int, S: int, Hkv: int, G: int, kind: str, sms: int) -> int:
 
 def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
+    Dp = _padded_head_dim(D)
+    if Dp != D:
+        q, k, v = (_pad_heads(t, D, Dp) for t in (q, k, v))
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         _build.launch("fused_attention_fwd", _FWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), *(t.data_ptr() for t in streams), out.data_ptr(),
-                      lse.data_ptr() if with_lse else None, B, S, num_heads, Hkv, D,
+                      lse.data_ptr() if with_lse else None, B, S, num_heads, Hkv, Dp,
                       KINDS[kind], D ** -0.5, *_dropout_args(seed, rate),
                       _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention.launches += 1
-    return out, lse
+    return (out if Dp == D else _unpad_heads(out, D, Dp)), lse
 
 
 def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_ids, actions,
@@ -175,8 +204,12 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
     B, S, D, Hkv, streams = _check(q, k, v, streams, num_heads, kind)
     if dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, num_heads, S):
         raise ValueError("dout/out must be shaped like q and lse [B, H, S]")
+    out, dout = out.to(q.dtype), dout.to(q.dtype)
+    D_real, D = D, _padded_head_dim(D)
+    if D != D_real:  # out's padded columns are 0, as the kernel's own output would be
+        q, k, v, out, dout = (_pad_heads(t, D_real, D) for t in (q, k, v, out, dout))
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
-    out, dout = _build.aligned(out.to(q.dtype)), _build.aligned(dout.to(q.dtype))
+    out, dout = _build.aligned(out), _build.aligned(dout)
     lse = lse.float().contiguous()
     # rowsum(dO * O) per (head, row), filled by the library's delta kernel
     delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
@@ -192,10 +225,12 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
                       v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), *(t.data_ptr() for t in streams), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), ws.data_ptr() if ws is not None else None,
-                      B, S, num_heads, Hkv, D, KINDS[kind], D ** -0.5,
+                      B, S, num_heads, Hkv, D, KINDS[kind], D_real ** -0.5,
                       *_dropout_args(dropout_seed, dropout_rate), nsplit,
                       _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention_bwd.launches += 1
+    if D != D_real:
+        dq, dk, dv = (_unpad_heads(t, D_real, D) for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -8,11 +8,17 @@ CUDA tensors it launches `csrc/fused_ce_fwd.cu` behind a
 `torch.autograd.Function` whose backward launches `csrc/fused_ce_bwd.cu`
 (`fused_ce_rows_bwd`): dh = (softmax - onehot) * g * inv_t . E and an fp32 dE
 cast to the table's dtype. The C entry points pick the kernels by dtype
-before any launch: bf16 runs on the tensor cores (D a multiple of 16 up to
-256; dlog rounded to bf16 before its two products, as the TPU kernel does),
-fp32 on the CUDA cores (full fp32). For CPU tensors it runs
-`fused_ce_rows_plain`, whose backward is autograd. Neither N nor V needs
-padding.
+before any launch: bf16 runs on the tensor cores (dlog rounded to bf16
+before its two products, as the TPU kernel does), fp32 on the CUDA cores
+(full fp32). For CPU tensors it runs `fused_ce_rows_plain`, whose backward is
+autograd. Neither N nor V needs padding.
+
+Widths: every D runs through the kernels. The one rule, in `_padded_d`: in
+bf16 the wrapper zero-pads D to a multiple of 16 (h and the table alike, so
+every logit is unchanged) and slices dh and dE back; at the flagship width
+nothing is padded or copied. D over 256 (both kernels, both dtypes; the fp32
+forward from 513) takes the kernels' wide routes, which tile dh and dE over
+the grid and stream the logits over D.
 """
 
 from __future__ import annotations
@@ -21,11 +27,11 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from gamer_tpu_torch.ops import _build
 
 TM, VC = 64, 64  # row tile and vocab tile of the kernels
-D_MAX = 256  # widest D of the backward kernels and of the bf16 forward
 
 
 def fused_ce_rows_plain(h, table, targets, valid, inv_t: float):
@@ -47,10 +53,18 @@ def _check(h, table, targets, valid):
                          f"targets {tuple(targets.shape)} valid {tuple(valid.shape)}")
     if table.dtype != h.dtype:
         raise TypeError("h and table must share one dtype")
-    if h.dtype == torch.bfloat16 and (D % 16 or D > D_MAX):
-        raise ValueError(f"the bf16 CE kernels take D a multiple of 16 up to {D_MAX}, not {D}")
-    return (N, D, V, _build.aligned(h), _build.aligned(table),
+    Dp = _padded_d(h)
+    if Dp != D:
+        h, table = F.pad(h, (0, Dp - D)), F.pad(table, (0, Dp - D))
+    return (N, Dp, V, _build.aligned(h), _build.aligned(table),
             targets.to(dtype=torch.int32).contiguous(), valid.to(dtype=torch.int32).contiguous())
+
+
+def _padded_d(h) -> int:
+    """D as the kernels take it: a multiple of 16 in bf16 (the module
+    docstring's one width rule), unchanged in fp32."""
+    D = h.shape[1]
+    return -(-D // 16) * 16 if h.dtype == torch.bfloat16 else D
 
 
 def de_splits(N: int, V: int, sms: int) -> tuple[int, int]:
@@ -83,13 +97,11 @@ def _launch_fwd(h, table, targets, valid, inv_t):
 
 def fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
     """Kernel k: (dh, dtable) of the nll of `fused_ce_rows` for its incoming
-    gradient g [N] and saved lse [N] (CUDA tensors only; D <= 256, a
-    multiple of 16 in bf16)."""
+    gradient g [N] and saved lse [N] (CUDA tensors only)."""
     if h.device.type != "cuda":
         raise ValueError(f"fused_ce_rows_bwd launches a CUDA kernel; got {h.device}")
+    D_real = h.shape[1]
     N, D, V, h, table, targets, valid = _check(h, table, targets, valid)
-    if D > D_MAX:
-        raise ValueError(f"the CE backward kernel takes D <= {D_MAX}, not {D}")
     # the dE half splits the rows so that its vocab tiles fill the card
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     nsplit, rows = de_splits(N, V, sms)
@@ -103,6 +115,8 @@ def fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
                       dh.data_ptr(), de.data_ptr(), ws.data_ptr(), N, D, V, float(inv_t),
                       nsplit, per_split, _build.dtype_code(h), _build.stream_of(h))
     fused_ce_rows_bwd.launches += 1
+    if D != D_real:
+        dh, de = dh[:, :D_real], de[:, :D_real]
     return dh, de
 
 

@@ -1,1 +1,11 @@
-"""Task entry points (scoring loss of train_SMB_decoder)."""
+"""Task registry of the port. Importing this package registers its tasks:
+train_SMB_decoder, test_SMB_decoder and test_SMB_rule."""
+
+from gamer_tpu_torch.core.registry import TASKS
+from gamer_tpu_torch.tasks import test_smb_decoder  # noqa: F401
+from gamer_tpu_torch.tasks import test_smb_rule  # noqa: F401
+from gamer_tpu_torch.tasks import train_smb_decoder  # noqa: F401
+
+task_list = dict(TASKS)
+
+__all__ = ["TASKS", "task_list"]

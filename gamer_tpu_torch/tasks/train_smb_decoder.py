@@ -1,20 +1,107 @@
-"""train_SMB_decoder: the scoring loss of the flagship GAMER pipeline.
+"""train_SMB_decoder: the flagship GAMER training pipeline.
 
-PyTorch counterpart of `use_fused_ce` and `make_loss_fn` in
-`gamer_tpu/tasks/train_smb_decoder.py`: the temperature-scaled causal-LM loss
-of a batch and its valid-target count, either the training loss (dropout on,
-differentiable; `train/loop.Trainer` consumes it) or the eval loss (dropout
-off, no grad). The data plane and the CLI are not ported yet.
+PyTorch counterpart of `gamer_tpu/tasks/train_smb_decoder.py`:
+`make_loss_fn` (the temperature-scaled causal-LM loss of a batch and its
+valid-target count, either the training loss, dropout on and differentiable,
+or the eval loss, dropout off and no grad), `parse_model_overrides`,
+`make_model_config` and the `train_SMB_decoder` task for the Qwen3 family:
+the SMB data with generative augmentation, one sequence length for train and
+valid, the C++ example store (`native.ExampleStore`) feeding shuffled micro
+batches, AdamW + schedule, early stopping on valid loss, and `config.json`,
+`vocab.json` and the checkpoints (`best`, `last`, `last_state`) in
+`--output_dir`, which `test_SMB_decoder` reads back.
+
+Differences: one process (the multi-process sharding waits for
+`core/distributed.py`); `--device` picks the card (default) or the CPU;
+`--dtype auto` is bfloat16 on CUDA and float32 on the CPU;
+`--attention_impl auto` is the kernels and `jnp` the plain path; without
+`--gradient_checkpointing`, remat stays off (the JAX package's memory
+estimate, `train/memory.py`, is not ported); `--profile_dir` writes a
+`torch.profiler` trace of five steps. The enc-dec backbones raise
+NotImplementedError (not ported).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import math
+import os
+import re
+
 import torch
 
+from gamer_tpu_torch.core.logging import get_logger
+from gamer_tpu_torch.core.metrics import MetricWriter
+from gamer_tpu_torch.core.registry import TASKS
+from gamer_tpu_torch.data.batching import DecoderBatcher
+from gamer_tpu_torch.data.loading_smb import load_smb_train
 from gamer_tpu_torch.models.generative.qwen_family import (
-    QwenFamilyConfig, QwenFamilyModel, prepare_train_inputs)
+    QwenFamilyConfig, QwenFamilyModel, build_config, prepare_train_inputs)
 from gamer_tpu_torch.modules.losses import (
     causal_lm_loss_with_denom, fused_causal_lm_loss_with_denom)
+from gamer_tpu_torch.tasks.base import (
+    Task, add_dataset_args, add_global_args, add_hf_train_args, add_ref_compat_args,
+    resolve_hf_train_args, task_device)
+from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+from gamer_tpu_torch.train.state import OptimizerConfig, schedule_horizon
+
+logger = get_logger("tasks.train_smb_decoder")
+
+ENCDEC_BACKBONES = ("TIGER", "PBATransformer")
+ENCDEC_NOT_PORTED = ("the enc-dec backbones (TIGER, PBATransformer) are not ported yet "
+                     "(ROADMAP section 1.7)")
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def parse_model_overrides(spec: str | None) -> dict:
+    """'k=v,k2=v2' -> dict with JSON-parsed values ('cross_attention_layers=[]'
+    -> {'cross_attention_layers': []}); unknown keys fail fast."""
+    if not spec:
+        return {}
+    out = {}
+    # split on commas not inside [...] so list values survive
+    for part in re.split(r",(?![^\[]*\])", spec):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in QwenFamilyConfig.field_names():
+            raise ValueError(f"unknown model override {k!r}")
+        try:
+            out[k] = json.loads(v)
+        except json.JSONDecodeError:
+            out[k] = v
+    return out
+
+
+def make_model_config(backbone: str, data, base_model: str | None,
+                      temperature: float, model_max_length: int,
+                      dtype: str = "float32", **overrides) -> QwenFamilyConfig:
+    """Derive the model config from the dataset geometry, mirroring the
+    config mutation in the reference task (ref train_SMB_decoder.py:275-382:
+    vocab resize, num_positions/num_experts/behavior_maps injection)."""
+    corpus = data.corpus
+    tc = data.builder.tc
+    derived = dict(
+        vocab_size=corpus.vocab.vocab_size,
+        num_positions=tc,
+        num_experts=tc + 1,
+        num_behavior=len(corpus.behavior_names),
+        behavior_base=corpus.vocab.behavior_base,
+        model_max_length=model_max_length,
+        temperature=temperature,
+        dtype=dtype,
+    )
+    if base_model:
+        file_cfg = QwenFamilyConfig.from_file(base_model).to_dict()
+        file_cfg.update(derived)
+        file_cfg.update(overrides)
+        return build_config(backbone, **{k: v for k, v in file_cfg.items()
+                                         if k in QwenFamilyConfig.field_names()})
+    derived.update(overrides)
+    return build_config(backbone, **derived)
 
 
 def use_fused_ce(cfg: QwenFamilyConfig) -> bool:
@@ -57,3 +144,165 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
         return loss, {"denom": denom}
 
     return loss_fn
+
+
+@TASKS.register("train_SMB_decoder")
+class TrainSMBDecoder(Task):
+    name = "train_SMB_decoder"
+    help = "Train a session-wise multi-behavior generative decoder."
+
+    @classmethod
+    def add_args(cls, parser):
+        add_global_args(parser)
+        add_dataset_args(parser)
+        g = parser.add_argument_group("training")
+        g.add_argument("--epochs", type=int, default=200)
+        g.add_argument("--batch_size", type=int, default=1024)
+        g.add_argument("--micro_batch_size", type=int, default=0,
+                       help="per-step batch; 0 = batch_size (grad-accum = batch/micro)")
+        g.add_argument("--learning_rate", "--lr", type=float, default=5e-4)
+        g.add_argument("--weight_decay", type=float, default=0.01)
+        g.add_argument("--warmup_ratio", type=float, default=0.04)
+        g.add_argument("--lr_scheduler_type", type=str, default="cosine")
+        g.add_argument("--temperature", type=float, default=1.0)
+        g.add_argument("--patience", type=int, default=20)
+        g.add_argument("--only_train_response", action="store_true")
+        g.add_argument("--model_max_length", type=int, default=1024)
+        g.add_argument("--dtype", type=str, default="auto",
+                       choices=["auto", "float32", "bfloat16"],
+                       help="auto = bfloat16 on CUDA, float32 on the CPU")
+        g.add_argument("--attention_impl", type=str, default="auto",
+                       choices=["auto", "jnp", "pallas"],
+                       help="auto (or pallas) = the fused kernels, jnp = the plain path")
+        g.add_argument("--resume_from_checkpoint", action="store_true",
+                       help="resume params/optimizer/epoch from output_dir")
+        g.add_argument("--save_epochs", type=int, default=0,
+                       help="periodic epoch snapshots (keep newest 2)")
+        g.add_argument("--profile_dir", type=str, default=None,
+                       help="write a torch.profiler trace of five steps here")
+        g.add_argument("--n_layers", type=int, default=0, help="override num layers (0=preset)")
+        g.add_argument("--hidden_size", type=int, default=0, help="override hidden size")
+        g.add_argument("--gradient_checkpointing",
+                       action=argparse.BooleanOptionalAction, default=None,
+                       help="recompute each layer in backward (ref HF "
+                            "TrainingArguments gradient_checkpointing); unset = off")
+        g.add_argument("--remat_policy", type=str, default="attn",
+                       choices=["full", "attn", "dots"],
+                       help="with --gradient_checkpointing (every policy recomputes "
+                            "the whole layer here)")
+        g.add_argument("--wandb_run_name", type=str, default=None,
+                       help="run name in the metric stream (ref wandb name)")
+        g.add_argument("--model_overrides", type=str, default=None,
+                       help="comma-separated k=v QwenFamilyConfig overrides "
+                            "(values JSON-parsed), applied after the preset")
+        add_ref_compat_args(parser, "deepspeed")
+        add_hf_train_args(parser)
+        return parser
+
+    def run(self, *, dataset, data_path, tasks, index_file, max_his_len, backbone,
+            base_model, output_dir, seed, epochs, batch_size, micro_batch_size,
+            learning_rate, weight_decay, warmup_ratio, lr_scheduler_type,
+            temperature, patience, only_train_response, model_max_length, dtype,
+            device="cuda", n_layers=0, hidden_size=0, attention_impl="auto",
+            resume_from_checkpoint=False, save_epochs=0, profile_dir=None,
+            wandb_run_name=None, gradient_checkpointing=None,
+            remat_policy="attn", model_overrides=None, **extra):
+        dev = task_device(device)
+        if backbone in ENCDEC_BACKBONES:
+            raise NotImplementedError(ENCDEC_NOT_PORTED)
+        data = load_smb_train(dataset, data_path, max_his_len, index_file, tasks)
+        corpus, builder = data.corpus, data.builder
+
+        hf = resolve_hf_train_args(extra, batch_size=batch_size,
+                                   micro_batch_size=micro_batch_size, dtype=dtype)
+        dtype = hf["dtype"]
+        if dtype == "auto":
+            dtype = "bfloat16" if dev.type == "cuda" else "float32"
+
+        overrides = {"attention_impl": attention_impl}
+        if gradient_checkpointing:
+            overrides["remat"] = True
+            overrides["remat_policy"] = remat_policy
+        if n_layers:
+            overrides["num_hidden_layers"] = n_layers
+        if hidden_size:
+            overrides["hidden_size"] = hidden_size
+        overrides.update(parse_model_overrides(model_overrides))
+        cfg = make_model_config(backbone, data, base_model, temperature,
+                                model_max_length, dtype, **overrides)
+        if gradient_checkpointing is None and not cfg.remat:
+            logger.info("remat off: no --gradient_checkpointing given, and the automatic "
+                        "choice from a memory estimate is not ported")
+        micro, accum = hf["micro"], hf["accum"]
+        # one sequence length across train+valid: the kernels see one shape
+        batcher = DecoderBatcher.for_examples(
+            data.train + data.valid, pad_multiple=_lcm(builder.tc, 8),
+            behavior_token_ids=corpus.vocab.behavior_token_ids,
+            only_train_response=only_train_response)
+        model = QwenFamilyModel(cfg, device=dev, seed=seed)
+        logger.info("model %s on %s: vocab=%d seq_len=%d train=%d valid=%d parameters %.2fM",
+                    backbone, dev, cfg.vocab_size, batcher.seq_len, len(data.train),
+                    len(data.valid), sum(p.numel() for p in model.parameters()) / 1e6)
+
+        opt_cfg = OptimizerConfig(
+            optim=hf["optim"], learning_rate=learning_rate,
+            weight_decay=weight_decay, warmup_ratio=warmup_ratio,
+            lr_scheduler_type=lr_scheduler_type,
+            total_steps=schedule_horizon(len(data.train), micro, accum, epochs))
+        loop_cfg = TrainLoopConfig(epochs=epochs, patience=patience, seed=seed,
+                                   gradient_accumulation_steps=accum,
+                                   snapshot_every_epochs=save_epochs,
+                                   resume=resume_from_checkpoint,
+                                   **hf["loop_kwargs"])
+        writer = MetricWriter(os.path.join("runs", self.name),
+                              run_name=wandb_run_name or f"{dataset}-{backbone}",
+                              config=getattr(self, "param_dict", {}))
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, opt_cfg,
+                          loop_cfg, output_dir=output_dir, metric_writer=writer,
+                          eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
+
+        # the C++ example store collates each field in one call (numpy where
+        # no compiler exists); one process holds every example
+        from gamer_tpu_torch import native
+
+        train_store = native.ExampleStore(data.train, corpus.vocab.behavior_token_ids,
+                                          only_train_response=only_train_response)
+        valid_store = native.ExampleStore(data.valid, corpus.vocab.behavior_token_ids,
+                                          only_train_response=only_train_response)
+
+        def train_batches(epoch):
+            return train_store.iterate(micro, batcher.seq_len, shuffle=True, seed=seed + epoch)
+
+        def eval_batches():
+            return valid_store.iterate(micro, batcher.seq_len)
+
+        if profile_dir:
+            self._profile(trainer, train_batches(0), profile_dir, dev)
+
+        result = trainer.fit(train_batches, eval_batches)
+
+        # persist everything the test task needs
+        os.makedirs(output_dir, exist_ok=True)
+        cfg.extra["family"] = "decoder_only"
+        cfg.save(output_dir)
+        corpus.vocab.save(os.path.join(output_dir, "vocab.json"))
+        logger.info("done: best valid loss %.4f after %d steps",
+                    result["best_metric"], result["steps"])
+        return result
+
+    @staticmethod
+    def _profile(trainer: Trainer, batches, profile_dir: str, dev: torch.device) -> None:
+        """A torch.profiler trace of five training steps (they train)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            for i, batch in enumerate(batches):
+                trainer.train_step(batch)
+                if i >= 4:
+                    break
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        logger.info("profiler trace written to %s", profile_dir)

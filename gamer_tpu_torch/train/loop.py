@@ -5,23 +5,32 @@ backward, optimizer), gradient accumulation as `optax.MultiSteps` does it
 (k micro-step grads averaged as a running mean, one optimizer update per k
 micro-steps, the schedule counting updates), per-epoch (or every-N-updates)
 eval as a global token mean with dropout off, early stopping with patience,
-the best parameters kept in memory, and the JSONL metric stream.
+and the JSONL metric stream. With an `output_dir` it checkpoints as the JAX
+loop does (`core/checkpoint.py`): "best" (the model's state dict) on every
+improvement, "last_state" (parameters, optimizer moments and count, micro-step,
+a mid-cycle accumulator; epoch and best in its metadata) after every epoch and
+every steps-mode eval, "last" at the end, and with `snapshot_every_epochs`
+"epoch_<N>" snapshots keeping the newest `snapshot_limit`; `resume` restores
+"last_state" and continues from the epoch after it.
 
 The loop consumes `loss_fn(batch, generator) -> (loss, aux)`, differentiable
 in the model's parameters; each micro-step's dropout seeds come from a CPU
-`torch.Generator` seeded by `(loop seed, micro-step)`. Checkpoints, resume
-and snapshots are not ported yet.
+`torch.Generator` seeded by `(loop seed, micro-step)`.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import re
+import shutil
 import time
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
@@ -42,6 +51,11 @@ class TrainLoopConfig(Config):
     gradient_accumulation_steps: int = 1
     metric_mode: str = "min"  # "min" (valid loss) or "max" (ranking metric)
     seed: int = 42
+    save_checkpoints: bool = True
+    # periodic per-epoch snapshots, keeping the newest N
+    snapshot_every_epochs: int = 0  # 0 = off
+    snapshot_limit: int = 2
+    resume: bool = False  # restore the full train state from "last_state"
 
 
 class Trainer:
@@ -51,6 +65,7 @@ class Trainer:
         model: torch.nn.Module,
         opt_cfg: OptimizerConfig,
         loop_cfg: TrainLoopConfig,
+        output_dir: str | None = None,
         metric_writer: MetricWriter | None = None,
         eval_fn: Callable[[torch.nn.Module], tuple[float, dict]] | None = None,
         eval_loss_fn: Callable[[dict], tuple[torch.Tensor, dict]] | None = None,
@@ -64,6 +79,8 @@ class Trainer:
         self.cfg = loop_cfg
         self.writer = metric_writer
         self.eval_fn = eval_fn
+        self.ckpt = (CheckpointManager(output_dir)
+                     if output_dir and loop_cfg.save_checkpoints else None)
         self.optimizer = make_optimizer(opt_cfg, model)
         self.params = dict(model.named_parameters())
         self.step = 0  # micro-steps taken
@@ -106,6 +123,19 @@ class Trainer:
         """Optimizer updates applied."""
         return self.optimizer.count
 
+    def train_state(self) -> dict:
+        """Everything a resumed run needs: parameters, optimizer state,
+        micro-step and a mid-cycle gradient accumulator."""
+        return {"params": self.model.state_dict(), "opt": self.optimizer.state_dict(),
+                "step": self.step, "acc": self._acc or {}}
+
+    def load_train_state(self, state: dict) -> None:
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt"])
+        self.step = int(state["step"])
+        device = next(iter(self.params.values())).device
+        self._acc = {k: v.to(device) for k, v in state["acc"].items()} or None
+
     # ------------------------------------------------------------------ loops
 
     @torch.no_grad()
@@ -135,6 +165,13 @@ class Trainer:
         evals_since_best = 0
         history: list[dict] = []
         accum = max(cfg.gradient_accumulation_steps, 1)
+        start_epoch = 0
+        if cfg.resume and self.ckpt and self.ckpt.exists("last_state"):
+            self.load_train_state(self.ckpt.restore("last_state"))
+            meta = self.ckpt.metadata("last_state") or {}
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            best = float(meta.get("best", best))
+            logger.info("resumed from epoch %d (step %d, best %.4f)", start_epoch, self.step, best)
 
         def run_eval(epoch: int, epoch_loss: float | None) -> bool:
             """One eval, best tracking and the early-stop check; True = stop."""
@@ -160,17 +197,24 @@ class Trainer:
             if better(metric, best):
                 best = metric
                 evals_since_best = 0
-                self._best_state = {k: v.detach().clone()
-                                    for k, v in self.model.state_dict().items()}
-                return False
-            evals_since_best += 1
-            if cfg.patience > 0 and evals_since_best >= cfg.patience:
-                logger.info("early stopping at epoch %d", epoch)
-                return True
+                if self.ckpt:
+                    self.ckpt.save("best", self.model.state_dict(),
+                                   {"epoch": epoch, "metric": float(metric), "step": self.step})
+                else:
+                    self._best_state = {k: v.detach().clone()
+                                        for k, v in self.model.state_dict().items()}
+            else:
+                evals_since_best += 1
+                if cfg.patience > 0 and evals_since_best >= cfg.patience:
+                    logger.info("early stopping at epoch %d", epoch)
+                    return True
+            if self.ckpt and cfg.eval_strategy == "steps":
+                self.ckpt.save("last_state", self.train_state(),
+                               {"epoch": epoch, "best": float(best), "step": self.step})
             return False
 
         stop = False
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
             n_steps, loss_acc = 0, None
             for batch in train_batches(epoch):
@@ -194,10 +238,34 @@ class Trainer:
                     and epoch >= cfg.eval_delay):
                 if run_eval(epoch, epoch_loss):
                     break
+            if self.ckpt:
+                if cfg.snapshot_every_epochs > 0 and (epoch + 1) % cfg.snapshot_every_epochs == 0:
+                    self.ckpt.save(f"epoch_{epoch}", self.model.state_dict(), {"epoch": epoch})
+                    self._prune_snapshots(cfg.snapshot_limit)
+                self.ckpt.save("last_state", self.train_state(),
+                               {"epoch": epoch, "best": float(best), "step": self.step})
+        if self.ckpt:
+            self.ckpt.save("last", self.model.state_dict(), {"step": self.step})
         return {"best_metric": float(best), "history": history, "steps": self.step}
 
+    # --------------------------------------------------------------- restore
+
+    def _prune_snapshots(self, limit: int) -> None:
+        snaps = sorted((int(m.group(1)), m.group(0)) for m in
+                       (re.fullmatch(r"epoch_(\d+)", n) for n in os.listdir(self.ckpt.directory))
+                       if m)
+        for _, name in snaps[:-limit] if limit > 0 else []:
+            shutil.rmtree(os.path.join(self.ckpt.directory, name), ignore_errors=True)
+            meta = os.path.join(self.ckpt.directory, name + ".meta.json")
+            if os.path.exists(meta):
+                os.remove(meta)
+
     def best_params(self) -> dict[str, Any]:
-        """The state dict of the best eval so far (the current one if none)."""
+        """The state dict of the best eval: the "best" checkpoint, or without
+        an output directory the copy kept in memory, else the current one."""
+        if self.ckpt and self.ckpt.exists("best"):
+            return self.ckpt.restore("best", map_location=self.model.device
+                                     if hasattr(self.model, "device") else "cpu")
         if self._best_state is not None:
             return self._best_state
         return {k: v.detach() for k, v in self.model.state_dict().items()}

@@ -121,6 +121,22 @@ class Optimizer:
             return dict(grads)
         return {k: g / norm * max_norm for k, g in grads.items()}
 
+    def state_dict(self) -> dict:
+        """The update count and the family's moments or accumulators, for
+        checkpoints (the tensors themselves, not copies)."""
+        slots = {name: getattr(self, name) for name in ("mu", "nu", "sum_sq")
+                 if hasattr(self, name)}
+        return {"count": self.count, **slots}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Restore `state_dict()` output in place."""
+        self.count = int(state["count"])
+        for name, tensors in state.items():
+            if name != "count":
+                for k, t in tensors.items():
+                    getattr(self, name)[k].copy_(t)
+
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor]) -> float:
         """Apply one update in place; returns the learning rate it used."""

@@ -103,3 +103,58 @@ def test_chip_smoke_train_step_on_cpu():
     for remat in (False, True):
         cs._paths_agree("tiny", cfg, cs.make_batch(cfg, 2, 6, seed=1), "cpu", 1, counters,
                         {k: 0 for k in counters}, plain_remat=remat)
+
+
+def test_data_plane_cli_and_native_are_isolated():
+    """The slice's modules (data plane, native collation, checkpoints,
+    tasks, the CLI `gamer_tpu_torch.__main__`) import no JAX, and every task
+    of `python -m gamer_tpu_torch` raises without CUDA unless --device cpu
+    is given."""
+    code = ("import importlib, sys\n"
+            "for m in ('gamer_tpu_torch.__main__', 'gamer_tpu_torch.native', "
+            "'gamer_tpu_torch.core.checkpoint', 'gamer_tpu_torch.data.batching', "
+            "'gamer_tpu_torch.data.synthetic', 'gamer_tpu_torch.evaluation.ranking', "
+            "'gamer_tpu_torch.tasks'):\n"
+            "    importlib.import_module(m)\n"
+            "from gamer_tpu_torch.tasks import task_list\n"
+            "assert sorted(task_list) == ['test_SMB_decoder', 'test_SMB_rule', "
+            "'train_SMB_decoder'], sorted(task_list)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gamer_tpu'))\n"
+            "assert not bad, bad\n"
+            "print(len([m for m in sys.modules if m.startswith('gamer_tpu_torch')]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 35
+    if torch.cuda.is_available():
+        return
+    from gamer_tpu_torch.__main__ import main
+
+    common = ["--dataset", "Demo", "--data_path", "unused"]
+    for task in ("train_SMB_decoder", "test_SMB_decoder", "test_SMB_rule"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([task, *common])
+
+
+def test_chip_smoke_task_phase_on_cpu():
+    """Phase 7 of chip_smoke.py (the CLI pipeline, its gates and its reload
+    check) at a tiny size on the CPU: no kernel launches, so every step's
+    launch counts are 0."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    counters = {"fused_mask_attention": FA.fused_mask_attention,
+                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    spec = dict(n_users=24, n_items=60, n_clusters=4, num_levels=2, level_sizes=(8, 10),
+                min_len=6, max_len=16, seed=3)
+    cs.task_phase(torch.device("cpu"), counters, "cpu", 0.0, spec=spec,
+                  train_args=("--backbone", "Qwen3Multi", "--batch_size", "8", "--dtype",
+                              "float32", "--n_layers", "2", "--hidden_size", "16"),
+                  extra_args=("--device", "cpu"), min_steps=2, num_beams=4)
+    assert not any(name.startswith("phase7_") for name in os.listdir(REPO))

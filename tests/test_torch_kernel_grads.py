@@ -148,3 +148,43 @@ def test_ce_grads_match_jax_kernel():
     np.testing.assert_allclose(dh.numpy(), np.asarray(want_dh), **TOL)
     np.testing.assert_allclose(de.numpy(), np.asarray(want_de), **TOL)
     assert (dh.numpy()[valid == 0] == 0).all()
+
+
+def test_gelu_qwen3multi_loss_and_grads_match_jax():
+    """A tiny Qwen3Multi with hidden_act "gelu" through the fused MoE path
+    (the port's default): the port's training loss and every parameter's
+    grad against the JAX `make_loss_fn` with its MoE Pallas kernel in
+    interpret mode (attention and CE on both sides' plain paths, which
+    other tests hold to the kernels), at the tolerances of
+    tests/test_torch_train.py."""
+    from gamer_tpu.models.generative import qwen_family as JQ
+    from gamer_tpu.tasks.train_smb_decoder import make_loss_fn as jax_make_loss_fn
+    from gamer_tpu_torch.convert import to_flax
+    from gamer_tpu_torch.models.generative import qwen_family as TQ
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from tests.test_torch_qwen_family import make_batch, tiny_kwargs
+    from tests.test_torch_train import _assert_trees_close
+
+    # one layer that is sparse, cross-attending and behavior-injected
+    kw = tiny_kwargs("jnp", hidden_act="gelu", num_hidden_layers=1, sparse_layers=[0],
+                     cross_attention_layers=[0], behavior_injection_layers=[0])
+    batch = make_batch(JQ.build_config("Qwen3Multi", **kw), B=2, blocks=4)
+    jcfg = JQ.build_config("Qwen3Multi", **{**kw, "moe_impl": "pallas_interpret"})
+    jmodel = JQ.QwenFamilyModel(jcfg)
+    tcfg = TQ.QwenFamilyConfig.from_dict({**jcfg.to_dict(), "moe_impl": "auto"})
+    tmodel = TQ.QwenFamilyModel(tcfg, device="cpu", seed=0)
+    # the port's seeded weights in the flax layout (the tree from a trace of
+    # init, which is much cheaper than running it)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    template = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                                  **JQ.prepare_train_inputs(jcfg, jbatch)))
+    params = to_flax(dict(tmodel.named_parameters()), template)
+    jloss_fn = jax_make_loss_fn(jmodel, jmodel.cfg, deterministic=False)
+    (want, want_aux), want_grads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
+        params, jbatch, jax.random.PRNGKey(3))
+    loss, aux = make_loss_fn(tmodel, deterministic=False)(batch, torch.Generator().manual_seed(3))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), **TOL)
+    assert int(aux["denom"]) == int(want_aux["denom"])
+    grads = {n: p.grad for n, p in tmodel.named_parameters()}
+    _assert_trees_close(to_flax(grads, params), jax.device_get(want_grads))

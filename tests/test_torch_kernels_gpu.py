@@ -42,9 +42,9 @@ def _close(out, ref, dtype):
     assert err <= TOL[dtype] * max(ref.float().abs().max().item(), 1e-6), err
 
 
-def _attn_inputs(dev, dtype, S, D, seed):
+def _attn_inputs(dev, dtype, S, D, seed, B=3):
     rng = np.random.default_rng(seed)
-    B, H, Hkv = 3, 4, 2
+    H, Hkv = 4, 2
     attn = np.ones((B, S), np.int32)
     attn[1, S - 9:] = 0
     sess = np.sort(rng.integers(0, 4, (B, S)), axis=1)
@@ -340,11 +340,11 @@ def test_ce_tc_kernels_are_deterministic(dev):
 
 
 def test_ce_bf16_rejects_widths_the_kernels_do_not_take(dev):
-    h, table, tgt, val, _ = _ce_tc_inputs(dev, 64, 100, 256, 1)
+    """No bf16 width is refused any more: D off the multiples of 16 is
+    zero-padded by the wrapper and D over 256 takes the wide kernels, both
+    against the plain version."""
     for width in (40, 272):
-        with pytest.raises(ValueError, match="multiple of 16"):
-            fused_ce_rows(h[:, :1].expand(64, width).contiguous(),
-                          table[:, :1].expand(100, width).contiguous(), tgt, val, 1.0)
+        _ce_tc_check(dev, 200, 333, width, 1 / 0.7, width)
 
 
 # ---- the bf16 tensor-core kernels of h and i (mma.sync): every padded width
@@ -364,15 +364,15 @@ def _moe_tc_inputs(dev, P, T, D, F, Dout, NB, seed):
     return xp, wgu, wd, btab, beh, gout
 
 
-def _moe_tc_check(dev, P, T, D, F, Dout, rate, use_bias, seed):
+def _moe_tc_check(dev, P, T, D, F, Dout, rate, use_bias, seed, act="silu"):
     """bf16 h and i against the plain version in fp32 on the same bf16
     values: out, dx, dWgu, dWd (and dbtab with bias) at 2e-2."""
     xp, wgu, wd, btab, beh, gout = _moe_tc_inputs(dev, P, T, D, F, Dout, 4, seed)
-    out = FM._launch_fwd(xp, wgu, wd, btab, beh, 77, rate, use_bias)
-    grads = FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, 77, rate, use_bias)
+    out = FM._launch_fwd(xp, wgu, wd, btab, beh, 77, rate, use_bias, act)
+    grads = FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, 77, rate, use_bias, act)
     up = [t.float() for t in (xp, wgu, wd, btab)]
-    ref_out = fused_moe_ffn_plain(*up, beh, use_bias, 77, rate)
-    ref = FM.fused_moe_ffn_bwd_plain(*up, beh, gout.float(), 77, rate, use_bias)
+    ref_out = fused_moe_ffn_plain(*up, beh, use_bias, 77, rate, act)
+    ref = FM.fused_moe_ffn_bwd_plain(*up, beh, gout.float(), 77, rate, use_bias, act)
     torch.cuda.synchronize()
     n = 4 if use_bias else 3
     for got, want in zip((out, *grads[:n]), (ref_out, *ref[:n])):
@@ -421,7 +421,144 @@ def test_moe_tc_kernels_are_deterministic(dev):
 
 
 def test_moe_bf16_rejects_widths_the_kernels_do_not_take(dev):
+    """No bf16 width is refused any more: D, F and Dout off the multiples of
+    16 are zero-padded by the wrapper and D over 256 takes the streamed
+    forward, all against the plain version."""
     for D, F, Dout in ((40, 64, 64), (272, 64, 64), (64, 72, 64), (64, 64, 100)):
-        xp, wgu, wd, btab, beh, _ = _moe_tc_inputs(dev, 1, 8, D, F, Dout, 2, 1)
-        with pytest.raises(ValueError, match="multiples of 16"):
-            fused_moe_ffn(xp, wgu, wd, btab, beh)
+        _moe_tc_check(dev, 1, 8, D, F, Dout, 0.2, True, D + F + Dout)
+
+
+# ---- the activations of h and i (silu, relu, tanh-gelu for "gelu" and
+# "gelu_new"), with bias and dropout 0.2 on one seed, both dtypes
+
+def _moe_f32_check(dev, P, T, D, F, Dout, rate, use_bias, seed, act):
+    """fp32 h and i against the plain version at 1e-4."""
+    xp, wgu, wd, btab, beh, gout = (t.float() if t.is_floating_point() else t
+                                    for t in _moe_tc_inputs(dev, P, T, D, F, Dout, 4, seed))
+    out = FM._launch_fwd(xp, wgu, wd, btab, beh, 77, rate, use_bias, act)
+    grads = FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, 77, rate, use_bias, act)
+    ref_out = fused_moe_ffn_plain(xp, wgu, wd, btab, beh, use_bias, 77, rate, act)
+    ref = FM.fused_moe_ffn_bwd_plain(xp, wgu, wd, btab, beh, gout, 77, rate, use_bias, act)
+    torch.cuda.synchronize()
+    for got, want in zip((out, *grads), (ref_out, *ref)):
+        assert torch.isfinite(got).all()
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu", "gelu_new"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [99, 6464])
+def test_moe_activations_match_plain(dev, act, dtype, T):
+    """h and i at every activation other than silu, bias and dropout 0.2:
+    a ragged T and the flagship shape (P 5, D 256, F 512, Dout 256)."""
+    P = 5 if T == 6464 else 2
+    if dtype == torch.bfloat16:
+        _moe_tc_check(dev, P, T, 256, 512, 256, 0.2, True, T, act)
+    else:
+        _moe_f32_check(dev, P, T, 256, 512, 256, 0.2, True, T, act)
+
+
+def test_moe_unknown_activation_raises(dev):
+    xp, wgu, wd, btab, beh, _ = _moe_tc_inputs(dev, 1, 8, 64, 64, 64, 2, 1)
+    with pytest.raises(ValueError, match="swish"):
+        fused_moe_ffn(xp, wgu, wd, btab, beh, act_name="swish")
+
+
+# ---- widths: the wide routes of h/i (D over 256 in bf16, over 512 in fp32),
+# the pad route (bf16 widths off the multiples of 16), j/k at D 512 and 1024,
+# attention head dims off the compiled ones and at 256
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F,Dout,T", [(512, 1024, 512, 6464), (200, 344, 200, 6464),
+                                        (1024, 4096, 1024, 640), (600, 80, 40, 99)])
+def test_moe_widths_match_plain(dev, dtype, D, F, Dout, T):
+    """hidden 512 at the flagship rows, the pad route, D = Dout 1024 with F
+    4096, and a narrow output with a wide input; bias and dropout 0.2."""
+    P = 5 if T == 6464 else 2
+    if dtype == torch.bfloat16:
+        _moe_tc_check(dev, P, T, D, F, Dout, 0.2, True, D + F)
+    else:
+        _moe_f32_check(dev, P, T, D, F, Dout, 0.2, True, D + F, "silu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [200, 512, 1024])
+def test_ce_widths_match_plain(dev, dtype, D):
+    """j and k at D 512 and 1024 (wide routes of both dtypes; fp32 j streams
+    h from 513) and D 200 (the bf16 pad route), V 1041, ragged N."""
+    if dtype == torch.bfloat16:
+        _ce_tc_check(dev, 1000, 1041, D, 1 / 0.7, D)
+        return
+    h, table, tgt, val, gnll = (t.float() if t.is_floating_point() else t
+                                for t in _ce_tc_inputs(dev, 1000, 1041, D, D))
+    nll, lse = FC._launch_fwd(h, table, tgt, val, 1 / 0.7)
+    dh, de = FC.fused_ce_rows_bwd(h, table, tgt, val, lse, gnll, 1 / 0.7)
+    rnll, rlse = fused_ce_rows_plain(h, table, tgt, val, 1 / 0.7)
+    rdh, rde = FC.fused_ce_rows_bwd_plain(h, table, tgt, val, gnll, 1 / 0.7)
+    torch.cuda.synchronize()
+    for got, want in ((nll, rnll), (lse, rlse), (dh, rdh), (de, rde)):
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 48, 96, 200, 256])
+@pytest.mark.parametrize("kind", ["causal", "session_multi"])
+def test_attention_head_dims_match_plain(dev, dtype, D, kind):
+    """a and b at head dims padded to the compiled ones (8, 48, 96, 200) and
+    at the new 256, dropout 0.2, B 8 x S 505 with a padded row."""
+    q, k, v, streams, H = _attn_inputs(dev, dtype, 505, D, D, B=8)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fused_mask_attention(*leaves, *streams, 1234, H, kind, 0.2)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(D)).to(dev, dtype)
+    grads = torch.autograd.grad(out, leaves, dout)
+    up = [t.float() for t in (q, k, v)]
+    ref_out = fused_mask_attention_plain(*up, *streams, 1234, H, kind, 0.2)
+    ref = FA.fused_mask_attention_bwd_plain(*up, dout.float(), *streams, 1234, H, kind, 0.2)
+    torch.cuda.synchronize()
+    for got, want in zip((out, *grads), (ref_out, *ref)):
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        _close(got, want, dtype)
+
+
+def test_attention_head_dim_over_256_raises(dev):
+    q, k, v, streams, H = _attn_inputs(dev, torch.bfloat16, 16, 264, 1)
+    with pytest.raises(ValueError, match="256"):
+        fused_mask_attention(q, k, v, *streams, 0, H, "causal")
+
+
+def test_flagship_widths_copy_nothing(dev, monkeypatch):
+    """At the flagship widths (head dim 64, hidden 256, d_ff 512) no wrapper
+    pads: F.pad is never called."""
+    import torch.nn.functional as F
+
+    def no_pad(*args, **kwargs):
+        raise AssertionError("a flagship-width call padded")
+
+    monkeypatch.setattr(F, "pad", no_pad)
+    _moe_tc_check(dev, 5, 640, 256, 512, 256, 0.2, True, 1)
+    _ce_tc_check(dev, 640, 1041, 256, 1 / 0.7, 1)
+    _tc_check(dev, 3, 505, 2, 64, 0.2, "causal", 1)
+
+
+def test_qwen3multi_hidden_512_training_step(dev):
+    """One bf16 training step of Qwen3Multi at hidden 512 (head dim 64, MoE
+    D 512 on the streamed forward) through the kernels, with phase 5's
+    launch counts per step: a 12, b 12, h 8, i 8, j 1, k 1."""
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+
+    cfg = flagship_config(dtype="bfloat16", dropout_rate=0.2, hidden_size=512)
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    batch = make_batch(cfg, 8, 101)
+    loss_fn = make_loss_fn(model, cfg, deterministic=False)
+    kernels = (FA.fused_mask_attention, FA.fused_mask_attention_bwd, FM.fused_moe_ffn,
+               FM.fused_moe_ffn_bwd, FC.fused_ce_rows, FC.fused_ce_rows_bwd)
+    for f in kernels:
+        f.launches = 0
+    loss, _ = loss_fn(batch, torch.Generator().manual_seed(0))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert [f.launches for f in kernels] == [12, 12, 8, 8, 1, 1]
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
