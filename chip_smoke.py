@@ -31,8 +31,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2c. the widths past the flagship's, forward and backward in both dtypes
    against the plain versions, with their bf16 times and bounds: MoE h/i at
    hidden 512 (D = Dout 512, F 1024) and at D 200, F 344 (the pad route), CE
-   j/k at D 512 and 1024, attention a/b at head dims 48, 96 and 256 (B 8 x
-   S 505);
+   j/k at D 512 and 1024, attention a/b at head dims 48, 96, 256 and, on
+   the wide route, 320 and 512 (B 8 x S 505);
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -56,7 +56,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launches as in phase 5, the C++ collation, the saved checkpoints, the
    reloaded "best" giving the best eval loss), test_SMB_decoder with 20
    beams and test_SMB_rule; prints the step time with host collation, the
-   eval's wall time and beams/s, and the metrics.
+   eval's wall time and beams/s, and the metrics;
+8. the multi- and single-behavior pipelines through the CLI at the
+   presets' full widths (`seq_phase`): on phase 7's dataset, one bf16 epoch
+   of train_MB_decoder (Qwen3MoeAction, mb_explicit_decoder_4, batch 256:
+   per step a 8, b 8, h 24, i 24, j 1, k 1, kernels h and i once per
+   behavior level), the reloaded "best", test_MB_decoder's three modes
+   (the behavior-token decode included) with 20 beams; one bf16 epoch of
+   train_decoder (Qwen3Moe, batch 256: a 8, b 8, h 8, i 8, j 1, k 1) and
+   test_decoder; prints the step times, S, peak memory and each eval's
+   wall time and beams/s.
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -65,6 +74,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -78,6 +88,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 F32_TOL, BF16_TOL, LOSS_TOL = 1e-4, 2e-2, 1e-2
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-3  # fp32 train step, kernel path vs plain path
+# bf16 train step, kernel path vs plain path, set from the readings of
+# scripts/probe_step_tolerance.py on an H100: sound runs reach a loss diff of
+# 7.6e-5 and a grad err of 8.5e-2 (the q/k RMSNorm weights, whose grads sum
+# many bf16 products); planted faults give grad errs of 1.0 and more
+BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL = 5e-4, 0.3
 DROP_SEED, DROP_RATE = 1234, 0.2
 NEG = -1e30  # score of a dead beam (gamer_tpu_torch/decode/beam.py)
 BEAM_BATCH, NUM_BEAMS, LEVELS, LEVEL_SIZE, N_ITEMS, PROMPT_BLOCKS = 128, 20, 4, 256, 4096, 100
@@ -655,11 +670,13 @@ def backward_phase(dev) -> dict:
 
 
 def _width_case(name: str, fn, plain_fn, inputs: list, gout, flops: tuple, n_bytes: tuple,
-                card: str) -> None:
+                card: str, lib: tuple | None = None) -> None:
     """One width case of phase 2c: `fn(*inputs)` through the kernels (forward
     and autograd backward) against `plain_fn` in fp32, on fp32 inputs at
     F32_TOL and on bf16 inputs at BF16_TOL; then the bf16 forward and
-    backward times beside their bounds (flops and bytes: forward, backward)."""
+    backward times beside their bounds (flops and bytes: forward, backward),
+    those of `plain_fn` and, where `lib` = (label, function) names one
+    PyTorch call of the same function, those of that call."""
     import torch
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -675,16 +692,27 @@ def _width_case(name: str, fn, plain_fn, inputs: list, gout, flops: tuple, n_byt
         _grad_check(f"width {name} fwd+bwd [{dtype}]", (out, *grads), (want_out, *want), tol)
         del out, grads, want_out, want
     leaves = [t.detach().bfloat16().requires_grad_(True) for t in inputs]
-    with torch.no_grad():
-        fwd_ms = _cuda_ms(lambda: fn(*leaves))
-    with torch.enable_grad():
-        out = fn(*leaves)
-    bwd_ms = _grad_ms(out, leaves, gout.to(out.dtype))
+
+    def fwd_bwd_ms(f, iters: int) -> tuple[float, float]:
+        with torch.no_grad():
+            fwd = _cuda_ms(lambda: f(*leaves), iters)
+        with torch.enable_grad():
+            out = f(*leaves)
+        return fwd, _grad_ms(out, leaves, gout.to(out.dtype), iters)
+
+    fwd_ms, bwd_ms = fwd_bwd_ms(fn, 10)
+    plain_fwd, plain_bwd = fwd_bwd_ms(plain_fn, 3)
     fb, fby = _bound_ms(n_bytes[0], flops[0])
     bb, bby = _bound_ms(n_bytes[1], flops[1])
+    lib_text = ""
+    if lib is not None:
+        lib_fwd, lib_bwd = fwd_bwd_ms(lib[1], 5)
+        lib_text = f"; {lib[0]}: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms"
     print(f"time width {name} bf16: forward {fwd_ms:.4f} ms ({_rate(flops[0], fwd_ms, fb)}; "
           f"bound {fb:.4f} ms, {fby}), backward {bwd_ms:.4f} ms ({_rate(flops[1], bwd_ms, bb)}; "
-          f"bound {bb:.4f} ms, {bby}) (card {card})", flush=True)
+          f"bound {bb:.4f} ms, {bby}); plain: forward {plain_fwd:.4f} ms, backward "
+          f"{plain_bwd:.4f} ms{lib_text} (card {card})", flush=True)
+    del leaves
 
 
 def width_phase(dev, card: str) -> None:
@@ -692,13 +720,16 @@ def width_phase(dev, card: str) -> None:
     forward and backward against the plain versions: MoE h/i at hidden 512
     (D = Dout 512, F 1024, the streamed forward) and at D 200, F 344 (the pad
     route), CE j/k at D 512 and 1024 (the wide kernels), attention a/b at
-    head dims 48, 96 (padded) and 256 at B 8 x S 505; bias and dropout 0.2
-    where the kernel has them."""
+    head dims 48, 96 (padded), 256, and 320 and 512 (the wide route, 64
+    output columns a CTA) at B 8 x S 505; bias and dropout 0.2 where the
+    kernel has them."""
     import torch
+    import torch.nn.functional as F
 
     from gamer_tpu_torch.ops import fused_attention as FA
     from gamer_tpu_torch.ops import fused_ce as FC
     from gamer_tpu_torch.ops import fused_moe as FM
+    from gamer_tpu_torch.ops.masks import streams_allowed
 
     g = torch.Generator(device="cpu").manual_seed(4)
     rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(dev)
@@ -719,6 +750,11 @@ def width_phase(dev, card: str) -> None:
     rng = np.random.default_rng(7)
     tgt = torch.as_tensor(rng.integers(0, V, N).astype(np.int32), device=dev)
     val = torch.as_tensor((rng.random(N) > 0.2).astype(np.int32), device=dev)
+
+    def ce_lib(h, e):
+        logits = (h @ e.T).float()
+        return torch.logsumexp(logits, dim=-1) - logits.gather(1, tgt.long()[:, None])[:, 0]
+
     for D in (512, 1024):
         inputs = [rnd(N, D), rnd(V, D, scale=D ** -0.5)]
         io = 2 * (N * D + V * D) + 16 * N
@@ -726,16 +762,23 @@ def width_phase(dev, card: str) -> None:
                     lambda h, e: FC.fused_ce_rows(h, e, tgt, val, 1.0)[0],
                     lambda h, e: FC.fused_ce_rows_plain(h, e, tgt, val, 1.0)[0],
                     inputs, torch.rand(N, generator=g).to(dev) / N,
-                    (2.0 * N * V * D, 3 * 2.0 * N * V * D), (io, 2 * io), card)
+                    (2.0 * N * V * D, 3 * 2.0 * N * V * D), (io, 2 * io), card,
+                    lib=("matmul+logsumexp", ce_lib))
     B, S = 8, 505
-    for D in (48, 96, 256):
+    for D in (48, 96, 256, 320, 512):
         cfg = flagship_config(head_dim=D)
         H = cfg.num_attention_heads
         q, k, v, streams = _attn_inputs(dev, cfg, B, S, D, rnd)
-        from gamer_tpu_torch.ops.masks import streams_allowed
-
-        pairs = float(streams_allowed("causal", *streams).sum().item()) * H
+        allowed = streams_allowed("causal", *streams)
+        pairs = float(allowed.sum().item()) * H
         io = 2 * (q.numel() + k.numel() + v.numel())
+
+        def sdpa(q, k, v, D=D, H=H, Hkv=cfg.num_key_value_heads, allowed=allowed):
+            heads = lambda t, n: t.view(B, S, n, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                heads(q, H), heads(k, Hkv), heads(v, Hkv), attn_mask=allowed,
+                enable_gqa=True).transpose(1, 2).reshape(B, S, H * D)
+
         _width_case(f"attention a+b head_dim={D} B={B} S={S} causal",
                     lambda *t: FA.fused_mask_attention(*t, *streams, DROP_SEED, H, "causal",
                                                        DROP_RATE),
@@ -744,14 +787,16 @@ def width_phase(dev, card: str) -> None:
                     [q, k, v], rnd(B, S, H * D),
                     (4.0 * D * pairs, 10.0 * D * pairs),
                     (io + 2 * q.numel() + 4 * B * H * S + 16 * B * S,
-                     2 * io + 2 * q.numel() + 8 * B * H * S + 16 * B * S), card)
+                     2 * io + 2 * q.numel() + 8 * B * H * S + 16 * B * S), card,
+                    lib=("sdpa(bool mask, no dropout)", sdpa))
 
 
 def _step_launches(cfg) -> dict:
     """Wrapper calls of one training step: an attention forward and backward
     per self- and cross-attention, an MoE forward and backward per sparse
-    layer, one CE forward and backward."""
-    attn, moe = cfg.num_hidden_layers + len(cfg.cross_attention_layers), len(cfg.sparse_layers)
+    layer (MoeAction: one per behavior level), one CE forward and backward."""
+    attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
+    moe = len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action else 1)
     return {"fused_mask_attention": attn, "fused_mask_attention_bwd": attn,
             "fused_moe_ffn": moe, "fused_moe_ffn_bwd": moe,
             "fused_ce_rows": 1, "fused_ce_rows_bwd": 1}
@@ -768,11 +813,14 @@ def _step_grads(model, loss_fn, batch, seed: int):
 
 
 def _paths_agree(label: str, cfg, batch, dev, seed: int, counters: dict,
-                 expected: dict, plain_remat: bool = False) -> None:
-    """One fp32 training step through the kernels (launch counts reset just
+                 expected: dict, plain_remat: bool = False, loss_tol: float = STEP_LOSS_TOL,
+                 grad_tol: float = STEP_GRAD_TOL) -> tuple[float, float, str]:
+    """One training step through the kernels (launch counts reset just
     before and checked just after) and through the plain path, on the same
-    weights and dropout seeds: loss within STEP_LOSS_TOL, every grad within
-    STEP_GRAD_TOL (max |d| / max |plain|)."""
+    weights and dropout seeds: loss within `loss_tol` relative, every grad
+    within `grad_tol` (max |d| / max |plain|); fp32 at STEP_LOSS_TOL and
+    STEP_GRAD_TOL, bf16 at BF16_STEP_LOSS_TOL and BF16_STEP_GRAD_TOL.
+    Returns (loss rel diff, worst grad rel err, its parameter)."""
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
 
@@ -790,12 +838,38 @@ def _paths_agree(label: str, cfg, batch, dev, seed: int, counters: dict,
     plain_loss, plain_grads = _step_grads(
         plain, make_loss_fn(plain, plain_cfg, deterministic=False), batch, seed)
     rel = abs(loss - plain_loss) / abs(plain_loss)
-    worst = max((_rel_err(grads[n], plain_grads[n])[1], n) for n in grads)
+    # a grad that only one path produced is off by all of it
+    worst = max(((_rel_err(grads[n], plain_grads[n])[1]
+                  if grads[n] is not None and plain_grads[n] is not None
+                  else float(grads[n] is not plain_grads[n])), n) for n in grads)
     print(f"{label}: loss {loss:.7f} (kernels) vs {plain_loss:.7f} (plain), rel diff "
-          f"{rel:.3e} (tol {STEP_LOSS_TOL}); worst grad rel err {worst[0]:.3e} ({worst[1]}, "
-          f"tol {STEP_GRAD_TOL})", flush=True)
-    assert np.isfinite(loss) and rel <= STEP_LOSS_TOL, f"{label}: losses disagree"
-    assert worst[0] <= STEP_GRAD_TOL, f"{label}: grads disagree"
+          f"{rel:.3e} (tol {loss_tol}); worst grad rel err {worst[0]:.3e} ({worst[1]}, "
+          f"tol {grad_tol})", flush=True)
+    assert np.isfinite(loss) and rel <= loss_tol, f"{label}: losses disagree"
+    assert worst[0] <= grad_tol, f"{label}: grads disagree"
+    return rel, worst[0], worst[1]
+
+
+def _task_paths_agree(label: str, out: str, dev, counters: dict, train, valid, vocab,
+                      pad_multiple: int, batch: int) -> None:
+    """`_paths_agree` on a task's own geometry: the config the task saved in
+    `out` (fresh weights from a seed) and the first shuffled training batch
+    of its examples as the task collates it, in the config's dtype and in
+    fp32, each at its dtype's step tolerances."""
+    from gamer_tpu_torch import native
+    from gamer_tpu_torch.data.batching import DecoderBatcher
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+
+    cfg = QwenFamilyConfig.from_file(out)
+    seq_len = DecoderBatcher.for_examples(train + valid, pad_multiple=pad_multiple).seq_len
+    first = next(iter(native.ExampleStore(train, vocab.behavior_token_ids).iterate(
+        batch, seq_len, shuffle=True, seed=0)))
+    expected = _step_launches(cfg) if dev.type == "cuda" else {k: 0 for k in counters}
+    tols = {cfg.dtype: (BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL),
+            "float32": (STEP_LOSS_TOL, STEP_GRAD_TOL)}
+    for dtype, (loss_tol, grad_tol) in tols.items():
+        _paths_agree(f"{label} step {dtype} B={batch} S={seq_len}", cfg.replace(dtype=dtype),
+                     first, dev, 5, counters, expected, loss_tol=loss_tol, grad_tol=grad_tol)
 
 
 def train_phase(dev, counters: dict, card: str) -> dict:
@@ -865,6 +939,62 @@ def long_phase(dev, counters: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _recording(counters: dict):
+    """While the block runs, record each `Trainer.train_step`'s launches
+    (the counts' change over the step), its start time and its batch's S,
+    and each `Trainer.evaluate`'s launches."""
+    from gamer_tpu_torch.train import loop as TL
+
+    rec = {"steps": [], "stamps": [], "evals": [], "S": None}
+    step0, eval0 = TL.Trainer.train_step, TL.Trainer.evaluate
+    snapshot = lambda: {k: w.launches for k, w in counters.items()}
+
+    def train_step(self, batch):
+        before = snapshot()
+        rec["stamps"].append(time.perf_counter())
+        rec["S"] = int(np.shape(batch["input_ids"])[1])
+        loss = step0(self, batch)
+        rec["steps"].append({k: v - before[k] for k, v in snapshot().items()})
+        return loss
+
+    def evaluate(self, batches):
+        before = snapshot()
+        loss = eval0(self, batches)
+        rec["evals"].append({k: v - before[k] for k, v in snapshot().items()})
+        return loss
+
+    TL.Trainer.train_step, TL.Trainer.evaluate = train_step, evaluate
+    try:
+        yield rec
+    finally:
+        TL.Trainer.train_step, TL.Trainer.evaluate = step0, eval0
+
+
+def _reload_check(label: str, out: str, dev, train, valid, vocab, pad_multiple: int,
+                  batch: int, best: float) -> None:
+    """The model reloaded from `out`'s "best" gives the in-memory best eval
+    loss `best` on `valid` within 1e-6 relative, batched as in training."""
+    from gamer_tpu_torch import native
+    from gamer_tpu_torch.data.batching import DecoderBatcher
+    from gamer_tpu_torch.tasks.test_decoder import load_generative_model
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train import loop as TL
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    model, cfg, _, _ = load_generative_model(out, "best", dev)
+    seq_len = DecoderBatcher.for_examples(train + valid, pad_multiple=pad_multiple).seq_len
+    store = native.ExampleStore(valid, vocab.behavior_token_ids)
+    trainer = TL.Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
+                         TL.TrainLoopConfig(),
+                         eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
+    reloaded = trainer.evaluate(store.iterate(batch, seq_len))
+    rel = abs(reloaded - best) / abs(best)
+    print(f"{label} reload: eval loss from 'best' {reloaded:.8f} vs in-memory best "
+          f"{best:.8f}, rel diff {rel:.3e} (tol 1e-6); seq_len {seq_len}", flush=True)
+    assert rel <= 1e-6, f"{label}: the reloaded checkpoint does not give the best eval loss"
+
+
 # phase 7's dataset: 4 levels of 256 codes (vocab 1041, as the flagship's), 3
 # behaviors, histories of 110-170 items, 700 users (3500 training examples:
 # 55 steps at batch 64)
@@ -895,14 +1025,9 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
 
     from gamer_tpu_torch import native
     from gamer_tpu_torch.__main__ import main
-    from gamer_tpu_torch.data.batching import DecoderBatcher
     from gamer_tpu_torch.data.loading_smb import load_smb_train
     from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
-    from gamer_tpu_torch.tasks.test_smb_decoder import load_generative_model
-    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
-    from gamer_tpu_torch.train import loop as TL
-    from gamer_tpu_torch.train.state import OptimizerConfig
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -913,37 +1038,15 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
     cli = lambda argv: main([*argv, *extra_args])
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    # per-step launches and step stamps (host collation included), evals apart
-    steps, stamps, evals = [], [], []
-    step0, eval0 = TL.Trainer.train_step, TL.Trainer.evaluate
-
-    def snapshot():
-        return {k: w.launches for k, w in counters.items()}
-
-    def train_step(self, batch):
-        before = snapshot()
-        stamps.append(time.perf_counter())
-        loss = step0(self, batch)
-        steps.append({k: v - before[k] for k, v in snapshot().items()})
-        return loss
-
-    def evaluate(self, batches):
-        before = snapshot()
-        loss = eval0(self, batches)
-        evals.append({k: v - before[k] for k, v in snapshot().items()})
-        return loss
-
     common = ["--dataset", "Synth", "--data_path", data, "--max_his_len", "100"]
-    TL.Trainer.train_step, TL.Trainer.evaluate = train_step, evaluate
-    try:
+    with _recording(counters) as rec:
         t = time.perf_counter()
         res = cli(["train_SMB_decoder", *common, "--tasks", "smb_explicit_decoder_4",
                    "--base_model", os.path.join(here, "config", "s2s-models", "Qwen3Multi"),
                    *train_args, "--epochs", "1", "--output_dir", out])
         sync()
         fit_s = time.perf_counter() - t
-    finally:
-        TL.Trainer.train_step, TL.Trainer.evaluate = step0, eval0
+    steps = rec["steps"]
     losses = [h["train_loss"] for h in res["history"]] + [res["best_metric"]]
     assert np.isfinite(losses).all(), f"non-finite losses {losses}"
     cfg = QwenFamilyConfig.from_file(out)
@@ -952,31 +1055,19 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
     assert all(st == expected for st in steps), f"per-step launches {steps[:3]} != {expected}"
     for name in ("best", "last", "config.json", "vocab.json"):
         assert os.path.exists(os.path.join(out, name)), f"{name} was not saved"
-    step_ms = float(np.median(np.diff(stamps[1:]))) * 1e3
+    step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
     print(f"phase 7 train_SMB_decoder {' '.join(train_args)}: {len(steps)} steps + eval: "
           f"train loss {res['history'][0]['train_loss']:.5f}, best valid loss "
-          f"{res['best_metric']:.6f}; launches each step {steps[0]}, eval {evals}; step "
+          f"{res['best_metric']:.6f}; launches each step {steps[0]}, eval {rec['evals']}; step "
           f"{step_ms:.3f} ms median with host collation ({64 / (step_ms / 1e3):.1f} "
           f"sequences/s; phase 5 random-batch step {phase5_ms:.3f} ms); fit {fit_s:.1f} s; "
           f"native collation {native.AVAILABLE} (card {card})", flush=True)
 
     # the model reloaded from "best" gives the in-memory best eval loss
-    model, cfg, _, _ = load_generative_model(out, "best", dev)
     d = load_smb_train("Synth", data, 100, ".index.json", "smb_explicit_decoder_4")
-    seq_len = DecoderBatcher.for_examples(d.train + d.valid,
-                                          pad_multiple=math.lcm(d.builder.tc, 8)).seq_len
-    store = native.ExampleStore(d.valid, d.corpus.vocab.behavior_token_ids)
-    trainer = TL.Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
-                         TL.TrainLoopConfig(),
-                         eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
-    batch = int(train_args[train_args.index("--batch_size") + 1])
-    reloaded = trainer.evaluate(store.iterate(batch, seq_len))
-    rel = abs(reloaded - res["best_metric"]) / abs(res["best_metric"])
-    print(f"phase 7 reload: eval loss from 'best' {reloaded:.8f} vs in-memory best "
-          f"{res['best_metric']:.8f}, rel diff {rel:.3e} (tol 1e-6); seq_len {seq_len}",
-          flush=True)
-    assert rel <= 1e-6, "the reloaded checkpoint does not give the best eval loss"
-    del model, trainer
+    _reload_check("phase 7", out, dev, d.train, d.valid, d.corpus.vocab,
+                  math.lcm(d.builder.tc, 8),
+                  int(train_args[train_args.index("--batch_size") + 1]), res["best_metric"])
 
     t = time.perf_counter()
     ev = cli(["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path", out,
@@ -995,6 +1086,156 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
           f"{ {k: round(v, 5) for k, v in rule['merged'].items()} } (card {card})", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 8's runs: the scripts' geometry (scripts/train_MB_decoder.sh: batch
+# 256, temperature 0.7; --max_his_len 20), the presets' full widths (those of
+# config/s2s-models/Qwen3ActionMoe: hidden 256, 8 layers, 6/3 heads of 64,
+# d_ff 512), bf16
+PHASE8_MB = ("--backbone", "Qwen3MoeAction", "--tasks", "mb_explicit_decoder_4",
+             "--batch_size", "256", "--temperature", "0.7", "--bf16")
+PHASE8_SEQ = ("--backbone", "Qwen3Moe", "--batch_size", "256", "--bf16")
+MB_MODES = ["Target Behavior", "Behavior Specific", "Behavior Item"]
+
+
+def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=PHASE8_MB,
+              seq_args=PHASE8_SEQ, extra_args=(), min_steps=(10, 100),
+              num_beams: int = 20) -> None:
+    """Phase 8: the multi- and single-behavior pipelines of `python -m
+    gamer_tpu_torch` in process, on phase 7's synthetic dataset with
+    --max_his_len 20: one epoch of train_MB_decoder (Qwen3MoeAction on
+    mb_explicit_decoder_4, whose MoE runs kernels h and i once per behavior
+    level), then test_MB_decoder's three modes with 20 beams at batch 128;
+    one epoch of train_decoder (Qwen3Moe on the single-behavior
+    interactions), then test_decoder. Gates: finite losses, each training
+    step's launches exactly `_step_launches` (MoeAction a 8, b 8, h 24, i 24,
+    j 1, k 1; Qwen3Moe a 8, b 8, h 8, i 8, j 1, k 1; none on the CPU), the
+    reloaded MB "best" giving its best eval loss within 1e-6, after each
+    fit one step of the kernel path against the plain path on the task's
+    saved config and first batch, in bf16 and fp32 (`_task_paths_agree`), the three
+    modes in the JAX task's order and names, every metric in [0, 1],
+    `collision_info` present. Prints each fit's step time (median of the
+    step-to-step times, host collation included), sequences/s, S and peak
+    memory, and each eval mode's wall time and beams/s. `spec`, the
+    argument tuples, `extra_args` (e.g. --device cpu) and the counts let a
+    test run it tiny."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.data.contract import DataFiles
+    from gamer_tpu_torch.data.seq import SeqCorpus, SeqExampleBuilder
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+    from gamer_tpu_torch.tasks import test_mb_decoder as TMB
+    from gamer_tpu_torch.tasks.test_decoder import seq_inter_type
+    from gamer_tpu_torch.tasks.train_mb_decoder import load_mb_train
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase8_", dir=os.path.dirname(os.path.abspath(__file__)))
+    data = os.path.join(root, "data")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    cli = lambda argv: main([*argv, *extra_args])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    common = ["--dataset", "Synth", "--data_path", data, "--max_his_len", "20"]
+
+    def fit(task, args, out, n_min):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _recording(counters) as rec:
+            t = time.perf_counter()
+            res = cli([task, *common, *args, "--epochs", "1", "--output_dir", out])
+            sync()
+            fit_s = time.perf_counter() - t
+        steps = rec["steps"]
+        losses = [h["train_loss"] for h in res["history"]] + [res["best_metric"]]
+        assert np.isfinite(losses).all(), f"{task}: non-finite losses {losses}"
+        cfg = QwenFamilyConfig.from_file(out)
+        expected = _step_launches(cfg) if cuda else {k: 0 for k in counters}
+        assert len(steps) >= n_min, f"{task}: only {len(steps)} training steps"
+        assert all(st == expected for st in steps), f"{task}: launches {steps[:3]} != {expected}"
+        step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
+        batch = int(args[args.index("--batch_size") + 1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        print(f"phase 8 {task} {' '.join(args)}: {len(steps)} steps + eval: train loss "
+              f"{res['history'][0]['train_loss']:.5f}, best valid loss {res['best_metric']:.6f}; "
+              f"launches each step {steps[0]}, eval {rec['evals']}; S {rec['S']}; step "
+              f"{step_ms:.3f} ms median with host collation ({batch / (step_ms / 1e3):.1f} "
+              f"sequences/s); peak memory {peak:.3f} GiB; fit {fit_s:.1f} s (card {card})",
+              flush=True)
+        return res, cfg, batch
+
+    # 1. multi-behavior: train_MB_decoder, the reload check, test_MB_decoder
+    mb_out = os.path.join(root, "mb")
+    res, cfg, batch = fit("train_MB_decoder", mb_args, mb_out, min_steps[0])
+    assert cfg.moe_action == ("Qwen3MoeAction" in mb_args)
+    corpus, layout, train, valid = load_mb_train(
+        "Synth", data, 20, ".index.json", mb_args[mb_args.index("--tasks") + 1], False)
+    pad_multiple = math.lcm(layout.token_count(corpus.sole_item_len), 8)
+    _reload_check("phase 8 train_MB_decoder", mb_out, dev, train, valid, corpus.vocab,
+                  pad_multiple, batch, res["best_metric"])
+    _task_paths_agree("phase 8 train_MB_decoder", mb_out, dev, counters, train, valid,
+                      corpus.vocab, pad_multiple, batch)
+    times = []  # (seconds, rows) of each evaluation mode, in order
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            totals, count = fn(*args, **kwargs)
+            sync()
+            times.append((time.perf_counter() - t, count))
+            return totals, count
+        return run
+
+    saved = {name: TMB.TestMBDecoder.__dict__[name]
+             for name in ("_behavior_specific", "_behavior_item")}
+    seq_eval = TMB.run_seq_eval
+    TMB.run_seq_eval = timed(seq_eval)
+    for name, method in saved.items():
+        setattr(TMB.TestMBDecoder, name, staticmethod(timed(method.__func__)))
+    try:
+        ev = cli(["test_MB_decoder", *common, "--test_task", "mb_explicit", "--ckpt_path",
+                  mb_out, "--num_beams", str(num_beams), "--test_batch_size", "128",
+                  "--results_file", os.path.join(root, "mb.json")])
+    finally:
+        TMB.run_seq_eval = seq_eval
+        for name, method in saved.items():
+            setattr(TMB.TestMBDecoder, name, method)
+    assert [r["eval_type"] for r in ev] == MB_MODES and len(times) == 3, ev
+    for r in ev:
+        assert all(0.0 <= v <= 1.0 for k, v in r.items() if k != "eval_type"), r
+    print("phase 8 test_MB_decoder " + "; ".join(
+        f"{r['eval_type']}: {n} rows in {sec:.3f} s wall ({n * num_beams / sec:.1f} beams/s), "
+        f"{ {k: round(v, 5) for k, v in r.items() if k != 'eval_type'} }"
+        for r, (sec, n) in zip(ev, times)) + f" ({num_beams} beams, card {card})", flush=True)
+
+    # 2. single-behavior: train_decoder, test_decoder
+    seq_out = os.path.join(root, "seq")
+    _, _, batch = fit("train_decoder", seq_args, seq_out, min_steps[1])
+    corpus = SeqCorpus(DataFiles(data, "Synth"), ".index.json", multi_behavior=False,
+                       inter_type=seq_inter_type("seqrec", None))
+    builder = SeqExampleBuilder(corpus, 20)
+    _task_paths_agree("phase 8 train_decoder", seq_out, dev, counters, builder.build("train"),
+                      builder.build("valid"), corpus.vocab, math.lcm(corpus.sole_item_len, 8),
+                      batch)
+    t = time.perf_counter()
+    ev = cli(["test_decoder", *common, "--ckpt_path", seq_out, "--num_beams", str(num_beams),
+              "--test_batch_size", "128", "--results_file", os.path.join(root, "seq.json")])
+    sync()
+    eval_s = time.perf_counter() - t
+    assert ev["metrics"] and all(0.0 <= v <= 1.0 for v in ev["metrics"].values()), ev
+    assert set(ev["collision_info"]) == {"total", "collision_items", "collision_samples",
+                                         "collision_ratio"}, ev
+    print(f"phase 8 test_decoder: {ev['count']} rows in {eval_s:.3f} s wall "
+          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), "
+          f"{ {k: round(v, 5) for k, v in ev['metrics'].items()} }; collision_info "
+          f"{ev['collision_info']} ({num_beams} beams, card {card})", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1118,6 +1359,8 @@ def main() -> int:
     long_launches = long_phase(dev, counters)
     # 7. the task pipeline through the CLI
     task_phase(dev, counters, card, train["step_ms"])
+    # 8. the multi- and single-behavior pipelines through the CLI
+    seq_phase(dev, counters, card)
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"

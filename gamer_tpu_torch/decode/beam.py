@@ -11,8 +11,11 @@ PyTorch counterpart of the decoder-only search of `gamer_tpu/decode/beam.py`:
 Level 0 comes from the trie root. Decode mask rows are beam-invariant over the
 prompt, so the prompt KV is computed once per example and shared by its
 beams; only the KV of generated tokens is per beam. Scores are accumulated in
-fp32 whatever the model dtype. The enc-dec search and the
-`behavior_emb_id=None` mode wait for a later slice.
+fp32 whatever the model dtype. With `behavior_emb_id=None` level 0 of the
+trie is the behavior token itself (test_MB_decoder's BEHAVIOR_ITEM mode):
+each beam's behavior embedding id is its level-0 code + 1, reordered with
+the beams. MoeAction models get their expert ids from (position, behavior)
+at every step. The enc-dec search waits for a later slice.
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ def prepare_prefill(cfg: QwenFamilyConfig, batch: dict) -> tuple[dict, dict]:
 
     pos_idx, beh_idx, act_idx = router_ops.route_tokens(
         input_ids, rel, cfg.num_positions, cfg.behavior_base, cfg.num_behavior)
+    expert_index = None
+    if cfg.moe_action:
+        expert_index = router_ops.moe_action_expert_index(pos_idx, act_idx, cfg.num_experts)
 
     if cfg.rope_on_extended_session:
         rope_positions = batch["extended_session_ids"]
@@ -77,7 +83,8 @@ def prepare_prefill(cfg: QwenFamilyConfig, batch: dict) -> tuple[dict, dict]:
 
     inputs = dict(input_ids=input_ids, rope_positions=rope_positions,
                   self_allowed=self_allowed, cross_allowed=cross_allowed,
-                  position_index=pos_idx, behavior_index=beh_idx, action_index=act_idx)
+                  position_index=pos_idx, behavior_index=beh_idx, action_index=act_idx,
+                  expert_index=expert_index)
     consts = dict(cross_row=cross_row, max_esid=max_esid, prompt_attn=attn)
     return inputs, consts
 
@@ -114,10 +121,10 @@ def constrained_beam_search(
     `batch` holds the left-padded prompt ([B, S] `input_ids`,
     `attention_mask`, per preset `session_ids`, `actions`,
     `extended_session_ids`) and `prompt_len` [B], as tensors or numpy arrays.
-    `behavior_emb_id` is an int or a per-example [B] array."""
-    if behavior_emb_id is None:
-        raise NotImplementedError("decoding the behavior token (behavior_emb_id=None) "
-                                  "is not ported yet")
+    `behavior_emb_id` is an int, a per-example [B] array, or None: level 0
+    of the trie then decodes the behavior token, and each beam's behavior
+    embedding id is its level-0 code + 1 (behavior tokens are a contiguous
+    vocab range)."""
     cfg = model.cfg
     device = model.device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -165,8 +172,11 @@ def constrained_beam_search(
         max_esid_t = consts["max_esid"].repeat_interleave(K)
     prompt_len_t = batch["prompt_len"].to(torch.int32).repeat_interleave(K)
 
-    beh = torch.as_tensor(behavior_emb_id, dtype=torch.int32, device=device)
-    beh_bk = (beh[:, None] if beh.dim() == 1 else beh).expand(B, K).contiguous()
+    if behavior_emb_id is None:  # from the decoded behavior tokens
+        beh_bk = (codes0 + 1).to(torch.int32)
+    else:
+        beh = torch.as_tensor(behavior_emb_id, dtype=torch.int32, device=device)
+        beh_bk = (beh[:, None] if beh.dim() == 1 else beh).expand(B, K).contiguous()
 
     for step in range(1, L):
         # token processed now = code chosen at level step-1
@@ -179,11 +189,15 @@ def constrained_beam_search(
         else:
             rope_pos = torch.full((B * K, 1), S + step - 1, dtype=torch.int32, device=device)
         beh_col = beh_bk.reshape(B * K, 1)
+        expert_index = None
+        if cfg.moe_action:
+            expert_index = router_ops.moe_action_expert_index(pos_index, beh_col,
+                                                              cfg.num_experts)
 
         out = model(input_ids=tok, rope_positions=rope_pos, self_allowed=prompt_self_row,
                     cross_allowed=cross_row, position_index=pos_index,
-                    behavior_index=beh_col, action_index=beh_col, route_mode="onehot",
-                    caches=caches, cache_index=step - 1)
+                    behavior_index=beh_col, action_index=beh_col, expert_index=expert_index,
+                    route_mode="onehot", caches=caches, cache_index=step - 1)
         caches = out["caches"]
         logits = out["logits"][:, 0, :]  # [B*K, V]
 

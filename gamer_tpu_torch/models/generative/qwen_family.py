@@ -1,7 +1,7 @@
 """The Qwen3 generative decoder family as one parametric architecture.
 
 PyTorch counterpart of `gamer_tpu/models/generative/qwen_family.py`: the seven
-reference decoders are one model plus a preset table of five switches
+reference decoders are one model plus a preset table of six switches
 
   self_mask_kind            "causal" | "session"       (ops/masks.py)
   cross_attention_layers    behavior cross-attention with gating + per-action
@@ -9,6 +9,7 @@ reference decoders are one model plus a preset table of five switches
   sparse_layers             position-routed MoE (modules/moe.py)
   behavior_injection_layers behavior embedding injected into the FFN input
   rope_on_extended_session  RoPE positions = extended_session_ids
+  moe_action                expert id also indexed by behavior (MoeAction)
 
 Masks, routing and rope positions come from `prepare_train_inputs` (training
 and scoring) or the beam-search loop (`decode/beam.py`); KV caches are passed
@@ -17,8 +18,9 @@ probabilities, the MoE activation and the three residual branches by the
 stateless hash, one int32 seed per site drawn in a fixed order from a
 caller-given `torch.Generator`; `cfg.remat` recomputes each layer in the
 backward (`torch.utils.checkpoint`), which the hash masks make exact. Every
-remat policy acts as "full" (recompute the whole layer). The MoeAction preset
-raises NotImplementedError.
+remat policy acts as "full" (recompute the whole layer). MoeAction passes
+`expert_index` to the MLPs, whose periodic paths run one pass per behavior
+level (`modules/moe.py`).
 
 Parameters are stored in fp32, as the JAX package stores them; the modules
 cast them to `cfg.dtype` at use, so a bf16 run updates fp32 master weights.
@@ -184,10 +186,11 @@ class DecoderLayer(nn.Module):
         self.self_mask_kind = cfg.self_mask_kind
         self.cross_mask_kind = cfg.cross_mask_kind
         self.num_positions = cfg.num_positions
+        self.moe_action = cfg.moe_action
 
     def forward(self, x, rope_positions, self_allowed, cross_allowed, position_index,
-                behavior_index, action_index, streams, caches, cache_index, route_mode,
-                seeds=None):
+                behavior_index, action_index, expert_index, streams, caches, cache_index,
+                route_mode, seeds=None):
         """`seeds`: this layer's `dropout_sites` dropout seeds, or None for
         the deterministic forward."""
         det = seeds is None
@@ -209,6 +212,7 @@ class DecoderLayer(nn.Module):
                 dropout_seed=0 if det else next(seed))
             x = x + drop(h)
         h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
+                     expert_index=expert_index if self.moe_action else None,
                      route_mode=route_mode, num_positions=self.num_positions,
                      deterministic=det, dropout_seed=0 if det else next(seed))
         return x + drop(h), new_self, new_cross
@@ -226,8 +230,6 @@ class QwenFamilyModel(nn.Module):
     def __init__(self, cfg: QwenFamilyConfig, device: str | torch.device | None = None,
                  seed: int = 0):
         super().__init__()
-        if cfg.moe_action:
-            raise NotImplementedError("the MoeAction preset is not ported yet")
         device = resolve_device(device)
         self.cfg = cfg
         with torch.device("meta"):
@@ -292,8 +294,6 @@ class QwenFamilyModel(nn.Module):
     ) -> dict:
         """`deterministic=False` (training) draws one int32 dropout seed a
         site from `generator` (a CPU generator), in layer order."""
-        if expert_index is not None:
-            raise NotImplementedError("MoeAction routing is not ported yet")
         cfg = self.cfg
         seeds = None
         if not deterministic:
@@ -312,8 +312,8 @@ class QwenFamilyModel(nn.Module):
             if seeds is not None:
                 layer_seeds = [next(seeds) for _ in range(layer.dropout_sites)]
             args = (x, rope_positions, self_allowed, cross_allowed, position_index,
-                    behavior_index, action_index, streams, layer_caches, cache_index,
-                    route_mode, layer_seeds)
+                    behavior_index, action_index, expert_index, streams, layer_caches,
+                    cache_index, route_mode, layer_seeds)
             if remat:
                 x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
                     layer, *args, use_reentrant=False)

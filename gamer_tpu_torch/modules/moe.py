@@ -9,13 +9,18 @@ the output.
 
 Paths: periodic (plain torch, `use_kernel=False`), fused periodic (the CUDA
 kernels of `ops/fused_moe.py`, with behavior injection as a per-behavior bias
-table), and onehot. The MoeAction factorized path, `mlp_type="t5"` and
-`shared_expert` raise NotImplementedError.
+table), and onehot. MoeAction (`expert_index` given) routes a token to expert
+P*(a-1) + p for its block's action level a: the periodic paths run one pass
+over every token per level a, with that level's P experts, and keep each
+block's own level (pad/eos blocks, a = 0, output zero, as in JAX); the
+onehot path routes by `expert_index`. `mlp_type="t5"` and `shared_expert`
+(the enc-dec models') raise NotImplementedError.
 
 Dropout on the SwiGLU activation (`deterministic=False`): the fused path
 passes its seed and rate to the kernel; the plain periodic path draws the
 kernel's own hash mask (`ops/fused_moe.moe_keep_mask`), so both paths drop
-the same elements for the same seed; the dense and one-hot paths use the
+the same elements for the same seed (every MoeAction pass draws the same
+mask, and each token keeps one pass); the dense and one-hot paths use the
 residual hash dropout (`modules/dropout.py`). The JAX package draws "bits"
 dropout from its rng stream on its plain paths.
 
@@ -81,15 +86,16 @@ class PositionRoutedMLP(nn.Module):
                                            self.experts_down))
 
     def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
-                        P: int, rate: float, seed: int) -> torch.Tensor:
-        """Periodic path through the fused FFN kernel: behavior injection
-        becomes the exactly-equivalent per-behavior bias table
-        (concat(x, e_b) @ [Wx; Wb] == x @ Wx + e_b @ Wb)."""
+                        P: int, rate: float, seed: int, los: list[int]) -> list[torch.Tensor]:
+        """Periodic passes through the fused FFN kernel, one with experts
+        lo..lo+P-1 for each lo of `los`, sharing the permuted input and the
+        cast weights: behavior injection becomes the exactly-equivalent
+        per-behavior bias table (concat(x, e_b) @ [Wx; Wb] == x @ Wx + e_b @ Wb)."""
         b, s, d = x.shape
         n = s // P
         T = b * n
         xp = x.reshape(b, n, P, d).permute(2, 0, 1, 3).reshape(P, T, d)
-        gate, up, down = (w[1:P + 1] for w in self._weights(x.dtype))
+        gate, up, down = self._weights(x.dtype)
         wgu = torch.cat([gate[:, :d], up[:, :d]], dim=-1)
         if self.behavior_injection:
             table = self.behavior_embedding.weight.to(x.dtype)  # [NB+1, bdim]
@@ -98,25 +104,59 @@ class PositionRoutedMLP(nn.Module):
             beh = behavior_index.reshape(b, n, P).permute(2, 0, 1).reshape(P, T)
             beh = beh.to(torch.int32)
         else:
-            btab = torch.zeros((P, 1, wgu.shape[-1]), dtype=wgu.dtype, device=x.device)
+            btab = torch.zeros((wgu.shape[0], 1, wgu.shape[-1]), dtype=wgu.dtype,
+                               device=x.device)
             beh = torch.zeros((P, T), dtype=torch.int32, device=x.device)
-        out = fused_moe_ffn(xp, wgu, down, btab, beh, seed, self.hidden_act, rate,
-                            use_bias=self.behavior_injection)
-        return out.reshape(P, b, n, -1).permute(1, 2, 0, 3).reshape(b, s, -1)
+        outs = []
+        for lo in los:
+            out = fused_moe_ffn(xp, wgu[lo:lo + P], down[lo:lo + P], btab[lo:lo + P], beh, seed,
+                                self.hidden_act, rate, use_bias=self.behavior_injection)
+            outs.append(out.reshape(P, b, n, -1).permute(1, 2, 0, 3).reshape(b, s, -1)
+                        .to(x.dtype))
+        return outs
+
+    def _inputs(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor]) -> torch.Tensor:
+        """The FFN input: x, with the behavior embedding appended when injected."""
+        if not self.behavior_injection:
+            return x
+        return torch.cat([x, embed(self.behavior_embedding, behavior_index, x.dtype)], dim=-1)
+
+    def _periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor], P: int,
+                  rate: float, seed: int, los: list[int]) -> list[torch.Tensor]:
+        """Periodic passes over every token, one for each lo of `los`: token t
+        routes to expert lo + t % P. Pad/eos rows of a right-padded batch
+        compute with the "wrong" expert, but they are masked from every real
+        query's keys and from the loss."""
+        if self.use_kernel:
+            return self._fused_periodic(x, behavior_index, P, rate, seed, los)
+        x_in = self._inputs(x, behavior_index)
+        gate, up, down = self._weights(x.dtype)
+        wgu = torch.cat([gate, up], dim=-1)
+        b, s, din = x_in.shape
+        xp = x_in.reshape(b, s // P, P, din).permute(2, 0, 1, 3)  # [P, b, n, din]
+        keep = (moe_keep_mask(seed, P, b * (s // P), self.d_ff, rate, x.device)
+                if rate > 0.0 else None)
+        outs = []
+        for lo in los:
+            gu = torch.einsum("pbnd,pdf->pbnf", xp, wgu[lo:lo + P])
+            h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
+            if keep is not None:
+                h = torch.where(keep.view(h.shape), h * (1.0 / keep_fraction(rate)), 0.0)
+            out = torch.einsum("pbnf,pfd->pbnd", h, down[lo:lo + P])
+            outs.append(out.permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype))
+        return outs
 
     def forward(
         self,
         x: torch.Tensor,  # [B, S, D]
         position_index: torch.Tensor,  # [B, S] expert ids (0 = pad/eos expert)
         behavior_index: Optional[torch.Tensor] = None,  # [B, S]
-        expert_index: Optional[torch.Tensor] = None,  # MoeAction routing
+        expert_index: Optional[torch.Tensor] = None,  # [B, S] MoeAction expert ids
         route_mode: str = "onehot",  # "periodic" | "onehot"
         num_positions: Optional[int] = None,
         deterministic: bool = True,
         dropout_seed: int = 0,
     ) -> torch.Tensor:
-        if expert_index is not None:
-            raise NotImplementedError("MoeAction routing (expert_index) is not ported yet")
         if self.behavior_injection and behavior_index is None:
             raise ValueError("behavior injection needs behavior_index")
         P = num_positions
@@ -124,42 +164,40 @@ class PositionRoutedMLP(nn.Module):
             raise ValueError("the periodic path needs S % num_positions == 0")
 
         rate = 0.0 if deterministic else self.dropout_rate
-        if self.is_sparse and route_mode == "periodic" and self.use_kernel:
-            return self._fused_periodic(x, behavior_index, P, rate, dropout_seed).to(x.dtype)
+        if self.is_sparse and route_mode == "periodic":
+            if expert_index is None:
+                return self._periodic(x, behavior_index, P, rate, dropout_seed, [1])[0]
+            # MoeAction: the action level a is constant within an item block,
+            # so each level is one pass with its own P experts, gated by the
+            # block's level (from its first expert id; 0 = pad/eos block)
+            if self.num_behavior <= 0:
+                raise ValueError("MoeAction routing needs num_behavior > 0")
+            b, s, _ = x.shape
+            e0 = expert_index.reshape(b, s // P, P)[:, :, 0]
+            a_blk = torch.where(e0 > 0, torch.div(e0 - 1, P, rounding_mode="floor") + 1, 0)
+            a_tok = a_blk.repeat_interleave(P, dim=1)[..., None]  # [b, s, 1]
+            passes = self._periodic(x, behavior_index, P, rate, dropout_seed,
+                                    [P * (a - 1) + 1 for a in range(1, self.num_behavior + 1)])
+            out = torch.zeros((), dtype=x.dtype, device=x.device)
+            for a, level_out in enumerate(passes, start=1):
+                out = out + level_out * (a_tok == a).to(x.dtype)
+            return out
 
-        if self.behavior_injection:
-            x_in = torch.cat([x, embed(self.behavior_embedding, behavior_index, x.dtype)], dim=-1)
-        else:
-            x_in = x
+        x_in = self._inputs(x, behavior_index)
         gate, up, down = self._weights(x.dtype)
-
         if not self.is_sparse:
             return self._swiglu(x_in, gate[0], up[0], down[0], rate,
                                 dropout_seed).to(x.dtype)
-
-        if route_mode == "periodic":
-            # token t routes to expert (t % P) + 1: pad/eos rows of a
-            # right-padded batch compute with the "wrong" expert, but they are
-            # masked from every real query's keys and from the loss
-            b, s, din = x_in.shape
-            xp = x_in.reshape(b, s // P, P, din).permute(2, 0, 1, 3)  # [P, b, n, din]
-            wgu = torch.cat([gate[1:P + 1], up[1:P + 1]], dim=-1)
-            gu = torch.einsum("pbnd,pdf->pbnf", xp, wgu)
-            h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
-            if rate > 0.0:
-                keep = moe_keep_mask(dropout_seed, P, b * (s // P), self.d_ff, rate, x.device)
-                h = torch.where(keep.view(h.shape), h * (1.0 / keep_fraction(rate)), 0.0)
-            out = torch.einsum("pbnf,pfd->pbnd", h, down[1:P + 1])
-            return out.permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype)
         if route_mode != "onehot":
             raise ValueError(f"unknown route_mode {route_mode!r}")
 
         # general path: every expert on every token, selected per token; exact
         # for any routing, used for decode steps and unaligned layouts
+        routing = expert_index if expert_index is not None else position_index
         E = gate.shape[0]
         # one seed per expert draw: the experts' masks are independent
         stacked = torch.stack([self._swiglu(x_in, gate[e], up[e], down[e], rate, dropout_seed + e)
                                for e in range(E)], dim=0)  # [E, B, S, Dout]
-        sel = F.one_hot(position_index.long(), E).to(stacked.dtype)  # [B, S, E]
+        sel = F.one_hot(routing.long(), E).to(stacked.dtype)  # [B, S, E]
         out = torch.einsum("ebsd,bse->bsd", stacked, sel)
         return out.to(x.dtype)

@@ -15,13 +15,14 @@ before any launch: bf16 runs on the tensor cores, fp32 on the CUDA cores
 `ops/masks.py`, the same hash mask, then `modules/layers.attend`), whose
 backward is autograd.
 
-Widths: every head dim up to 256 runs through the kernels. The one rule, in
-`_padded_head_dim`: the kernels are compiled for head dims `HEAD_DIMS`, and
-the wrapper zero-pads q, k and v per head to the next of them and slices the
-output and grads back. The scale stays the true D^-0.5, so the zero columns
-add 0 to every score; at the flagship head dim (64) nothing is padded or
-copied. A head dim over 256 raises ValueError (no shipped or Qwen3 config
-exceeds 128).
+Widths: every head dim runs through the kernels. The one rule, in
+`_padded_head_dim`: up to 256 the kernels are compiled for head dims
+`HEAD_DIMS`; over 256 they take the wide route, in which each CTA owns 64
+output columns and walks the full head dim in 64-deep slices
+(`WIDE_STEP`). The wrapper zero-pads q, k and v per head to the next
+compiled dim, or over 256 to the next multiple of 64, and slices the output
+and grads back. The scale stays the true D^-0.5, so the zero columns add 0
+to every score; at the flagship head dim (64) nothing is padded or copied.
 
 The hash helpers here are bit-exact with the JAX package's: on the CPU and in
 plain PyTorch the uint32 arithmetic runs in int64 and wraps with
@@ -41,6 +42,7 @@ from gamer_tpu_torch.ops.masks import streams_allowed
 
 KINDS = {"causal": 0, "session": 1, "multi": 2, "session_multi": 3}
 HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are compiled for
+WIDE_STEP = 64  # over 256, the wide route takes head dims in multiples of this
 
 _M1, _M2, _M3 = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B1
 _U32 = 0xFFFFFFFF
@@ -120,9 +122,8 @@ def _check(q, k, v, streams, num_heads, kind):
         raise ValueError(f"unknown attention mask kind {kind!r}")
     B, S, HD = q.shape
     D = HD // num_heads
-    if HD % num_heads or D > HEAD_DIMS[-1]:
-        raise ValueError(f"the attention kernels take head dims up to {HEAD_DIMS[-1]}, "
-                         f"not {HD}/{num_heads}")
+    if HD % num_heads:
+        raise ValueError(f"q's width {HD} is not a multiple of num_heads {num_heads}")
     Hkv = k.shape[2] // D
     if k.shape != (B, S, Hkv * D) or v.shape != k.shape or num_heads % Hkv:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
@@ -135,7 +136,10 @@ def _check(q, k, v, streams, num_heads, kind):
 
 
 def _padded_head_dim(D: int) -> int:
-    """The compiled head dim a head of width D runs at."""
+    """The head dim a head of width D runs at: the next compiled one up to
+    256, over 256 (the wide route) the next multiple of `WIDE_STEP`."""
+    if D > HEAD_DIMS[-1]:
+        return -(-D // WIDE_STEP) * WIDE_STEP
     return next(d for d in HEAD_DIMS if d >= D)
 
 
@@ -214,7 +218,7 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
     # rowsum(dO * O) per (head, row), filled by the library's delta kernel
     delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     nsplit = 1
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and D <= HEAD_DIMS[-1]:  # the wide route does not split
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         nsplit = dkv_splits(B, S, Hkv, num_heads // Hkv, kind, sms)
     ws = (torch.empty(2 * nsplit * k.numel(), dtype=torch.float32, device=q.device)

@@ -1,9 +1,14 @@
 """Task registry of the port. Importing this package registers its tasks:
-train_SMB_decoder, test_SMB_decoder and test_SMB_rule."""
+train_SMB_decoder, test_SMB_decoder, test_SMB_rule, train_decoder,
+test_decoder, train_MB_decoder and test_MB_decoder."""
 
 from gamer_tpu_torch.core.registry import TASKS
+from gamer_tpu_torch.tasks import test_decoder  # noqa: F401
+from gamer_tpu_torch.tasks import test_mb_decoder  # noqa: F401
 from gamer_tpu_torch.tasks import test_smb_decoder  # noqa: F401
 from gamer_tpu_torch.tasks import test_smb_rule  # noqa: F401
+from gamer_tpu_torch.tasks import train_decoder  # noqa: F401
+from gamer_tpu_torch.tasks import train_mb_decoder  # noqa: F401
 from gamer_tpu_torch.tasks import train_smb_decoder  # noqa: F401
 
 task_list = dict(TASKS)

@@ -1,7 +1,6 @@
 """test_SMB_decoder — trie-constrained beam-search evaluation.
 
-The port's counterpart of `gamer_tpu/tasks/test_smb_decoder.py` (and of
-`load_generative_model` in `gamer_tpu/tasks/test_decoder.py`) for the
+The port's counterpart of `gamer_tpu/tasks/test_smb_decoder.py` for the
 decoder-only family: per-behavior filtered eval views, behavior token and
 action level appended to the prompt (ref :113-119), beam search returning all
 beams (ref :122-195), hit/recall/ndcg with session-target normalization,
@@ -10,8 +9,9 @@ duplicate-vs-history ratio (ref :217-223), merged-behavior weighted metrics
 (ref :306-322). Every behavior's rows go through one mixed-behavior search
 per chunk of `--test_batch_size` rows (`decode/beam.py`, eagerly).
 
-Not ported: the enc-dec family (a saved enc-dec model raises
-NotImplementedError) and the multi-process sums of the metrics (one process).
+Not ported: the enc-dec family (`load_generative_model` of
+`tasks/test_decoder.py` raises NotImplementedError for a saved enc-dec
+model) and the multi-process sums of the metrics (one process).
 """
 
 from __future__ import annotations
@@ -22,39 +22,21 @@ import os
 import numpy as np
 import torch
 
-from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.batching import DecodeBatcher, DecoderBatcher, iterate_batches
 from gamer_tpu_torch.data.loading_smb import load_smb_test, load_smb_train
 from gamer_tpu_torch.data.smb import filter_examples_by_behavior
-from gamer_tpu_torch.data.vocab import SemanticVocab
 from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.evaluation.ranking import (
     hits_matrix, merge_behavior_metrics, metrics_from_hits)
-from gamer_tpu_torch.models.generative.qwen_family import (
-    QwenFamilyConfig, QwenFamilyModel, prepare_train_inputs)
+from gamer_tpu_torch.models.generative.qwen_family import prepare_train_inputs
 from gamer_tpu_torch.modules.losses import causal_lm_loss
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
-from gamer_tpu_torch.tasks.train_smb_decoder import ENCDEC_NOT_PORTED
+from gamer_tpu_torch.tasks.test_decoder import load_generative_model, strip_behavior
 
 logger = get_logger("tasks.test_smb_decoder")
-
-
-def load_generative_model(ckpt_path: str, ckpt_tag: str = "best", device=None):
-    """(model, cfg, vocab, family) of a training output directory: its
-    config.json, the checkpoint `ckpt_tag` and vocab.json."""
-    with open(os.path.join(ckpt_path, "config.json")) as f:
-        raw = json.load(f)
-    family = raw.get("family", "decoder_only")
-    if family == "encdec":
-        raise NotImplementedError(ENCDEC_NOT_PORTED)
-    cfg = QwenFamilyConfig.from_dict(raw)
-    model = QwenFamilyModel(cfg, device=device)
-    model.load_state_dict(CheckpointManager(ckpt_path).restore(ckpt_tag, map_location=model.device))
-    vocab = SemanticVocab.load(os.path.join(ckpt_path, "vocab.json"))
-    return model, cfg, vocab, family
 
 
 @TASKS.register("test_SMB_decoder")
@@ -165,7 +147,7 @@ class TestSMBDecoder(Task):
             codes, _ = self._search(batch, beh_emb_ids)
             codes = codes.cpu().numpy()  # [B, K, L] 0-based level codes
             # targets: strip the behavior token column -> per-level codes
-            target_codes = [vocab.decode_tokens(_item_cols(r[2].targets, corpus, L))
+            target_codes = [vocab.decode_tokens(strip_behavior(r[2].targets, L, vocab))
                             for r in batch_rows]
             hits, n_targets = hits_matrix(codes, target_codes)
             row_behaviors = np.asarray([r[0] for r in batch_rows])
@@ -218,25 +200,13 @@ class TestSMBDecoder(Task):
         coll_samples = 0
         for ex in examples:
             L = corpus.sole_item_len
-            tgt = _item_cols(ex.targets, corpus, L)
+            tgt = strip_behavior(ex.targets, L, corpus.vocab)
             for row in tgt.reshape(-1, L).tolist():
                 if tuple(row) in coll_rows:
                     coll_samples += 1
         return {"total": len(examples), "collision_items": n_coll_items,
                 "collision_samples": coll_samples,
                 "collision_ratio": coll_samples / max(len(examples), 1)}
-
-
-def _item_cols(target_blocks: np.ndarray, corpus, L: int) -> np.ndarray:
-    """Strip behavior-token column(s) from target blocks -> [n, L] item tokens."""
-    tc = target_blocks.shape[1]
-    if tc == L:
-        return target_blocks
-    # explicit layout: behavior token first or last
-    first = target_blocks[:, 0]
-    if np.all((first >= corpus.vocab.behavior_base) & (first < corpus.vocab.code_base)):
-        return target_blocks[:, 1:]
-    return target_blocks[:, :-1]
 
 
 def _chunks(seq, n):

@@ -4,7 +4,8 @@ PyTorch counterpart of `gamer_tpu/tasks/train_smb_decoder.py`:
 `make_loss_fn` (the temperature-scaled causal-LM loss of a batch and its
 valid-target count, either the training loss, dropout on and differentiable,
 or the eval loss, dropout off and no grad), `parse_model_overrides`,
-`make_model_config` and the `train_SMB_decoder` task for the Qwen3 family:
+`make_model_config`, `fit_and_save` (the training loop the decoder tasks
+share) and the `train_SMB_decoder` task for the Qwen3 family:
 the SMB data with generative augmentation, one sequence length for train and
 valid, the C++ example store (`native.ExampleStore`) feeding shuffled micro
 batches, AdamW + schedule, early stopping on valid loss, and `config.json`,
@@ -215,9 +216,7 @@ class TrainSMBDecoder(Task):
 
         hf = resolve_hf_train_args(extra, batch_size=batch_size,
                                    micro_batch_size=micro_batch_size, dtype=dtype)
-        dtype = hf["dtype"]
-        if dtype == "auto":
-            dtype = "bfloat16" if dev.type == "cuda" else "float32"
+        dtype = resolve_dtype(hf, dev)
 
         overrides = {"attention_impl": attention_impl}
         if gradient_checkpointing:
@@ -233,7 +232,6 @@ class TrainSMBDecoder(Task):
         if gradient_checkpointing is None and not cfg.remat:
             logger.info("remat off: no --gradient_checkpointing given, and the automatic "
                         "choice from a memory estimate is not ported")
-        micro, accum = hf["micro"], hf["accum"]
         # one sequence length across train+valid: the kernels see one shape
         batcher = DecoderBatcher.for_examples(
             data.train + data.valid, pad_multiple=_lcm(builder.tc, 8),
@@ -243,66 +241,87 @@ class TrainSMBDecoder(Task):
         logger.info("model %s on %s: vocab=%d seq_len=%d train=%d valid=%d parameters %.2fM",
                     backbone, dev, cfg.vocab_size, batcher.seq_len, len(data.train),
                     len(data.valid), sum(p.numel() for p in model.parameters()) / 1e6)
-
-        opt_cfg = OptimizerConfig(
-            optim=hf["optim"], learning_rate=learning_rate,
+        return fit_and_save(
+            self, model, cfg, corpus.vocab, data.train, data.valid, batcher.seq_len, hf,
+            epochs=epochs, patience=patience, seed=seed, learning_rate=learning_rate,
             weight_decay=weight_decay, warmup_ratio=warmup_ratio,
-            lr_scheduler_type=lr_scheduler_type,
-            total_steps=schedule_horizon(len(data.train), micro, accum, epochs))
-        loop_cfg = TrainLoopConfig(epochs=epochs, patience=patience, seed=seed,
-                                   gradient_accumulation_steps=accum,
-                                   snapshot_every_epochs=save_epochs,
-                                   resume=resume_from_checkpoint,
-                                   **hf["loop_kwargs"])
-        writer = MetricWriter(os.path.join("runs", self.name),
-                              run_name=wandb_run_name or f"{dataset}-{backbone}",
-                              config=getattr(self, "param_dict", {}))
-        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, opt_cfg,
-                          loop_cfg, output_dir=output_dir, metric_writer=writer,
-                          eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
+            lr_scheduler_type=lr_scheduler_type, output_dir=output_dir,
+            resume=resume_from_checkpoint, run_name=wandb_run_name or f"{dataset}-{backbone}",
+            only_train_response=only_train_response, save_epochs=save_epochs,
+            profile_dir=profile_dir)
 
-        # the C++ example store collates each field in one call (numpy where
-        # no compiler exists); one process holds every example
-        from gamer_tpu_torch import native
 
-        train_store = native.ExampleStore(data.train, corpus.vocab.behavior_token_ids,
-                                          only_train_response=only_train_response)
-        valid_store = native.ExampleStore(data.valid, corpus.vocab.behavior_token_ids,
-                                          only_train_response=only_train_response)
+def resolve_dtype(hf: dict, dev: torch.device) -> str:
+    """The compute dtype of a training task: --bf16/--fp16/--dtype, or for
+    "auto" bfloat16 on CUDA and float32 on the CPU."""
+    if hf["dtype"] != "auto":
+        return hf["dtype"]
+    return "bfloat16" if dev.type == "cuda" else "float32"
 
-        def train_batches(epoch):
-            return train_store.iterate(micro, batcher.seq_len, shuffle=True, seed=seed + epoch)
 
-        def eval_batches():
-            return valid_store.iterate(micro, batcher.seq_len)
+def fit_and_save(task: Task, model: QwenFamilyModel, cfg: QwenFamilyConfig, vocab, train, valid,
+                 seq_len: int, hf: dict, *, epochs: int, patience: int, seed: int,
+                 learning_rate: float, weight_decay: float, warmup_ratio: float,
+                 lr_scheduler_type: str, output_dir: str, resume: bool = False,
+                 run_name: str | None = None, only_train_response: bool = False,
+                 save_epochs: int = 0, profile_dir: str | None = None) -> dict:
+    """The training loop of the decoder tasks: the optimizer and schedule of
+    `hf` (`resolve_hf_train_args`), `Trainer` with early stopping on the
+    valid loss and the checkpoints in `output_dir`, the C++ example store
+    feeding shuffled micro batches of `seq_len` tokens; then `config.json`
+    (with `cfg.extra`, family "decoder_only") and `vocab.json`, which the
+    test tasks read back. Returns `Trainer.fit`'s result."""
+    micro, accum = hf["micro"], hf["accum"]
+    opt_cfg = OptimizerConfig(
+        optim=hf["optim"], learning_rate=learning_rate, weight_decay=weight_decay,
+        warmup_ratio=warmup_ratio, lr_scheduler_type=lr_scheduler_type,
+        total_steps=schedule_horizon(len(train), micro, accum, epochs))
+    loop_cfg = TrainLoopConfig(epochs=epochs, patience=patience, seed=seed,
+                               gradient_accumulation_steps=accum,
+                               snapshot_every_epochs=save_epochs, resume=resume,
+                               **hf["loop_kwargs"])
+    writer = MetricWriter(os.path.join("runs", task.name), run_name=run_name,
+                          config=getattr(task, "param_dict", {}))
+    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, opt_cfg, loop_cfg,
+                      output_dir=output_dir, metric_writer=writer,
+                      eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
 
-        if profile_dir:
-            self._profile(trainer, train_batches(0), profile_dir, dev)
+    # the C++ example store collates each field in one call (numpy where no
+    # compiler exists); one process holds every example
+    from gamer_tpu_torch import native
 
-        result = trainer.fit(train_batches, eval_batches)
+    stores = [native.ExampleStore(ex, vocab.behavior_token_ids,
+                                  only_train_response=only_train_response)
+              for ex in (train, valid)]
 
-        # persist everything the test task needs
-        os.makedirs(output_dir, exist_ok=True)
-        cfg.extra["family"] = "decoder_only"
-        cfg.save(output_dir)
-        corpus.vocab.save(os.path.join(output_dir, "vocab.json"))
-        logger.info("done: best valid loss %.4f after %d steps",
-                    result["best_metric"], result["steps"])
-        return result
+    def train_batches(epoch):
+        return stores[0].iterate(micro, seq_len, shuffle=True, seed=seed + epoch)
 
-    @staticmethod
-    def _profile(trainer: Trainer, batches, profile_dir: str, dev: torch.device) -> None:
-        """A torch.profiler trace of five training steps (they train)."""
-        from torch.profiler import ProfilerActivity, profile
+    if profile_dir:
+        _profile(trainer, train_batches(0), profile_dir, model.device)
+    result = trainer.fit(train_batches, lambda: stores[1].iterate(micro, seq_len))
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            for i, batch in enumerate(batches):
-                trainer.train_step(batch)
-                if i >= 4:
-                    break
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        logger.info("profiler trace written to %s", profile_dir)
+    os.makedirs(output_dir, exist_ok=True)
+    cfg.extra["family"] = "decoder_only"
+    cfg.save(output_dir)
+    vocab.save(os.path.join(output_dir, "vocab.json"))
+    logger.info("done: best valid loss %.4f after %d steps", result["best_metric"],
+                result["steps"])
+    return result
+
+
+def _profile(trainer: Trainer, batches, profile_dir: str, dev: torch.device) -> None:
+    """A torch.profiler trace of five training steps (they train)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for i, batch in enumerate(batches):
+            trainer.train_step(batch)
+            if i >= 4:
+                break
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    logger.info("profiler trace written to %s", profile_dir)

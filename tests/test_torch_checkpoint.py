@@ -18,6 +18,7 @@ from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
 from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
 from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
 from gamer_tpu_torch.train.state import OptimizerConfig
+from tests.test_torch_isolation import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _trainer(tmp_path, **loop):

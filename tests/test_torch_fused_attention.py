@@ -70,3 +70,27 @@ def test_aligned_copies_only_misaligned_views():
     view = t[1:33]  # 2 bytes past an aligned address
     moved = _build.aligned(view)
     assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+
+
+@pytest.mark.parametrize("D,want", [(32, 32), (48, 64), (200, 256), (256, 256), (264, 320),
+                                    (320, 320), (512, 512)])
+def test_head_dim_route(D, want, monkeypatch):
+    """The head dim the kernels run at: the compiled 32/64/128/256 up to
+    256, above it the wide route at the next multiple of 64. The forward
+    wrapper (its launch recorded, not run) zero-pads each head to that dim,
+    passes it with the true D^-0.5 scale, and slices the output back."""
+    import contextlib
+
+    assert FA._padded_head_dim(D) == want
+    calls = []
+    monkeypatch.setattr(FA._build, "launch", lambda name, argtypes, *args: calls.append(args))
+    monkeypatch.setattr(FA._build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(FA.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    Bq, Sq, Hq, Hk = 2, 9, 4, 2
+    q, k, v = (torch.ones(Bq, Sq, h * D) for h in (Hq, Hk, Hk))
+    streams = [torch.ones(Bq, Sq, dtype=torch.int32) for _ in range(4)]
+    out, lse = FA._launch_fwd(q, k, v, streams, 0, Hq, "causal", 0.0, with_lse=True)
+    (args,) = calls
+    assert args[9:15] == (Bq, Sq, Hq, Hk, want, FA.KINDS["causal"])
+    assert args[15] == pytest.approx(D ** -0.5)
+    assert out.shape == q.shape and lse.shape == (Bq, Hq, Sq)

@@ -126,15 +126,71 @@ def test_position_routed_mlp_matches_jax(route_mode, jax_impl, use_kernel, injec
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
+def _moe_action_inputs(B=2, P=5, n=4, D=128, NB=3, seed=2):
+    """x, position, behavior and MoeAction expert ids of B rows of n item
+    blocks; the last block of row 1 is a pad block (position 0, action 0,
+    so expert 0)."""
+    rng = np.random.default_rng(seed)
+    S = P * n
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    pos = np.tile(np.arange(S) % P + 1, (B, 1)).astype(np.int32)
+    act = np.repeat(rng.integers(1, NB + 1, (B, n)), P, axis=1).astype(np.int32)
+    pos[1, -P:] = act[1, -P:] = 0
+    beh = np.where(pos == 1, 0, act).astype(np.int32)  # 0 at the behavior token
+    expert = np.maximum(P * (act - 1) + pos, 0).astype(np.int32)
+    return x, pos, beh, expert
+
+
+@pytest.mark.parametrize("injection", [False, True])
+@pytest.mark.parametrize("route_mode,jax_impl,use_kernel", PATHS)
+def test_moe_action_mlp_matches_jax(route_mode, jax_impl, use_kernel, injection):
+    """MoeAction routing (`expert_index`, P * num_behavior + 1 experts): the
+    factorized periodic path, fused (the kernel's plain version here) and
+    plain, one pass per behavior level, and the one-hot path, against the
+    JAX module on the same parameters; fp32, 1e-5, dropout off. The JAX
+    module runs its jnp factorized path for both impls (its Pallas kernel
+    takes no expert_index). Pad blocks give exactly zero on the periodic
+    paths, as in JAX."""
+    P, NB, D, F, bdim = 5, 3, 128, 128, 32
+    x, pos, beh, expert = _moe_action_inputs(P=P, D=D, NB=NB)
+    mod = JaxMLP(d_model=D, d_ff=F, num_experts=P * NB + 1, behavior_injection=injection,
+                 num_behavior=NB, behavior_dim=bdim, impl=jax_impl)
+    args = (jnp.asarray(x), jnp.asarray(pos), jnp.asarray(beh))
+    kw = dict(route_mode=route_mode, num_positions=P)
+    params = mod.init(jax.random.PRNGKey(0), *args, expert_index=jnp.asarray(expert), **kw)
+    want = np.asarray(mod.apply(params, *args, expert_index=jnp.asarray(expert), **kw))
+
+    tmod = PositionRoutedMLP(D, F, P * NB + 1, behavior_injection=injection, num_behavior=NB,
+                             behavior_dim=bdim, use_kernel=use_kernel)
+    tmod.load_state_dict(state_dict_from_jax(params))
+    launches = FM.fused_moe_ffn.launches
+    got = tmod(*(torch.as_tensor(a) for a in (x, pos, beh)),
+               expert_index=torch.as_tensor(expert), **kw).detach().numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert FM.fused_moe_ffn.launches == launches, "a CPU call launches no kernel"
+    if route_mode == "periodic":
+        assert (got[1, -P:] == 0).all() and (want[1, -P:] == 0).all()
+        assert np.abs(got[0]).min() > 0
+
+
 def test_unported_paths_raise():
+    """`mlp_type="t5"` and `shared_expert` (the enc-dec models') still
+    raise; MoeAction routing (`expert_index`) now runs on every path."""
     with pytest.raises(NotImplementedError):
         PositionRoutedMLP(32, 32, 4, mlp_type="t5")
     with pytest.raises(NotImplementedError):
         PositionRoutedMLP(32, 32, 4, shared_expert=True)
-    mlp = PositionRoutedMLP(32, 32, 4)
-    with pytest.raises(NotImplementedError):
-        mlp(torch.zeros(1, 3, 32), torch.zeros(1, 3, dtype=torch.int32),
-            expert_index=torch.zeros(1, 3, dtype=torch.int32), num_positions=3)
+    P, NB = 3, 2
+    x, pos, beh, expert = (torch.as_tensor(a) for a in _moe_action_inputs(P=P, n=2, D=32, NB=NB))
+    for use_kernel in (True, False):
+        mlp = PositionRoutedMLP(32, 32, P * NB + 1, num_behavior=NB, use_kernel=use_kernel)
+        torch.nn.init.normal_(mlp.experts_gate), torch.nn.init.normal_(mlp.experts_up)
+        torch.nn.init.normal_(mlp.experts_down)
+        out = mlp(x, pos, expert_index=expert, route_mode="periodic", num_positions=P)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        onehot = mlp(x, pos, expert_index=expert, num_positions=P)
+        torch.testing.assert_close(out[:, :-P], onehot[:, :-P])  # pad blocks differ by design
+        assert (out[1, -P:] == 0).all()
 
 
 @pytest.mark.parametrize("act", ["gelu", "relu", "gelu_new"])

@@ -15,6 +15,17 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here train on one intra-op thread: parallel test
+    workers would otherwise each spread every small op over all cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import gamer_tpu_torch
@@ -117,8 +128,9 @@ def test_data_plane_cli_and_native_are_isolated():
             "'gamer_tpu_torch.tasks'):\n"
             "    importlib.import_module(m)\n"
             "from gamer_tpu_torch.tasks import task_list\n"
-            "assert sorted(task_list) == ['test_SMB_decoder', 'test_SMB_rule', "
-            "'train_SMB_decoder'], sorted(task_list)\n"
+            "assert sorted(task_list) == ['test_MB_decoder', 'test_SMB_decoder', "
+            "'test_SMB_rule', 'test_decoder', 'train_MB_decoder', 'train_SMB_decoder', "
+            "'train_decoder'], sorted(task_list)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gamer_tpu'))\n"
             "assert not bad, bad\n"
@@ -133,7 +145,8 @@ def test_data_plane_cli_and_native_are_isolated():
     from gamer_tpu_torch.__main__ import main
 
     common = ["--dataset", "Demo", "--data_path", "unused"]
-    for task in ("train_SMB_decoder", "test_SMB_decoder", "test_SMB_rule"):
+    for task in ("train_SMB_decoder", "test_SMB_decoder", "test_SMB_rule", "train_decoder",
+                 "test_decoder", "train_MB_decoder", "test_MB_decoder"):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([task, *common])
 
@@ -158,3 +171,29 @@ def test_chip_smoke_task_phase_on_cpu():
                               "float32", "--n_layers", "2", "--hidden_size", "16"),
                   extra_args=("--device", "cpu"), min_steps=2, num_beams=4)
     assert not any(name.startswith("phase7_") for name in os.listdir(REPO))
+
+
+def test_chip_smoke_seq_phase_on_cpu():
+    """Phase 8 of chip_smoke.py (the multi- and single-behavior pipelines:
+    train_MB_decoder with Qwen3MoeAction, the reload check, test_MB_decoder's
+    three modes, train_decoder and test_decoder, with their gates) at a tiny
+    size on the CPU: no kernel launches, so every step's launch counts are
+    0."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    counters = {"fused_mask_attention": FA.fused_mask_attention,
+                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    spec = dict(n_users=24, n_items=60, n_clusters=4, num_levels=3, level_sizes=(8, 8, 16),
+                min_len=8, max_len=24, seed=7)
+    tiny = ("--batch_size", "8", "--n_layers", "2", "--hidden_size", "16")
+    cs.seq_phase(torch.device("cpu"), counters, "cpu", spec=spec,
+                 mb_args=("--backbone", "Qwen3MoeAction", "--tasks", "mb_explicit_decoder_2",
+                          *tiny),
+                 seq_args=("--backbone", "Qwen3Moe", *tiny), extra_args=("--device", "cpu"),
+                 min_steps=(2, 2), num_beams=4)
+    assert not any(name.startswith("phase8_") for name in os.listdir(REPO))

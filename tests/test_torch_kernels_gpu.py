@@ -500,13 +500,10 @@ def test_ce_widths_match_plain(dev, dtype, D):
         _close(got, want, torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [8, 48, 96, 200, 256])
-@pytest.mark.parametrize("kind", ["causal", "session_multi"])
-def test_attention_head_dims_match_plain(dev, dtype, D, kind):
-    """a and b at head dims padded to the compiled ones (8, 48, 96, 200) and
-    at the new 256, dropout 0.2, B 8 x S 505 with a padded row."""
-    q, k, v, streams, H = _attn_inputs(dev, dtype, 505, D, D, B=8)
+def _head_dim_check(dev, dtype, D, kind, B=8):
+    """a and b at head dim D, dropout 0.2, B x S 505 with a padded row,
+    against the plain version; returns the output and grads."""
+    q, k, v, streams, H = _attn_inputs(dev, dtype, 505, D, D, B=B)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = fused_mask_attention(*leaves, *streams, 1234, H, kind, 0.2)
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(D)).to(dev, dtype)
@@ -518,12 +515,35 @@ def test_attention_head_dims_match_plain(dev, dtype, D, kind):
     for got, want in zip((out, *grads), (ref_out, *ref)):
         assert got.shape == want.shape and torch.isfinite(got.float()).all()
         _close(got, want, dtype)
+    return out, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 48, 96, 200, 256])
+@pytest.mark.parametrize("kind", ["causal", "session_multi"])
+def test_attention_head_dims_match_plain(dev, dtype, D, kind):
+    """a and b at head dims padded to the compiled ones (8, 48, 96, 200) and
+    at the new 256, dropout 0.2, B 8 x S 505 with a padded row."""
+    _head_dim_check(dev, dtype, D, kind)
 
 
 def test_attention_head_dim_over_256_raises(dev):
-    q, k, v, streams, H = _attn_inputs(dev, torch.bfloat16, 16, 264, 1)
-    with pytest.raises(ValueError, match="256"):
-        fused_mask_attention(q, k, v, *streams, 0, H, "causal")
+    """A head dim over 256 no longer raises: 264 runs the wide route (padded
+    to 320) and matches the plain version."""
+    _head_dim_check(dev, torch.bfloat16, 264, "causal", B=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("kind", ["causal", "session", "multi", "session_multi"])
+def test_attention_wide_head_dims_match_plain(dev, dtype, D, kind):
+    """The wide route (head dims over 256, 64 output columns a CTA) at 320
+    and 512, every mask kind, dropout 0.2, B 3 x S 505; in bf16 two launches
+    of a and b are bit-identical."""
+    out, grads = _head_dim_check(dev, dtype, D, kind, B=3)
+    if dtype == torch.bfloat16:
+        again, again_grads = _head_dim_check(dev, dtype, D, kind, B=3)
+        assert all(torch.equal(x, y) for x, y in zip((out, *grads), (again, *again_grads)))
 
 
 def test_flagship_widths_copy_nothing(dev, monkeypatch):
@@ -562,3 +582,64 @@ def test_qwen3multi_hidden_512_training_step(dev):
     assert torch.isfinite(loss)
     assert [f.launches for f in kernels] == [12, 12, 8, 8, 1, 1]
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+# ---- Qwen3MoeAction: one h and one i launch per behavior level on every
+# sparse layer (the factorized periodic path), kernel path against plain path
+
+def _moe_action_config(**kw):
+    """Qwen3MoeAction at the presets' widths (hidden 256, 8 layers, 6/3
+    heads of 64, d_ff 512), 5 positions and 3 behaviors: 16 experts."""
+    from gamer_tpu_torch.models.generative.qwen_family import build_config
+
+    return build_config("Qwen3MoeAction", vocab_size=1024 + 17, num_positions=5, num_experts=6,
+                        num_behavior=3, behavior_base=14, **kw)
+
+
+def _step_counters():
+    return {"fused_mask_attention": FA.fused_mask_attention,
+            "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+            "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+
+
+def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
+    """A bf16 training step on CUDA with moe_impl "auto" launches kernels h
+    and i num_behavior (3) times on each of the 8 sparse layers: a 8, b 8,
+    h 24, i 24, j 1, k 1; loss and grads finite."""
+    from gamer_tpu_torch.entry import make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+
+    cfg = _moe_action_config(dtype="bfloat16", dropout_rate=0.2)
+    assert cfg.moe_impl == "auto"
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    counters = _step_counters()
+    for f in counters.values():
+        f.launches = 0
+    loss, _ = make_loss_fn(model, cfg, deterministic=False)(make_batch(cfg, 8, 24),
+                                                             torch.Generator().manual_seed(0))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1]
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_action_step_kernels_match_plain_path(dev, dtype):
+    """One Qwen3MoeAction training step (dropout 0.2, B 8 x 101 blocks)
+    through the kernels and through the plain path on the same weights and
+    dropout seeds (chip_smoke._paths_agree): the loss and every grad (max
+    |d| / max |plain| of its tensor) within chip_smoke's step tolerances:
+    fp32 at phase 5's (STEP_LOSS_TOL, STEP_GRAD_TOL), bf16 at
+    BF16_STEP_LOSS_TOL and BF16_STEP_GRAD_TOL, set between the readings of
+    sound runs and of planted faults (PERF.md)."""
+    import chip_smoke as cs
+
+    loss_tol, grad_tol = {"float32": (cs.STEP_LOSS_TOL, cs.STEP_GRAD_TOL),
+                          "bfloat16": (cs.BF16_STEP_LOSS_TOL, cs.BF16_STEP_GRAD_TOL)}[dtype]
+    cfg = _moe_action_config(dtype=dtype, dropout_rate=0.2)
+    cs._paths_agree(f"Qwen3MoeAction step {dtype}", cfg, cs.make_batch(cfg, 8, 101, seed=3), dev,
+                    3, _step_counters(), cs._step_launches(cfg), loss_tol=loss_tol,
+                    grad_tol=grad_tol)

@@ -71,7 +71,8 @@ def jax_and_port(backbone: str, batch: dict, route_mode: str = "periodic", **kw)
 
 
 @pytest.mark.parametrize("impl", ["pallas_interpret", "jnp"])
-@pytest.mark.parametrize("backbone", ["Qwen3Multi", "Qwen3", "Qwen3SessionMulti"])
+@pytest.mark.parametrize("backbone", ["Qwen3Multi", "Qwen3", "Qwen3SessionMulti",
+                                      "Qwen3MoeAction"])
 def test_scoring_loss_matches_jax(backbone, impl):
     kw = tiny_kwargs(impl)
     batch = make_batch(JQ.build_config(backbone, **kw), B=3)
@@ -83,7 +84,7 @@ def test_scoring_loss_matches_jax(backbone, impl):
     assert int(aux["denom"]) == int(want_aux["denom"])
 
 
-@pytest.mark.parametrize("backbone", ["Qwen3Multi", "Qwen3SessionMulti"])
+@pytest.mark.parametrize("backbone", ["Qwen3Multi", "Qwen3SessionMulti", "Qwen3MoeAction"])
 def test_logits_match_jax(backbone):
     kw = tiny_kwargs()
     batch = make_batch(JQ.build_config(backbone, **kw))
@@ -110,9 +111,21 @@ def test_presets_and_config_roundtrip_match_jax(tmp_path):
 
 
 def test_unported_modes_raise():
+    """Once the MoeAction preset raised; it now builds with its
+    (num_experts - 1) * num_behavior + 1 experts and its expert ids route
+    the MLPs (the JAX parity of its forward, loss and grads is held by the
+    tests above and by test_torch_train.py)."""
+    action_cfg = TQ.build_config("Qwen3MoeAction", **tiny_kwargs())
+    action = TQ.QwenFamilyModel(action_cfg, device="cpu")
+    assert action.layers[0].mlp.experts_gate.shape[0] == action_cfg.total_experts == 16
+    inputs = TQ.prepare_train_inputs(action_cfg, {k: torch.as_tensor(v) for k, v in
+                                                  make_batch(action_cfg).items()})
+    assert inputs["expert_index"].max() > action_cfg.num_experts - 1
+    with torch.no_grad():
+        out = action(**inputs)["logits"]
+        plain = action(**{**inputs, "expert_index": None})["logits"]
+    assert torch.isfinite(out).all() and not torch.allclose(out, plain)
     cfg = TQ.build_config("Qwen3Multi", **tiny_kwargs())
-    with pytest.raises(NotImplementedError):
-        TQ.QwenFamilyModel(TQ.build_config("Qwen3MoeAction", **tiny_kwargs()), device="cpu")
     model = TQ.QwenFamilyModel(cfg, device="cpu")
     # the training loss is ported: it needs a generator and has grads
     train_loss = make_loss_fn(model, deterministic=False)

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gamer_tpu.data import synthetic as JS
 from gamer_tpu.data.batching import DecodeBatcher as JaxDecodeBatcher
@@ -38,6 +39,7 @@ from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.models.generative import qwen_family as TQ
 from gamer_tpu_torch.tasks.test_smb_decoder import TestSMBDecoder, load_generative_model
+from tests.test_torch_isolation import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 SPEC = dict(n_users=30, n_items=40, num_levels=2, level_sizes=(8, 10), min_len=6, max_len=16,
             seed=11)
