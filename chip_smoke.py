@@ -65,7 +65,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the behavior-token decode included) with 20 beams; one bf16 epoch of
    train_decoder (Qwen3Moe, batch 256: a 8, b 8, h 8, i 8, j 1, k 1) and
    test_decoder; prints the step times, S, peak memory and each eval's
-   wall time and beams/s.
+   wall time and beams/s;
+9. the remat policies and the memory estimate (`remat_phase`): flagship
+   Qwen3Multi bf16 at B 64 x S 505 and B 16 x S 8190, each of remat off,
+   full, attn and dots for a warm-up and a timed `Trainer` step: launches
+   per step (a 12/24/12/24, h 8/16/16/16, b 12, i 8, j 1, k 1), the loss
+   and a third step's grads bit-identical to remat off under PyTorch's
+   deterministic algorithms, peak memory full < attn, dots < off, and
+   `train/memory.py`'s estimate within [1, 1.3] x the remat-off peak; then
+   the automatic choice at B 64 x S 8190 takes one step within 70% of the
+   card's memory;
+10. the enc-dec pipelines through the CLI at the shipped configs' widths
+   (`encdec_phase`): one epoch of train_decoder --backbone TIGER (batch
+   256) and test_decoder, one of train_SMB_decoder --backbone
+   PBATransformer (batch 64 x 100 blocks) and test_SMB_decoder, 20 beams
+   at batch 128; losses fall, the reloaded `best`, beams in the trie,
+   metrics in [0, 1], no launch of kernels a-k (the enc-dec family runs
+   none, as in JAX).
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -942,11 +958,11 @@ def long_phase(dev, counters: dict) -> dict:
 @contextlib.contextmanager
 def _recording(counters: dict):
     """While the block runs, record each `Trainer.train_step`'s launches
-    (the counts' change over the step), its start time and its batch's S,
-    and each `Trainer.evaluate`'s launches."""
+    (the counts' change over the step), its start time, its loss and its
+    batch's S, and each `Trainer.evaluate`'s launches."""
     from gamer_tpu_torch.train import loop as TL
 
-    rec = {"steps": [], "stamps": [], "evals": [], "S": None}
+    rec = {"steps": [], "stamps": [], "evals": [], "S": None, "losses": []}
     step0, eval0 = TL.Trainer.train_step, TL.Trainer.evaluate
     snapshot = lambda: {k: w.launches for k, w in counters.items()}
 
@@ -956,6 +972,7 @@ def _recording(counters: dict):
         rec["S"] = int(np.shape(batch["input_ids"])[1])
         loss = step0(self, batch)
         rec["steps"].append({k: v - before[k] for k, v in snapshot().items()})
+        rec["losses"].append(loss)  # a tensor: read after the run, so no step waits
         return loss
 
     def evaluate(self, batches):
@@ -1238,6 +1255,368 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     print(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+PHASE9_POLICIES = (None, "full", "attn", "dots")  # None = remat off
+
+
+def _remat_launches(cfg, policy) -> dict:
+    """`_step_launches` of a step under remat `policy`: "full" and "dots" run
+    every attention forward (a) and MoE forward (h) again in the backward,
+    "attn" only the MoE forwards (the attention cores keep their outputs)."""
+    launches = _step_launches(cfg)
+    if policy in ("full", "dots"):
+        launches["fused_mask_attention"] *= 2
+    if policy is not None:
+        launches["fused_moe_ffn"] *= 2
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms while the block runs. Its default
+    CUDA embedding backward accumulates with atomics, so two remat-off steps
+    already differ in the grads of the small cross-attention behavior
+    embeddings (phase 9 prints by how much); every kernel of the port is
+    deterministic either way."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _remat_step(cfg, batch, dev, counters: dict, expected: dict, seed: int = 0):
+    """Two `Trainer` steps (a warm-up, then a timed one with the peak memory
+    reset just before) and the grads of a third forward and backward (under
+    `deterministic_algorithms`), on a model of `cfg` from `seed`. Returns
+    (timed loss, grads, ms, peak bytes over what was allocated before the
+    model, the timed step's launches)."""
+    import torch
+
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    model = QwenFamilyModel(cfg, device=dev, seed=seed)
+    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                      OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
+                                      total_steps=10), TrainLoopConfig(seed=0))
+    trainer.train_step(batch)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = 0
+    t = time.perf_counter()
+    loss = trainer.train_step(batch)
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    launches = {name: w.launches for name, w in counters.items()}
+    assert launches == expected, f"remat {cfg.remat_policy if cfg.remat else 'off'}: " \
+                                 f"launches {launches}, expected {expected}"
+    with deterministic_algorithms():
+        _, grads = _step_grads(model, make_loss_fn(model, cfg, deterministic=False), batch,
+                               seed + 1)
+        grads = {n: g.detach().clone() for n, g in grads.items()}
+    del trainer, model
+    return loss.detach(), grads, ms, peak, launches
+
+
+def _default_algorithms_spread(cfg, batch, dev) -> None:
+    """Two remat-off steps of one model with PyTorch's default algorithms:
+    which grads differ, and by how much (see `deterministic_algorithms`)."""
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    loss_fn = make_loss_fn(model, cfg, deterministic=False)
+    first = {n: g.clone() for n, g in _step_grads(model, loss_fn, batch, 1)[1].items()}
+    second = _step_grads(model, loss_fn, batch, 1)[1]
+    differ = sorted(((_rel_err(second[n], g)[1], n) for n, g in first.items()
+                     if not (second[n] == g).all()), reverse=True)
+    print(f"phase 9 default algorithms: two remat-off steps differ in {len(differ)} of "
+          f"{len(first)} grads, worst {differ[0][0] if differ else 0.0:.3e} relative "
+          f"({', '.join(n for _, n in differ[:3])})", flush=True)
+    del model
+
+
+def remat_phase(dev, counters: dict, card: str, cfg=None,
+                geometries=((64, 101), (16, 1638)), auto=(64, 1638)) -> dict:
+    """Phase 9: the remat policies and the memory estimate on flagship
+    Qwen3Multi (bf16, dropout 0.2) through `Trainer`. At each calibration
+    geometry (B 64 x S 505 and B 16 x S 8190, 1638 blocks) each policy (off,
+    full, attn, dots) takes a warm-up and a timed step: per-step launches as
+    `_remat_launches`, the timed loss and a third step's grads (PyTorch's
+    deterministic algorithms) bit-identical to remat off's (where not,
+    within phase 5's fp32 limits at B 16 x S 505),
+    peak memory full < attn, dots < off, and `train/memory.py`'s estimate at
+    least the remat-off peak and at most 1.3x it. Then the automatic choice
+    at B 64 x S 8190 (`auto_remat_overrides`) takes one step within
+    BUDGET_FRACTION of the card's memory. `cfg`, the geometries and `auto`
+    let a test run it tiny; on the CPU nothing launches and no memory is
+    measured."""
+    import torch
+
+    from gamer_tpu_torch.train.memory import (
+        BUDGET_FRACTION, auto_remat_overrides, device_hbm_bytes, estimate_train_hbm_bytes)
+
+    cuda = dev.type == "cuda"
+    cfg = cfg or flagship_config(dropout_rate=DROP_RATE, model_max_length=8192)
+    gib = lambda n: n / 2 ** 30
+    results = {}
+    for B, blocks in geometries:
+        S = blocks * cfg.num_positions
+        batch = make_batch(cfg, B, blocks, seed=3)
+        runs = {}
+        for policy in PHASE9_POLICIES:
+            pcfg = cfg.replace(remat=policy is not None, remat_policy=policy or "attn")
+            expected = _remat_launches(pcfg, policy) if cuda else {k: 0 for k in counters}
+            runs[policy or "off"] = _remat_step(pcfg, batch, dev, counters, expected)
+        loss0, grads0 = runs["off"][:2]
+        for name, (loss, grads, ms, peak, launches) in runs.items():
+            exact = torch.equal(loss, loss0) and all(torch.equal(grads[n], g)
+                                                     for n, g in grads0.items())
+            print(f"phase 9 remat {name} B={B} S={S}: step {ms:.3f} ms, peak "
+                  f"{gib(peak):.3f} GiB, launches {launches}, loss {float(loss):.7f}, "
+                  f"loss and grads (deterministic algorithms) bit-identical to remat off: "
+                  f"{exact} (card {card})", flush=True)
+            if not exact:  # hold it in fp32 to phase 5's limits
+                cfg32 = cfg.replace(dtype="float32")
+                small = make_batch(cfg32, 16, 101, seed=1)
+                l32, g32 = _remat_step(cfg32.replace(remat=True, remat_policy=name), small,
+                                       dev, {}, {})[:2]
+                l0, g0 = _remat_step(cfg32, small, dev, {}, {})[:2]
+                rel = abs(float(l32) - float(l0)) / abs(float(l0))
+                worst = max(_rel_err(g32[n], g0[n])[1] for n in g0)
+                print(f"phase 9 remat {name} fp32 B=16 S=505: loss rel diff {rel:.3e}, worst "
+                      f"grad rel err {worst:.3e}", flush=True)
+                assert rel <= STEP_LOSS_TOL and worst <= STEP_GRAD_TOL, f"remat {name} differs"
+        if cuda:
+            peaks = {name: run[3] for name, run in runs.items()}
+            assert peaks["full"] < min(peaks["attn"], peaks["dots"]), peaks
+            assert max(peaks["attn"], peaks["dots"]) < peaks["off"], peaks
+            est = estimate_train_hbm_bytes(cfg, B, S)
+            ratio = est["total"] / peaks["off"]
+            print(f"phase 9 estimate B={B} S={S}: {gib(est['total']):.3f} GiB (acts "
+                  f"{gib(est['acts']):.3f}, params {gib(est['params']):.3f}, logits "
+                  f"{gib(est['logits']):.3f}) against the remat-off peak "
+                  f"{gib(peaks['off']):.3f} GiB: {ratio:.3f}x (must lie in [1, 1.3]); "
+                  f"attn {'<' if peaks['attn'] < peaks['dots'] else '>='} dots (card {card})",
+                  flush=True)
+            assert 1.0 <= ratio <= 1.3, f"the estimate is {ratio:.3f}x the measured peak"
+        results[(B, S)] = {name: run[2:] for name, run in runs.items()}
+        del runs, loss0, grads0
+        if cuda and (B, blocks) == geometries[0]:
+            _default_algorithms_spread(cfg, batch, dev)
+
+    B, blocks = auto
+    S = blocks * cfg.num_positions
+    overrides = auto_remat_overrides(cfg, B, S, dev)
+    total = device_hbm_bytes(dev)
+    if cuda:
+        assert overrides == {"remat": True, "remat_policy": "attn"}, overrides
+    acfg = cfg.replace(**overrides)
+    expected = (_remat_launches(acfg, acfg.remat_policy if acfg.remat else None) if cuda
+                else {k: 0 for k in counters})
+    batch = make_batch(acfg, B, blocks, seed=3)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    model = QwenFamilyModel(acfg, device=dev, seed=0)
+    trainer = Trainer(make_loss_fn(model, acfg, deterministic=False), model,
+                      OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
+                                      total_steps=10), TrainLoopConfig(seed=0))
+    for w in counters.values():
+        w.launches = 0
+    t = time.perf_counter()
+    loss = float(trainer.train_step(batch))
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {name: w.launches for name, w in counters.items()}
+    peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    print(f"phase 9 automatic choice B={B} S={S}: {overrides or 'remat off'}; one step "
+          f"{ms:.3f} ms (the first: kernels warm), loss {loss:.6f}, launches {launches}, peak "
+          f"{gib(peak):.3f} GiB of {gib(total):.3f} ({peak / total:.3f}, limit "
+          f"{BUDGET_FRACTION}; card {card})", flush=True)
+    assert np.isfinite(loss) and launches == expected, (loss, launches, expected)
+    assert peak <= BUDGET_FRACTION * total
+    del trainer, model
+    return results
+
+
+# phase 10's runs: the enc-dec scripts' geometry at the shipped configs' full
+# widths (config/s2s-models/TIGER: d_model 128, d_ff 1024, 4+4 layers, 6 heads
+# of 64, relu; config/s2s-models/PBATransformer: d_model 256, d_ff 512, every
+# layer sparse over 6 experts), the dataset's vocab
+PHASE10_SEQ = ("--backbone", "TIGER", "--batch_size", "256", "--learning_rate", "5e-4",
+               "--temperature", "1.0")
+PHASE10_SMB = ("--backbone", "PBATransformer", "--base_model",
+               os.path.join("config", "s2s-models", "PBATransformer"),
+               "--tasks", "smb_explicit_decoder_4", "--batch_size", "64")
+
+
+def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
+                 seq_args=PHASE10_SEQ, smb_args=PHASE10_SMB, extra_args=(),
+                 min_steps=(100, 40), num_beams: int = 20) -> None:
+    """Phase 10: the enc-dec pipelines of `python -m gamer_tpu_torch` in
+    process, on phase 7's synthetic dataset: one epoch of train_decoder
+    --backbone TIGER (--max_his_len 20, batch 256) and test_decoder, then one
+    epoch of train_SMB_decoder --backbone PBATransformer from its shipped
+    config (--max_his_len 100, batch 64) and test_SMB_decoder, 20 beams at
+    batch 128. Gates: finite losses, the mean of the last 3 steps below the
+    first 3's, family "encdec" saved, the reloaded "best" giving the best
+    eval loss within 1e-6, parameters on the card, every code path of a
+    direct search over the first 128 test rows in the trie with finite
+    sorted scores, metrics in [0, 1], and no launch of kernels a-k in the
+    whole phase (the enc-dec family runs none, as in JAX). Prints each fit's
+    step time (median of the step-to-step times, host collation included),
+    the encoder and decoder lengths, peak memory, and each eval's wall time
+    and beams/s. `spec`, the argument tuples, `extra_args` (e.g. --device
+    cpu) and the counts let a test run it tiny."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.data.batching import EncDecBatcher, iterate_batches
+    from gamer_tpu_torch.data.contract import DataFiles
+    from gamer_tpu_torch.data.loading_smb import load_smb_test, load_smb_train
+    from gamer_tpu_torch.data.seq import SeqCorpus, SeqExampleBuilder
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.data.vocab import EOS_ID
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_encdec_fn
+    from gamer_tpu_torch.decode.trie import LeveledTrie
+    from gamer_tpu_torch.models.generative.encdec_utils import encdec_loss_fn
+    from gamer_tpu_torch.tasks.test_decoder import load_generative_model
+    from gamer_tpu_torch.train import loop as TL
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase10_", dir=here)
+    smb_args = tuple(os.path.join(here, a) if a.startswith("config" + os.sep) else a
+                     for a in smb_args)
+    data = os.path.join(root, "data")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    cli = lambda argv: main([*argv, *extra_args])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    before = {k: w.launches for k, w in counters.items()}
+    none = {k: 0 for k in counters}
+
+    def pipeline(label, train_task, args, his, n_min, train, valid, test, prefix_of, corpus,
+                 eval_argv):
+        out = os.path.join(root, label)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _recording(counters) as rec:
+            t = time.perf_counter()
+            res = cli([train_task, "--dataset", "Synth", "--data_path", data, "--max_his_len",
+                       str(his), *args, "--epochs", "1", "--output_dir", out])
+            sync()
+            fit_s = time.perf_counter() - t
+        losses = [float(x) for x in rec["losses"]]
+        assert len(losses) >= n_min, f"{label}: only {len(losses)} training steps"
+        assert np.isfinite(losses).all() and np.isfinite(res["best_metric"]), losses
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), f"{label}: the loss did not fall"
+        assert all(st == none for st in rec["steps"]), f"{label}: a kernel ran {rec['steps'][0]}"
+        with open(os.path.join(out, "config.json")) as f:
+            assert json.load(f)["family"] == "encdec"
+        batch = int(args[args.index("--batch_size") + 1])
+        batcher = EncDecBatcher.for_examples(train + valid, eos_id=EOS_ID)
+        step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        print(f"phase 10 {train_task} {' '.join(args)} --max_his_len {his}: {len(losses)} steps "
+              f"+ eval: losses first 3 {[round(x, 4) for x in losses[:3]]}, last 3 "
+              f"{[round(x, 4) for x in losses[-3:]]}, best valid loss {res['best_metric']:.6f}; "
+              f"encoder S {batcher.enc_len}, decoder S {batcher.dec_len}; step {step_ms:.3f} ms "
+              f"median with host collation ({batch / (step_ms / 1e3):.1f} sequences/s); peak "
+              f"memory {peak:.3f} GiB; fit {fit_s:.1f} s (card {card})", flush=True)
+
+        # the reloaded "best" gives the in-memory best eval loss
+        model, cfg, vocab, family = load_generative_model(out, "best", dev)
+        assert family == "encdec" and all(p.device.type == dev.type for p in model.parameters())
+        trainer = TL.Trainer(encdec_loss_fn(model, cfg), model, OptimizerConfig(),
+                             TL.TrainLoopConfig(),
+                             eval_loss_fn=encdec_loss_fn(model, cfg, deterministic=True))
+        reloaded = trainer.evaluate(iterate_batches(valid, batch, batcher.collate))
+        rel = abs(reloaded - res["best_metric"]) / abs(res["best_metric"])
+        print(f"phase 10 {label} reload: eval loss from 'best' {reloaded:.8f} vs in-memory best "
+              f"{res['best_metric']:.8f}, rel diff {rel:.3e} (tol 1e-6); {model.cfg.extra.get('backbone')} "
+              f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_layers}+{cfg.num_decoder_layers} "
+              f"layers, {cfg.num_heads} heads x {cfg.d_kv}, vocab {cfg.vocab_size}, sparse "
+              f"{cfg.sparse_layers_encoder}/{cfg.sparse_layers_decoder}", flush=True)
+        assert rel <= 1e-6, f"{label}: the reloaded checkpoint does not give the best eval loss"
+
+        # a direct search over the first test rows: code paths in the trie
+        trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
+        rows = test[:128]
+        search = make_beam_search_encdec_fn(model, trie, BeamSearchConfig(num_beams=num_beams))
+        codes, scores = search(EncDecBatcher.for_examples(test, eos_id=EOS_ID).collate(rows),
+                               prefix_of(rows, vocab, cfg))
+        check_beams(trie, codes, scores, len(rows), num_beams)
+        del model, trainer
+
+        t = time.perf_counter()
+        ev = cli([*eval_argv, "--dataset", "Synth", "--data_path", data, "--max_his_len",
+                  str(his), "--ckpt_path", out, "--num_beams", str(num_beams),
+                  "--test_batch_size", "128", "--results_file", os.path.join(root, label + ".json")])
+        sync()
+        return ev, time.perf_counter() - t
+
+    # 1. TIGER on the single-behavior data: train_decoder, test_decoder
+    corpus = SeqCorpus(DataFiles(data, "Synth"), ".index.json", multi_behavior=False)
+    builder = SeqExampleBuilder(corpus, 20)
+    ev, eval_s = pipeline(
+        "tiger", "train_decoder", seq_args, 20, min_steps[0], builder.build("train"),
+        builder.build("valid"), builder.build("test"),
+        lambda rows, vocab, cfg: np.array([cfg.decoder_start_token_id], np.int32), corpus,
+        ["test_decoder"])
+    assert ev["metrics"] and all(0.0 <= v <= 1.0 for v in ev["metrics"].values()), ev
+    print(f"phase 10 test_decoder TIGER: {ev['count']} rows in {eval_s:.3f} s wall "
+          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), "
+          f"{ {k: round(v, 5) for k, v in ev['metrics'].items()} } ({num_beams} beams, "
+          f"card {card})", flush=True)
+
+    # 2. PBATransformer on the SMB data: train_SMB_decoder, test_SMB_decoder
+    d = load_smb_train("Synth", data, 100, ".index.json", smb_args[smb_args.index("--tasks") + 1])
+    test = load_smb_test("Synth", data, 100, ".index.json", "smb_explicit").test
+
+    def smb_prefix(rows, vocab, cfg):
+        btoks = [vocab.behavior_token(d.corpus.behavior_names[int(ex.target_behaviors[0])])
+                 for ex in rows]
+        return np.stack([np.full(len(rows), cfg.decoder_start_token_id), btoks], 1).astype(np.int32)
+
+    ev, eval_s = pipeline("pbat", "train_SMB_decoder", smb_args, 100, min_steps[1], d.train,
+                          d.valid, test, smb_prefix, d.corpus,
+                          ["test_SMB_decoder", "--test_task", "smb_explicit"])
+    assert ev["merged"] and all(0.0 <= v <= 1.0 for v in ev["merged"].values()), ev
+    rows = sum(ev["counts"].values())
+    print(f"phase 10 test_SMB_decoder PBATransformer: {rows} rows in {eval_s:.3f} s wall "
+          f"({rows * num_beams / eval_s:.1f} beams/s); merged "
+          f"{ {k: round(v, 5) for k, v in ev['merged'].items()} } ({num_beams} beams, "
+          f"card {card})", flush=True)
+    moved = {k: w.launches - before[k] for k, w in counters.items()}
+    assert moved == none, f"phase 10 launched kernels {moved}: a model other than the enc-dec ran"
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1361,6 +1740,10 @@ def main() -> int:
     task_phase(dev, counters, card, train["step_ms"])
     # 8. the multi- and single-behavior pipelines through the CLI
     seq_phase(dev, counters, card)
+    # 9. the remat policies and the memory estimate
+    remat_phase(dev, counters, card)
+    # 10. the enc-dec pipelines through the CLI
+    encdec_phase(dev, counters, card)
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"

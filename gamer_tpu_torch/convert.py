@@ -11,6 +11,15 @@ numpy-convertible arrays. The mapping to the port's parameter names:
   Embed  .../embedding           -> nn.Embedding .weight
   experts_gate/up/down [E, ...]  -> kept stacked, same layout
 
+The enc-dec tree (`models/generative/encdec.py`) maps by the same rules:
+its flax module names ("encoder_{i}/self_attn", "decoder_{i}/mlp", ...) are
+the port's module paths, so "encoder_0/self_attn/q/kernel" becomes
+`encoder_0.self_attn.q.weight`, "decoder_0/self_attn/rel_bias/embedding"
+`decoder_0.self_attn.rel_bias.weight`, "decoder_1/ln3/scale"
+`decoder_1.ln3.weight`, and the stacked `experts_wi`/`experts_wo` and
+`shared_wi`/`shared_wo`, "shared/embedding", "encoder_norm",
+"decoder_norm" and an untied "lm_head" follow.
+
 `to_flax` maps the other way (port tensors, e.g. parameters or their
 grads, into the flax tree of a template), and `flax_path` names a port
 parameter as flax does. Only numpy crosses the boundary, so this module

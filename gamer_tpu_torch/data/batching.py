@@ -1,7 +1,6 @@
 """Static-shape batching.
 
-The port's copy of `gamer_tpu/data/batching.py` (the decoder-only batchers;
-the encoder-decoder one waits for the enc-dec models). It replaces the
+The port's copy of `gamer_tpu/data/batching.py`. It replaces the
 reference's dynamic `padding="longest"` HF collators
 (ref: SeqRec/datasets/collator.py) with fixed-length batches: all batches in
 a run share one sequence length (the dataset maximum, rounded up), so the
@@ -159,6 +158,45 @@ class DecodeBatcher:
             ):
                 L = min(len(stream), S)
                 out[key][i, S - L:] = stream[:L]
+        return out
+
+
+@dataclass
+class EncDecBatcher:
+    """Encoder-decoder batches (TIGER/PBATransformer).
+
+    Mirrors EncoderDecoderCollator (ref collator.py:7-44): encoder inputs
+    right-padded with EOS appended; labels = target tokens + EOS with pads
+    masked to -100 (decoder inputs are derived by shift_right in the model).
+    """
+
+    enc_len: int
+    dec_len: int
+    eos_id: int = 1
+    pad_multiple: int = 8
+
+    @classmethod
+    def for_examples(cls, examples: Sequence[SMBExample], pad_multiple: int = 8,
+                     **kw) -> "EncDecBatcher":
+        enc = max((len(e.prompt) for e in examples), default=4) + 1  # + EOS
+        dec = max((e.targets.shape[1] for e in examples), default=4) + 1
+        return cls(enc_len=_round_up(enc, pad_multiple), dec_len=dec,
+                   pad_multiple=pad_multiple, **kw)
+
+    def collate(self, examples: Sequence[SMBExample]) -> dict[str, np.ndarray]:
+        B = len(examples)
+        out = {
+            "input_ids": np.full((B, self.enc_len), PAD_ID, dtype=np.int32),
+            "attention_mask": np.zeros((B, self.enc_len), dtype=np.int32),
+            "labels": np.full((B, self.dec_len), IGNORE_LABEL, dtype=np.int32),
+            "row_valid": np.ones(B, dtype=np.int32),
+        }
+        for i, ex in enumerate(examples):
+            toks = np.concatenate([ex.prompt, [self.eos_id]])[: self.enc_len]
+            out["input_ids"][i, : len(toks)] = toks
+            out["attention_mask"][i, : len(toks)] = 1
+            lab = np.concatenate([ex.targets[0], [self.eos_id]])[: self.dec_len]
+            out["labels"][i, : len(lab)] = lab
         return out
 
 

@@ -15,16 +15,24 @@ fp32 whatever the model dtype. With `behavior_emb_id=None` level 0 of the
 trie is the behavior token itself (test_MB_decoder's BEHAVIOR_ITEM mode):
 each beam's behavior embedding id is its level-0 code + 1, reordered with
 the beams. MoeAction models get their expert ids from (position, behavior)
-at every step. The enc-dec search waits for a later slice.
+at every step.
+
+The enc-dec search (`constrained_beam_search_encdec`, TIGER and
+PBATransformer) runs the encoder once and the decoder prefix
+[decoder_start(, behavior token)], projects the encoder's cross k/v once,
+shared by the beams ([B, Senc]), and keeps a per-beam decoder self cache of
+P0 + L positions, of which each step moves only the generated slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from gamer_tpu_torch.decode.trie import LeveledTrie
+from gamer_tpu_torch.models.generative.encdec import EncDecModel
 from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
@@ -142,15 +150,8 @@ def constrained_beam_search(
     logits0 = out["logits"][:, 0, :]  # [B, V]
 
     # step 0: level-0 codes from the trie root
-    base0, size0 = trie.level_token_base[0], trie.level_sizes[0]
-    logp = _level_logp(logits0[:, base0:base0 + size0], allowed_tables[0][0][None, :])
-    k0 = min(K, size0)
-    scores, codes0 = torch.topk(logp, k0, dim=-1)  # [B, k0]
-    if k0 < K:  # more beams than level-0 codes: pad with dead beams
-        scores = torch.nn.functional.pad(scores, (0, K - k0), value=NEG)
-        codes0 = torch.nn.functional.pad(codes0, (0, K - k0))
-    nodes = child_tables[0][0, codes0]  # [B, K]
-    gen_codes = codes0[:, :, None]  # [B, K, 1]
+    scores, gen_codes, nodes = _first_level(logits0, trie, allowed_tables, child_tables, K)
+    codes0 = gen_codes[:, :, 0]
 
     # prompt KV stays [B, S], shared by the beams; generated KV is per beam
     Tg = max(L - 1, 1)
@@ -235,5 +236,124 @@ def make_beam_search_fn(model: QwenFamilyModel, trie: LeveledTrie,
     it eagerly)."""
     def fn(batch: dict, behavior_emb_id):
         return constrained_beam_search(model, batch, trie, behavior_emb_id, search_cfg)
+
+    return fn
+
+
+def _first_level(logits0: torch.Tensor, trie: LeveledTrie, allowed_tables, child_tables,
+                 K: int):
+    """(scores [B, K], codes [B, K, 1], trie nodes [B, K]) of level 0 from the
+    trie root; beams past the level's codes are dead (score NEG)."""
+    base0, size0 = trie.level_token_base[0], trie.level_sizes[0]
+    logp = _level_logp(logits0[:, base0:base0 + size0], allowed_tables[0][0][None, :])
+    k0 = min(K, size0)
+    scores, codes0 = torch.topk(logp, k0, dim=-1)  # [B, k0]
+    if k0 < K:  # more beams than level-0 codes: pad with dead beams
+        scores = torch.nn.functional.pad(scores, (0, K - k0), value=NEG)
+        codes0 = torch.nn.functional.pad(codes0, (0, K - k0))
+    return scores, codes0[:, :, None], child_tables[0][0, codes0]
+
+
+@torch.no_grad()
+def constrained_beam_search_encdec(
+    model: EncDecModel,
+    batch: dict,
+    trie: LeveledTrie,
+    decoder_prefix,
+    search_cfg: BeamSearchConfig = BeamSearchConfig(),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam search of the enc-dec family (TIGER/PBATransformer).
+
+    `batch` holds the right-padded encoder `input_ids` and `attention_mask`
+    [B, Se] (tensors or numpy arrays). `decoder_prefix` is the [P0] (or
+    per-row [B, P0]) decoder input fed before the first item level,
+    [decoder_start(, behavior_token)], as the reference seeds generation
+    (ref test_SMB_decoder.py:188-195). Decoder tokens route by their
+    absolute decoder position. Returns (codes [B, num_beams, L], fp32
+    scores [B, num_beams])."""
+    cfg = model.cfg
+    device = model.device
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    L = trie.num_levels
+    K = search_cfg.num_beams
+    B = batch["input_ids"].shape[0]
+    prefix = torch.as_tensor(np.asarray(decoder_prefix), dtype=torch.int32, device=device)
+    if prefix.dim() == 1:
+        prefix = prefix[None].expand(B, -1)
+    P0 = prefix.shape[1]
+    cache_dtype = resolve_cache_dtype(search_cfg.cache_dtype, device)
+    allowed_tables = [torch.as_tensor(a, device=device) for a in trie.allowed]
+    child_tables = [torch.as_tensor(c, device=device).long() for c in trie.child]
+    routing = lambda pos, rows: ((pos % cfg.num_positions) + 1)[None].expand(rows, -1)
+
+    # prefill: the encoder, the decoder prefix, the encoder's cross k/v
+    shape = (B, P0 + L, cfg.num_heads, cfg.d_kv)
+    caches = [{"self": {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
+                        "v": torch.zeros(shape, dtype=cache_dtype, device=device)}}
+              for _ in range(cfg.num_decoder_layers)]
+    pos0 = torch.arange(P0, device=device)
+    enc_rel = router_ops.rel_positions(batch["attention_mask"])
+    enc_pos, enc_beh, _ = router_ops.route_tokens(
+        batch["input_ids"], enc_rel, cfg.num_positions, cfg.behavior_base, cfg.num_behavior)
+    pidx = routing(pos0, B)
+    out = model(encoder_input_ids=batch["input_ids"],
+                encoder_attention_mask=batch["attention_mask"], decoder_input_ids=prefix,
+                enc_position_index=enc_pos, enc_behavior_index=enc_beh,
+                dec_position_index=pidx, dec_behavior_index=torch.zeros_like(pidx),
+                caches=caches, cache_index=0, dec_positions=pos0, logits_last_only=True,
+                emit_cross_kv=True)
+    # the cross k/v stay [B, Senc], shared by the beams; only the decoder's
+    # self cache is per beam
+    cross_kv = [c["cross"] for c in out["caches"]]
+    caches = [{"self": {k: v.repeat_interleave(K, dim=0) for k, v in c["self"].items()}}
+              for c in out["caches"]]
+    scores, gen_codes, nodes = _first_level(out["logits"][:, 0, :], trie, allowed_tables,
+                                            child_tables, K)
+
+    for step in range(1, L):
+        prev = gen_codes[:, :, step - 1].reshape(B * K)
+        tok = (prev + trie.level_token_base[step - 1]).to(torch.int32)[:, None]
+        dpos = P0 + step - 1
+        dpos_t = torch.tensor([dpos], device=device)
+        pidx = routing(dpos_t, B * K)
+        out = model(cross_kv=cross_kv, encoder_attention_mask=batch["attention_mask"],
+                    decoder_input_ids=tok, dec_position_index=pidx,
+                    dec_behavior_index=torch.zeros_like(pidx), caches=caches,
+                    cache_index=dpos, dec_positions=dpos_t, logits_last_only=True)
+        caches = out["caches"]
+        logits = out["logits"][:, 0, :]
+
+        base, size = trie.level_token_base[step], trie.level_sizes[step]
+        flat_nodes = nodes.reshape(B * K)
+        allowed = allowed_tables[step][flat_nodes.clamp(min=0)] & (flat_nodes >= 0)[:, None]
+        logp = _level_logp(logits[:, base:base + size], allowed)
+        total = scores[:, :, None] + logp.reshape(B, K, size)
+        scores, idx = torch.topk(total.reshape(B, K * size), K, dim=-1)
+        parent = torch.div(idx, size, rounding_mode="floor")
+        code = idx % size
+        gen_codes = torch.cat([torch.gather(gen_codes, 1, parent[:, :, None].expand(-1, -1, step)),
+                               code[:, :, None]], dim=2)
+        parent_nodes = torch.gather(nodes, 1, parent).reshape(B * K)
+        nodes = child_tables[step][parent_nodes.clamp(min=0), code.reshape(B * K)].reshape(B, K)
+        # the decoder-prefix positions [0, P0) are beam-invariant: move only
+        # the generated slice by parent beam
+        flat_parent = (torch.arange(B, device=device)[:, None] * K + parent).reshape(B * K)
+
+        def move(x):
+            x = x.clone()
+            x[:, P0:P0 + step] = x[flat_parent, P0:P0 + step]
+            return x
+
+        caches = [{"self": {k: move(v) for k, v in c["self"].items()}} for c in caches]
+
+    return gen_codes, scores
+
+
+def make_beam_search_encdec_fn(model: EncDecModel, trie: LeveledTrie,
+                               search_cfg: BeamSearchConfig = BeamSearchConfig()):
+    """fn(batch, decoder_prefix) -> (codes, scores) bound to one enc-dec
+    model, trie and search config (run eagerly)."""
+    def fn(batch: dict, decoder_prefix):
+        return constrained_beam_search_encdec(model, batch, trie, decoder_prefix, search_cfg)
 
     return fn

@@ -17,8 +17,10 @@ in and returned. The training forward (`deterministic=False`) drops attention
 probabilities, the MoE activation and the three residual branches by the
 stateless hash, one int32 seed per site drawn in a fixed order from a
 caller-given `torch.Generator`; `cfg.remat` recomputes each layer in the
-backward (`torch.utils.checkpoint`), which the hash masks make exact. Every
-remat policy acts as "full" (recompute the whole layer). MoeAction passes
+backward (`torch.utils.checkpoint`), which the hash masks make exact, keeping
+what `cfg.remat_policy` says: nothing ("full"), the attention cores' outputs
+and saved tensors ("attn": the attention kernel never runs again), or the
+dense products' results ("dots", by selective checkpointing). MoeAction passes
 `expert_index` to the MLPs, whose periodic paths run one pass per behavior
 level (`modules/moe.py`).
 
@@ -34,6 +36,7 @@ and the kernel's plain version for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
@@ -48,6 +51,22 @@ from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
+
+
+REMAT_POLICIES = ("full", "attn", "dots")
+# what the backward keeps under remat, besides each layer's input. "full":
+# nothing, the whole layer runs again (kernels a and h with it). "dots": the
+# results of the dense products without batch dims (aten mm/addmm: the
+# q/k/v/o and gating projections, the plain path's dense MLPs), selected by
+# `torch.utils.checkpoint`'s selective checkpointing, which sees aten ops
+# only: the attention kernel a and the MoE kernel h are no dots and run
+# again. "attn" is `DecoderLayer`'s `keep_attention`: only kernel h runs again.
+_REMAT_CONTEXT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts,
+        [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])},
+}
 
 
 class QwenFamilyConfig(Config):
@@ -97,8 +116,12 @@ class QwenFamilyConfig(Config):
     # embed-table row count, >= vocab_size (0 = vocab_size); padded rows are
     # never looked up and never produce logits
     padded_vocab_size: int = 0
-    # recompute each layer in the backward (gradient checkpointing); every
-    # policy of the JAX package ("full" | "attn" | "dots") acts as "full"
+    # recompute each layer in the backward (gradient checkpointing); what the
+    # backward may keep instead (REMAT_POLICIES, the JAX package's names):
+    #   "full" — nothing: the whole layer is recomputed
+    #   "attn" — the attention cores' outputs and saved tensors: no attention
+    #            kernel re-run; norms, projections, MoE and dropout re-run
+    #   "dots" — every dense product's result; the rest is recomputed
     remat: bool = False
     remat_policy: str = "attn"
 
@@ -190,32 +213,44 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, rope_positions, self_allowed, cross_allowed, position_index,
                 behavior_index, action_index, expert_index, streams, caches, cache_index,
-                route_mode, seeds=None):
+                route_mode, seeds=None, keep_attention=False):
         """`seeds`: this layer's `dropout_sites` dropout seeds, or None for
-        the deterministic forward."""
+        the deterministic forward. `keep_attention` (remat policy "attn"):
+        the stages between the attention cores run under
+        `torch.utils.checkpoint`, so the backward recomputes the norms,
+        projections, dropout and MLP and keeps what each attention core
+        saved (its kernel does not run again)."""
         det = seeds is None
-        seed = iter(seeds or ())
-        drop = lambda y: y if det else hash_dropout(y, next(seed), self.dropout_rate)
-        h, new_self = self.self_attn(
-            self.input_layernorm(x), rope_positions, self_allowed,
-            kv_cache=None if caches is None else caches["self"], cache_index=cache_index,
-            mask_kind=self.self_mask_kind, streams=streams, deterministic=det,
-            dropout_seed=0 if det else next(seed))
-        x = x + drop(h)
-        new_cross = None
-        if self.is_cross:
-            h, new_cross = self.cross_attn(
-                self.post_self_attention_layernorm(x), rope_positions, cross_allowed,
-                action_index=action_index,
-                kv_cache=None if caches is None else caches["cross"], cache_index=cache_index,
-                mask_kind=self.cross_mask_kind, streams=streams, deterministic=det,
-                dropout_seed=0 if det else next(seed))
-            x = x + drop(h)
-        h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
-                     expert_index=expert_index if self.moe_action else None,
-                     route_mode=route_mode, num_positions=self.num_positions,
-                     deterministic=det, dropout_seed=0 if det else next(seed))
-        return x + drop(h), new_self, new_cross
+        s = [0] * self.dropout_sites if det else list(seeds)
+        drop = lambda y, seed: y if det else hash_dropout(y, seed, self.dropout_rate)
+        stage = ((lambda fn, *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False))
+                 if keep_attention else (lambda fn, *a: fn(*a)))
+        caches = caches or {}
+
+        def mlp(x):
+            h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
+                         expert_index=expert_index if self.moe_action else None,
+                         route_mode=route_mode, num_positions=self.num_positions,
+                         deterministic=det, dropout_seed=s[-2])
+            return x + drop(h, s[-1])
+
+        qkv = stage(lambda x: self.self_attn.qkv(self.input_layernorm(x), rope_positions), x)
+        o, new_self = self.self_attn.core(*qkv, self_allowed, caches.get("self"), cache_index,
+                                          self.self_mask_kind, streams, det, s[0])
+        if not self.is_cross:
+            x = stage(lambda x, o: mlp(x + drop(self.self_attn.output(x, o), s[1])), x, o)
+            return x, new_self, None
+
+        def after_self(x, o):
+            x = x + drop(self.self_attn.output(x, o), s[1])
+            h = self.post_self_attention_layernorm(x)  # also the gate's input
+            return (x, h, *self.cross_attn.qkv(h, rope_positions, action_index))
+
+        x, h, *qkv = stage(after_self, x, o)
+        o, new_cross = self.cross_attn.core(*qkv, cross_allowed, caches.get("cross"),
+                                            cache_index, self.cross_mask_kind, streams, det, s[2])
+        x = stage(lambda x, h, o: mlp(x + drop(self.cross_attn.output(h, o), s[3])), x, h, o)
+        return x, new_self, new_cross
 
 
 class QwenFamilyModel(nn.Module):
@@ -265,8 +300,8 @@ class QwenFamilyModel(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, PositionRoutedMLP):
-                for w in (mod.experts_gate, mod.experts_up, mod.experts_down):
-                    fill(w, 1.0 / math.sqrt(w.shape[1]))
+                for w in mod.parameters(recurse=False):  # [(E,) d_in, d_out]
+                    fill(w, 1.0 / math.sqrt(w.shape[-2]))
 
     def lm_table(self) -> torch.Tensor:
         """The tied head: embedding rows of the real vocab (padded rows never
@@ -304,6 +339,8 @@ class QwenFamilyModel(nn.Module):
         x = embed(self.embed_tokens, input_ids, cfg.torch_dtype)
         new_caches = {"self": [], "cross": []} if caches is not None else None
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
+        if remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
         for i, layer in enumerate(self.layers):
             layer_caches = None
             if caches is not None:
@@ -314,11 +351,13 @@ class QwenFamilyModel(nn.Module):
             args = (x, rope_positions, self_allowed, cross_allowed, position_index,
                     behavior_index, action_index, expert_index, streams, layer_caches,
                     cache_index, route_mode, layer_seeds)
-            if remat:
-                x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
-                    layer, *args, use_reentrant=False)
-            else:
+            if not remat:
                 x, new_self, new_cross = layer(*args)
+            elif cfg.remat_policy == "attn":
+                x, new_self, new_cross = layer(*args, keep_attention=True)
+            else:
+                x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
+                    layer, *args, use_reentrant=False, **_REMAT_CONTEXT[cfg.remat_policy])
             if new_caches is not None:
                 new_caches["self"].append(new_self)
                 new_caches["cross"].append(new_cross)

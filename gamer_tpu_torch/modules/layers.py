@@ -154,6 +154,10 @@ class GQAAttention(nn.Module):
     With `deterministic=False`, attention probabilities are dropped at
     `dropout_rate` by the stateless hash keyed on the call's `dropout_seed`,
     on the kernel and the plain path alike.
+
+    `forward` is `output(x, core(qkv(x)))`: the remat policy "attn" of
+    `models/generative/qwen_family.py` recomputes `qkv` and `output` in the
+    backward and keeps what the attention core saves.
     """
 
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -181,26 +185,19 @@ class GQAAttention(nn.Module):
             self.v_behavior_embedding = nn.Embedding(num_behavior + 1, kvd)
             self.gating = nn.Linear(hidden_size, hidden_size, bias=attention_bias)
 
-    def _output(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    def output(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """The output projection of the attention core's `out` [B, S, H, D];
+        `x` (the module's input) feeds the cross-attention gate only."""
         b, s = out.shape[:2]
         out = dense(self.o_proj, out.reshape(b, s, self.num_heads * self.head_dim))
         if self.is_cross:
             out = out * F.silu(dense(self.gating, x))
         return out
 
-    def forward(
-        self,
-        x: torch.Tensor,  # [B, S, D]
-        positions: torch.Tensor,  # [B, S] rope positions
-        allowed: Optional[torch.Tensor],  # [B or 1, 1, S, Sk] bool (plain path)
-        action_index: Optional[torch.Tensor] = None,  # [B, S] (cross only)
-        kv_cache: Optional[dict] = None,
-        cache_index: Optional[int] = None,
-        mask_kind: Optional[str] = None,
-        streams: Optional[dict] = None,
-        deterministic: bool = True,
-        dropout_seed: int = 0,
-    ) -> tuple[torch.Tensor, Optional[dict]]:
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            action_index: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Projected, normed and rotated q [B, S, H, D], k and v [B, S, Hkv, D]."""
         b, s, _ = x.shape
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         q = dense(self.q_proj, x)
@@ -216,9 +213,25 @@ class GQAAttention(nn.Module):
         k = self.k_norm(k.reshape(b, s, Hkv, D))
         v = v.reshape(b, s, Hkv, D)
         cos, sin = rope_cos_sin(positions, D, self.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
+    def core(
+        self,
+        q: torch.Tensor,  # [B, S, H, D]
+        k: torch.Tensor,  # [B, S, Hkv, D]
+        v: torch.Tensor,
+        allowed: Optional[torch.Tensor],  # [B or 1, 1, S, Sk] bool (plain path)
+        kv_cache: Optional[dict] = None,
+        cache_index: Optional[int] = None,
+        mask_kind: Optional[str] = None,
+        streams: Optional[dict] = None,
+        deterministic: bool = True,
+        dropout_seed: int = 0,
+    ) -> tuple[torch.Tensor, Optional[dict]]:
+        """Attention of q over k and v (and the KV cache): (out [B, S, H, D],
+        the new cache)."""
+        b, s = q.shape[:2]
+        H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         if kv_cache is not None and "k_prompt" in kv_cache:
             # Beam-decode path: prompt KV shared [B, S], generated KV per beam.
             # `allowed` is the beam-invariant prompt row [B, 1, 1, S] or [B, S].
@@ -235,7 +248,7 @@ class GQAAttention(nn.Module):
                 kg = vg = None
             out = attend_shared_prompt(q, kv_cache["k_prompt"], kv_cache["v_prompt"],
                                        kg, vg, prompt_allowed, D ** -0.5)
-            return self._output(x, out), new_cache
+            return out, new_cache
 
         new_cache = None
         if kv_cache is not None:
@@ -254,11 +267,29 @@ class GQAAttention(nn.Module):
             out = fa.fused_mask_attention(
                 q.reshape(b, s, H * D), k.reshape(b, s, Hkv * D), v.reshape(b, s, Hkv * D),
                 streams["attention_mask"], streams["session_ids"], streams["actions"],
-                streams["block_ids"], dropout_seed, H, mask_kind, rate)
+                streams["block_ids"], dropout_seed, H, mask_kind, rate).reshape(b, s, H, D)
         else:
             keep = None
             if rate > 0.0:
-                keep = fa.attention_keep_mask(dropout_seed, b, H, s, k.shape[1], rate, x.device)
+                keep = fa.attention_keep_mask(dropout_seed, b, H, s, k.shape[1], rate, q.device)
             out = attend(q, k, v, allowed, D ** -0.5, keep=keep,
                          keep_prob=fa.keep_fraction(rate))
-        return self._output(x, out), new_cache
+        return out, new_cache
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, S, D]
+        positions: torch.Tensor,  # [B, S] rope positions
+        allowed: Optional[torch.Tensor],  # [B or 1, 1, S, Sk] bool (plain path)
+        action_index: Optional[torch.Tensor] = None,  # [B, S] (cross only)
+        kv_cache: Optional[dict] = None,
+        cache_index: Optional[int] = None,
+        mask_kind: Optional[str] = None,
+        streams: Optional[dict] = None,
+        deterministic: bool = True,
+        dropout_seed: int = 0,
+    ) -> tuple[torch.Tensor, Optional[dict]]:
+        q, k, v = self.qkv(x, positions, action_index)
+        out, new_cache = self.core(q, k, v, allowed, kv_cache, cache_index, mask_kind,
+                                   streams, deterministic, dropout_seed)
+        return self.output(x, out), new_cache

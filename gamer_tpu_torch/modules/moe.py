@@ -13,16 +13,22 @@ table), and onehot. MoeAction (`expert_index` given) routes a token to expert
 P*(a-1) + p for its block's action level a: the periodic paths run one pass
 over every token per level a, with that level's P experts, and keep each
 block's own level (pad/eos blocks, a = 0, output zero, as in JAX); the
-onehot path routes by `expert_index`. `mlp_type="t5"` and `shared_expert`
-(the enc-dec models') raise NotImplementedError.
+onehot path routes by `expert_index`. The enc-dec models' options:
+`mlp_type="t5"` is wo(drop(act(wi(x)))) with stacked `experts_wi` [E, d_in,
+d_ff] and `experts_wo` [E, d_ff, d_out]; with `shared_expert` a sparse
+layer's routed experts emit d_model // 2 and a shared expert (`shared_wi`,
+`shared_wo`) the other half, concatenated after them, as in JAX. Neither
+takes the fused kernel (JAX's fused path is SwiGLU without a shared expert);
+they run on the plain periodic, dense and one-hot paths.
 
 Dropout on the SwiGLU activation (`deterministic=False`): the fused path
 passes its seed and rate to the kernel; the plain periodic path draws the
 kernel's own hash mask (`ops/fused_moe.moe_keep_mask`), so both paths drop
 the same elements for the same seed (every MoeAction pass draws the same
 mask, and each token keeps one pass); the dense and one-hot paths use the
-residual hash dropout (`modules/dropout.py`). The JAX package draws "bits"
-dropout from its rng stream on its plain paths.
+residual hash dropout (`modules/dropout.py`), seed + e for expert e and
+seed + E for the shared expert. The JAX package draws "bits" dropout from
+its rng stream on its plain paths.
 
 Expert weights stay stacked with a leading experts axis, in the JAX layout:
 gate/up [E, d_in, d_ff], down [E, d_ff, d_out], stored in fp32 and cast to
@@ -45,9 +51,9 @@ from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, moe_keep_mask
 
 
 class PositionRoutedMLP(nn.Module):
-    """Sparse (or dense) SwiGLU FFN with deterministic routing:
-    down(act(gate(x)) * up(x)), input width d_model + behavior_dim when the
-    behavior embedding is injected."""
+    """Sparse (or dense) FFN with deterministic routing. mlp_type "qwen3":
+    SwiGLU down(act(gate(x)) * up(x)); "t5": wo(act(wi(x))). The input width
+    is d_model + behavior_dim when the behavior embedding is injected."""
 
     def __init__(self, d_model: int, d_ff: int, num_experts: int, is_sparse: bool = True,
                  mlp_type: str = "qwen3", hidden_act: str = "silu",
@@ -55,35 +61,48 @@ class PositionRoutedMLP(nn.Module):
                  behavior_dim: int = 0, shared_expert: bool = False,
                  use_kernel: bool = True, dropout_rate: float = 0.0):
         super().__init__()
+        if mlp_type not in ("qwen3", "t5"):
+            raise ValueError(f"unknown mlp_type {mlp_type!r}")
         self.dropout_rate = dropout_rate
-        if mlp_type != "qwen3":
-            raise NotImplementedError(f"mlp_type={mlp_type!r} is not ported yet")
-        if shared_expert:
-            raise NotImplementedError("shared_expert is not ported yet")
         self.d_model, self.d_ff = d_model, d_ff
         self.is_sparse = is_sparse
+        self.mlp_type = mlp_type
         self.hidden_act = hidden_act
         self.behavior_injection = behavior_injection
         self.num_behavior = num_behavior
-        self.use_kernel = use_kernel
+        self.shared_expert = shared_expert and is_sparse
+        self.use_kernel = use_kernel and mlp_type == "qwen3" and not self.shared_expert
         d_in = d_model + (behavior_dim if behavior_injection else 0)
+        d_out = d_model // 2 if self.shared_expert else d_model
         E = num_experts if is_sparse else 1
-        self.experts_gate = nn.Parameter(torch.empty(E, d_in, d_ff))
-        self.experts_up = nn.Parameter(torch.empty(E, d_in, d_ff))
-        self.experts_down = nn.Parameter(torch.empty(E, d_ff, d_model))
+        shapes = {"gate": (d_in, d_ff), "up": (d_in, d_ff), "down": (d_ff, d_out),
+                  "wi": (d_in, d_ff), "wo": (d_ff, d_out)}
+        for n in self.weight_names:
+            self.register_parameter(f"experts_{n}", nn.Parameter(torch.empty(E, *shapes[n])))
+        for n in self.weight_names if self.shared_expert else ():
+            self.register_parameter(f"shared_{n}", nn.Parameter(torch.empty(*shapes[n])))
         if behavior_injection:
             self.behavior_embedding = nn.Embedding(num_behavior + 1, behavior_dim)
 
-    def _swiglu(self, x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-                down: torch.Tensor, rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-        """x [..., d_in] @ one expert's weights."""
-        gu = x @ torch.cat([gate, up], dim=-1)
-        h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
-        return hash_dropout(h, seed, rate) @ down
+    @property
+    def weight_names(self) -> tuple[str, ...]:
+        """The stacked expert weights, in the order `_expert` takes them."""
+        return (("gate", "up", "down") if self.mlp_type == "qwen3" else ("wi", "wo"))
 
-    def _weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
-        return tuple(w.to(dtype) for w in (self.experts_gate, self.experts_up,
-                                           self.experts_down))
+    def _expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
+        """x [..., d_in] through one expert's weights `w` (`weight_names`)."""
+        act = _ACTS[self.hidden_act]
+        if self.mlp_type == "qwen3":
+            gate, up, down = w
+            gu = x @ torch.cat([gate, up], dim=-1)
+            h = act(gu[..., :self.d_ff]) * gu[..., self.d_ff:]
+        else:
+            h = act(x @ w[0])
+        return hash_dropout(h, seed, rate) @ w[-1]
+
+    def _weights(self, dtype: torch.dtype, prefix: str = "experts") -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f"{prefix}_{n}").to(dtype) for n in self.weight_names)
 
     def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
                         P: int, rate: float, seed: int, los: list[int]) -> list[torch.Tensor]:
@@ -130,19 +149,23 @@ class PositionRoutedMLP(nn.Module):
         if self.use_kernel:
             return self._fused_periodic(x, behavior_index, P, rate, seed, los)
         x_in = self._inputs(x, behavior_index)
-        gate, up, down = self._weights(x.dtype)
-        wgu = torch.cat([gate, up], dim=-1)
+        w = self._weights(x.dtype)
+        w_in = torch.cat(w[:2], dim=-1) if self.mlp_type == "qwen3" else w[0]
+        act = _ACTS[self.hidden_act]
         b, s, din = x_in.shape
         xp = x_in.reshape(b, s // P, P, din).permute(2, 0, 1, 3)  # [P, b, n, din]
         keep = (moe_keep_mask(seed, P, b * (s // P), self.d_ff, rate, x.device)
                 if rate > 0.0 else None)
         outs = []
         for lo in los:
-            gu = torch.einsum("pbnd,pdf->pbnf", xp, wgu[lo:lo + P])
-            h = _ACTS[self.hidden_act](gu[..., :self.d_ff]) * gu[..., self.d_ff:]
+            hin = torch.einsum("pbnd,pdf->pbnf", xp, w_in[lo:lo + P])
+            if self.mlp_type == "qwen3":
+                h = act(hin[..., :self.d_ff]) * hin[..., self.d_ff:]
+            else:
+                h = act(hin)
             if keep is not None:
                 h = torch.where(keep.view(h.shape), h * (1.0 / keep_fraction(rate)), 0.0)
-            out = torch.einsum("pbnf,pfd->pbnd", h, down[lo:lo + P])
+            out = torch.einsum("pbnf,pfd->pbnd", h, w[-1][lo:lo + P])
             outs.append(out.permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype))
         return outs
 
@@ -164,7 +187,25 @@ class PositionRoutedMLP(nn.Module):
             raise ValueError("the periodic path needs S % num_positions == 0")
 
         rate = 0.0 if deterministic else self.dropout_rate
-        if self.is_sparse and route_mode == "periodic":
+        if not self.is_sparse:
+            x_in = self._inputs(x, behavior_index)
+            w = tuple(t[0] for t in self._weights(x.dtype))
+            return self._expert(x_in, w, rate, dropout_seed).to(x.dtype)
+        shared = None
+        if self.shared_expert:  # its own mask: seed + E, after the experts' seeds
+            E = getattr(self, f"experts_{self.weight_names[0]}").shape[0]
+            shared = self._expert(self._inputs(x, behavior_index), self._weights(x.dtype, "shared"),
+                                  rate, dropout_seed + E)
+        out = self._routed(x, position_index, behavior_index, expert_index, route_mode, P, rate,
+                           dropout_seed)
+        if shared is not None:
+            out = torch.cat([out, shared.to(out.dtype)], dim=-1)
+        return out
+
+    def _routed(self, x, position_index, behavior_index, expert_index, route_mode, P, rate,
+                dropout_seed):
+        """The routed experts' output [B, S, d_out] of a sparse layer."""
+        if route_mode == "periodic":
             if expert_index is None:
                 return self._periodic(x, behavior_index, P, rate, dropout_seed, [1])[0]
             # MoeAction: the action level a is constant within an item block,
@@ -183,20 +224,17 @@ class PositionRoutedMLP(nn.Module):
                 out = out + level_out * (a_tok == a).to(x.dtype)
             return out
 
-        x_in = self._inputs(x, behavior_index)
-        gate, up, down = self._weights(x.dtype)
-        if not self.is_sparse:
-            return self._swiglu(x_in, gate[0], up[0], down[0], rate,
-                                dropout_seed).to(x.dtype)
         if route_mode != "onehot":
             raise ValueError(f"unknown route_mode {route_mode!r}")
 
         # general path: every expert on every token, selected per token; exact
         # for any routing, used for decode steps and unaligned layouts
+        x_in = self._inputs(x, behavior_index)
+        w = self._weights(x.dtype)
         routing = expert_index if expert_index is not None else position_index
-        E = gate.shape[0]
+        E = w[0].shape[0]
         # one seed per expert draw: the experts' masks are independent
-        stacked = torch.stack([self._swiglu(x_in, gate[e], up[e], down[e], rate, dropout_seed + e)
+        stacked = torch.stack([self._expert(x_in, tuple(t[e] for t in w), rate, dropout_seed + e)
                                for e in range(E)], dim=0)  # [E, B, S, Dout]
         sel = F.one_hot(routing.long(), E).to(stacked.dtype)  # [B, S, E]
         out = torch.einsum("ebsd,bse->bsd", stacked, sel)

@@ -4,8 +4,11 @@ The port's counterpart of `gamer_tpu/tasks/test_decoder.py` (ref:
 SeqRec/tasks/test_decoder.py): the all-items trie, beam search,
 hit/recall/ndcg over the leave-one-out target, collision accounting.
 `load_generative_model` (which `test_SMB_decoder` and `test_MB_decoder` use
-too) and `run_seq_eval` live here, as in the JAX package. The enc-dec family
-raises NotImplementedError (ROADMAP section 1.7); one process.
+too) loads either family from its `config.json` ("family"), and
+`run_seq_eval` searches with the decoder-only search (the prompt ends in the
+behavior token) or, for TIGER and PBATransformer, the enc-dec one (the
+history is the encoder input, the decoder prefix [decoder_start(,
+behavior_token)]), as in the JAX package; one process.
 """
 
 from __future__ import annotations
@@ -18,16 +21,17 @@ import numpy as np
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
-from gamer_tpu_torch.data.batching import DecodeBatcher
+from gamer_tpu_torch.data.batching import DecodeBatcher, EncDecBatcher
 from gamer_tpu_torch.data.contract import DataFiles
 from gamer_tpu_torch.data.seq import SeqCorpus, SeqExampleBuilder
 from gamer_tpu_torch.data.vocab import SemanticVocab
-from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+from gamer_tpu_torch.decode.beam import (
+    BeamSearchConfig, make_beam_search_encdec_fn, make_beam_search_fn)
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.evaluation.ranking import hits_matrix, metrics_from_hits
+from gamer_tpu_torch.models.generative.encdec import EncDecConfig, EncDecModel
 from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
-from gamer_tpu_torch.tasks.train_smb_decoder import ENCDEC_NOT_PORTED
 
 logger = get_logger("tasks.test_decoder")
 
@@ -39,9 +43,11 @@ def load_generative_model(ckpt_path: str, ckpt_tag: str = "best", device=None):
         raw = json.load(f)
     family = raw.get("family", "decoder_only")
     if family == "encdec":
-        raise NotImplementedError(ENCDEC_NOT_PORTED)
-    cfg = QwenFamilyConfig.from_dict(raw)
-    model = QwenFamilyModel(cfg, device=device)
+        cfg = EncDecConfig.from_dict(raw)
+        model = EncDecModel(cfg, device=device)
+    else:
+        cfg = QwenFamilyConfig.from_dict(raw)
+        model = QwenFamilyModel(cfg, device=device)
     model.load_state_dict(CheckpointManager(ckpt_path).restore(ckpt_tag, map_location=model.device))
     vocab = SemanticVocab.load(os.path.join(ckpt_path, "vocab.json"))
     return model, cfg, vocab, family
@@ -83,18 +89,29 @@ def run_seq_eval(model, vocab, corpus, examples, num_beams, batch_size, metric_l
                  cache_dtype="auto", behavior_token=None, action_level=None,
                  behavior_emb_id=0, trie=None):
     """Beam-search eval over single-target examples; returns (metric sums,
-    count) (the caller normalizes). `behavior_token` / `action_level` are
-    appended to every prompt, `behavior_emb_id` seeds the search; the trie
-    defaults to every item without a colliding code row."""
+    count) (the caller normalizes). Decoder-only models: `behavior_token` /
+    `action_level` are appended to every prompt, `behavior_emb_id` seeds the
+    search. Enc-dec models: the decoder prefix is [decoder_start(,
+    behavior_token)]. The trie defaults to every item without a colliding
+    code row."""
     if trie is None:
         trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
-    search_fn = make_beam_search_fn(model, trie,
-                                    BeamSearchConfig(num_beams=num_beams, cache_dtype=cache_dtype))
-    batcher = DecodeBatcher.for_examples(examples, extra=1 if behavior_token is not None else 0)
+    search = BeamSearchConfig(num_beams=num_beams, cache_dtype=cache_dtype)
+    if isinstance(model, EncDecModel):
+        prefix = [model.cfg.decoder_start_token_id]
+        if behavior_token is not None:
+            prefix.append(behavior_token)
+        search_fn = make_beam_search_encdec_fn(model, trie, search)
+        batcher = EncDecBatcher.for_examples(examples)
+        batch_of = lambda chunk: (batcher.collate(chunk), np.asarray(prefix, np.int32))
+    else:
+        search_fn = make_beam_search_fn(model, trie, search)
+        batcher = DecodeBatcher.for_examples(examples, extra=1 if behavior_token is not None else 0)
+        batch_of = lambda chunk: (batcher.collate(chunk, append_behavior_token=behavior_token,
+                                                  append_action_level=action_level),
+                                  behavior_emb_id)
     return beam_eval(
-        search_fn, examples, batch_size, metric_list,
-        lambda chunk: (batcher.collate(chunk, append_behavior_token=behavior_token,
-                                       append_action_level=action_level), behavior_emb_id),
+        search_fn, examples, batch_size, metric_list, batch_of,
         lambda ex: vocab.decode_tokens(strip_behavior(ex.targets, trie.num_levels, vocab)))
 
 

@@ -14,7 +14,9 @@ SeqRec/tasks/test_MB_decoder.py:218-232; enum ref MB_dataset.py:12-16):
                     decode/beam.py)
 
 `--filter` drops the examples whose target code row collides. The enc-dec
-family raises NotImplementedError (ROADMAP section 1.7); one process.
+family (TIGER, PBATransformer) runs the first two modes, with the behavior
+token as the second token of the decoder prefix, as in JAX; BEHAVIOR_ITEM is
+decoder-only. One process.
 """
 
 from __future__ import annotations
@@ -26,11 +28,14 @@ import numpy as np
 
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
-from gamer_tpu_torch.data.batching import DecodeBatcher
+from gamer_tpu_torch.data.batching import DecodeBatcher, EncDecBatcher
 from gamer_tpu_torch.data.contract import DataFiles
 from gamer_tpu_torch.data.seq import EvaluationType, MBExampleBuilder, SeqCorpus, filter_mb_examples
-from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+from gamer_tpu_torch.data.vocab import EOS_ID
+from gamer_tpu_torch.decode.beam import (
+    BeamSearchConfig, make_beam_search_encdec_fn, make_beam_search_fn)
 from gamer_tpu_torch.decode.trie import LeveledTrie
+from gamer_tpu_torch.models.generative.encdec import EncDecModel
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
 from gamer_tpu_torch.tasks.test_decoder import (
     beam_eval, load_generative_model, run_seq_eval, strip_behavior)
@@ -67,7 +72,8 @@ class TestMBDecoder(Task):
     def run(self, *, dataset, data_path, index_file, max_his_len, test_task,
             ckpt_path, ckpt_tag, results_file, test_batch_size, num_beams,
             metrics, filter, cache_dtype="auto", device="cuda", **_):
-        model, _, vocab, _ = load_generative_model(ckpt_path, ckpt_tag, task_device(device))
+        model, _, vocab, family = load_generative_model(ckpt_path, ckpt_tag,
+                                                        task_device(device))
         corpus = SeqCorpus(DataFiles(data_path, dataset), index_file, multi_behavior=True)
         layout = layout_for_mb_task(test_task)
         examples = MBExampleBuilder(corpus, layout, max_his_len).build("test")
@@ -92,13 +98,14 @@ class TestMBDecoder(Task):
             trie=item_trie)
         results.append({"eval_type": EvaluationType.TARGET_BEHAVIOR.value,
                         **{m: v / max(count, 1) for m, v in totals.items()}})
-        for mode, (totals, count) in (
-                (EvaluationType.BEHAVIOR_SPECIFIC, self._behavior_specific(
-                    model, vocab, corpus, examples, item_trie, search, test_batch_size,
-                    metric_list)),
-                (EvaluationType.BEHAVIOR_ITEM, self._behavior_item(
-                    model, vocab, corpus, examples, search, test_batch_size, metric_list))):
-            results.append({"eval_type": mode.value,
+        totals, count = self._behavior_specific(model, vocab, corpus, examples, item_trie,
+                                                search, test_batch_size, metric_list)
+        results.append({"eval_type": EvaluationType.BEHAVIOR_SPECIFIC.value,
+                        **{m: v / max(count, 1) for m, v in totals.items()}})
+        if family != "encdec":  # the joint behavior + item decode is decoder-only
+            totals, count = self._behavior_item(model, vocab, corpus, examples, search,
+                                                test_batch_size, metric_list)
+            results.append({"eval_type": EvaluationType.BEHAVIOR_ITEM.value,
                             **{m: v / max(count, 1) for m, v in totals.items()}})
 
         os.makedirs(os.path.dirname(results_file) or ".", exist_ok=True)
@@ -113,13 +120,23 @@ class TestMBDecoder(Task):
     def _behavior_specific(model, vocab, corpus, examples, trie, search, batch_size,
                            metric_list):
         """(metric sums, count): each row's prompt ends in its true behavior
-        token and action level; the search takes per-row embedding ids."""
-        search_fn = make_beam_search_fn(model, trie, search)
-        batcher = DecodeBatcher.for_examples(examples, extra=1)
+        token and action level, and the search takes per-row embedding ids;
+        for an enc-dec model each row's decoder prefix is [decoder_start,
+        behavior token]."""
+        encdec = isinstance(model, EncDecModel)
+        if encdec:
+            search_fn = make_beam_search_encdec_fn(model, trie, search)
+            batcher = EncDecBatcher.for_examples(examples, eos_id=EOS_ID)
+        else:
+            search_fn = make_beam_search_fn(model, trie, search)
+            batcher = DecodeBatcher.for_examples(examples, extra=1)
 
         def batch_of(chunk):
             behs = np.array([int(ex.target_behaviors[0]) for ex in chunk])
             btoks = np.array([vocab.behavior_token(corpus.behavior_names[b]) for b in behs])
+            if encdec:
+                start = np.full_like(btoks, model.cfg.decoder_start_token_id)
+                return batcher.collate(chunk), np.stack([start, btoks], axis=1)
             batch = batcher.collate(chunk, append_behavior_token=btoks,
                                     append_action_level=corpus.behavior_levels[behs])
             return batch, behs + 1

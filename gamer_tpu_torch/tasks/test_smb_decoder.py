@@ -1,17 +1,16 @@
 """test_SMB_decoder — trie-constrained beam-search evaluation.
 
-The port's counterpart of `gamer_tpu/tasks/test_smb_decoder.py` for the
-decoder-only family: per-behavior filtered eval views, behavior token and
-action level appended to the prompt (ref :113-119), beam search returning all
+The port's counterpart of `gamer_tpu/tasks/test_smb_decoder.py`:
+per-behavior filtered eval views, behavior token and action level appended
+to the prompt (ref :113-119; an enc-dec model gets the behavior token as the
+second token of its decoder prefix, ref :188-195), beam search returning all
 beams (ref :122-195), hit/recall/ndcg with session-target normalization,
 duplicate-vs-history ratio (ref :217-223), merged-behavior weighted metrics
 (ref :287-304), collision reporting (ref :66-88), and a --valid_loss mode
 (ref :306-322). Every behavior's rows go through one mixed-behavior search
 per chunk of `--test_batch_size` rows (`decode/beam.py`, eagerly).
 
-Not ported: the enc-dec family (`load_generative_model` of
-`tasks/test_decoder.py` raises NotImplementedError for a saved enc-dec
-model) and the multi-process sums of the metrics (one process).
+Not ported: the multi-process sums of the metrics (one process).
 """
 
 from __future__ import annotations
@@ -24,13 +23,17 @@ import torch
 
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
-from gamer_tpu_torch.data.batching import DecodeBatcher, DecoderBatcher, iterate_batches
+from gamer_tpu_torch.data.batching import (
+    DecodeBatcher, DecoderBatcher, EncDecBatcher, iterate_batches)
 from gamer_tpu_torch.data.loading_smb import load_smb_test, load_smb_train
 from gamer_tpu_torch.data.smb import filter_examples_by_behavior
-from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+from gamer_tpu_torch.data.vocab import EOS_ID
+from gamer_tpu_torch.decode.beam import (
+    BeamSearchConfig, make_beam_search_encdec_fn, make_beam_search_fn)
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.evaluation.ranking import (
     hits_matrix, merge_behavior_metrics, metrics_from_hits)
+from gamer_tpu_torch.models.generative.encdec_utils import encdec_loss_fn
 from gamer_tpu_torch.models.generative.qwen_family import prepare_train_inputs
 from gamer_tpu_torch.modules.losses import causal_lm_loss
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
@@ -77,13 +80,18 @@ class TestSMBDecoder(Task):
         corpus = data.corpus
         metric_list = metrics.split(",")
         behaviors = behaviors or list(corpus.behavior_names)
-        # decoder-only candidates: pure item code rows (the behavior token is
-        # in the prompt), one trie for every behavior, collision rows
+        # candidates: pure item code rows (the behavior token is in the prompt
+        # or the decoder prefix), one trie for every behavior, collision rows
         # deduplicated (ref get_all_items set semantics)
         trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
-        self._batcher = DecodeBatcher.for_examples(data.test, extra=1)
-        self._search = make_beam_search_fn(
-            model, trie, BeamSearchConfig(num_beams=num_beams, cache_dtype=cache_dtype))
+        search = BeamSearchConfig(num_beams=num_beams, cache_dtype=cache_dtype)
+        if self.family == "encdec":
+            self._batcher = EncDecBatcher.for_examples(data.test, eos_id=EOS_ID)
+            self._search = make_beam_search_encdec_fn(model, trie, search)
+            self._start = cfg.decoder_start_token_id
+        else:
+            self._batcher = DecodeBatcher.for_examples(data.test, extra=1)
+            self._search = make_beam_search_fn(model, trie, search)
 
         collision = self._collision_report(corpus, data.test)
         # ONE mixed-behavior example stream -> one batched search per chunk
@@ -132,19 +140,25 @@ class TestSMBDecoder(Task):
         """Evaluate a mixed-behavior row stream ((behavior, b_idx, example)
         tuples) in one search a chunk; returns per-behavior accumulators
         {totals, count, dup_sum, dup_n}. Needs `self._batcher` and
-        `self._search` (set by `run`)."""
+        `self._search` (set by `run`; for an enc-dec model, `self.family`
+        "encdec" and `self._start`, the decoder start token)."""
         L = trie.num_levels
         acc = {b: {"totals": {m: 0.0 for m in metric_list}, "count": 0,
                    "dup_sum": 0.0, "dup_n": 0} for b in behaviors}
         for batch_rows in _chunks(rows, batch_size):
             btoks = np.asarray([vocab.behavior_token(r[0]) for r in batch_rows], np.int32)
-            levels = np.asarray([int(corpus.behavior_levels[r[1]]) for r in batch_rows],
-                                np.int32)
-            beh_emb_ids = np.asarray([r[1] + 1 for r in batch_rows], np.int32)
-            batch = self._batcher.collate([r[2] for r in batch_rows],
-                                          append_behavior_token=btoks,
-                                          append_action_level=levels)
-            codes, _ = self._search(batch, beh_emb_ids)
+            examples = [r[2] for r in batch_rows]
+            if getattr(self, "family", "decoder_only") == "encdec":
+                # the decoder starts from [start, behavior token] a row (ref :188-195)
+                prefix = np.stack([np.full_like(btoks, self._start), btoks], axis=1)
+                codes, _ = self._search(self._batcher.collate(examples), prefix)
+            else:
+                levels = np.asarray([int(corpus.behavior_levels[r[1]]) for r in batch_rows],
+                                    np.int32)
+                beh_emb_ids = np.asarray([r[1] + 1 for r in batch_rows], np.int32)
+                batch = self._batcher.collate(examples, append_behavior_token=btoks,
+                                              append_action_level=levels)
+                codes, _ = self._search(batch, beh_emb_ids)
             codes = codes.cpu().numpy()  # [B, K, L] 0-based level codes
             # targets: strip the behavior token column -> per-level codes
             target_codes = [vocab.decode_tokens(strip_behavior(r[2].targets, L, vocab))
@@ -171,18 +185,26 @@ class TestSMBDecoder(Task):
     def _valid_loss(self, model, cfg, dataset, data_path, max_his_len, index_file,
                     results_file):
         """The training objective on the valid split (ref :306-322), through
-        the one-hot route, batches of 32 weighted by their real rows."""
+        the one-hot route (the enc-dec CE for an enc-dec model), batches of 32
+        weighted by their real rows."""
         tdata = load_smb_train(dataset, data_path, max_his_len, index_file, "smb_explicit")
-        batcher = DecoderBatcher.for_examples(
-            tdata.valid, behavior_token_ids=tdata.corpus.vocab.behavior_token_ids)
+        if getattr(self, "family", "decoder_only") == "encdec":
+            batcher = EncDecBatcher.for_examples(tdata.valid, eos_id=EOS_ID)
+            encdec_loss = encdec_loss_fn(model, cfg, deterministic=True)
+            loss_of = lambda batch: encdec_loss(batch)[0]
+        else:
+            batcher = DecoderBatcher.for_examples(
+                tdata.valid, behavior_token_ids=tdata.corpus.vocab.behavior_token_ids)
+
+            def loss_of(batch):
+                batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+                out = model(**prepare_train_inputs(cfg, batch), route_mode="onehot")
+                return causal_lm_loss(out["logits"], batch["labels"], cfg.temperature,
+                                      batch.get("row_valid"))
         total, n = 0.0, 0
         for batch in iterate_batches(tdata.valid, 32, batcher.collate):
             w = int(batch["row_valid"].sum())
-            batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
-            out = model(**prepare_train_inputs(cfg, batch), route_mode="onehot")
-            loss = causal_lm_loss(out["logits"], batch["labels"], cfg.temperature,
-                                  batch.get("row_valid"))
-            total += float(loss) * w
+            total += float(loss_of(batch)) * w
             n += w
         loss = total / max(n, 1)
         logger.info("valid loss: %.4f", loss)

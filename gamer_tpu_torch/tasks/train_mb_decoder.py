@@ -6,24 +6,22 @@ SeqRec/tasks/train_MB_decoder.py): the MB data with behavior tokens (and
 history, ref MB_dataset.py:107-110), ForDecoder augmentation, behavior
 tokens masked from the loss. `config.json` records the token layout
 (`behavior_first`, `explicit`). The dtype, `--device` and the training loop
-are those of the port's `train_SMB_decoder` (`fit_and_save`). The enc-dec
-backbones raise NotImplementedError (ROADMAP section 1.7); one process.
+are those of the port's `train_SMB_decoder` (`fit_and_save`; `fit_encdec`
+for the enc-dec backbones, TIGER and PBATransformer); one process.
 """
 
 from __future__ import annotations
 
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
-from gamer_tpu_torch.data.batching import DecoderBatcher
 from gamer_tpu_torch.data.contract import DataFiles
 from gamer_tpu_torch.data.seq import MBExampleBuilder, SeqCorpus
 from gamer_tpu_torch.data.smb import TokenLayout
 from gamer_tpu_torch.tasks.base import (
     Task, add_dataset_args, add_global_args, add_hf_train_args, add_ref_compat_args,
     resolve_hf_train_args, task_device)
-from gamer_tpu_torch.tasks.train_decoder import build_seq_model
-from gamer_tpu_torch.tasks.train_smb_decoder import (
-    ENCDEC_BACKBONES, ENCDEC_NOT_PORTED, _lcm, fit_and_save, resolve_dtype)
+from gamer_tpu_torch.tasks.train_decoder import build_seq_model, fit_seq_model, layer_overrides
+from gamer_tpu_torch.tasks.train_smb_decoder import _lcm, resolve_dtype
 
 logger = get_logger("tasks.train_mb_decoder")
 
@@ -94,27 +92,21 @@ class TrainMBDecoder(Task):
             hidden_size=0, lr_scheduler_type="cosine", resume_from_checkpoint=False,
             wandb_run_name=None, device="cuda", **extra):
         dev = task_device(device)
-        if backbone in ENCDEC_BACKBONES:
-            raise NotImplementedError(ENCDEC_NOT_PORTED)
         hf = resolve_hf_train_args(extra, batch_size=batch_size)
         corpus, layout, train, valid = load_mb_train(
             dataset, data_path, max_his_len, index_file, tasks, filter_target)
         logger.info("mb train=%d valid=%d", len(train), len(valid))
         tc = layout.token_count(corpus.sole_item_len)
 
-        overrides = {"num_positions": tc, "num_experts": tc + 1}
-        if n_layers:
-            overrides["num_hidden_layers"] = n_layers
-        if hidden_size:
-            overrides["hidden_size"] = hidden_size
-        model, cfg, _ = build_seq_model(backbone, corpus, temperature, model_max_length,
-                                        resolve_dtype(hf, dev), dev, seed, **overrides)
-        seq_len = DecoderBatcher.for_examples(train + valid, pad_multiple=_lcm(tc, 8)).seq_len
+        model, cfg, family = build_seq_model(
+            backbone, corpus, temperature, model_max_length, resolve_dtype(hf, dev), dev, seed,
+            num_positions=tc, num_experts=tc + 1,
+            **layer_overrides(backbone, n_layers, hidden_size))
         cfg.extra["behavior_first"] = layout.behavior_first
         cfg.extra["explicit"] = layout.explicit
-        return fit_and_save(
-            self, model, cfg, corpus.vocab, train, valid, seq_len, hf, epochs=epochs,
-            patience=patience, seed=seed, learning_rate=learning_rate,
+        return fit_seq_model(
+            self, model, cfg, family, corpus.vocab, train, valid, hf, _lcm(tc, 8),
+            epochs=epochs, patience=patience, seed=seed, learning_rate=learning_rate,
             weight_decay=weight_decay, warmup_ratio=warmup_ratio,
             lr_scheduler_type=lr_scheduler_type, output_dir=output_dir,
             resume=resume_from_checkpoint, run_name=wandb_run_name)

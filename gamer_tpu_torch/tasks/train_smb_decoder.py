@@ -12,14 +12,20 @@ batches, AdamW + schedule, early stopping on valid loss, and `config.json`,
 `vocab.json` and the checkpoints (`best`, `last`, `last_state`) in
 `--output_dir`, which `test_SMB_decoder` reads back.
 
+Without `--gradient_checkpointing` (and no `remat` override), remat is
+chosen from the geometry by `train/memory.auto_remat_overrides`: off when
+the estimated remat-off step fits under 70% of the card's memory, else
+policy "attn" (never on the CPU). The enc-dec backbones (TIGER,
+PBATransformer) train through `_run_encdec`: `EncDecBatcher` batches, the
+enc-dec CE (`models/generative/encdec_utils.py`), the same `Trainer`, and
+`config.json` with family "encdec"; `--gradient_checkpointing` does not
+apply to them (ignored with a warning, as in JAX).
+
 Differences: one process (the multi-process sharding waits for
 `core/distributed.py`); `--device` picks the card (default) or the CPU;
 `--dtype auto` is bfloat16 on CUDA and float32 on the CPU;
-`--attention_impl auto` is the kernels and `jnp` the plain path; without
-`--gradient_checkpointing`, remat stays off (the JAX package's memory
-estimate, `train/memory.py`, is not ported); `--profile_dir` writes a
-`torch.profiler` trace of five steps. The enc-dec backbones raise
-NotImplementedError (not ported).
+`--attention_impl auto` is the kernels and `jnp` the plain path;
+`--profile_dir` writes a `torch.profiler` trace of five steps.
 """
 
 from __future__ import annotations
@@ -35,8 +41,12 @@ import torch
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.core.registry import TASKS
-from gamer_tpu_torch.data.batching import DecoderBatcher
+from gamer_tpu_torch.data.batching import DecoderBatcher, EncDecBatcher, iterate_batches
 from gamer_tpu_torch.data.loading_smb import load_smb_train
+from gamer_tpu_torch.data.vocab import EOS_ID
+from gamer_tpu_torch.models.generative.encdec import (
+    EncDecConfig, EncDecModel, build_encdec_config)
+from gamer_tpu_torch.models.generative.encdec_utils import encdec_loss_fn
 from gamer_tpu_torch.models.generative.qwen_family import (
     QwenFamilyConfig, QwenFamilyModel, build_config, prepare_train_inputs)
 from gamer_tpu_torch.modules.losses import (
@@ -45,13 +55,12 @@ from gamer_tpu_torch.tasks.base import (
     Task, add_dataset_args, add_global_args, add_hf_train_args, add_ref_compat_args,
     resolve_hf_train_args, task_device)
 from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+from gamer_tpu_torch.train.memory import auto_remat_overrides
 from gamer_tpu_torch.train.state import OptimizerConfig, schedule_horizon
 
 logger = get_logger("tasks.train_smb_decoder")
 
 ENCDEC_BACKBONES = ("TIGER", "PBATransformer")
-ENCDEC_NOT_PORTED = ("the enc-dec backbones (TIGER, PBATransformer) are not ported yet "
-                     "(ROADMAP section 1.7)")
 
 
 def _lcm(a: int, b: int) -> int:
@@ -186,11 +195,13 @@ class TrainSMBDecoder(Task):
         g.add_argument("--gradient_checkpointing",
                        action=argparse.BooleanOptionalAction, default=None,
                        help="recompute each layer in backward (ref HF "
-                            "TrainingArguments gradient_checkpointing); unset = off")
+                            "TrainingArguments gradient_checkpointing); unset = "
+                            "chosen from a memory estimate (train/memory.py)")
         g.add_argument("--remat_policy", type=str, default="attn",
                        choices=["full", "attn", "dots"],
-                       help="with --gradient_checkpointing (every policy recomputes "
-                            "the whole layer here)")
+                       help="with --gradient_checkpointing: what the backward keeps "
+                            "(full: nothing; attn: the attention outputs; dots: the "
+                            "dense products)")
         g.add_argument("--wandb_run_name", type=str, default=None,
                        help="run name in the metric stream (ref wandb name)")
         g.add_argument("--model_overrides", type=str, default=None,
@@ -209,14 +220,31 @@ class TrainSMBDecoder(Task):
             wandb_run_name=None, gradient_checkpointing=None,
             remat_policy="attn", model_overrides=None, **extra):
         dev = task_device(device)
-        if backbone in ENCDEC_BACKBONES:
-            raise NotImplementedError(ENCDEC_NOT_PORTED)
         data = load_smb_train(dataset, data_path, max_his_len, index_file, tasks)
         corpus, builder = data.corpus, data.builder
 
         hf = resolve_hf_train_args(extra, batch_size=batch_size,
                                    micro_batch_size=micro_batch_size, dtype=dtype)
         dtype = resolve_dtype(hf, dev)
+        fit_kw = dict(epochs=epochs, patience=patience, seed=seed, learning_rate=learning_rate,
+                      weight_decay=weight_decay, warmup_ratio=warmup_ratio,
+                      lr_scheduler_type=lr_scheduler_type, output_dir=output_dir,
+                      resume=resume_from_checkpoint,
+                      run_name=wandb_run_name or f"{dataset}-{backbone}")
+        if backbone in ENCDEC_BACKBONES:
+            # enc-dec backbones on SMB data (ref train_SMB_decoder.py:194-240)
+            if gradient_checkpointing:
+                logger.warning(
+                    "--gradient_checkpointing is a qwen-family option; the enc-dec "
+                    "backbones train at GAMER context lengths without remat (flag ignored)")
+            overrides = {}
+            if n_layers:
+                overrides.update(num_layers=n_layers, num_decoder_layers=n_layers)
+            if hidden_size:
+                overrides["d_model"] = hidden_size
+            cfg = make_encdec_config(backbone, corpus, builder.tc, base_model, temperature,
+                                     dtype, **overrides)
+            return fit_encdec(self, cfg, corpus.vocab, data.train, data.valid, hf, dev, **fit_kw)
 
         overrides = {"attention_impl": attention_impl}
         if gradient_checkpointing:
@@ -229,26 +257,22 @@ class TrainSMBDecoder(Task):
         overrides.update(parse_model_overrides(model_overrides))
         cfg = make_model_config(backbone, data, base_model, temperature,
                                 model_max_length, dtype, **overrides)
-        if gradient_checkpointing is None and not cfg.remat:
-            logger.info("remat off: no --gradient_checkpointing given, and the automatic "
-                        "choice from a memory estimate is not ported")
         # one sequence length across train+valid: the kernels see one shape
         batcher = DecoderBatcher.for_examples(
             data.train + data.valid, pad_multiple=_lcm(builder.tc, 8),
             behavior_token_ids=corpus.vocab.behavior_token_ids,
             only_train_response=only_train_response)
+        if gradient_checkpointing is None and not cfg.remat:
+            # no flag given: pick remat from the geometry (off when it fits)
+            cfg = cfg.replace(**auto_remat_overrides(cfg, hf["micro"], batcher.seq_len, dev))
         model = QwenFamilyModel(cfg, device=dev, seed=seed)
         logger.info("model %s on %s: vocab=%d seq_len=%d train=%d valid=%d parameters %.2fM",
                     backbone, dev, cfg.vocab_size, batcher.seq_len, len(data.train),
                     len(data.valid), sum(p.numel() for p in model.parameters()) / 1e6)
         return fit_and_save(
             self, model, cfg, corpus.vocab, data.train, data.valid, batcher.seq_len, hf,
-            epochs=epochs, patience=patience, seed=seed, learning_rate=learning_rate,
-            weight_decay=weight_decay, warmup_ratio=warmup_ratio,
-            lr_scheduler_type=lr_scheduler_type, output_dir=output_dir,
-            resume=resume_from_checkpoint, run_name=wandb_run_name or f"{dataset}-{backbone}",
             only_train_response=only_train_response, save_epochs=save_epochs,
-            profile_dir=profile_dir)
+            profile_dir=profile_dir, **fit_kw)
 
 
 def resolve_dtype(hf: dict, dev: torch.device) -> str:
@@ -260,49 +284,95 @@ def resolve_dtype(hf: dict, dev: torch.device) -> str:
 
 
 def fit_and_save(task: Task, model: QwenFamilyModel, cfg: QwenFamilyConfig, vocab, train, valid,
-                 seq_len: int, hf: dict, *, epochs: int, patience: int, seed: int,
-                 learning_rate: float, weight_decay: float, warmup_ratio: float,
-                 lr_scheduler_type: str, output_dir: str, resume: bool = False,
-                 run_name: str | None = None, only_train_response: bool = False,
-                 save_epochs: int = 0, profile_dir: str | None = None) -> dict:
-    """The training loop of the decoder tasks: the optimizer and schedule of
-    `hf` (`resolve_hf_train_args`), `Trainer` with early stopping on the
-    valid loss and the checkpoints in `output_dir`, the C++ example store
-    feeding shuffled micro batches of `seq_len` tokens; then `config.json`
-    (with `cfg.extra`, family "decoder_only") and `vocab.json`, which the
-    test tasks read back. Returns `Trainer.fit`'s result."""
+                 seq_len: int, hf: dict, *, only_train_response: bool = False, **fit_kw) -> dict:
+    """The training loop of the decoder tasks (`_fit`): the C++ example store
+    feeding shuffled micro batches of `seq_len` tokens, the causal-LM loss;
+    `config.json` gets family "decoder_only". Returns `Trainer.fit`'s result."""
+    # the C++ example store collates each field in one call (numpy where no
+    # compiler exists); one process holds every example
+    from gamer_tpu_torch import native
+
+    micro, seed = hf["micro"], fit_kw["seed"]
+    stores = [native.ExampleStore(ex, vocab.behavior_token_ids,
+                                  only_train_response=only_train_response)
+              for ex in (train, valid)]
+    return _fit(task, model, cfg, vocab, len(train), hf,
+                make_loss_fn(model, cfg, deterministic=False),
+                make_loss_fn(model, cfg, deterministic=True),
+                lambda epoch: stores[0].iterate(micro, seq_len, shuffle=True, seed=seed + epoch),
+                lambda: stores[1].iterate(micro, seq_len), "decoder_only", **fit_kw)
+
+
+def make_encdec_config(backbone: str, corpus, num_positions: int, base_model: str | None,
+                       temperature: float, dtype: str = "float32", **overrides) -> EncDecConfig:
+    """An enc-dec config at the dataset's geometry (ref train_SMB_decoder.py
+    :194-240, train_decoder.py:240-312): vocab, `num_positions` tokens an
+    item block, behaviors, then `overrides`, over `base_model`'s config.json
+    when given."""
+    derived = dict(vocab_size=corpus.vocab.vocab_size, num_positions=num_positions,
+                   num_experts=num_positions + 1,
+                   num_behavior=max(len(corpus.behavior_names), 0),
+                   behavior_base=corpus.vocab.behavior_base, temperature=temperature,
+                   dtype=dtype)
+    derived.update(overrides)
+    if base_model:
+        file_cfg = EncDecConfig.from_file(base_model).to_dict()
+        file_cfg.update(derived)
+        derived = {k: v for k, v in file_cfg.items() if k in EncDecConfig.field_names()}
+    return build_encdec_config(backbone, **derived)
+
+
+def fit_encdec(task: Task, cfg: EncDecConfig, vocab, train, valid, hf: dict, dev,
+               model: EncDecModel | None = None, **fit_kw) -> dict:
+    """Trains TIGER/PBATransformer (seq2seq: history -> target block) with
+    `_fit`: `EncDecBatcher` batches of shuffled examples, the enc-dec CE;
+    `config.json` gets family "encdec". `model` defaults to a new one on
+    `dev`, weights from the seed. Returns `Trainer.fit`'s result."""
+    model = model or EncDecModel(cfg, device=dev, seed=fit_kw["seed"])
+    batcher = EncDecBatcher.for_examples(train + valid, eos_id=EOS_ID)
+    micro, seed = hf["micro"], fit_kw["seed"]
+    logger.info("model %s on %s: vocab=%d enc_len=%d dec_len=%d train=%d valid=%d "
+                "parameters %.2fM", cfg.extra.get("backbone"), dev, cfg.vocab_size,
+                batcher.enc_len, batcher.dec_len, len(train), len(valid),
+                sum(p.numel() for p in model.parameters()) / 1e6)
+    return _fit(task, model, cfg, vocab, len(train), hf,
+                encdec_loss_fn(model, cfg, deterministic=False),
+                encdec_loss_fn(model, cfg, deterministic=True),
+                lambda epoch: iterate_batches(train, micro, batcher.collate, shuffle=True,
+                                              seed=seed + epoch),
+                lambda: iterate_batches(valid, micro, batcher.collate), "encdec", **fit_kw)
+
+
+def _fit(task: Task, model, cfg, vocab, n_train: int, hf: dict, loss_fn, eval_loss_fn,
+         train_batches, eval_batches, family: str, *, epochs: int, patience: int, seed: int,
+         learning_rate: float, weight_decay: float, warmup_ratio: float,
+         lr_scheduler_type: str, output_dir: str, resume: bool = False,
+         run_name: str | None = None, save_epochs: int = 0,
+         profile_dir: str | None = None) -> dict:
+    """The training loop the generative tasks share: the optimizer and
+    schedule of `hf` (`resolve_hf_train_args`), `Trainer` with early stopping
+    on the valid loss (`eval_loss_fn`, dropout off) and the checkpoints in
+    `output_dir`; then `config.json` (with `cfg.extra` and `family`) and
+    `vocab.json`, which the test tasks read back."""
     micro, accum = hf["micro"], hf["accum"]
     opt_cfg = OptimizerConfig(
         optim=hf["optim"], learning_rate=learning_rate, weight_decay=weight_decay,
         warmup_ratio=warmup_ratio, lr_scheduler_type=lr_scheduler_type,
-        total_steps=schedule_horizon(len(train), micro, accum, epochs))
+        total_steps=schedule_horizon(n_train, micro, accum, epochs))
     loop_cfg = TrainLoopConfig(epochs=epochs, patience=patience, seed=seed,
                                gradient_accumulation_steps=accum,
                                snapshot_every_epochs=save_epochs, resume=resume,
                                **hf["loop_kwargs"])
     writer = MetricWriter(os.path.join("runs", task.name), run_name=run_name,
                           config=getattr(task, "param_dict", {}))
-    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, opt_cfg, loop_cfg,
-                      output_dir=output_dir, metric_writer=writer,
-                      eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
-
-    # the C++ example store collates each field in one call (numpy where no
-    # compiler exists); one process holds every example
-    from gamer_tpu_torch import native
-
-    stores = [native.ExampleStore(ex, vocab.behavior_token_ids,
-                                  only_train_response=only_train_response)
-              for ex in (train, valid)]
-
-    def train_batches(epoch):
-        return stores[0].iterate(micro, seq_len, shuffle=True, seed=seed + epoch)
-
+    trainer = Trainer(loss_fn, model, opt_cfg, loop_cfg, output_dir=output_dir,
+                      metric_writer=writer, eval_loss_fn=eval_loss_fn)
     if profile_dir:
         _profile(trainer, train_batches(0), profile_dir, model.device)
-    result = trainer.fit(train_batches, lambda: stores[1].iterate(micro, seq_len))
+    result = trainer.fit(train_batches, eval_batches)
 
     os.makedirs(output_dir, exist_ok=True)
-    cfg.extra["family"] = "decoder_only"
+    cfg.extra["family"] = family
     cfg.save(output_dir)
     vocab.save(os.path.join(output_dir, "vocab.json"))
     logger.info("done: best valid loss %.4f after %d steps", result["best_metric"],

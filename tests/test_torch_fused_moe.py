@@ -174,13 +174,35 @@ def test_moe_action_mlp_matches_jax(route_mode, jax_impl, use_kernel, injection)
 
 
 def test_unported_paths_raise():
-    """`mlp_type="t5"` and `shared_expert` (the enc-dec models') still
-    raise; MoeAction routing (`expert_index`) now runs on every path."""
-    with pytest.raises(NotImplementedError):
-        PositionRoutedMLP(32, 32, 4, mlp_type="t5")
-    with pytest.raises(NotImplementedError):
-        PositionRoutedMLP(32, 32, 4, shared_expert=True)
-    P, NB = 3, 2
+    """The paths that raised before the enc-dec models were ported now run:
+    `mlp_type="t5"` and `shared_expert` (with behavior injection, relu) on
+    the one-hot, periodic and dense paths give the JAX module's output within
+    1e-5 on the same weights; only an unknown mlp_type raises. MoeAction
+    routing (`expert_index`) runs on every path."""
+    with pytest.raises(ValueError):
+        PositionRoutedMLP(32, 32, 4, mlp_type="swiglu2")
+    P, D, F, NB = 3, 16, 24, 2
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 2 * P, D)).astype(np.float32)
+    pos = np.tile(np.arange(2 * P) % P + 1, (2, 1)).astype(np.int32)
+    beh = rng.integers(0, NB + 1, pos.shape).astype(np.int32)
+    for mlp_type, shared, sparse in (("t5", False, True), ("t5", True, True),
+                                     ("qwen3", True, True), ("t5", True, False)):
+        kw = dict(d_model=D, d_ff=F, num_experts=P + 1, is_sparse=sparse, mlp_type=mlp_type,
+                  hidden_act="relu", behavior_injection=True, num_behavior=NB, behavior_dim=8,
+                  shared_expert=shared)
+        jmod = JaxMLP(**kw)
+        args = (jnp.asarray(x), jnp.asarray(pos), jnp.asarray(beh))
+        params = jmod.init(jax.random.PRNGKey(1), *args)
+        tmod = PositionRoutedMLP(**kw)
+        tmod.load_state_dict(state_dict_from_jax(params))
+        assert tmod.shared_expert == (shared and sparse) and not tmod.use_kernel
+        for route_mode in ("onehot", "periodic"):
+            want = jmod.apply(params, *args, route_mode=route_mode, num_positions=P)
+            got = tmod(*(torch.as_tensor(a) for a in (x, pos, beh)), route_mode=route_mode,
+                       num_positions=P)
+            assert got.shape == (2, 2 * P, D)
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     x, pos, beh, expert = (torch.as_tensor(a) for a in _moe_action_inputs(P=P, n=2, D=32, NB=NB))
     for use_kernel in (True, False):
         mlp = PositionRoutedMLP(32, 32, P * NB + 1, num_behavior=NB, use_kernel=use_kernel)

@@ -197,3 +197,47 @@ def test_chip_smoke_seq_phase_on_cpu():
                  seq_args=("--backbone", "Qwen3Moe", *tiny), extra_args=("--device", "cpu"),
                  min_steps=(2, 2), num_beams=4)
     assert not any(name.startswith("phase8_") for name in os.listdir(REPO))
+
+
+def _counters():
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    return {"fused_mask_attention": FA.fused_mask_attention,
+            "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+            "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+
+
+def test_chip_smoke_remat_phase_on_cpu():
+    """Phase 9 of chip_smoke.py (each remat policy's steps against remat
+    off, the automatic choice) at a tiny size on the CPU: no launches, no
+    memory readings, every policy bit-identical to remat off."""
+    import chip_smoke as cs
+
+    cfg = cs.flagship_config(tiny=True, dtype="float32", dropout_rate=cs.DROP_RATE)
+    results = cs.remat_phase(torch.device("cpu"), _counters(), "cpu", cfg=cfg,
+                             geometries=((2, 4),), auto=(2, 4))
+    assert sorted(results[(2, 20)]) == ["attn", "dots", "full", "off"]
+    assert cs._remat_launches(cs.flagship_config(), "attn")["fused_mask_attention"] == 12
+    assert cs._remat_launches(cs.flagship_config(), "dots") == {
+        "fused_mask_attention": 24, "fused_mask_attention_bwd": 12, "fused_moe_ffn": 16,
+        "fused_moe_ffn_bwd": 8, "fused_ce_rows": 1, "fused_ce_rows_bwd": 1}
+
+
+def test_chip_smoke_encdec_phase_on_cpu():
+    """Phase 10 of chip_smoke.py (TIGER through train_decoder/test_decoder,
+    PBATransformer from its shipped config through train_SMB_decoder/
+    test_SMB_decoder, with their gates) at a tiny size on the CPU."""
+    import chip_smoke as cs
+
+    spec = dict(n_users=16, n_items=40, n_clusters=4, num_levels=3, level_sizes=(8, 8, 16),
+                min_len=8, max_len=16, seed=7)
+    tiny = ("--batch_size", "8", "--n_layers", "1", "--hidden_size", "16")
+    cs.encdec_phase(torch.device("cpu"), _counters(), "cpu", spec=spec,
+                    seq_args=("--backbone", "TIGER", "--learning_rate", "3e-3", *tiny),
+                    smb_args=(*cs.PHASE10_SMB[:4], "--tasks", "smb_explicit_decoder_2",
+                              "--learning_rate", "3e-3", *tiny),
+                    extra_args=("--device", "cpu"), min_steps=(3, 3), num_beams=4)
+    assert not any(name.startswith("phase10_") for name in os.listdir(REPO))

@@ -643,3 +643,42 @@ def test_moe_action_step_kernels_match_plain_path(dev, dtype):
     cs._paths_agree(f"Qwen3MoeAction step {dtype}", cfg, cs.make_batch(cfg, 8, 101, seed=3), dev,
                     3, _step_counters(), cs._step_launches(cfg), loss_tol=loss_tol,
                     grad_tol=grad_tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("policy", ["full", "attn", "dots"])
+def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
+    """A flagship Qwen3Multi training step (dropout 0.2, B 8 x 101 blocks)
+    under each remat policy: per-step launches of chip_smoke's
+    `_remat_launches` (full and dots run kernels a and h again in the
+    backward, attn only h: a 12/24/12/24, h 16, the rest as remat off), and
+    the loss and every grad bit-identical to remat off's on the same weights
+    and dropout seeds, with PyTorch's deterministic algorithms (its default
+    CUDA embedding backward accumulates with atomics)."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+
+    cfg = flagship_config(dtype=dtype, dropout_rate=0.2)
+    batch = make_batch(cfg, 8, 101)
+    counters = _step_counters()
+
+    def step(c):
+        model = QwenFamilyModel(c, device=dev, seed=0)
+        for f in counters.values():
+            f.launches = 0
+        loss, _ = make_loss_fn(model, c, deterministic=False)(batch,
+                                                               torch.Generator().manual_seed(2))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), {n: p.grad for n, p in model.named_parameters()}, {
+            k: f.launches for k, f in counters.items()}
+
+    with cs.deterministic_algorithms():
+        want, want_grads, _ = step(cfg)
+        loss, grads, launches = step(cfg.replace(remat=True, remat_policy=policy))
+    assert launches == cs._remat_launches(cfg, policy)
+    assert torch.equal(loss, want)
+    for name, g in want_grads.items():
+        assert torch.equal(grads[name], g), name

@@ -7,8 +7,9 @@ flax layout by `convert.to_flax`, run through the JAX tasks (their
 `load_generative_model` handed the converted weights) and give every
 `test_MB_decoder` mode's metrics and `test_decoder`'s metrics within 1e-6
 (times the mode's row count: the metric totals), with equal
-`collision_info`; fp32, 4 beams. The enc-dec backbones raise
-NotImplementedError naming ROADMAP section 1.7."""
+`collision_info`; fp32, 4 beams. The enc-dec backbones, which raised
+NotImplementedError before they were ported, train and evaluate through the
+same tasks (tests/test_torch_tasks_encdec.py holds them to JAX)."""
 
 import json
 
@@ -120,14 +121,22 @@ def test_seq_pipeline_and_eval_match_jax_task(trained, monkeypatch):
 
 @pytest.mark.parametrize("task", ["train_decoder", "train_MB_decoder"])
 def test_encdec_backbones_raise(trained, task, tmp_path):
+    """The enc-dec backbones no longer raise: PBATransformer trains through
+    the task (family "encdec" saved) and its test task evaluates the saved
+    model (test_MB_decoder's two enc-dec modes), metrics in [0, 1]."""
     root, _, _ = trained
-    for backbone in ("TIGER", "PBATransformer"):
-        with pytest.raises(NotImplementedError, match="1.7"):
-            run_port([task, "--dataset", "Synth", "--data_path", root / "data",
-                      "--backbone", backbone, "--output_dir", tmp_path / backbone, *TINY])
-    (tmp_path / "encdec").mkdir()
-    (tmp_path / "encdec" / "config.json").write_text(json.dumps({"family": "encdec"}))
+    extra = ["--tasks", "mb_explicit_decoder_2"] if task == "train_MB_decoder" else []
+    res = run_port([task, "--dataset", "Synth", "--data_path", root / "data",
+                    "--backbone", "PBATransformer", "--output_dir", tmp_path / "pbat",
+                    *extra, *TINY, "--epochs", 1])
+    assert np.isfinite(res["best_metric"]) and len(res["history"]) == 1
+    cfg = json.loads((tmp_path / "pbat" / "config.json").read_text())
+    assert cfg["family"] == "encdec" and cfg["sparse_layers_encoder"] == [0]
     evaluate = "test_decoder" if task == "train_decoder" else "test_MB_decoder"
-    with pytest.raises(NotImplementedError, match="1.7"):
-        run_port([evaluate, "--dataset", "Synth", "--data_path", root / "data",
-                  "--ckpt_path", tmp_path / "encdec", *EVAL])
+    out = run_port([evaluate, "--dataset", "Synth", "--data_path", root / "data",
+                    "--ckpt_path", tmp_path / "pbat", "--results_file", tmp_path / "r.json",
+                    *EVAL] + (["--test_task", "mb_explicit"] if extra else []))
+    rows = [out["metrics"]] if task == "train_decoder" else out
+    assert len(rows) == (1 if task == "train_decoder" else 2)
+    for r in rows:
+        assert all(0.0 <= v <= 1.0 for k, v in r.items() if k != "eval_type"), r
