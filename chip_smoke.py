@@ -82,10 +82,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    at batch 128; losses fall, the reloaded `best`, beams in the trie,
    metrics in [0, 1], no launch of kernels a-k (the enc-dec family runs
    none, as in JAX).
+11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
+   train_SMB_decoder in a one-process NCCL group against the same run
+   ungrouped (deterministic algorithms; launches as phase 5, one gradient
+   all-reduce a step, losses within 1e-6); two processes sharing the card
+   over gloo, 4 fp32 steps at a global batch of 16 x S 505 with dropout 0.2
+   against one process (losses 1e-5, parameters 1e-4, the processes'
+   parameters bit-identical; the all-reduce's time a step); test_SMB_decoder
+   striped over two processes against one (counts equal, metrics 1e-2);
+12. the item-tokenizer chain (`tokenizer_phase`) at the shipped RQ-VAE
+   widths on phase 7's 6000 items: SemEmb (hash, 768-d), RQVAE 20 epochs
+   with --kmeans_init and CF embeddings, tokenize --mode rq_vae (collision
+   rate 0 after repair), an fp32 RQ-VAE step on the card against the CPU
+   (1e-4), and one epoch of train_SMB_decoder on the emitted semantic IDs
+   through the kernels.
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
+`python3 chip_smoke.py --mp-steps <dir> <device> <spec>` is one worker
+process of phase 11 (started by the script itself).
 """
 
 from __future__ import annotations
@@ -110,6 +126,7 @@ STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-3  # fp32 train step, kernel path vs pla
 # many bf16 products); planted faults give grad errs of 1.0 and more
 BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL = 5e-4, 0.3
 DROP_SEED, DROP_RATE = 1234, 0.2
+MP_TIMEOUT_S = 300  # phase 11: each process group's timeout and each worker's
 NEG = -1e30  # score of a dead beam (gamer_tpu_torch/decode/beam.py)
 BEAM_BATCH, NUM_BEAMS, LEVELS, LEVEL_SIZE, N_ITEMS, PROMPT_BLOCKS = 128, 20, 4, 256, 4096, 100
 
@@ -1617,6 +1634,395 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------- phase 11
+
+
+@contextlib.contextmanager
+def _group_env(n: int, rank: int, port: int, backend: str | None = None):
+    """The GAMER_* rendezvous variables of process `rank` of `n` while the
+    block runs (a task started in it joins that group), then the group is
+    destroyed and the variables restored."""
+    from gamer_tpu_torch.core import distributed
+
+    env = {"GAMER_COORDINATOR": f"localhost:{port}", "GAMER_NUM_PROCESSES": str(n),
+           "GAMER_PROCESS_ID": str(rank), "GAMER_DIST_TIMEOUT": str(MP_TIMEOUT_S)}
+    if backend:
+        env["GAMER_BACKEND"] = backend
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mp_batches(cfg, steps: int, rows: int, blocks: int) -> list[dict]:
+    """Phase 11b's global batches: the second half's rows (process 1's)
+    lose most of their labels, so the processes hold unequal numbers of
+    valid targets."""
+    batches = [make_batch(cfg, rows, blocks, seed=20 + i) for i in range(steps)]
+    half, S = rows // 2, blocks * cfg.num_positions
+    for b in batches:
+        for r in range(half, rows):
+            b["labels"][r, :S * (r - half + 1) // (half + 1)] = -100
+    return batches
+
+
+def mp_steps(cfg, batches: list[dict], dev) -> dict:
+    """`Trainer` steps (SGD, one update a step) of a model of `cfg` from seed
+    0, each on this process's rows of a global batch of `batches` (all of
+    them without a group): the losses, each step's host time, the final
+    parameters as one flat fp32 vector, and under a group the time of the
+    gradient all-reduce (one flat fp32 buffer of the parameters' size,
+    median of 5 after the steps)."""
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    n, r = distributed.process_count(), distributed.process_index()
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    # SGD: the parameters move by lr x the summed grads; Adam would turn the
+    # last bits of near-zero grads (rare tokens' embedding rows) into steps of lr
+    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                      OptimizerConfig(optim="sgd", learning_rate=0.5, weight_decay=0.0,
+                                      lr_scheduler_type="constant", total_steps=len(batches)),
+                      TrainLoopConfig(save_checkpoints=False))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    losses, step_ms = [], []
+    for b in batches:
+        rows = len(b["input_ids"]) // n
+        t = time.perf_counter()
+        losses.append(float(trainer.train_step({k: v[r * rows:(r + 1) * rows]
+                                                for k, v in b.items()})))
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    params = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+    reduce_ms = []
+    if distributed.is_initialized():
+        for _ in range(6):
+            buf = params.clone()
+            sync()
+            t = time.perf_counter()
+            distributed.all_reduce_flat([buf])
+            sync()
+            reduce_ms.append((time.perf_counter() - t) * 1e3)
+        reduce_ms = reduce_ms[1:]
+    return {"losses": losses, "params": params.cpu(), "step_ms": step_ms,
+            "reduce_ms": float(np.median(reduce_ms)) if reduce_ms else None}
+
+
+def _mp_steps_worker(out: str, device: str, spec_json: str) -> None:
+    """A process of phase 11b: joins its group, runs `mp_steps` on its rows
+    and saves the result as out/rank<r>.pt."""
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+
+    spec = json.loads(spec_json)
+    distributed.maybe_initialize(device=device)
+    try:
+        cfg = flagship_config(**spec["cfg"])
+        res = mp_steps(cfg, _mp_batches(cfg, *spec["geometry"]), torch.device(device))
+        torch.save(res, os.path.join(out, f"rank{distributed.process_index()}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+# phase 11b: 4 fp32 steps at a global batch of 16 x 101 blocks, dropout 0.2
+PHASE11_STEPS = dict(cfg=dict(dtype="float32", dropout_rate=0.2), geometry=(4, 16, 101))
+
+
+def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
+                       train_args=PHASE7_TRAIN, steps_spec: dict = PHASE11_STEPS, extra_args=(),
+                       min_steps: int = 40, num_beams: int = 20) -> None:
+    """Phase 11: the data-parallel path (`core/distributed.py`) at the
+    flagship widths.
+
+    a. train_SMB_decoder (phase 7's run) in a one-process group (NCCL on the
+       card) against the same run ungrouped, both under deterministic
+       algorithms: each step's launches those of phase 5, one gradient
+       all-reduce a step, every step's loss within 1e-6 relative.
+    b. Two processes on the one card over gloo (NCCL refuses two ranks on
+       one device; gloo stages the card's tensors through the host): 4 fp32
+       `Trainer` steps (`mp_steps`) at a global batch of 16 x S 505, dropout
+       0.2, the second process's rows with fewer valid targets, against this
+       process fed the whole global batches: losses within 1e-5 relative,
+       final parameters within 1e-4 (max |d| / max |p|), the two processes'
+       parameters bit-identical; prints the all-reduce's time a step.
+    c. test_SMB_decoder striped over two processes (gloo) from a's
+       checkpoint against one process: per-behavior row counts equal, the
+       merged metrics within 1e-2 absolute (bf16 beams may flip with the
+       batch's composition); prints both.
+    `spec`, the argument tuples, `extra_args` (e.g. --device cpu) and the
+    counts let a test run it tiny."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase11_", dir=here)
+    data = os.path.join(root, "data")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    cli = lambda argv: main([*argv, *extra_args])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    common = ["--dataset", "Synth", "--data_path", data, "--max_his_len", "100"]
+    train = ["train_SMB_decoder", *common, "--tasks", "smb_explicit_decoder_4", "--base_model",
+             os.path.join(here, "config", "s2s-models", "Qwen3Multi"), *train_args, "--epochs",
+             "1"]
+
+    # a. one-process group against ungrouped
+    runs = {}
+    with deterministic_algorithms():
+        for grouped in (False, True):
+            out = os.path.join(root, "grouped" if grouped else "plain")
+            calls = distributed.all_reduce_flat.calls
+            with contextlib.ExitStack() as stack:
+                if grouped:
+                    stack.enter_context(_group_env(1, 0, _free_port()))
+                rec = stack.enter_context(_recording(counters))
+                cli([*train, "--output_dir", out])
+                sync()
+                assert distributed.is_initialized() == grouped, "the task did not join its group"
+            runs[grouped] = (rec, distributed.all_reduce_flat.calls - calls, out)
+    (plain, _, _), (rec, reductions, out) = runs[False], runs[True]
+    expected = (_step_launches(QwenFamilyConfig.from_file(out)) if cuda
+                else {k: 0 for k in counters})
+    assert len(rec["steps"]) >= min_steps and all(st == expected for st in rec["steps"]), (
+        f"grouped per-step launches {rec['steps'][:2]} != {expected}")
+    assert reductions == len(rec["steps"]), f"{reductions} all-reduces for {len(rec['steps'])} steps"
+    a, b = np.array([float(x) for x in rec["losses"]]), np.array([float(x) for x in plain["losses"]])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    step_ms = [float(np.median(np.diff(r["stamps"][1:]))) * 1e3 for r in (plain, rec)]
+    print(f"phase 11a train_SMB_decoder in a one-process {'NCCL' if cuda else 'gloo'} group: "
+          f"{len(a)} steps, {reductions} gradient all-reduces, launches each step {rec['steps'][0]}; "
+          f"losses vs ungrouped: worst rel diff {rel:.3e} (tol 1e-6), first {a[0]:.7f} / "
+          f"{b[0]:.7f}, last {a[-1]:.7f} / {b[-1]:.7f}; step {step_ms[1]:.3f} ms grouped, "
+          f"{step_ms[0]:.3f} ms ungrouped (median, host collation, deterministic algorithms; "
+          f"card {card})", flush=True)
+    assert np.isfinite(a).all() and rel <= 1e-6, "grouped losses differ from ungrouped"
+
+    # b. two processes on one card against one process
+    mp_dir = os.path.join(root, "mp")
+    os.makedirs(mp_dir)
+    dev_name = "cuda" if cuda else "cpu"
+    worker = [os.path.abspath(__file__), "--mp-steps", mp_dir, dev_name, json.dumps(steps_spec)]
+    distributed.spawn_local([worker, worker], backend="gloo", timeout_s=MP_TIMEOUT_S)
+    cfg = flagship_config(**steps_spec["cfg"])
+    one = mp_steps(cfg, _mp_batches(cfg, *steps_spec["geometry"]), dev)
+    res = [torch.load(os.path.join(mp_dir, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
+    assert torch.equal(res[0]["params"], res[1]["params"]), "the processes' parameters differ"
+    loss_rel = float(np.max(np.abs(np.subtract(res[0]["losses"], one["losses"]))
+                            / np.abs(one["losses"])))
+    par_rel = float((res[0]["params"] - one["params"]).abs().max() / one["params"].abs().max())
+    _, rows, blocks = steps_spec["geometry"]
+    print(f"phase 11b 2 gloo processes on one {'card' if cuda else 'CPU'}, {cfg.dtype} B={rows} "
+          f"S={blocks * cfg.num_positions} dropout {cfg.dropout_rate}, {len(one['losses'])} SGD "
+          f"steps: losses {[round(x, 6) for x in res[0]['losses']]} "
+          f"vs one process {[round(x, 6) for x in one['losses']]}, worst rel diff {loss_rel:.3e} "
+          f"(tol 1e-5); parameters rel err {par_rel:.3e} (tol 1e-4), bit-identical across "
+          f"processes; steps {[round(x, 1) for x in res[0]['step_ms']]} ms on process 0, "
+          f"{[round(x, 1) for x in one['step_ms']]} ms one process; the gradient all-reduce "
+          f"(one flat fp32 buffer, {res[0]['params'].numel() * 4 / 2 ** 20:.1f} MiB) "
+          f"{res[0]['reduce_ms']:.3f} ms a step, timed alone (card {card})", flush=True)
+    assert loss_rel <= 1e-5 and par_rel <= 1e-4, "two processes differ from one"
+
+    # c. test_SMB_decoder over two processes
+    evaluate = ["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path", out,
+                "--num_beams", str(num_beams), "--test_batch_size", "128"]
+    t = time.perf_counter()
+    single = cli([*evaluate, "--results_file", os.path.join(root, "one.json")])
+    sync()
+    one_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cmd = ["-m", "gamer_tpu_torch", *evaluate, "--results_file", os.path.join(root, "two.json"),
+           *extra_args]
+    distributed.spawn_local([cmd, cmd], backend="gloo", timeout_s=MP_TIMEOUT_S)
+    two_s = time.perf_counter() - t
+    with open(os.path.join(root, "two.json")) as f:
+        merged = json.load(f)
+    worst = max(abs(merged["merged"][k] - v) for k, v in single["merged"].items())
+    print(f"phase 11c test_SMB_decoder {num_beams} beams, rows per behavior "
+          f"{merged['counts']} over 2 processes (one process {single['counts']}); merged "
+          f"{ {k: round(v, 5) for k, v in merged['merged'].items()} } vs one process "
+          f"{ {k: round(v, 5) for k, v in single['merged'].items()} }, worst diff {worst:.2e} "
+          f"(tol 1e-2); {two_s:.1f} s wall with the processes' start, one process {one_s:.1f} s "
+          f"(card {card})", flush=True)
+    assert merged["counts"] == single["counts"], "row counts differ"
+    assert worst <= 1e-2, "two-process metrics differ from one process's"
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------------------- phase 12
+
+# phase 12: the shipped RQ-VAE widths (gamer_tpu/models/tokenizer/rqvae.py
+# defaults, scripts' batch 1024, alpha 0.02, beta 1e-4) on 768-d embeddings
+PHASE12_RQ = ("--layers", "2048,1024,512,256,128,64", "--e_dim", "32", "--num_emb", "256",
+              "--num_levels", "4", "--sk_epsilons", "0,0,0,0.003", "--batch_size", "1024",
+              "--alpha", "0.02", "--beta", "0.0001")
+
+
+def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
+                    rq_args=PHASE12_RQ, emb_dim: int = 768, epochs: int = 20,
+                    eval_step: int = 10, train_args=PHASE7_TRAIN, extra_args=(),
+                    min_steps: int = 40) -> None:
+    """Phase 12: the item-tokenizer chain through `python -m
+    gamer_tpu_torch` on phase 7's dataset (6000 items): SemEmb (hash
+    backend, 768-d), RQVAE at the shipped widths for 20 epochs with
+    --kmeans_init and seeded 32-d CF embeddings (evals at epochs 10 and 20),
+    tokenize --mode rq_vae from best_collision, then one epoch of
+    train_SMB_decoder on the emitted index through the kernels. Gates:
+    finite losses, the last eval's reconstruction loss below the first
+    epoch's (the total is printed, not gated: the CF InfoNCE's pull on the
+    quantized vectors grows the quantization loss as it falls, so the total
+    rises between the evals; the port's step equals the JAX task's at 1e-5,
+    tests/test_torch_tokenizer.py), one code row
+    of `levels` codes an item, each in its level's range, collision rate 0
+    after the repair, each training step's launches those of phase 5, and
+    one fp32 RQ-VAE training step on the card against the same step on the
+    CPU (same parameters, batch and diversity noise, TF32 off) within 1e-4
+    relative. Prints the k-means init's cluster sizes and time, the epoch
+    time, tokenize's wall time and the decoder's step time. `spec`, the
+    argument tuples, the sizes, `extra_args` and the counts let a test run
+    it tiny."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
+    from gamer_tpu_torch.ops.kmeans import cluster_codebook
+    from gamer_tpu_torch.tasks import rqvae as TR
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase12_", dir=here)
+    data, ckpt = os.path.join(root, "data"), os.path.join(root, "rq")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    cli = lambda argv: main([*argv, *extra_args])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ds = ["--dataset", "Synth", "--data_path", data]
+
+    emb = cli(["SemEmb", *ds, "--emb_dim", str(emb_dim)])["output_file"]
+    cf = os.path.join(root, "cf.npy")
+    e_dim = int(rq_args[rq_args.index("--e_dim") + 1])  # the CF width the InfoNCE needs
+    np.save(cf, np.random.default_rng(0).standard_normal((spec["n_items"], e_dim)).astype(
+        np.float32))
+    t = time.perf_counter()
+    rq = cli(["RQVAE", *ds, "--emb_file", emb, "--cf_emb_file", cf, "--kmeans_init",
+              *rq_args, "--epochs", str(epochs), "--eval_step", str(eval_step),
+              "--output_dir", ckpt])
+    sync()
+    rq_s = time.perf_counter() - t
+    hist = rq["history"]
+    sizes = [np.asarray(s) for s in rq["init_cluster_sizes"]]
+    print(f"phase 12 RQVAE {' '.join(rq_args)}: k-means init {rq['init_s']:.2f} s, cluster "
+          f"sizes a level (min/median/max, empty) "
+          f"{[(int(s.min()), float(np.median(s)), int(s.max()), int((s == 0).sum())) for s in sizes]}; "
+          f"epoch {float(np.median(rq['epoch_s'])) * 1e3:.1f} ms median of {len(rq['epoch_s'])} "
+          f"(recluster and {-(-spec['n_items'] // int(rq_args[rq_args.index('--batch_size') + 1]))} "
+          f"steps); evals "
+          f"{[{k: round(v, 5) for k, v in h.items()} for h in hist]}; {rq_s:.1f} s (card {card})",
+          flush=True)
+    epochs_ = rq["epochs"]
+    print(f"phase 12 RQVAE epoch means (loss, recon, quant, cf): "
+          f"{[tuple(round(e[k], 4) for k in ('loss', 'recon_loss', 'quant_loss', 'cf_loss')) for e in epochs_]}",
+          flush=True)
+    assert all(np.isfinite([e[k] for k in ("loss", "recon_loss", "quant_loss", "cf_loss")]).all()
+               for e in epochs_), "non-finite RQ-VAE losses"
+    assert len(hist) >= 2 and hist[-1]["recon_loss"] < epochs_[0]["recon_loss"], (
+        "the reconstruction loss did not fall from the first epoch")
+    assert all(s.sum() == spec["n_items"] for s in sizes)
+
+    t = time.perf_counter()
+    tok = cli(["tokenize", "--mode", "rq_vae", *ds, "--ckpt_path", ckpt, "--ckpt_tag",
+               "best_collision", "--epoch", str(epochs), "--emb_file", emb])
+    sync()
+    tok_s = time.perf_counter() - t
+    cfg = RQVAEConfig.from_file(ckpt)
+    codes = tok["codes"]
+    print(f"phase 12 tokenize rq_vae: {codes.shape[0]} items x {codes.shape[1]} codes, collision "
+          f"rate {tok['collision_rate']} after repair (best_collision's {rq['best_collision']}); "
+          f"{tok_s:.2f} s wall (card {card})", flush=True)
+    assert codes.shape == (spec["n_items"], cfg.num_levels)
+    assert (codes >= 0).all() and (codes < np.asarray(cfg.num_emb_list)).all()
+    assert tok["collision_rate"] == 0.0, "collisions left after the repair"
+
+    # one fp32 RQ-VAE step on the card against the CPU
+    state = torch.load(os.path.join(ckpt, "best_collision", "state.pt"), weights_only=True)
+    x = torch.as_tensor(TR.load_embeddings(emb)[:int(rq_args[rq_args.index("--batch_size") + 1])])
+    c = torch.as_tensor(np.load(cf)[:len(x)])
+    labels = torch.as_tensor(np.stack([np.pad(cluster_codebook(
+        state["codebooks"][lvl, :n], min(cfg.n_clusters, n), 0), (0, max(cfg.num_emb_list) - n))
+        for lvl, n in enumerate(cfg.num_emb_list)]))
+    steps = {}
+    for where in (dev, torch.device("cpu")):
+        model = RQVAE(cfg, device=where)
+        model.load_state_dict(copy.deepcopy(state))
+        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3,
+                                             weight_decay=1e-4, lr_scheduler_type="constant",
+                                             warmup_ratio=0.0, max_grad_norm=0.0), model)
+        steps[where.type] = float(TR.train_step(model, opt, x.to(where), c.to(where),
+                                                labels.to(where), TR.step_generator(0, 0, 0))[0])
+    step_rel = abs(steps[dev.type] - steps["cpu"]) / abs(steps["cpu"])
+    print(f"phase 12 RQ-VAE fp32 step B={len(x)}: loss {steps[dev.type]:.7f} ({dev.type}) vs "
+          f"{steps['cpu']:.7f} (cpu), rel diff {step_rel:.3e} (tol 1e-4)", flush=True)
+    assert step_rel <= 1e-4, "the RQ-VAE step on the card differs from the CPU's"
+
+    # the generative model on the emitted semantic IDs, through the kernels
+    index = os.path.basename(tok["output_file"]).removeprefix("Synth")
+    out = os.path.join(root, "decoder")
+    with _recording(counters) as rec:
+        res = cli(["train_SMB_decoder", *ds, "--max_his_len", "100", "--index_file", index,
+                   "--tasks", "smb_explicit_decoder_4", "--base_model",
+                   os.path.join(here, "config", "s2s-models", "Qwen3Multi"), *train_args,
+                   "--epochs", "1", "--output_dir", out])
+        sync()
+    expected = (_step_launches(QwenFamilyConfig.from_file(out)) if cuda
+                else {k: 0 for k in counters})
+    losses = [float(v) for v in rec["losses"]]
+    assert len(losses) >= min_steps and np.isfinite(losses).all(), losses
+    assert all(st == expected for st in rec["steps"]), f"launches {rec['steps'][:2]} != {expected}"
+    step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
+    print(f"phase 12 train_SMB_decoder on {index}: {len(losses)} steps, launches each step "
+          f"{rec['steps'][0]}, train loss {res['history'][0]['train_loss']:.5f}, best valid loss "
+          f"{res['best_metric']:.6f}; step {step_ms:.3f} ms median with host collation "
+          f"(card {card})", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1744,6 +2150,10 @@ def main() -> int:
     remat_phase(dev, counters, card)
     # 10. the enc-dec pipelines through the CLI
     encdec_phase(dev, counters, card)
+    # 11. data parallelism: a one-process NCCL group, two processes on gloo
+    multiprocess_phase(dev, counters, card)
+    # 12. the item-tokenizer chain, then the decoder on its semantic IDs
+    tokenizer_phase(dev, counters, card)
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"
@@ -1782,4 +2192,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-steps"]:  # one process of phase 11b
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _mp_steps_worker(*sys.argv[2:5])
+        sys.exit(0)
     sys.exit(main())

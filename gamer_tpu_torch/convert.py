@@ -20,6 +20,12 @@ the port's module paths, so "encoder_0/self_attn/q/kernel" becomes
 `shared_wi`/`shared_wo`, "shared/embedding", "encoder_norm",
 "decoder_norm" and an untied "lm_head" follow.
 
+The RQ-VAE tokenizer (`models/tokenizer/rqvae.py`) names its modules as
+flax does ("encoder/Dense_0", "decoder/BatchNorm_2", "codebooks"), so its
+trees map by the same rules; its "batch_stats" collection (the BatchNorms'
+running "mean" and "var") maps to the buffers of the same names, e.g.
+"encoder/BatchNorm_0/var" to `encoder.BatchNorm_0.var`.
+
 `to_flax` maps the other way (port tensors, e.g. parameters or their
 grads, into the flax tree of a template), and `flax_path` names a port
 parameter as flax does. Only numpy crosses the boundary, so this module
@@ -59,11 +65,14 @@ def torch_name(flax_path: str) -> tuple[str, bool]:
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """`params` is what the JAX model's init returns (with or without the
-    outer "params" key); arrays may be jax or numpy arrays."""
-    if "params" in params:
-        params = params["params"]
+    outer "params" key; beside it a "batch_stats" collection maps too);
+    arrays may be jax or numpy arrays."""
+    trees = [params["params"], params.get("batch_stats", {})] if "params" in params else [params]
+    flat = {}
+    for tree in trees:
+        flat.update(_flatten(tree))
     state = {}
-    for path, arr in _flatten(params).items():
+    for path, arr in flat.items():
         name, transpose = torch_name(path)
         a = np.asarray(arr, dtype=np.float32)
         state[name] = torch.from_numpy(np.array(a.T if transpose else a, copy=True))
@@ -79,7 +88,8 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.
 
 def to_flax(tensors: Mapping[str, torch.Tensor], template: Mapping[str, Any]) -> dict:
     """Port tensors by parameter name -> numpy arrays in the nested layout of
-    `template` (a flax params tree, with or without the outer "params")."""
+    `template` (a flax params tree, with or without the outer "params";
+    every collection beside it, e.g. "batch_stats", maps too)."""
     def build(tree: Mapping[str, Any], prefix: str) -> dict:
         out = {}
         for key, value in tree.items():
@@ -93,7 +103,7 @@ def to_flax(tensors: Mapping[str, torch.Tensor], template: Mapping[str, Any]) ->
         return out
 
     if "params" in template:
-        return {"params": build(template["params"], "")}
+        return {col: build(tree, "") for col, tree in template.items()}
     return build(template, "")
 
 

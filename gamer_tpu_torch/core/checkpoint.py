@@ -6,7 +6,8 @@ is a directory `<dir>/<tag>/` holding `state.pt`: a `torch.save` of a tree of
 dicts of tensors (moved to the CPU) and plain numbers, loaded back with
 `weights_only=True`, so values round-trip bit for bit. Beside it
 `<dir>/<tag>.meta.json` holds the step/metric metadata, as in the JAX
-package. Only process 0 writes.
+package. Only process 0 writes; under a process group every process then
+waits at a barrier, so none reads a checkpoint before it is whole.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any
 
 import torch
 
+from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.logging import get_logger, process_index
 
 logger = get_logger("checkpoint")
@@ -44,8 +46,11 @@ class CheckpointManager:
         return os.path.join(self.directory, tag)
 
     def save(self, tag: str, tree: Any, metadata: dict | None = None) -> None:
-        if process_index() != 0:
-            return
+        if process_index() == 0:
+            self._write(tag, tree, metadata)
+        distributed.barrier()
+
+    def _write(self, tag: str, tree: Any, metadata: dict | None) -> None:
         path = self._path(tag)
         tmp = f"{path}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)

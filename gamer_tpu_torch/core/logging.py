@@ -1,10 +1,10 @@
 """Process-aware logging.
 
 The port's copy of `gamer_tpu/core/logging.py`: per-task log files under
-logs/<task>/<timestamp>.log and rank-0 filtering. The port runs one process
-(multi-process runs wait for `core/distributed.py`), so the process index is
-0 unless PROCESS_INDEX says otherwise. The metric stream is written by
-`core/metrics.py`. Loggers live under "gamer_tpu_torch".
+logs/<task>/<timestamp>.log and rank-0 filtering. The process index is the
+rank in the process group (`core/distributed.py`) once one exists, else
+PROCESS_INDEX or 0. The metric stream is written by `core/metrics.py`.
+Loggers live under "gamer_tpu_torch".
 """
 
 from __future__ import annotations
@@ -14,11 +14,15 @@ import os
 import sys
 import time
 
+import torch.distributed as dist
+
 _FORMAT = "%(asctime)s | %(levelname)-7s | %(name)s:%(lineno)d - %(message)s"
 _configured = False
 
 
 def process_index() -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
     return int(os.environ.get("PROCESS_INDEX", 0))
 
 

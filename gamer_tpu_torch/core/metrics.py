@@ -2,7 +2,7 @@
 
 The port's copy of `gamer_tpu/core/metrics.py`: each run appends JSONL events
 to `<run_dir>/metrics.jsonl` (and writes `run_config.json` once), which
-downstream tooling can tail. The port runs one process, which writes.
+downstream tooling can tail. Under a process group only process 0 writes.
 """
 
 from __future__ import annotations
@@ -12,18 +12,25 @@ import os
 import time
 from typing import Any, Mapping
 
+from gamer_tpu_torch.core.logging import process_index
+
 
 class MetricWriter:
     def __init__(self, run_dir: str, run_name: str | None = None,
                  config: Mapping[str, Any] | None = None):
         self.run_dir = run_dir
         self.path = os.path.join(run_dir, "metrics.jsonl")
+        self.active = process_index() == 0
+        if not self.active:
+            return
         os.makedirs(run_dir, exist_ok=True)
         if config is not None:
             with open(os.path.join(run_dir, "run_config.json"), "w") as f:
                 json.dump({"run_name": run_name, **dict(config)}, f, indent=2, default=str)
 
     def log(self, metrics: Mapping[str, Any], step: int | None = None) -> None:
+        if not self.active:
+            return
         event = {"_time": time.time()}
         if step is not None:
             event["_step"] = int(step)

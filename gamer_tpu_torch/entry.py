@@ -1,13 +1,22 @@
 """Entry point of the port: the flagship Qwen3Multi training loss.
 
 Counterpart of `__graft_entry__.py` (`_flagship_config`, `_make_batch`,
-`entry`): `entry()` returns `(fn, (model, batch))` where `fn(model, batch)`
-is the training loss of flagship Qwen3Multi (dropout on, seeds from a fixed
-generator), differentiable in the model's parameters. Like every entry point
-of the port it runs on CUDA unless the caller passes `device="cpu"`.
+`entry`, `dryrun_multichip`): `entry()` returns `(fn, (model, batch))` where
+`fn(model, batch)` is the training loss of flagship Qwen3Multi (dropout on,
+seeds from a fixed generator), differentiable in the model's parameters.
+`dryrun_multiprocess(n)` runs the data-parallel pipeline in n processes on
+gloo. Like every entry point of the port they run on CUDA unless the caller
+passes `device="cpu"`.
+
+    python -m gamer_tpu_torch.entry <out_dir> <device>   # one dry-run worker
 """
 
 from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -73,3 +82,98 @@ def entry(tiny: bool = False, device: str | torch.device | None = None):
         return loss_fn(batch, torch.Generator().manual_seed(0))[0]
 
     return fn, (model, batch)
+
+
+def _dryrun(device) -> dict:
+    """Two gradient-accumulated `Trainer` micro-steps (one update) of the
+    tiny flagship with remat and dropout 0.2 on global batches of 4 rows x
+    4 blocks, this process feeding its rows of each; then a 4-beam search
+    with the trained parameters. Returns losses, codes and scores as lists."""
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+    from gamer_tpu_torch.decode.trie import LeveledTrie
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    rows, blocks = 4, 4
+    ctx = MeshContext(device=device)
+    lb = local_batch_size(rows, ctx)
+    r0 = distributed.first_row(lb)
+    cfg = flagship_config(tiny=True, dropout_rate=0.2, remat=True, dtype="float32")
+    model = QwenFamilyModel(cfg, device=ctx.device, seed=0)
+    trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                      OptimizerConfig(total_steps=10),
+                      TrainLoopConfig(epochs=1, save_checkpoints=False,
+                                      gradient_accumulation_steps=2))
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(2):  # two micro-steps = one accumulation cycle
+        batch = make_batch(cfg, rows, blocks, rng)
+        local = {k: v[r0:r0 + lb] for k, v in batch.items()}
+        losses.append(float(trainer.train_step(ctx.shard_batch(local))))
+    assert trainer.updates == 1 and np.isfinite(losses).all(), losses
+
+    P = cfg.num_positions
+    L, size = P - 1, 16
+    codes = np.random.default_rng(1).integers(0, size, (12, L))
+    bases = [cfg.behavior_base + cfg.num_behavior + lvl * size for lvl in range(L)]
+    trie = LeveledTrie.build(codes, [size] * L, bases)
+    dbatch = make_batch(cfg, rows, 3, np.random.default_rng(2))
+    dbatch["prompt_len"] = np.full((rows,), 3 * P, np.int32)
+    search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=4))
+    out_codes, scores = search(ctx.shard_batch(dbatch), 1)
+    return {"losses": losses, "codes": out_codes.cpu().tolist(),
+            "scores": scores.float().cpu().tolist(),
+            "process_count": distributed.process_count()}
+
+
+def _dryrun_worker(out_dir: str, device: str) -> None:
+    """One process of `dryrun_multiprocess`: joins the group its GAMER_*
+    variables configure and writes its `_dryrun` result."""
+    from gamer_tpu_torch.core import distributed
+
+    distributed.maybe_initialize(device=device, backend="gloo")
+    try:
+        result = _dryrun(device)
+        with open(os.path.join(out_dir, f"rank{distributed.process_index()}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        distributed.shutdown()
+
+
+def dryrun_multiprocess(n: int, device: str | torch.device | None = None,
+                        timeout_s: float = 300.0) -> dict:
+    """The data-parallel pipeline in `n` processes on gloo (the data axis
+    only; the model axis is not ported): each runs `_dryrun` on its rows of
+    the same global batches, then the same search. Every process's codes
+    must equal those of one process fed the whole global batches (run here),
+    and its scores and losses agree within 1e-4. Raises on a failed or late
+    worker. Returns the one-process result."""
+    from gamer_tpu_torch.core.device import resolve_device
+    from gamer_tpu_torch.core.distributed import spawn_local
+
+    dev = str(resolve_device(device))
+    with tempfile.TemporaryDirectory() as out:
+        spawn_local([["-m", "gamer_tpu_torch.entry", out, dev]] * n, backend="gloo",
+                    timeout_s=timeout_s)
+        results = []
+        for r in range(n):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    single = _dryrun(dev)
+    for r, res in enumerate(results):
+        assert res["process_count"] == n, res["process_count"]
+        np.testing.assert_array_equal(res["codes"], single["codes"],
+                                      err_msg=f"process {r}: codes differ from one process's")
+        np.testing.assert_allclose(res["scores"], single["scores"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(res["losses"], single["losses"], rtol=1e-4)
+    print(f"dryrun_multiprocess({n}): losses {single['losses']} over {n} gloo processes "
+          f"= one process's; decode codes equal, scores within 1e-4", flush=True)
+    return single
+
+
+if __name__ == "__main__":
+    _dryrun_worker(sys.argv[1], sys.argv[2])

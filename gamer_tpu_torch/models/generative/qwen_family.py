@@ -46,7 +46,7 @@ from torch import nn
 
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
-from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout
 from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
@@ -213,16 +213,20 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, rope_positions, self_allowed, cross_allowed, position_index,
                 behavior_index, action_index, expert_index, streams, caches, cache_index,
-                route_mode, seeds=None, keep_attention=False):
+                route_mode, seeds=None, keep_attention=False, row0=0):
         """`seeds`: this layer's `dropout_sites` dropout seeds, or None for
         the deterministic forward. `keep_attention` (remat policy "attn"):
         the stages between the attention cores run under
         `torch.utils.checkpoint`, so the backward recomputes the norms,
         projections, dropout and MLP and keeps what each attention core
-        saved (its kernel does not run again)."""
+        saved (its kernel does not run again). `row0`: the first global
+        batch row of x's rows under a process group; it moves every dropout
+        seed so that the masks are the global batch's
+        (`modules/dropout.row_seed`)."""
         det = seeds is None
         s = [0] * self.dropout_sites if det else list(seeds)
-        drop = lambda y, seed: y if det else hash_dropout(y, seed, self.dropout_rate)
+        drop = lambda y, seed: y if det else hash_dropout(y, seed, self.dropout_rate, row0)
+        attn_seed = lambda seed: attention_row_seed(seed, row0, self.self_attn.num_heads)
         stage = ((lambda fn, *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False))
                  if keep_attention else (lambda fn, *a: fn(*a)))
         caches = caches or {}
@@ -231,12 +235,12 @@ class DecoderLayer(nn.Module):
             h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
                          expert_index=expert_index if self.moe_action else None,
                          route_mode=route_mode, num_positions=self.num_positions,
-                         deterministic=det, dropout_seed=s[-2])
+                         deterministic=det, dropout_seed=s[-2], row0=row0)
             return x + drop(h, s[-1])
 
         qkv = stage(lambda x: self.self_attn.qkv(self.input_layernorm(x), rope_positions), x)
         o, new_self = self.self_attn.core(*qkv, self_allowed, caches.get("self"), cache_index,
-                                          self.self_mask_kind, streams, det, s[0])
+                                          self.self_mask_kind, streams, det, attn_seed(s[0]))
         if not self.is_cross:
             x = stage(lambda x, o: mlp(x + drop(self.self_attn.output(x, o), s[1])), x, o)
             return x, new_self, None
@@ -248,7 +252,8 @@ class DecoderLayer(nn.Module):
 
         x, h, *qkv = stage(after_self, x, o)
         o, new_cross = self.cross_attn.core(*qkv, cross_allowed, caches.get("cross"),
-                                            cache_index, self.cross_mask_kind, streams, det, s[2])
+                                            cache_index, self.cross_mask_kind, streams, det,
+                                            attn_seed(s[2]))
         x = stage(lambda x, h, o: mlp(x + drop(self.cross_attn.output(h, o), s[3])), x, h, o)
         return x, new_self, new_cross
 
@@ -326,9 +331,12 @@ class QwenFamilyModel(nn.Module):
         return_hidden: bool = False,
         streams: Optional[dict] = None,  # fused-attention integer mask streams
         generator: Optional[torch.Generator] = None,  # dropout seeds (training)
+        row0: int = 0,  # first global batch row of this process's rows
     ) -> dict:
         """`deterministic=False` (training) draws one int32 dropout seed a
-        site from `generator` (a CPU generator), in layer order."""
+        site from `generator` (a CPU generator), in layer order. Under a
+        process group `row0` makes every dropout mask that of the global
+        batch (`modules/dropout.row_seed`)."""
         cfg = self.cfg
         seeds = None
         if not deterministic:
@@ -352,12 +360,13 @@ class QwenFamilyModel(nn.Module):
                     behavior_index, action_index, expert_index, streams, layer_caches,
                     cache_index, route_mode, layer_seeds)
             if not remat:
-                x, new_self, new_cross = layer(*args)
+                x, new_self, new_cross = layer(*args, False, row0)
             elif cfg.remat_policy == "attn":
-                x, new_self, new_cross = layer(*args, keep_attention=True)
+                x, new_self, new_cross = layer(*args, True, row0)
             else:
                 x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
-                    layer, *args, use_reentrant=False, **_REMAT_CONTEXT[cfg.remat_policy])
+                    layer, *args, False, row0, use_reentrant=False,
+                    **_REMAT_CONTEXT[cfg.remat_policy])
             if new_caches is not None:
                 new_caches["self"].append(new_self)
                 new_caches["cross"].append(new_cross)

@@ -28,7 +28,9 @@ the same elements for the same seed (every MoeAction pass draws the same
 mask, and each token keeps one pass); the dense and one-hot paths use the
 residual hash dropout (`modules/dropout.py`), seed + e for expert e and
 seed + E for the shared expert. The JAX package draws "bits" dropout from
-its rng stream on its plain paths.
+its rng stream on its plain paths. `row0` (the first global batch row of
+this process's rows under a process group) moves each seed so that the
+masks are those of the global batch (`modules/dropout.row_seed`).
 
 Expert weights stay stacked with a leading experts axis, in the JAX layout:
 gate/up [E, d_in, d_ff], down [E, d_ff, d_out], stored in fp32 and cast to
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.dropout import hash_dropout, row_seed
 from gamer_tpu_torch.modules.layers import embed
 from gamer_tpu_torch.ops.fused_attention import keep_fraction
 from gamer_tpu_torch.ops.fused_moe import ACTS as _ACTS
@@ -90,7 +92,7 @@ class PositionRoutedMLP(nn.Module):
         return (("gate", "up", "down") if self.mlp_type == "qwen3" else ("wi", "wo"))
 
     def _expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], rate: float = 0.0,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, row0: int = 0) -> torch.Tensor:
         """x [..., d_in] through one expert's weights `w` (`weight_names`)."""
         act = _ACTS[self.hidden_act]
         if self.mlp_type == "qwen3":
@@ -99,7 +101,7 @@ class PositionRoutedMLP(nn.Module):
             h = act(gu[..., :self.d_ff]) * gu[..., self.d_ff:]
         else:
             h = act(x @ w[0])
-        return hash_dropout(h, seed, rate) @ w[-1]
+        return hash_dropout(h, seed, rate, row0) @ w[-1]
 
     def _weights(self, dtype: torch.dtype, prefix: str = "experts") -> tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f"{prefix}_{n}").to(dtype) for n in self.weight_names)
@@ -179,6 +181,7 @@ class PositionRoutedMLP(nn.Module):
         num_positions: Optional[int] = None,
         deterministic: bool = True,
         dropout_seed: int = 0,
+        row0: int = 0,  # first global batch row of x's rows (process groups)
     ) -> torch.Tensor:
         if self.behavior_injection and behavior_index is None:
             raise ValueError("behavior injection needs behavior_index")
@@ -190,22 +193,24 @@ class PositionRoutedMLP(nn.Module):
         if not self.is_sparse:
             x_in = self._inputs(x, behavior_index)
             w = tuple(t[0] for t in self._weights(x.dtype))
-            return self._expert(x_in, w, rate, dropout_seed).to(x.dtype)
+            return self._expert(x_in, w, rate, dropout_seed, row0).to(x.dtype)
         shared = None
         if self.shared_expert:  # its own mask: seed + E, after the experts' seeds
             E = getattr(self, f"experts_{self.weight_names[0]}").shape[0]
             shared = self._expert(self._inputs(x, behavior_index), self._weights(x.dtype, "shared"),
-                                  rate, dropout_seed + E)
+                                  rate, dropout_seed + E, row0)
         out = self._routed(x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                           dropout_seed)
+                           dropout_seed, row0)
         if shared is not None:
             out = torch.cat([out, shared.to(out.dtype)], dim=-1)
         return out
 
     def _routed(self, x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                dropout_seed):
+                dropout_seed, row0=0):
         """The routed experts' output [B, S, d_out] of a sparse layer."""
         if route_mode == "periodic":
+            # the periodic hash's row is t = b * n + block: n blocks a batch row
+            dropout_seed = row_seed(dropout_seed, row0, x.shape[1] // P) if row0 else dropout_seed
             if expert_index is None:
                 return self._periodic(x, behavior_index, P, rate, dropout_seed, [1])[0]
             # MoeAction: the action level a is constant within an item block,
@@ -234,8 +239,8 @@ class PositionRoutedMLP(nn.Module):
         routing = expert_index if expert_index is not None else position_index
         E = w[0].shape[0]
         # one seed per expert draw: the experts' masks are independent
-        stacked = torch.stack([self._expert(x_in, tuple(t[e] for t in w), rate, dropout_seed + e)
-                               for e in range(E)], dim=0)  # [E, B, S, Dout]
+        stacked = torch.stack([self._expert(x_in, tuple(t[e] for t in w), rate, dropout_seed + e,
+                                            row0) for e in range(E)], dim=0)  # [E, B, S, Dout]
         sel = F.one_hot(routing.long(), E).to(stacked.dtype)  # [B, S, E]
         out = torch.einsum("ebsd,bse->bsd", stacked, sel)
         return out.to(x.dtype)

@@ -5,12 +5,14 @@ first import into `native/_build/` (git-ignored), named by a hash of the
 source and of the host's CPU (the library is built with -march=native), and
 exposes numpy-friendly wrappers. Every entry point has a pure-numpy fallback,
 so the package works without a toolchain; `AVAILABLE` reports which path is
-active.
+active. Processes that load it at once build it once: they take turns on an
+`flock` of `_build/.lock`, and the library appears by an atomic rename.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import platform
@@ -43,18 +45,20 @@ def _build() -> str | None:
     cache_dir = os.path.join(_HERE, "_build")
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, f"collate-{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    tmp = so_path + f".tmp{os.getpid()}"
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           _SRC, "-o", tmp]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, so_path)
-        return so_path
-    except Exception as e:  # no toolchain / compile error -> numpy fallback
-        logger.warning("native build failed (%s); using numpy fallback", e)
-        return None
+    with open(os.path.join(cache_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(so_path):
+            return so_path
+        tmp = so_path + f".tmp{os.getpid()}"
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+               _SRC, "-o", tmp]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so_path)
+            return so_path
+        except Exception as e:  # no toolchain / compile error -> numpy fallback
+            logger.warning("native build failed (%s); using numpy fallback", e)
+            return None
 
 
 def _load():

@@ -5,12 +5,17 @@ interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
 Libraries go to `ops/_build/` (git-ignored), named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one is reused.
 `build()` starts one nvcc per missing library, all at once, and waits for
-them; a failed build raises with nvcc's output.
+them; a failed build raises with nvcc's output. Processes that build at
+once (a process group on one machine) take turns on an `flock` of
+`_build/.lock`, which the system drops with its holder, and each library
+appears by an atomic rename, so a loader never sees half a file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import math
 import os
@@ -49,11 +54,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def build_lock(directory: Path):
+    """An exclusive `flock` on `directory/.lock` while the block runs."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Compile every library of `names` that is not built yet, in parallel.
     Returns {name: nvcc's output} for the libraries compiled by this call
     (ptxas prints each kernel's registers and shared memory there)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        return _build_unlocked(names)
+
+
+def _build_unlocked(names) -> dict[str, str]:
     jobs = {}
     for name in names:
         target = library_path(name)

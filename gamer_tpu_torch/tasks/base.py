@@ -9,6 +9,8 @@ translate directly. Argument capture for the metric stream is an explicit
 One difference: the global `--device` (default "cuda") selects the device the
 task runs on. The JAX package accepts it as an inert reference flag. There is
 no silent CPU: without CUDA a task raises unless `--device cpu` is given.
+`invoke` starts the process group when a rendezvous is configured
+(`core/distributed.maybe_initialize`, as the JAX package's `main.py` does).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any
 
 import torch
 
+from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.core.logging import get_logger, setup_logging
 
@@ -41,6 +44,9 @@ class Task:
         raise NotImplementedError
 
     def invoke(self, **args: Any) -> Any:
+        # a configured rendezvous (core/distributed.py) starts the process
+        # group first, so logging knows this process's rank
+        distributed.maybe_initialize(device=args.get("device"))
         setup_logging(task=self.name)
         self.param_dict = {k: v for k, v in args.items() if not k.startswith("_")}
         logger.info("task %s args: %s", self.name, self.param_dict)

@@ -8,9 +8,11 @@ beams (ref :122-195), hit/recall/ndcg with session-target normalization,
 duplicate-vs-history ratio (ref :217-223), merged-behavior weighted metrics
 (ref :287-304), collision reporting (ref :66-88), and a --valid_loss mode
 (ref :306-322). Every behavior's rows go through one mixed-behavior search
-per chunk of `--test_batch_size` rows (`decode/beam.py`, eagerly).
-
-Not ported: the multi-process sums of the metrics (one process).
+per chunk of `--test_batch_size` rows (`decode/beam.py`, eagerly). Under a
+process group (`core/distributed.py`) each process searches every
+process_count-th row, the fixed-shape metric sums are added up with one
+all-reduce (ref :232-255 gathers pickled lists), and process 0 writes the
+results.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.batching import (
@@ -85,6 +88,7 @@ class TestSMBDecoder(Task):
         # deduplicated (ref get_all_items set semantics)
         trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
         search = BeamSearchConfig(num_beams=num_beams, cache_dtype=cache_dtype)
+        self._device = model.device
         if self.family == "encdec":
             self._batcher = EncDecBatcher.for_examples(data.test, eos_id=EOS_ID)
             self._search = make_beam_search_encdec_fn(model, trie, search)
@@ -128,9 +132,10 @@ class TestSMBDecoder(Task):
             "config": {"test_task": test_task, "num_beams": num_beams,
                        "dataset": dataset, "ckpt": ckpt_path},
         }
-        os.makedirs(os.path.dirname(results_file) or ".", exist_ok=True)
-        with open(results_file, "w") as f:
-            json.dump(results, f, indent=2)
+        if distributed.is_main_process():
+            os.makedirs(os.path.dirname(results_file) or ".", exist_ok=True)
+            with open(results_file, "w") as f:
+                json.dump(results, f, indent=2)
         logger.info("merged: %s", {k: round(v, 4) for k, v in merged.items()})
         return results
 
@@ -139,10 +144,14 @@ class TestSMBDecoder(Task):
     def _eval_mixed(self, corpus, vocab, trie, rows, behaviors, batch_size, metric_list):
         """Evaluate a mixed-behavior row stream ((behavior, b_idx, example)
         tuples) in one search a chunk; returns per-behavior accumulators
-        {totals, count, dup_sum, dup_n}. Needs `self._batcher` and
-        `self._search` (set by `run`; for an enc-dec model, `self.family`
-        "encdec" and `self._start`, the decoder start token)."""
+        {totals, count, dup_sum, dup_n}. Needs `self._batcher`, `self._search`
+        and, under a process group, `self._device` (set by `run`; for an
+        enc-dec model, `self.family` "encdec" and `self._start`, the decoder
+        start token)."""
         L = trie.num_levels
+        n_proc = distributed.process_count()
+        if n_proc > 1:  # stride rows over processes; sums merged at the end
+            rows = rows[distributed.process_index()::n_proc]
         acc = {b: {"totals": {m: 0.0 for m in metric_list}, "count": 0,
                    "dup_sum": 0.0, "dup_n": 0} for b in behaviors}
         for batch_rows in _chunks(rows, batch_size):
@@ -179,6 +188,8 @@ class TestSMBDecoder(Task):
                 gen = {tuple(r) for r in codes[i].tolist()}
                 acc[behavior]["dup_sum"] += len(gen & hist) / max(len(gen), 1)
                 acc[behavior]["dup_n"] += 1
+        if distributed.is_initialized():
+            acc = _sum_over_processes(acc, behaviors, metric_list, self._device)
         return acc
 
     @torch.no_grad()
@@ -229,6 +240,21 @@ class TestSMBDecoder(Task):
         return {"total": len(examples), "collision_items": n_coll_items,
                 "collision_samples": coll_samples,
                 "collision_ratio": coll_samples / max(len(examples), 1)}
+
+
+def _sum_over_processes(acc: dict, behaviors, metric_list, device) -> dict:
+    """`_eval_mixed`'s per-behavior accumulators summed over the process
+    group: one float64 [behaviors, metrics + 3] all-reduce."""
+    M = len(metric_list)
+    vec = torch.zeros((len(behaviors), M + 3), dtype=torch.float64)
+    for j, b in enumerate(behaviors):
+        a = acc[b]
+        vec[j, :M] = torch.tensor([a["totals"][m] for m in metric_list], dtype=torch.float64)
+        vec[j, M:] = torch.tensor([a["count"], a["dup_sum"], a["dup_n"]], dtype=torch.float64)
+    summed = distributed.all_reduce_sum(vec.to(device)).cpu()
+    return {b: {"totals": {m: float(summed[j, i]) for i, m in enumerate(metric_list)},
+                "count": int(summed[j, M]), "dup_sum": float(summed[j, M + 1]),
+                "dup_n": int(summed[j, M + 2])} for j, b in enumerate(behaviors)}
 
 
 def _chunks(seq, n):

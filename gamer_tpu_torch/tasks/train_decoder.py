@@ -7,7 +7,8 @@ AdamW and schedule, early stopping on the valid loss. The dtype, `--device`
 and the training loop are those of the port's `train_SMB_decoder`
 (`fit_and_save`): `--bf16` or, by default, bfloat16 on CUDA and float32 on
 the CPU. The enc-dec backbones (TIGER, PBATransformer) train through the
-same loop with their own batcher and loss (`fit_encdec`); one process.
+same loop with their own batcher and loss (`fit_encdec`). Under a process
+group each process trains on its stride-shard of the examples, as there.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ history, ref MB_dataset.py:107-110), ForDecoder augmentation, behavior
 tokens masked from the loss. `config.json` records the token layout
 (`behavior_first`, `explicit`). The dtype, `--device` and the training loop
 are those of the port's `train_SMB_decoder` (`fit_and_save`; `fit_encdec`
-for the enc-dec backbones, TIGER and PBATransformer); one process.
+for the enc-dec backbones, TIGER and PBATransformer), with their sharding
+of the examples under a process group.
 """
 
 from __future__ import annotations

@@ -21,8 +21,10 @@ enc-dec CE (`models/generative/encdec_utils.py`), the same `Trainer`, and
 `config.json` with family "encdec"; `--gradient_checkpointing` does not
 apply to them (ignored with a warning, as in JAX).
 
-Differences: one process (the multi-process sharding waits for
-`core/distributed.py`); `--device` picks the card (default) or the CPU;
+Under a process group (`core/distributed.py`, started by `Task.invoke`)
+each process stores its stride-shard of the examples and feeds
+micro // process_count rows a step; `Trainer` sums the gradients, so the
+step is the global batch's. Differences: `--device` picks the card (default) or the CPU;
 `--dtype auto` is bfloat16 on CUDA and float32 on the CPU;
 `--attention_impl auto` is the kernels and `jnp` the plain path;
 `--profile_dir` writes a `torch.profiler` trace of five steps.
@@ -38,7 +40,9 @@ import re
 
 import torch
 
+from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.logging import get_logger
+from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.batching import DecoderBatcher, EncDecBatcher, iterate_batches
@@ -142,8 +146,10 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
     def _loss(batch: dict, generator):
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         inputs = prepare_train_inputs(cfg, batch)
+        # under a process group the dropout masks are the global batch's
+        row0 = 0 if deterministic else distributed.first_row(batch["input_ids"].shape[0])
         out = model(**inputs, route_mode="periodic", return_hidden=fused,
-                    deterministic=deterministic, generator=generator)
+                    deterministic=deterministic, generator=generator, row0=row0)
         if fused:
             table = model.lm_table().to(cfg.torch_dtype)
             loss, denom = fused_causal_lm_loss_with_denom(
@@ -289,11 +295,11 @@ def fit_and_save(task: Task, model: QwenFamilyModel, cfg: QwenFamilyConfig, voca
     feeding shuffled micro batches of `seq_len` tokens, the causal-LM loss;
     `config.json` gets family "decoder_only". Returns `Trainer.fit`'s result."""
     # the C++ example store collates each field in one call (numpy where no
-    # compiler exists); one process holds every example
+    # compiler exists); each process stores its stride-shard of the examples
     from gamer_tpu_torch import native
 
-    micro, seed = hf["micro"], fit_kw["seed"]
-    stores = [native.ExampleStore(ex, vocab.behavior_token_ids,
+    micro, seed = local_micro(hf["micro"], model.device), fit_kw["seed"]
+    stores = [native.ExampleStore(distributed.shard_examples(ex), vocab.behavior_token_ids,
                                   only_train_response=only_train_response)
               for ex in (train, valid)]
     return _fit(task, model, cfg, vocab, len(train), hf,
@@ -301,6 +307,12 @@ def fit_and_save(task: Task, model: QwenFamilyModel, cfg: QwenFamilyConfig, voca
                 make_loss_fn(model, cfg, deterministic=True),
                 lambda epoch: stores[0].iterate(micro, seq_len, shuffle=True, seed=seed + epoch),
                 lambda: stores[1].iterate(micro, seq_len), "decoder_only", **fit_kw)
+
+
+def local_micro(micro: int, device) -> int:
+    """The rows a process feeds each micro-step: `micro` (the global micro
+    batch) over the process group, which must divide it."""
+    return local_batch_size(micro, MeshContext(device=device))
 
 
 def make_encdec_config(backbone: str, corpus, num_positions: int, base_model: str | None,
@@ -330,7 +342,8 @@ def fit_encdec(task: Task, cfg: EncDecConfig, vocab, train, valid, hf: dict, dev
     `dev`, weights from the seed. Returns `Trainer.fit`'s result."""
     model = model or EncDecModel(cfg, device=dev, seed=fit_kw["seed"])
     batcher = EncDecBatcher.for_examples(train + valid, eos_id=EOS_ID)
-    micro, seed = hf["micro"], fit_kw["seed"]
+    micro, seed = local_micro(hf["micro"], model.device), fit_kw["seed"]
+    ltrain, lvalid = distributed.shard_examples(train), distributed.shard_examples(valid)
     logger.info("model %s on %s: vocab=%d enc_len=%d dec_len=%d train=%d valid=%d "
                 "parameters %.2fM", cfg.extra.get("backbone"), dev, cfg.vocab_size,
                 batcher.enc_len, batcher.dec_len, len(train), len(valid),
@@ -338,9 +351,9 @@ def fit_encdec(task: Task, cfg: EncDecConfig, vocab, train, valid, hf: dict, dev
     return _fit(task, model, cfg, vocab, len(train), hf,
                 encdec_loss_fn(model, cfg, deterministic=False),
                 encdec_loss_fn(model, cfg, deterministic=True),
-                lambda epoch: iterate_batches(train, micro, batcher.collate, shuffle=True,
+                lambda epoch: iterate_batches(ltrain, micro, batcher.collate, shuffle=True,
                                               seed=seed + epoch),
-                lambda: iterate_batches(valid, micro, batcher.collate), "encdec", **fit_kw)
+                lambda: iterate_batches(lvalid, micro, batcher.collate), "encdec", **fit_kw)
 
 
 def _fit(task: Task, model, cfg, vocab, n_train: int, hf: dict, loss_fn, eval_loss_fn,
@@ -371,10 +384,12 @@ def _fit(task: Task, model, cfg, vocab, n_train: int, hf: dict, loss_fn, eval_lo
         _profile(trainer, train_batches(0), profile_dir, model.device)
     result = trainer.fit(train_batches, eval_batches)
 
-    os.makedirs(output_dir, exist_ok=True)
     cfg.extra["family"] = family
-    cfg.save(output_dir)
-    vocab.save(os.path.join(output_dir, "vocab.json"))
+    if distributed.is_main_process():
+        os.makedirs(output_dir, exist_ok=True)
+        cfg.save(output_dir)
+        vocab.save(os.path.join(output_dir, "vocab.json"))
+    distributed.barrier()
     logger.info("done: best valid loss %.4f after %d steps", result["best_metric"],
                 result["steps"])
     return result

@@ -16,6 +16,15 @@ every steps-mode eval, "last" at the end, and with `snapshot_every_epochs`
 The loop consumes `loss_fn(batch, generator) -> (loss, aux)`, differentiable
 in the model's parameters; each micro-step's dropout seeds come from a CPU
 `torch.Generator` seeded by `(loop seed, micro-step)`.
+
+Under a process group (`core/distributed.py`) each process feeds its own
+rows, and the step is the JAX package's global one: the loss is one token
+mean over every process's tokens. A micro-step all-reduces (loss * denom,
+denom), whose ratio is the returned loss, and weighs its local grads by
+denom / global denom; an update all-reduces the accumulated grads once, as
+one flat buffer in parameter order, before the optimizer clips them. Every
+process then applies the same sum, so parameters stay bit-identical.
+`evaluate` sums its totals and weights over the group the same way.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
 from gamer_tpu_torch.core.metrics import MetricWriter
@@ -101,10 +111,18 @@ class Trainer:
         mini = self.step % k
         for p in self.params.values():
             p.grad = None
-        loss, _ = self.loss_fn(batch, self.generator(self.step))
+        loss, aux = self.loss_fn(batch, self.generator(self.step))
+        grouped = distributed.is_initialized()
+        if grouped:  # the global token mean and this process's share of it
+            w = _weight(batch, aux, loss.device)
+            stats = distributed.all_reduce_sum(torch.stack([loss.detach().double() * w, w]))
+            share = (w / stats[1]).float()
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in self.params.items()}
+        if grouped:
+            grads = {n: g * share for n, g in grads.items()}
+            loss = (stats[0] / stats[1]).float()
         if self._acc is None:
             self._acc = grads
         else:  # running mean, as optax.MultiSteps: acc + (g - acc) / (n + 1)
@@ -113,6 +131,8 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
         if mini == k - 1:
+            if grouped:
+                distributed.all_reduce_flat(list(self._acc.values()))
             self.optimizer.step(self._acc)
             self._acc = None
         self.step += 1
@@ -142,17 +162,22 @@ class Trainer:
     def evaluate(self, batches: Iterable[dict]) -> float:
         """Global mean loss over batches: batch means re-weighted by the
         loss's valid-target count (aux "denom"), else by valid rows, so the
-        result is one token mean whatever the batch split."""
+        result is one token mean whatever the batch split (and, under a
+        process group, over every process's batches)."""
         total = weight = None
         loss_fn = self.eval_loss_fn or (lambda b: self.loss_fn(b, self.generator(0)))
         for batch in batches:
             loss, aux = loss_fn(batch)
-            w = aux["denom"] if "denom" in aux else float(
-                np.asarray(batch.get("row_valid", np.ones(1))).sum())
-            w = torch.as_tensor(w, dtype=torch.float32, device=loss.device)
+            w = _weight(batch, aux, loss.device).float()
             contrib = loss.float() * w
             total = contrib if total is None else total + contrib
             weight = w if weight is None else weight + w
+        if distributed.is_initialized():
+            device = next(iter(self.params.values())).device
+            sums = torch.zeros(2, dtype=torch.float64, device=device)
+            if total is not None:
+                sums[0], sums[1] = total.double(), weight.double()
+            total, weight = distributed.all_reduce_sum(sums)
         if total is None:
             return 0.0
         return float(total) / max(float(weight), 1.0)
@@ -241,7 +266,8 @@ class Trainer:
             if self.ckpt:
                 if cfg.snapshot_every_epochs > 0 and (epoch + 1) % cfg.snapshot_every_epochs == 0:
                     self.ckpt.save(f"epoch_{epoch}", self.model.state_dict(), {"epoch": epoch})
-                    self._prune_snapshots(cfg.snapshot_limit)
+                    if distributed.is_main_process():
+                        self._prune_snapshots(cfg.snapshot_limit)
                 self.ckpt.save("last_state", self.train_state(),
                                {"epoch": epoch, "best": float(best), "step": self.step})
         if self.ckpt:
@@ -269,3 +295,11 @@ class Trainer:
         if self._best_state is not None:
             return self._best_state
         return {k: v.detach() for k, v in self.model.state_dict().items()}
+
+
+def _weight(batch: dict, aux: dict, device) -> torch.Tensor:
+    """A batch's weight in a global mean: the loss's valid-target count (aux
+    "denom"), else its valid rows, as a float64 scalar."""
+    w = aux["denom"] if "denom" in aux else float(
+        np.asarray(batch.get("row_valid", np.ones(1))).sum())
+    return torch.as_tensor(w, device=device).double()

@@ -1,0 +1,68 @@
+"""Chosen phases of a tree's `chip_smoke.py`, for a quick or A/B chip run.
+
+    python3 scripts/smoke_phases.py <tree> <phase> [<phase> ...]   # on one GPU
+
+Imports `chip_smoke.py` and `gamer_tpu_torch` from `<tree>` (a checkout,
+e.g. a `git archive` of another commit unpacked into a git-ignored
+directory), builds its kernel libraries and runs the named phases with the
+launch counters and TF32 off as the script does: 5 (`train_phase`), 7
+(`task_phase`), 11 (`multiprocess_phase`), 12 (`tokenizer_phase`). To
+compare two commits on one card, run it for each tree in one call, in turns
+(parent, change, change, parent). Raises (exit code != 0) if a phase fails.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    tree, phases = os.path.abspath(argv[0]), argv[1:]
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.ops import _build
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(f"tree {argv[0]}: card {card}; torch {torch.__version__}", flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    counters = {"fused_mask_attention": FA.fused_mask_attention,
+                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    dev = torch.device("cuda")
+    step_ms = 0.0
+    for phase in phases:
+        t = time.perf_counter()
+        if phase == "5":
+            step_ms = cs.train_phase(dev, counters, card)["step_ms"]
+        elif phase == "7":
+            cs.task_phase(dev, counters, card, step_ms)
+        elif phase == "11":
+            cs.multiprocess_phase(dev, counters, card)
+        elif phase == "12":
+            cs.tokenizer_phase(dev, counters, card)
+        else:
+            raise ValueError(f"unknown phase {phase!r}; one of 5, 7, 11, 12")
+        print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

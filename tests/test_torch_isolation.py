@@ -118,19 +118,24 @@ def test_chip_smoke_train_step_on_cpu():
 
 def test_data_plane_cli_and_native_are_isolated():
     """The slice's modules (data plane, native collation, checkpoints,
-    tasks, the CLI `gamer_tpu_torch.__main__`) import no JAX, and every task
-    of `python -m gamer_tpu_torch` raises without CUDA unless --device cpu
-    is given."""
+    tasks, the CLI `gamer_tpu_torch.__main__`, the process group, the
+    tokenizer chain) import no JAX, `python -m gamer_tpu_torch` has the ten
+    tasks, and every task that needs a model raises without CUDA unless
+    --device cpu is given."""
     code = ("import importlib, sys\n"
             "for m in ('gamer_tpu_torch.__main__', 'gamer_tpu_torch.native', "
             "'gamer_tpu_torch.core.checkpoint', 'gamer_tpu_torch.data.batching', "
             "'gamer_tpu_torch.data.synthetic', 'gamer_tpu_torch.evaluation.ranking', "
-            "'gamer_tpu_torch.tasks'):\n"
+            "'gamer_tpu_torch.tasks', 'gamer_tpu_torch.core.distributed', "
+            "'gamer_tpu_torch.core.mesh', 'gamer_tpu_torch.ops.sinkhorn', "
+            "'gamer_tpu_torch.ops.kmeans', 'gamer_tpu_torch.models.tokenizer.rqvae', "
+            "'gamer_tpu_torch.tasks.rqvae', 'gamer_tpu_torch.tasks.tokenize', "
+            "'gamer_tpu_torch.tasks.semantic_emb', 'gamer_tpu_torch.entry'):\n"
             "    importlib.import_module(m)\n"
             "from gamer_tpu_torch.tasks import task_list\n"
-            "assert sorted(task_list) == ['test_MB_decoder', 'test_SMB_decoder', "
-            "'test_SMB_rule', 'test_decoder', 'train_MB_decoder', 'train_SMB_decoder', "
-            "'train_decoder'], sorted(task_list)\n"
+            "assert sorted(task_list) == ['RQVAE', 'SemEmb', 'test_MB_decoder', "
+            "'test_SMB_decoder', 'test_SMB_rule', 'test_decoder', 'tokenize', "
+            "'train_MB_decoder', 'train_SMB_decoder', 'train_decoder'], sorted(task_list)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gamer_tpu'))\n"
             "assert not bad, bad\n"
@@ -146,7 +151,7 @@ def test_data_plane_cli_and_native_are_isolated():
 
     common = ["--dataset", "Demo", "--data_path", "unused"]
     for task in ("train_SMB_decoder", "test_SMB_decoder", "test_SMB_rule", "train_decoder",
-                 "test_decoder", "train_MB_decoder", "test_MB_decoder"):
+                 "test_decoder", "train_MB_decoder", "test_MB_decoder", "RQVAE"):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([task, *common])
 
@@ -241,3 +246,41 @@ def test_chip_smoke_encdec_phase_on_cpu():
                               "--learning_rate", "3e-3", *tiny),
                     extra_args=("--device", "cpu"), min_steps=(3, 3), num_beams=4)
     assert not any(name.startswith("phase10_") for name in os.listdir(REPO))
+
+
+def test_chip_smoke_multiprocess_phase_on_cpu():
+    """Phase 11 of chip_smoke.py (train_SMB_decoder in a one-process group
+    against ungrouped, two worker processes of the script against one, the
+    striped test_SMB_decoder, with their gates) at a tiny size on the CPU,
+    on gloo."""
+    import chip_smoke as cs
+
+    spec = dict(n_users=24, n_items=60, n_clusters=4, num_levels=2, level_sizes=(8, 10),
+                min_len=6, max_len=16, seed=3)
+    cs.multiprocess_phase(
+        torch.device("cpu"), _counters(), "cpu", spec=spec,
+        train_args=("--backbone", "Qwen3Multi", "--batch_size", "8", "--dtype", "float32",
+                    "--n_layers", "2", "--hidden_size", "16"),
+        steps_spec=dict(cfg=dict(tiny=True, dtype="float32", dropout_rate=0.2),
+                        geometry=(2, 4, 4)),
+        extra_args=("--device", "cpu"), min_steps=2, num_beams=4)
+    assert not any(name.startswith("phase11_") for name in os.listdir(REPO))
+
+
+def test_chip_smoke_tokenizer_phase_on_cpu():
+    """Phase 12 of chip_smoke.py (SemEmb, RQVAE with the k-means init and CF
+    embeddings, tokenize rq_vae, the card-vs-CPU step, train_SMB_decoder on
+    the emitted semantic IDs, with their gates) at a tiny size on the CPU."""
+    import chip_smoke as cs
+
+    spec = dict(n_users=24, n_items=60, n_clusters=4, num_levels=2, level_sizes=(8, 10),
+                min_len=6, max_len=16, seed=3)
+    cs.tokenizer_phase(
+        torch.device("cpu"), _counters(), "cpu", spec=spec,
+        rq_args=("--layers", "32,16", "--e_dim", "8", "--num_emb", "8", "--num_levels", "3",
+                 "--batch_size", "16", "--alpha", "0.02", "--beta", "0.0001"),
+        emb_dim=64, epochs=6, eval_step=3,
+        train_args=("--backbone", "Qwen3Multi", "--batch_size", "8", "--dtype", "float32",
+                    "--n_layers", "2", "--hidden_size", "16"),
+        extra_args=("--device", "cpu"), min_steps=2)
+    assert not any(name.startswith("phase12_") for name in os.listdir(REPO))

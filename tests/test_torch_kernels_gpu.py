@@ -682,3 +682,99 @@ def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
     assert torch.equal(loss, want)
     for name, g in want_grads.items():
         assert torch.equal(grads[name], g), name
+
+
+# --------------------------------------------------------------------------- tokenizer, groups
+
+
+def test_rqvae_step_on_card_matches_cpu(dev):
+    """One fp32 RQ-VAE training step (the RQVAE task's, with Sinkhorn, the
+    diversity and CF losses) on the card against the CPU: same parameters,
+    batch and diversity noise; loss and parameters within 1e-4."""
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
+    from gamer_tpu_torch.tasks.rqvae import step_generator, train_step
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    # no BatchNorm: a Dense bias before one has a zero true gradient, whose
+    # rounding noise AdamW scales to steps of lr on either device
+    cfg = RQVAEConfig(in_dim=96, num_emb_list=[32, 32, 16], e_dim=16, layers=[128, 64],
+                      alpha=0.02, beta=0.01, sk_epsilons=[0.0, 0.0, 0.003])
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((256, 96)), dtype=torch.float32)
+    cf = torch.as_tensor(rng.standard_normal((256, 16)), dtype=torch.float32)
+    labels = torch.as_tensor(rng.integers(0, 4, (3, 32)))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = RQVAE(cfg, device=where, seed=1)
+        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3,
+                                             lr_scheduler_type="constant", warmup_ratio=0.0,
+                                             max_grad_norm=0.0), model)
+        loss, _ = train_step(model, opt, x.to(where), cf.to(where), labels.to(where),
+                             step_generator(0, 0, 0))
+        out[where.type] = (float(loss), {k: v.cpu() for k, v in model.state_dict().items()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for name, t in out["cpu"][1].items():
+        _close(out["cuda"][1][name], t, torch.float32)
+
+
+def test_sinkhorn_and_kmeans_on_card_match_cpu(dev):
+    from gamer_tpu_torch.ops import kmeans as K
+    from gamer_tpu_torch.ops import sinkhorn as S
+
+    rng = np.random.default_rng(1)
+    d = torch.as_tensor(rng.standard_normal((512, 64)) ** 2, dtype=torch.float32)
+    for eps in (0.003, 0.05):
+        # log-space terms reach 1/eps (333 at eps 0.003), whose float32 sums
+        # carry about 333 x 1.2e-7 = 4e-5 of relative error in Q per order
+        q = S.sinkhorn(S.center_distance(d.to(dev)), eps, 50).cpu()
+        np.testing.assert_allclose(q.numpy(), S.sinkhorn(S.center_distance(d), eps, 50).numpy(),
+                                   rtol=3e-4, atol=1e-6)
+        assert torch.equal(S.balanced_assign(d.to(dev), eps, 50).cpu(),
+                           S.balanced_assign(d, eps, 50))
+    centers = torch.as_tensor(rng.standard_normal((16, 8)) * 5, dtype=torch.float32)
+    x = centers[rng.integers(0, 16, 2000)] + torch.as_tensor(rng.standard_normal((2000, 8)),
+                                                             dtype=torch.float32)
+    init = K.init_centers(x, 16, torch.Generator().manual_seed(0))
+    for fn in (K.kmeans, K.balanced_kmeans):
+        c_card, l_card = fn(x.to(dev), 16, iters=10, centers=init)
+        c_cpu, l_cpu = fn(x, 16, iters=10, centers=init)
+        assert torch.equal(l_card.cpu(), l_cpu)
+        _close(c_card.cpu(), c_cpu, torch.float32)
+
+
+def test_one_process_nccl_trainer_matches_ungrouped(dev):
+    """Three `Trainer` steps of a small Qwen3Multi (dropout 0.2, kernels on)
+    inside a one-process NCCL group against the same steps ungrouped: one
+    gradient all-reduce an update, losses within 1e-6, parameters equal."""
+    import socket
+
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = flagship_config(num_hidden_layers=2, dtype="float32", dropout_rate=0.2)
+    batches = [make_batch(cfg, 4, 20, np.random.default_rng(i)) for i in range(3)]
+
+    def run():
+        model = QwenFamilyModel(cfg, device=dev, seed=0)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                          OptimizerConfig(total_steps=3), TrainLoopConfig())
+        losses = [float(trainer.train_step(b)) for b in batches]
+        return losses, torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+    plain = run()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    calls = distributed.all_reduce_flat.calls
+    assert distributed.maybe_initialize(f"localhost:{port}", 1, 0, device="cuda", timeout_s=60)
+    try:
+        grouped = run()
+    finally:
+        distributed.shutdown()
+    assert distributed.all_reduce_flat.calls - calls == 3
+    np.testing.assert_allclose(grouped[0], plain[0], rtol=1e-6)
+    _close(grouped[1], plain[1], torch.float32)
