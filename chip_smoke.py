@@ -95,7 +95,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with --kmeans_init and CF embeddings, tokenize --mode rq_vae (collision
    rate 0 after repair), an fp32 RQ-VAE step on the card against the CPU
    (1e-4), and one epoch of train_SMB_decoder on the emitted semantic IDs
-   through the kernels.
+   through the kernels;
+13. the discriminative zoo (`rec_phase`): one epoch of train_SMB_rec for
+   each of SASRec, GRU4Rec, BERT4Rec, MBSTR, MBHT and PBAT from their
+   shipped configs at scripts/train_SMB_rec.sh's geometry (smb_dis,
+   --max_his_len 20, batch 256) on phase 7's sizes with sequential signal,
+   the per-behavior test, --only_test on `best` (metrics within 1e-6), an
+   fp32 step of `best` on the card against the CPU (loss 1e-5, grads 1e-4;
+   ill-conditioned grads against float64), SASRec's sampled eval and a BPR
+   epoch; losses fall, metrics in [0, 1], no launch of a-k (the zoo runs
+   none, as in JAX).
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -2023,6 +2032,299 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------- phase 13
+
+# phase 13: scripts/train_SMB_rec.sh's geometry, each backbone from its
+# shipped config (config/dis-models/<name>, nothing cut), on phase 7's sizes
+# with the sequential signal of scripts/quality_run.py's datasets (a global
+# cluster successor graph, Zipf item popularity): on phase 7's iid data
+# SASRec's and GRU4Rec's losses stay at the uniform floor through their
+# first epoch, in the JAX task too (PERF.md §6)
+PHASE13_SPEC = dict(PHASE7_SPEC, cluster_stickiness=0.6, succ_per_cluster=3, item_pop_alpha=1.0)
+PHASE13_BACKBONES = ("SASRec", "GRU4Rec", "BERT4Rec", "MBSTR", "MBHT", "PBAT")
+PHASE13_ARGS = ("--tasks", "smb_dis", "--max_his_len", "20", "--batch_size", "256",
+                "--learning_rate", "1e-3", "--optim", "adamw")
+REC_LOSS_TOL, REC_GRAD_TOL = 1e-5, 1e-4  # phase 13's fp32 step, card vs CPU
+
+
+def _rel_max(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / float(want.double().abs().max())
+
+
+def grads_agree(got: dict, want: dict, tol: float, reference=None) -> tuple[float, dict]:
+    """Hold grads `got` (name -> tensor) to `want`: max |got - want| / max
+    |want| within `tol` for each parameter. Returns (the worst such error,
+    {name: (got's, want's error against float64)} of the parameters held to
+    the float64 reference instead).
+
+    A parameter whose grad vanishes analytically (an attention's key bias:
+    softmax ignores a shift common to all keys) holds float noise on both
+    sides: it must stay under 1e-6 of the largest grad of all. A parameter
+    whose fp32 grad is ill-conditioned (PBAT's covariance stream: sqrt(c)
+    and 1/c amplify rounding where c is near its floor, so fp32 itself is
+    off the exact grad by more than `tol`) is held to `reference()`, its
+    float64 grads: `got`'s error against them within twice `want`'s."""
+    floor = 1e-6 * max(float(w.abs().max()) for w in want.values())
+    worst, over = 0.0, []
+    for name, w in want.items():
+        g = got[name].float().cpu()
+        if float(w.abs().max()) < floor:
+            assert float(g.abs().max()) < floor, f"{name}: grad {float(g.abs().max())} not ~0"
+            continue
+        err = _rel_max(g, w)
+        if err > tol:
+            over.append(name)
+        else:
+            worst = max(worst, err)
+    held = {}
+    if over:
+        err = _rel_max(got[over[0]], want[over[0]])
+        assert reference is not None, f"{over[0]}: grad err {err:.3e} > {tol}"
+        ref = reference()
+        for name in over:
+            held[name] = (_rel_max(got[name], ref[name]), _rel_max(want[name], ref[name]))
+            assert held[name][0] <= 2 * held[name][1], (
+                f"{name}: grad err against float64 {held[name][0]:.3e} > 2 x the CPU's "
+                f"{held[name][1]:.3e}")
+    return worst, held
+
+
+def random_rec_batch(B: int, L: int, his: int, n_items: int, n_users: int, seed: int) -> dict:
+    """A right-padded train_SMB_rec batch: histories of 1..his items, their
+    behaviors 1..3 (0 = pad), targets, negatives and user ids."""
+    rng = np.random.default_rng(seed)
+    seq_len = rng.integers(1, his + 1, B)
+    real = np.arange(L)[None] < seq_len[:, None]
+    return {"inputs": np.where(real, rng.integers(1, n_items + 1, (B, L)), 0).astype(np.int32),
+            "behaviors": np.where(real, rng.integers(1, 4, (B, L)), 0).astype(np.int32),
+            "seq_len": seq_len.astype(np.int32),
+            "target": rng.integers(1, n_items + 1, B).astype(np.int32),
+            "behavior": rng.integers(0, 3, B).astype(np.int32),
+            "neg_item": rng.integers(1, n_items + 1, B).astype(np.int32),
+            "uid": rng.integers(1, n_users + 1, B).astype(np.int32),
+            "row_valid": np.ones(B, np.int32)}
+
+
+def rec_step_on(backbone: str, out: str, where, batch: dict, n_items: int, n_users: int,
+                seed: int = 0, dtype=None):
+    """One training forward and backward of `out`'s saved `best` model on
+    device `where` (fp32, or `dtype`): (loss, {name: grad on the CPU}). The
+    masked-LM draws and the dropout seeds come from one CPU generator, the
+    same on every device."""
+    import torch
+
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+
+    cfg = DisModelConfig.from_file(out)
+    L = int(batch["inputs"].shape[1])
+    model = TR.build_dis_model(backbone, cfg, n_items, L, cfg.n_behaviors, n_users, where)
+    model.load_state_dict(torch.load(os.path.join(out, "best", "state.pt"), weights_only=True))
+    model.to(dtype or torch.float32)
+    loss = TR.make_dis_loss_fn(backbone, model, cfg)(TR.to_device(batch, where),
+                                                     TR.step_generator(seed, 0))
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def rec_steps_agree(backbone: str, out: str, dev, batch: dict, n_items: int,
+                    n_users: int) -> tuple:
+    """`rec_step_on` on `dev` against the CPU: the loss within REC_LOSS_TOL
+    relative, the grads by `grads_agree` at REC_GRAD_TOL (float64 on the
+    CPU as the reference where fp32 is ill-conditioned). Returns (card
+    loss, CPU loss, loss rel diff, worst grad err, `grads_agree`'s
+    float64-held parameters)."""
+    import torch
+
+    got = rec_step_on(backbone, out, dev, batch, n_items, n_users)
+    want = rec_step_on(backbone, out, torch.device("cpu"), batch, n_items, n_users)
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    assert np.isfinite(want[0]) and rel <= REC_LOSS_TOL, f"{backbone}: step loss rel diff {rel:.3e}"
+    worst, held = grads_agree(got[1], want[1], REC_GRAD_TOL, lambda: rec_step_on(
+        backbone, out, torch.device("cpu"), batch, n_items, n_users, dtype=torch.float64)[1])
+    return got[0], want[0], rel, worst, held
+
+
+@contextlib.contextmanager
+def _recording_rec():
+    """While the block runs, record each train_SMB_rec training step's start
+    time (`tasks/train_smb_rec.train_step`)."""
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+
+    stamps = []
+    step0 = TR.train_step
+
+    def train_step(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        return step0(*args, **kwargs)
+
+    TR.train_step = train_step
+    try:
+        yield stamps
+    finally:
+        TR.train_step = step0
+
+
+def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
+              backbones=PHASE13_BACKBONES, train_args=PHASE13_ARGS, cfg_overrides=None,
+              extra_args=(), min_steps: int = 100, window: int = 20) -> None:
+    """Phase 13: the discriminative zoo through `python -m gamer_tpu_torch
+    train_SMB_rec` in process, on a synthetic dataset of phase 7's sizes
+    with sequential signal (PHASE13_SPEC) at scripts/train_SMB_rec.sh's
+    geometry (smb_dis, --max_his_len 20, batch 256, AdamW lr 1e-3), each
+    backbone from its shipped config. Per backbone:
+    1. one epoch and its per-behavior test; 2. `--only_test` on the saved
+    `best`, whose metrics must equal step 1's within 1e-6; 3. one fp32
+    training forward and backward of `best` on the card against the CPU on
+    the first training batch (TF32 off, the same masked-LM draws and hash
+    dropout seeds), loss within 1e-5 relative, every grad within 1e-4 of
+    its largest (`rec_steps_agree`; where fp32 is ill-conditioned, within
+    twice the CPU's error of a float64 reference). Then SASRec's
+    `--only_test` with `--test_task smb_dis_sample` (1000 sampled
+    negatives) and one epoch of
+    SASRec on smb_dis_neg with loss_type BPR (a config copy). Gates: finite
+    losses at every step, the mean of the last `window` step losses below
+    the mean of the first `window`, metrics in [0, 1], per-behavior test
+    counts equal to the eval builder's rows, and no launch of kernels a-k
+    in the phase (the zoo runs none, as in JAX). Prints per backbone the
+    median step time (host collation included) and sequences/s, the fit's
+    and the `--only_test` run's wall times and the peak device memory.
+    `spec`, the arguments, `cfg_overrides` (applied to every config copy),
+    `extra_args` (e.g. --device cpu) and the counts let a test run it tiny."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.data.contract import DataFiles
+    from gamer_tpu_torch.data.smb import SMBCorpus
+    from gamer_tpu_torch.data.smb_dis import DisBatcher, SMBDisBuilder
+    from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks.train_smb_rec import MASKED_MODELS
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase13_", dir=here)
+    data = os.path.join(root, "data")
+    write_synthetic_dataset(data, "Synth", SyntheticSpec(**spec))
+    cli = lambda argv: main([*argv, *extra_args])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    before = {k: w.launches for k, w in counters.items()}
+    none = {k: 0 for k in counters}
+    his = int(train_args[train_args.index("--max_his_len") + 1])
+    batch_size = int(train_args[train_args.index("--batch_size") + 1])
+    corpus = SMBCorpus(DataFiles(data, "Synth"))
+    builder = SMBDisBuilder(corpus, his)
+    test_rows = [len(builder.filter_by_behavior(builder.build_eval("test"), b))
+                 for b in range(len(corpus.behavior_names))]
+    ds = ["--dataset", "Synth", "--data_path", data]
+
+    def config(backbone, **changes):
+        path = os.path.join(root, "cfg", f"{backbone}{'-' if changes else ''}"
+                            f"{'-'.join(map(str, changes.values()))}")
+        DisModelConfig.from_file(os.path.join(here, "config", "dis-models", backbone)).replace(
+            **(cfg_overrides or {}), **changes).save(path)
+        return path
+
+    def check_test(label, res):
+        for b, name in enumerate(corpus.behavior_names):
+            ms = res["test"][name]
+            assert ms["count"] == test_rows[b], f"{label} {name}: {ms['count']} != {test_rows[b]}"
+            assert all(0.0 <= v <= 1.0 for k, v in ms.items() if k != "count"), (label, ms)
+
+    def fit(label, backbone, cfg_path, args):
+        out = os.path.join(root, label)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _recording_rec() as stamps:
+            t = time.perf_counter()
+            res = cli(["train_SMB_rec", *ds, "--backbone", backbone, "--base_model", cfg_path,
+                       *args, "--epochs", "1", "--output_dir", out,
+                       "--result_dir", os.path.join(out, "results")])
+            sync()
+            fit_s = time.perf_counter() - t
+        losses = res["losses"]
+        assert len(losses) >= min_steps, f"{label}: only {len(losses)} training steps"
+        assert np.isfinite(losses).all(), f"{label}: non-finite losses"
+        first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+        assert last < first, f"{label}: the loss did not fall ({first} -> {last})"
+        check_test(label, res)
+        step_ms = float(np.median(np.diff(stamps))) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        print(f"phase 13 {label} {' '.join(args)}: {len(losses)} steps, loss mean of the first "
+              f"{window} {first:.5f} -> last {window} {last:.5f}; step {step_ms:.3f} ms median "
+              f"with host collation ({batch_size / (step_ms / 1e3):.1f} sequences/s); fit "
+              f"(epoch, valid and test evals) {fit_s:.2f} s; peak memory {peak:.3f} GiB "
+              f"(card {card})", flush=True)
+        return out, res
+
+    try:
+        for backbone in backbones:
+            cfg_path = config(backbone)
+            out, res = fit(backbone, backbone, cfg_path, train_args)
+            print(f"phase 13 {backbone} test " + "; ".join(
+                f"{name} ({ms['count']}): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in ms.items() if k != "count")
+                for name, ms in res["test"].items()), flush=True)
+            # 2. the saved best, reloaded: the same per-behavior metrics
+            t = time.perf_counter()
+            again = cli(["train_SMB_rec", *ds, "--backbone", backbone, "--base_model", cfg_path,
+                         *train_args, "--only_test", "--output_dir", out,
+                         "--result_dir", os.path.join(out, "results")])
+            sync()
+            eval_s = time.perf_counter() - t
+            worst = max(abs(again["test"][n][m] - v) for n, ms in res["test"].items()
+                        for m, v in ms.items())
+            assert worst <= 1e-6, f"{backbone}: --only_test on best differs by {worst}"
+            # 3. one fp32 step of best on the card against the CPU
+            L = his + 1 if backbone == "MBHT" else his
+            b = SMBDisBuilder(corpus, his, add_uid=backbone == "PBAT")
+            train = b.build_train("base", 42)
+            if backbone == "MBHT":
+                train = [e for e in train
+                         if int(e.target_behaviors[0]) == corpus.target_behavior_idx]
+            masked = backbone in MASKED_MODELS
+            batcher = DisBatcher.for_examples(
+                train + b.build_eval("valid", append_mask_slot=masked)
+                + b.build_eval("test", append_mask_slot=masked), seq_len=L)
+            batch = batcher.collate(train[:batch_size])
+            got, want, loss_rel, grad_err, held = rec_steps_agree(
+                backbone, out, dev, batch, b.num_items, len(corpus.users))
+            e64 = [max(e[i] for e in held.values()) if held else 0.0 for i in (0, 1)]
+            print(f"phase 13 {backbone}: --only_test on best {eval_s:.2f} s wall (max metric "
+                  f"diff {worst:.1e}); fp32 step B={len(batch['inputs'])} L={L}, {dev.type} vs "
+                  f"cpu: loss {got:.7f} vs {want:.7f} (rel diff {loss_rel:.3e}, tol "
+                  f"{REC_LOSS_TOL}), worst grad err {grad_err:.3e} (tol {REC_GRAD_TOL}); "
+                  f"{len(held)} parameters over it held to float64 instead (worst error against "
+                  f"it {e64[0]:.3e} on the {dev.type}, {e64[1]:.3e} on the cpu; tol 2x the "
+                  f"cpu's){': ' + ', '.join(sorted(held)) if held else ''}", flush=True)
+            if backbone == "SASRec":
+                t = time.perf_counter()
+                sampled = cli(["train_SMB_rec", *ds, "--backbone", backbone, "--base_model",
+                               cfg_path, *train_args, "--only_test", "--test_task",
+                               "smb_dis_sample", "--output_dir", out,
+                               "--result_dir", os.path.join(root, "sampled")])
+                sync()
+                check_test("SASRec sampled", sampled)
+                print(f"phase 13 SASRec --test_task smb_dis_sample (1000 negatives): "
+                      f"{time.perf_counter() - t:.2f} s wall; " + "; ".join(
+                          f"{n} hit@10 {ms['hit@10']:.4f} ndcg@10 {ms['ndcg@10']:.4f}"
+                          for n, ms in sampled["test"].items()), flush=True)
+
+        # SASRec with BPR on the negative-sampling variant
+        neg = list(train_args)
+        neg[neg.index("--tasks") + 1] = "smb_dis_neg"
+        fit("SASRec-BPR", "SASRec", config("SASRec", loss_type="BPR"), tuple(neg))
+        moved = {k: w.launches - before[k] for k, w in counters.items()}
+        assert moved == none, f"phase 13 launched kernels {moved}: the zoo runs none"
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2154,6 +2456,8 @@ def main() -> int:
     multiprocess_phase(dev, counters, card)
     # 12. the item-tokenizer chain, then the decoder on its semantic IDs
     tokenizer_phase(dev, counters, card)
+    # 13. the discriminative zoo through train_SMB_rec
+    rec_phase(dev, counters, card)
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"

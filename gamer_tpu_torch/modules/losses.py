@@ -1,9 +1,12 @@
-"""Causal-LM losses of the generative models.
+"""Losses of the generative and the discriminative models.
 
-PyTorch counterpart of the causal-LM part of `gamer_tpu/modules/losses.py`:
+PyTorch counterpart of `gamer_tpu/modules/losses.py`. The causal-LM losses:
 temperature-scaled next-token cross-entropy, shift by one, `IGNORE_LABEL`
 targets and batch-padding rows (`row_valid`) excluded, and the valid-target
 count returned as the denominator so callers can form a global token mean.
+The discriminative zoo's: full-softmax CE over candidates, BPR with one
+negative and in-batch InfoNCE (ref: SeqRec/modules/loss/BPR.py:5,
+SeqRec/modules/model_base/seq_model.py:64-82).
 """
 
 from __future__ import annotations
@@ -64,3 +67,45 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, temperature: floa
                    row_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Next-token CE: logits[t] predicts labels[t+1]; mean over valid targets."""
     return causal_lm_loss_with_denom(logits, labels, temperature, row_valid)[0]
+
+
+def sequence_ce_loss(
+    logits: torch.Tensor,  # [B, V] scores over candidates/items
+    targets: torch.Tensor,  # [B] int
+    valid: torch.Tensor | None = None,  # [B] bool
+) -> torch.Tensor:
+    """CE of each row's target under a log-softmax in fp32; the mean over
+    the valid rows (divided by max(valid count, 1))."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[:, None].long())[:, 0]
+    if valid is not None:
+        nll = torch.where(valid, nll, 0.0)
+        return nll.sum() / valid.sum().clamp(min=1)
+    return nll.mean()
+
+
+def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
+             valid: torch.Tensor | None = None, gamma: float = 1e-10) -> torch.Tensor:
+    """-log(gamma + sigmoid(pos - neg)) (ref BPR.py:5-16), averaged as
+    `sequence_ce_loss` does."""
+    loss = -torch.log(gamma + torch.sigmoid(pos_scores - neg_scores))
+    if valid is not None:
+        loss = torch.where(valid, loss, 0.0)
+        return loss.sum() / valid.sum().clamp(min=1)
+    return loss.mean()
+
+
+def info_nce(
+    anchors: torch.Tensor,  # [B, D]
+    positives: torch.Tensor,  # [B, D]
+    temperature: float = 1.0,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """In-batch InfoNCE: anchor i's positive is positives[i], negatives are
+    the rest of the batch."""
+    if normalize:
+        anchors = anchors / (torch.linalg.norm(anchors, dim=-1, keepdim=True) + 1e-8)
+        positives = positives / (torch.linalg.norm(positives, dim=-1, keepdim=True) + 1e-8)
+    sims = anchors @ positives.T / temperature
+    labels = torch.arange(anchors.shape[0], device=anchors.device)
+    return sequence_ce_loss(sims, labels)

@@ -1,6 +1,7 @@
 """Device-time breakdown of the PyTorch/CUDA port's main paths on one GPU.
 
-    python3 scripts/profile_torch_port.py
+    python3 scripts/profile_torch_port.py        # the flagship paths
+    python3 scripts/profile_torch_port.py rec    # the discriminative zoo
 
 Traces, with torch.profiler (CPU + CUDA activities), three steady-state
 iterations of the flagship Qwen3Multi scoring forward (bf16, batch 64 x
@@ -15,6 +16,12 @@ of the attention, MoE and CE kernels (a: `attn_fwd*`; b: `attn_dkv*`,
 `ce_fwd*`; k: `ce_dh*`, `ce_de*`). The split reduce that b (at small batch),
 i and k end with is one kernel by name for all three and is counted in no
 group. Needs CUDA; builds the kernels first.
+
+With `rec` it traces instead three training steps (forward, backward, AdamW
+update; `tasks/train_smb_rec.train_step`) of each discriminative backbone
+at its shipped config and `chip_smoke.py` phase 13's geometry (batch 256 x
+20, 6000 items, 700 users, a random batch, dropout on), fp32, no kernel of
+the port.
 """
 
 from __future__ import annotations
@@ -65,6 +72,34 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
         print(f"  {label}: {ms:.4f} ms/iteration ({100 * ms / busy_ms:.1f}% of device time)")
 
 
+def profile_rec(n_items: int = 6000, n_users: int = 700, batch_size: int = 256,
+                his: int = 20) -> None:
+    """Three training steps of each zoo backbone (see the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    for backbone in cs.PHASE13_BACKBONES:
+        cfg = DisModelConfig.from_file(os.path.join(REPO, "config", "dis-models", backbone))
+        L = his + 1 if backbone == "MBHT" else his
+        if backbone == "MBHT":
+            cfg = cfg.replace(scales=[5, 3, 7])  # train_SMB_rec's adjustment at length 21
+        model = TR.build_dis_model(backbone, cfg, n_items, L, 3, n_users, "cuda")
+        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3, weight_decay=0.0,
+                                             lr_scheduler_type="constant", warmup_ratio=0.0,
+                                             max_grad_norm=0.0), model)
+        loss_fn = TR.make_dis_loss_fn(backbone, model, cfg)
+        batch = TR.to_device(cs.random_rec_batch(batch_size, L, his, n_items, n_users, 0), "cuda")
+        gens = iter(range(1 << 30))
+        _profile(lambda: TR.train_step(model, opt, loss_fn, batch,
+                                       TR.step_generator(0, next(gens))), 3,
+                 f"train step {backbone} fp32 B={batch_size} L={L} items={n_items}", top=8)
+        del model, opt
+
+
 def main() -> int:
     import torch
 
@@ -79,6 +114,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}")
+    if sys.argv[1:] == ["rec"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_rec()
+        return 0
     _build.build()
     cfg = cs.flagship_config()
     batch = cs.make_batch(cfg, 64, 101)

@@ -119,9 +119,9 @@ def test_chip_smoke_train_step_on_cpu():
 def test_data_plane_cli_and_native_are_isolated():
     """The slice's modules (data plane, native collation, checkpoints,
     tasks, the CLI `gamer_tpu_torch.__main__`, the process group, the
-    tokenizer chain) import no JAX, `python -m gamer_tpu_torch` has the ten
-    tasks, and every task that needs a model raises without CUDA unless
-    --device cpu is given."""
+    tokenizer chain, the discriminative zoo) import no JAX, `python -m
+    gamer_tpu_torch` has the eleven tasks, and every task that needs a model
+    raises without CUDA unless --device cpu is given."""
     code = ("import importlib, sys\n"
             "for m in ('gamer_tpu_torch.__main__', 'gamer_tpu_torch.native', "
             "'gamer_tpu_torch.core.checkpoint', 'gamer_tpu_torch.data.batching', "
@@ -130,12 +130,15 @@ def test_data_plane_cli_and_native_are_isolated():
             "'gamer_tpu_torch.core.mesh', 'gamer_tpu_torch.ops.sinkhorn', "
             "'gamer_tpu_torch.ops.kmeans', 'gamer_tpu_torch.models.tokenizer.rqvae', "
             "'gamer_tpu_torch.tasks.rqvae', 'gamer_tpu_torch.tasks.tokenize', "
-            "'gamer_tpu_torch.tasks.semantic_emb', 'gamer_tpu_torch.entry'):\n"
+            "'gamer_tpu_torch.tasks.semantic_emb', 'gamer_tpu_torch.entry', "
+            "'gamer_tpu_torch.modules.transformer', 'gamer_tpu_torch.models.discriminative', "
+            "'gamer_tpu_torch.data.smb_dis', 'gamer_tpu_torch.tasks.train_smb_rec'):\n"
             "    importlib.import_module(m)\n"
             "from gamer_tpu_torch.tasks import task_list\n"
             "assert sorted(task_list) == ['RQVAE', 'SemEmb', 'test_MB_decoder', "
             "'test_SMB_decoder', 'test_SMB_rule', 'test_decoder', 'tokenize', "
-            "'train_MB_decoder', 'train_SMB_decoder', 'train_decoder'], sorted(task_list)\n"
+            "'train_MB_decoder', 'train_SMB_decoder', 'train_SMB_rec', 'train_decoder'], "
+            "sorted(task_list)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gamer_tpu'))\n"
             "assert not bad, bad\n"
@@ -151,7 +154,8 @@ def test_data_plane_cli_and_native_are_isolated():
 
     common = ["--dataset", "Demo", "--data_path", "unused"]
     for task in ("train_SMB_decoder", "test_SMB_decoder", "test_SMB_rule", "train_decoder",
-                 "test_decoder", "train_MB_decoder", "test_MB_decoder", "RQVAE"):
+                 "test_decoder", "train_MB_decoder", "test_MB_decoder", "RQVAE",
+                 "train_SMB_rec"):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([task, *common])
 
@@ -284,3 +288,21 @@ def test_chip_smoke_tokenizer_phase_on_cpu():
                     "--n_layers", "2", "--hidden_size", "16"),
         extra_args=("--device", "cpu"), min_steps=2)
     assert not any(name.startswith("phase12_") for name in os.listdir(REPO))
+
+
+def test_chip_smoke_rec_phase_on_cpu():
+    """Phase 13 of chip_smoke.py (train_SMB_rec for each backbone of the
+    discriminative zoo, --only_test on best, the card-vs-CPU step, the
+    sampled eval, the BPR epoch, with their gates) at a tiny size on the
+    CPU."""
+    import chip_smoke as cs
+
+    spec = dict(n_users=60, n_items=30, n_clusters=3, num_levels=2, level_sizes=(8, 10),
+                min_len=20, max_len=40, seed=3)
+    cs.rec_phase(torch.device("cpu"), _counters(), "cpu", spec=spec,
+                 train_args=("--tasks", "smb_dis", "--max_his_len", "6", "--batch_size", "8",
+                             "--learning_rate", "1e-2", "--optim", "adamw"),
+                 cfg_overrides=dict(n_layers=1, hidden_size=16, inner_size=32,
+                                    embedding_size=16),
+                 extra_args=("--device", "cpu"), min_steps=40, window=10)
+    assert not any(name.startswith("phase13_") for name in os.listdir(REPO))

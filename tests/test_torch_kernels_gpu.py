@@ -778,3 +778,32 @@ def test_one_process_nccl_trainer_matches_ungrouped(dev):
     assert distributed.all_reduce_flat.calls - calls == 3
     np.testing.assert_allclose(grouped[0], plain[0], rtol=1e-6)
     _close(grouped[1], plain[1], torch.float32)
+
+
+@pytest.mark.parametrize("backbone", ["SASRec", "GRU4Rec", "BERT4Rec", "MBSTR", "MBHT", "PBAT"])
+def test_discriminative_step_card_matches_cpu(dev, backbone, tmp_path):
+    """One fp32 training forward and backward of each zoo backbone at its
+    shipped config (dropout on, masked-LM draws and hash-dropout seeds
+    from one CPU generator) on the card against the CPU: loss within 1e-5
+    relative, every grad within 1e-4 of its largest (chip_smoke phase 13's
+    check, `chip_smoke.rec_steps_agree`: where fp32 is ill-conditioned,
+    PBAT's covariance stream, within twice the CPU's error of a float64
+    reference)."""
+    import os
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.core.checkpoint import CheckpointManager
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    n_items, n_users, his = 700, 50, 20
+    L = his + 1 if backbone == "MBHT" else his
+    cfg = DisModelConfig.from_file(os.path.join(repo, "config", "dis-models", backbone))
+    if backbone == "MBHT":
+        cfg = cfg.replace(scales=[5, 3, 7])  # the task's adjustment at length 21
+    cfg.save(str(tmp_path))
+    model = TR.build_dis_model(backbone, cfg, n_items, L, 3, n_users, "cpu", seed=4)
+    CheckpointManager(str(tmp_path)).save("best", model.state_dict())
+    batch = cs.random_rec_batch(64, L, his, n_items, n_users, seed=5)
+    cs.rec_steps_agree(backbone, str(tmp_path), dev, batch, n_items, n_users)
