@@ -54,7 +54,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the flagship widths (`task_phase`): a synthetic dataset from the port's
    generator, one bf16 epoch of train_SMB_decoder at batch 64 (per-step
    launches as in phase 5, the C++ collation, the saved checkpoints, the
-   reloaded "best" giving the best eval loss), test_SMB_decoder with 20
+   reloaded "best" giving the best eval loss; the same epoch again from the
+   same data and seed giving every step loss and the best valid loss bit
+   for bit), test_SMB_decoder with 20
    beams and test_SMB_rule; prints the step time with host collation, the
    eval's wall time and beams/s, and the metrics;
 8. the multi- and single-behavior pipelines through the CLI at the
@@ -70,8 +72,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Qwen3Multi bf16 at B 64 x S 505 and B 16 x S 8190, each of remat off,
    full, attn and dots for a warm-up and a timed `Trainer` step: launches
    per step (a 12/24/12/24, h 8/16/16/16, b 12, i 8, j 1, k 1), the loss
-   and a third step's grads bit-identical to remat off under PyTorch's
-   deterministic algorithms, peak memory full < attn, dots < off, and
+   and a third step's grads bit-identical to remat off, two remat-off passes
+   bit-identical (PyTorch's default algorithms), peak memory full < attn,
+   dots < off, and
    `train/memory.py`'s estimate within [1, 1.3] x the remat-off peak; then
    the automatic choice at B 64 x S 8190 takes one step within 70% of the
    card's memory;
@@ -84,7 +87,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    none, as in JAX).
 11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
    train_SMB_decoder in a one-process NCCL group against the same run
-   ungrouped (deterministic algorithms; launches as phase 5, one gradient
+   ungrouped (launches as phase 5, one gradient
    all-reduce a step, losses within 1e-6); two processes sharing the card
    over gloo, 4 fp32 steps at a global batch of 16 x S 505 with dropout 0.2
    against one process (losses 1e-5, parameters 1e-4, the processes'
@@ -101,16 +104,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    shipped configs at scripts/train_SMB_rec.sh's geometry (smb_dis,
    --max_his_len 20, batch 256) on phase 7's sizes with sequential signal,
    the per-behavior test, --only_test on `best` (metrics within 1e-6), an
-   fp32 step of `best` on the card against the CPU (loss 1e-5, grads 1e-4;
+   fp32 step of `best` on the card twice (embedding table grads
+   bit-identical) and against the CPU (loss 1e-5, grads 1e-4;
    ill-conditioned grads against float64), SASRec's sampled eval and a BPR
    epoch; losses fall, metrics in [0, 1], no launch of a-k (the zoo runs
    none, as in JAX).
+14. the model axis (`model_axis_phase`, `core/mesh.py`): two gloo processes
+   sharing the card at data 1 x model 2 (the flagship's experts 3 / 3, its
+   vocab padded to 1152 rows, 576 / 576) against one process with the
+   whole model: 4 fp32 steps at a global batch of 16 x S 505, dropout 0.2
+   (losses 1e-5, gathered parameters 1e-4, the ranks' parameters
+   bit-identical); one bf16 step at B 64 x S 505 on each rank (launches a
+   12, b 12, h 8, i 8, j 1, k 1, 20 model-group collectives, their time);
+   the 20-beam search of phase 4's geometry in fp32 (codes equal, scores
+   1e-4); then h/i at P 2 and 3 and j/k at V 576 and 465 timed.
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 `python3 chip_smoke.py --mp-steps <dir> <device> <spec>` is one worker
-process of phase 11 (started by the script itself).
+process of phase 11 and `--model-axis <dir> <device> <spec>` one of phase
+14 (started by the script itself).
 """
 
 from __future__ import annotations
@@ -854,6 +868,16 @@ def _step_grads(model, loss_fn, batch, seed: int):
     return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
 
 
+def tables_reproduce(label: str, first: dict, second: dict, tables) -> None:
+    """The grads of the embedding `tables` of two training passes on one
+    batch with the same seeds are equal bit for bit (`modules/layers.lookup`)."""
+    differ = [n for n in tables if not np.array_equal(np.asarray(first[n]), np.asarray(second[n]))]
+    print(f"{label}: one step's grads twice, {len(tables) - len(differ)} of {len(tables)} "
+          f"embedding tables bit-identical{': differ ' + ', '.join(differ) if differ else ''}",
+          flush=True)
+    assert not differ, f"{label}: two passes of one step differ in {differ}"
+
+
 def _paths_agree(label: str, cfg, batch, dev, seed: int, counters: dict,
                  expected: dict, plain_remat: bool = False, loss_tol: float = STEP_LOSS_TOL,
                  grad_tol: float = STEP_GRAD_TOL) -> tuple[float, float, str]:
@@ -1082,11 +1106,13 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     common = ["--dataset", "Synth", "--data_path", data, "--max_his_len", "100"]
+    train = lambda out: cli(["train_SMB_decoder", *common, "--tasks", "smb_explicit_decoder_4",
+                             "--base_model", os.path.join(here, "config", "s2s-models",
+                                                          "Qwen3Multi"),
+                             *train_args, "--epochs", "1", "--output_dir", out])
     with _recording(counters) as rec:
         t = time.perf_counter()
-        res = cli(["train_SMB_decoder", *common, "--tasks", "smb_explicit_decoder_4",
-                   "--base_model", os.path.join(here, "config", "s2s-models", "Qwen3Multi"),
-                   *train_args, "--epochs", "1", "--output_dir", out])
+        res = train(out)
         sync()
         fit_s = time.perf_counter() - t
     steps = rec["steps"]
@@ -1105,6 +1131,16 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
           f"{step_ms:.3f} ms median with host collation ({64 / (step_ms / 1e3):.1f} "
           f"sequences/s; phase 5 random-batch step {phase5_ms:.3f} ms); fit {fit_s:.1f} s; "
           f"native collation {native.AVAILABLE} (card {card})", flush=True)
+
+    # the same run again from the same data and seed: bit-identical
+    with _recording(counters) as again:
+        res2 = train(os.path.join(root, "again"))
+    first, second = ([float(x) for x in r["losses"]] for r in (rec, again))
+    same = sum(a == b for a, b in zip(first, second))
+    print(f"phase 7 second run of one tree: {same} of {len(first)} step losses bit-identical, "
+          f"best valid loss {res2['best_metric']!r} vs {res['best_metric']!r}", flush=True)
+    assert first == second and res2["best_metric"] == res["best_metric"], (
+        "two runs of train_SMB_decoder from one seed differ")
 
     # the model reloaded from "best" gives the in-memory best eval loss
     d = load_smb_train("Synth", data, 100, ".index.json", "smb_explicit_decoder_4")
@@ -1296,30 +1332,10 @@ def _remat_launches(cfg, policy) -> dict:
     return launches
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """PyTorch's deterministic algorithms while the block runs. Its default
-    CUDA embedding backward accumulates with atomics, so two remat-off steps
-    already differ in the grads of the small cross-attention behavior
-    embeddings (phase 9 prints by how much); every kernel of the port is
-    deterministic either way."""
-    import warnings
-
-    import torch
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def _remat_step(cfg, batch, dev, counters: dict, expected: dict, seed: int = 0):
     """Two `Trainer` steps (a warm-up, then a timed one with the peak memory
-    reset just before) and the grads of a third forward and backward (under
-    `deterministic_algorithms`), on a model of `cfg` from `seed`. Returns
+    reset just before) and the grads of a third forward and backward, on a
+    model of `cfg` from `seed`. Returns
     (timed loss, grads, ms, peak bytes over what was allocated before the
     model, the timed step's launches)."""
     import torch
@@ -1350,17 +1366,17 @@ def _remat_step(cfg, batch, dev, counters: dict, expected: dict, seed: int = 0):
     launches = {name: w.launches for name, w in counters.items()}
     assert launches == expected, f"remat {cfg.remat_policy if cfg.remat else 'off'}: " \
                                  f"launches {launches}, expected {expected}"
-    with deterministic_algorithms():
-        _, grads = _step_grads(model, make_loss_fn(model, cfg, deterministic=False), batch,
-                               seed + 1)
-        grads = {n: g.detach().clone() for n, g in grads.items()}
+    _, grads = _step_grads(model, make_loss_fn(model, cfg, deterministic=False), batch, seed + 1)
+    grads = {n: g.detach().clone() for n, g in grads.items()}
     del trainer, model
     return loss.detach(), grads, ms, peak, launches
 
 
-def _default_algorithms_spread(cfg, batch, dev) -> None:
-    """Two remat-off steps of one model with PyTorch's default algorithms:
-    which grads differ, and by how much (see `deterministic_algorithms`)."""
+def _two_passes_agree(cfg, batch, dev) -> None:
+    """Two remat-off forward and backward passes of one model on one batch
+    with the same dropout seeds give the same grads bit for bit (PyTorch's
+    default algorithms; the port's lookups sum in a fixed order,
+    `modules/layers.lookup`)."""
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
 
@@ -1370,9 +1386,10 @@ def _default_algorithms_spread(cfg, batch, dev) -> None:
     second = _step_grads(model, loss_fn, batch, 1)[1]
     differ = sorted(((_rel_err(second[n], g)[1], n) for n, g in first.items()
                      if not (second[n] == g).all()), reverse=True)
-    print(f"phase 9 default algorithms: two remat-off steps differ in {len(differ)} of "
-          f"{len(first)} grads, worst {differ[0][0] if differ else 0.0:.3e} relative "
+    print(f"phase 9 two remat-off passes: {len(differ)} of {len(first)} grads differ, worst "
+          f"{differ[0][0] if differ else 0.0:.3e} relative "
           f"({', '.join(n for _, n in differ[:3])})", flush=True)
+    assert not differ, "two passes of one step differ"
     del model
 
 
@@ -1382,9 +1399,9 @@ def remat_phase(dev, counters: dict, card: str, cfg=None,
     Qwen3Multi (bf16, dropout 0.2) through `Trainer`. At each calibration
     geometry (B 64 x S 505 and B 16 x S 8190, 1638 blocks) each policy (off,
     full, attn, dots) takes a warm-up and a timed step: per-step launches as
-    `_remat_launches`, the timed loss and a third step's grads (PyTorch's
-    deterministic algorithms) bit-identical to remat off's (where not,
-    within phase 5's fp32 limits at B 16 x S 505),
+    `_remat_launches`, the timed loss and a third step's grads
+    bit-identical to remat off's (where not, within phase 5's fp32 limits
+    at B 16 x S 505), two remat-off passes bit-identical,
     peak memory full < attn, dots < off, and `train/memory.py`'s estimate at
     least the remat-off peak and at most 1.3x it. Then the automatic choice
     at B 64 x S 8190 (`auto_remat_overrides`) takes one step within
@@ -1414,7 +1431,7 @@ def remat_phase(dev, counters: dict, card: str, cfg=None,
                                                      for n, g in grads0.items())
             print(f"phase 9 remat {name} B={B} S={S}: step {ms:.3f} ms, peak "
                   f"{gib(peak):.3f} GiB, launches {launches}, loss {float(loss):.7f}, "
-                  f"loss and grads (deterministic algorithms) bit-identical to remat off: "
+                  f"loss and grads bit-identical to remat off: "
                   f"{exact} (card {card})", flush=True)
             if not exact:  # hold it in fp32 to phase 5's limits
                 cfg32 = cfg.replace(dtype="float32")
@@ -1442,8 +1459,8 @@ def remat_phase(dev, counters: dict, card: str, cfg=None,
             assert 1.0 <= ratio <= 1.3, f"the estimate is {ratio:.3f}x the measured peak"
         results[(B, S)] = {name: run[2:] for name, run in runs.items()}
         del runs, loss0, grads0
-        if cuda and (B, blocks) == geometries[0]:
-            _default_algorithms_spread(cfg, batch, dev)
+        if (B, blocks) == geometries[0]:
+            _two_passes_agree(cfg, batch, dev)
 
     B, blocks = auto
     S = blocks * cfg.num_positions
@@ -1589,6 +1606,18 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
               f"{cfg.sparse_layers_encoder}/{cfg.sparse_layers_decoder}", flush=True)
         assert rel <= 1e-6, f"{label}: the reloaded checkpoint does not give the best eval loss"
 
+        # one step's grads of the embedding tables, twice
+        first = batcher.collate(train[:batch])
+        tables = [f"{n}.weight" for n, m in model.named_modules()
+                  if isinstance(m, torch.nn.Embedding)]
+        passes = []
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            encdec_loss_fn(model, cfg, deterministic=False)(
+                first, torch.Generator().manual_seed(7))[0].backward()
+            passes.append({n: model.get_parameter(n).grad.cpu() for n in tables})
+        tables_reproduce(f"phase 10 {label}", *passes, tables)
+
         # a direct search over the first test rows: code paths in the trie
         trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
         rows = test[:128]
@@ -1690,13 +1719,14 @@ def _mp_batches(cfg, steps: int, rows: int, blocks: int) -> list[dict]:
     return batches
 
 
-def mp_steps(cfg, batches: list[dict], dev) -> dict:
+def mp_steps(cfg, batches: list[dict], dev, ctx=None) -> dict:
     """`Trainer` steps (SGD, one update a step) of a model of `cfg` from seed
     0, each on this process's rows of a global batch of `batches` (all of
-    them without a group): the losses, each step's host time, the final
-    parameters as one flat fp32 vector, and under a group the time of the
-    gradient all-reduce (one flat fp32 buffer of the parameters' size,
-    median of 5 after the steps)."""
+    them without a group; on a mesh `ctx`, its data index's rows, with the
+    model sharded on its model axis): the losses, each step's host time,
+    the final parameters (whole) as one flat fp32 vector, and under a group
+    without a model axis the time of the gradient all-reduce (one flat fp32
+    buffer of the parameters' size, median of 5 after the steps)."""
     import torch
 
     from gamer_tpu_torch.core import distributed
@@ -1707,6 +1737,9 @@ def mp_steps(cfg, batches: list[dict], dev) -> dict:
 
     n, r = distributed.process_count(), distributed.process_index()
     model = QwenFamilyModel(cfg, device=dev, seed=0)
+    if ctx is not None:
+        n, r = ctx.n_data, ctx.data_index
+        ctx.shard_params(model)
     # SGD: the parameters move by lr x the summed grads; Adam would turn the
     # last bits of near-zero grads (rare tokens' embedding rows) into steps of lr
     trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
@@ -1722,9 +1755,9 @@ def mp_steps(cfg, batches: list[dict], dev) -> dict:
                                                 for k, v in b.items()})))
         sync()
         step_ms.append((time.perf_counter() - t) * 1e3)
-    params = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+    params = torch.cat([p.detach().float().reshape(-1) for p in trainer.model_state().values()])
     reduce_ms = []
-    if distributed.is_initialized():
+    if distributed.is_initialized() and ctx is None:
         for _ in range(6):
             buf = params.clone()
             sync()
@@ -1765,8 +1798,8 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     flagship widths.
 
     a. train_SMB_decoder (phase 7's run) in a one-process group (NCCL on the
-       card) against the same run ungrouped, both under deterministic
-       algorithms: each step's launches those of phase 5, one gradient
+       card) against the same run ungrouped: each step's launches those of
+       phase 5, one gradient
        all-reduce a step, every step's loss within 1e-6 relative.
     b. Two processes on the one card over gloo (NCCL refuses two ranks on
        one device; gloo stages the card's tensors through the host): 4 fp32
@@ -1806,18 +1839,17 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
 
     # a. one-process group against ungrouped
     runs = {}
-    with deterministic_algorithms():
-        for grouped in (False, True):
-            out = os.path.join(root, "grouped" if grouped else "plain")
-            calls = distributed.all_reduce_flat.calls
-            with contextlib.ExitStack() as stack:
-                if grouped:
-                    stack.enter_context(_group_env(1, 0, _free_port()))
-                rec = stack.enter_context(_recording(counters))
-                cli([*train, "--output_dir", out])
-                sync()
-                assert distributed.is_initialized() == grouped, "the task did not join its group"
-            runs[grouped] = (rec, distributed.all_reduce_flat.calls - calls, out)
+    for grouped in (False, True):
+        out = os.path.join(root, "grouped" if grouped else "plain")
+        calls = distributed.all_reduce_flat.calls
+        with contextlib.ExitStack() as stack:
+            if grouped:
+                stack.enter_context(_group_env(1, 0, _free_port()))
+            rec = stack.enter_context(_recording(counters))
+            cli([*train, "--output_dir", out])
+            sync()
+            assert distributed.is_initialized() == grouped, "the task did not join its group"
+        runs[grouped] = (rec, distributed.all_reduce_flat.calls - calls, out)
     (plain, _, _), (rec, reductions, out) = runs[False], runs[True]
     expected = (_step_launches(QwenFamilyConfig.from_file(out)) if cuda
                 else {k: 0 for k in counters})
@@ -1831,7 +1863,7 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
           f"{len(a)} steps, {reductions} gradient all-reduces, launches each step {rec['steps'][0]}; "
           f"losses vs ungrouped: worst rel diff {rel:.3e} (tol 1e-6), first {a[0]:.7f} / "
           f"{b[0]:.7f}, last {a[-1]:.7f} / {b[-1]:.7f}; step {step_ms[1]:.3f} ms grouped, "
-          f"{step_ms[0]:.3f} ms ungrouped (median, host collation, deterministic algorithms; "
+          f"{step_ms[0]:.3f} ms ungrouped (median, host collation; "
           f"card {card})", flush=True)
     assert np.isfinite(a).all() and rel <= 1e-6, "grouped losses differ from ungrouped"
 
@@ -2124,12 +2156,15 @@ def rec_step_on(backbone: str, out: str, where, batch: dict, n_items: int, n_use
     loss = TR.make_dis_loss_fn(backbone, model, cfg)(TR.to_device(batch, where),
                                                      TR.step_generator(seed, 0))
     loss.backward()
-    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    tables = [f"{n}.weight" for n, m in model.named_modules() if isinstance(m, torch.nn.Embedding)]
+    return (float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            tables)
 
 
 def rec_steps_agree(backbone: str, out: str, dev, batch: dict, n_items: int,
                     n_users: int) -> tuple:
-    """`rec_step_on` on `dev` against the CPU: the loss within REC_LOSS_TOL
+    """`rec_step_on` on `dev` twice (the embedding tables' grads
+    bit-identical), then against the CPU: the loss within REC_LOSS_TOL
     relative, the grads by `grads_agree` at REC_GRAD_TOL (float64 on the
     CPU as the reference where fp32 is ill-conditioned). Returns (card
     loss, CPU loss, loss rel diff, worst grad err, `grads_agree`'s
@@ -2137,6 +2172,8 @@ def rec_steps_agree(backbone: str, out: str, dev, batch: dict, n_items: int,
     import torch
 
     got = rec_step_on(backbone, out, dev, batch, n_items, n_users)
+    again = rec_step_on(backbone, out, dev, batch, n_items, n_users)
+    tables_reproduce(f"phase 13 {backbone} on the {dev.type}", got[1], again[1], got[2])
     want = rec_step_on(backbone, out, torch.device("cpu"), batch, n_items, n_users)
     rel = abs(got[0] - want[0]) / abs(want[0])
     assert np.isfinite(want[0]) and rel <= REC_LOSS_TOL, f"{backbone}: step loss rel diff {rel:.3e}"
@@ -2325,6 +2362,271 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     print(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------- phase 14
+
+# phase 14: a. phase 11b's 4 fp32 steps (global batch 16 x 101 blocks, dropout
+# 0.2); b. phase 5's bf16 step (B 64 x 101 blocks); c. phase 4's search
+# (batch 128, 20 beams, 4096 items, prompts of 100 blocks) in fp32; the
+# flagship widths, at data 1 x model 2
+PHASE14 = dict(steps=PHASE11_STEPS, step16=dict(cfg=dict(dropout_rate=DROP_RATE),
+                                                 geometry=(64, 101)),
+               search=dict(cfg=dict(dtype="float32"),
+                           geometry=(BEAM_BATCH, NUM_BEAMS, N_ITEMS, PROMPT_BLOCKS)),
+               model=2)
+
+
+def kernel_counters() -> dict:
+    """The kernel wrappers whose `.launches` count the launches of a-k."""
+    from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    return {"fused_mask_attention": FA.fused_mask_attention,
+            "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
+            "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+
+
+def model_collectives(cfg, n_model: int) -> int:
+    """The model-group collectives of one training step (remat off, one
+    update), as the design places them: the token table's lookup sums the
+    ranks' rows (1); each sparse layer whose experts split sums the ranks'
+    outputs forward and their input grads backward (2 each); the CE gathers
+    (lse, target logit) forward and sums dh backward (2); the clip norm sums
+    the split parameters' squares (1)."""
+    split = cfg.total_experts % n_model == 0
+    return 1 + 2 * len(cfg.sparse_layers) * split + 2 + 1
+
+
+def _model_axis_config(overrides: dict, n_model: int):
+    """The flagship config of `overrides` with its vocab padded to a
+    multiple of lcm(128, n_model), as train_SMB_decoder pads it."""
+    import math
+
+    from gamer_tpu_torch.core.mesh import pad_to_multiple
+
+    cfg = flagship_config(**overrides)
+    return cfg.replace(padded_vocab_size=pad_to_multiple(cfg.vocab_size,
+                                                         math.lcm(128, n_model)))
+
+
+def model_axis_run(dev, spec: dict, ctx=None) -> dict:
+    """Phase 14's runs in this process, sharded on `ctx`'s model axis (or
+    whole without it): a. `mp_steps`; b. (sharded only) a warm-up and a
+    timed bf16 `Trainer` step: its launches of a-k, its model-group
+    collectives and their time; c. the search: codes and scores."""
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    n_model = spec["model"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    shard = (lambda m: ctx.shard_params(m)) if ctx is not None else (lambda m: m)
+    cfg = _model_axis_config(spec["steps"]["cfg"], n_model)
+    out = {"steps": mp_steps(cfg, _mp_batches(cfg, *spec["steps"]["geometry"]), dev, ctx)}
+
+    if ctx is not None:
+        cfg = _model_axis_config(spec["step16"]["cfg"], n_model)
+        model = shard(QwenFamilyModel(cfg, device=dev, seed=0))
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                          OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
+                                          total_steps=10), TrainLoopConfig(seed=0))
+        B, blocks = spec["step16"]["geometry"]
+        batch = make_batch(cfg, B, blocks)
+        trainer.train_step(batch)  # warm-up
+        sync()
+        counters = kernel_counters()
+        for w in counters.values():
+            w.launches = 0
+        calls, seconds = distributed.model_all_reduce.calls, distributed.model_all_reduce.seconds
+        t = time.perf_counter()
+        loss = float(trainer.train_step(batch))
+        sync()
+        out["step16"] = dict(
+            loss=loss, ms=(time.perf_counter() - t) * 1e3,
+            launches={k: w.launches for k, w in counters.items()},
+            collectives=distributed.model_all_reduce.calls - calls,
+            collective_ms=(distributed.model_all_reduce.seconds - seconds) * 1e3,
+            expected=model_collectives(cfg, n_model), expected_launches=_step_launches(cfg),
+            block=(tuple(model.embed_tokens.weight.shape), tuple(model.lm_table().shape),
+                   tuple(model.layers[0].mlp.experts_gate.shape)))
+        del trainer, model
+
+    cfg = _model_axis_config(spec["search"]["cfg"], n_model)
+    B, K, n_items, blocks = spec["search"]["geometry"]
+    model = shard(QwenFamilyModel(cfg, device=dev, seed=0))
+    trie, pbatch, beh_ids = make_trie_and_prompts(cfg, B, n_items, LEVELS, LEVEL_SIZE, blocks)
+    search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=K))
+    t = time.perf_counter()
+    codes, scores = search(pbatch, beh_ids)
+    sync()
+    out["search"] = dict(codes=codes.cpu(), scores=scores.float().cpu(),
+                         s=time.perf_counter() - t)
+    return out
+
+
+def _model_axis_worker(out: str, device: str, spec_json: str) -> None:
+    """A process of phase 14: joins its group, runs `model_axis_run` on a
+    data 1 x model n mesh and saves the result as out/rank<r>.pt."""
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core.mesh import MeshContext, default_mesh
+
+    spec = json.loads(spec_json)
+    distributed.maybe_initialize(device=device)
+    try:
+        ctx = MeshContext(default_mesh(data=1, model=spec["model"]), device=device)
+        res = model_axis_run(torch.device(device), spec, ctx)
+        torch.save(res, os.path.join(out, f"rank{distributed.process_index()}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def _local_kernel_times(dev, card: str) -> None:
+    """Phase 14d: kernels h and i on a rank's experts (P 2 and 3 of the
+    flagship's 5) and j and k on a rank's vocab rows (576 and 465 of 1041,
+    the targets shifted by the rank's first row), bf16 at the flagship
+    shapes, beside the whole-model shapes; CUDA events over 10 launches."""
+    import torch
+
+    from gamer_tpu_torch.ops import fused_ce as FC
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rnd = lambda *shape: (torch.randn(shape, generator=g, device=dev) * 0.05).bfloat16()
+    T, D, F = 64 * 101, 256, 512
+    for P in (5, 3, 2):
+        xp, wgu, down, btab = rnd(P, T, D), rnd(P, D, 2 * F), rnd(P, F, D), rnd(P, 4, 2 * F)
+        beh = torch.randint(0, 4, (P, T), generator=g, device=dev, dtype=torch.int32)
+        gout = rnd(P, T, D)
+        args = (xp, wgu, down, btab, beh)
+        with torch.no_grad():
+            fwd = _cuda_ms(lambda: FM.fused_moe_ffn(*args, DROP_SEED, "silu", DROP_RATE, True))
+        bwd = _cuda_ms(lambda: FM.fused_moe_ffn_bwd(*args, gout, DROP_SEED, DROP_RATE, True))
+        weights = wgu.numel() + down.numel() + btab.numel()  # phase 2 and 2b's counts
+        hb = _bound_ms(2 * (xp.numel() + weights + gout.numel()) + 4 * beh.numel(),
+                       2.0 * P * T * (D * 2 * F + F * D))
+        ib = _bound_ms(2 * 2 * (xp.numel() + weights) + 2 * 2 * gout.numel() + 4 * beh.numel(),
+                       2.0 * P * T * (3 * D * 2 * F + 2 * F * D))
+        plain = _cuda_ms(lambda: FM.fused_moe_ffn_plain(*args, True, DROP_SEED, DROP_RATE),
+                         iters=3)
+        print(f"phase 14d MoE P={P} T={T} D={D} F={F} bf16: h {fwd:.4f} ms (bound "
+              f"{hb[0]:.4f} ms by {hb[1]}, {100 * hb[0] / fwd:.1f}%; plain {plain:.4f} ms), "
+              f"i {bwd:.4f} ms (bound {ib[0]:.4f} ms by {ib[1]}, {100 * ib[0] / bwd:.1f}%) "
+              f"(card {card})", flush=True)
+    N, inv_t = 64 * 504, 1.0
+    h = rnd(N, D)
+    targets = torch.randint(0, 1041, (N,), generator=g, device=dev, dtype=torch.int32)
+    valid = torch.ones(N, dtype=torch.int32, device=dev)
+    for V, v0 in ((1041, 0), (576, 0), (465, 576)):
+        table = rnd(V, D)
+        shifted = targets - v0
+        fwd = _cuda_ms(lambda: FC.ce_rows_fwd(h, table, shifted, valid, inv_t))
+        _, lse = FC.ce_rows_fwd(h, table, shifted, valid, inv_t)
+        gnll = torch.ones(N, device=dev)
+        bwd = _cuda_ms(lambda: FC.fused_ce_rows_bwd(h, table, shifted, valid, lse, gnll, inv_t))
+        jb = _bound_ms(2 * (h.numel() + table.numel()) + 4 * (2 * N) + 4 * (2 * N),
+                       2.0 * N * V * D)
+        kb = _bound_ms(2 * 2 * (h.numel() + table.numel()) + 4 * 4 * N, 3 * 2.0 * N * V * D)
+        plain = _cuda_ms(lambda: FC.fused_ce_rows_plain(h, table, shifted, valid, inv_t),
+                         iters=3)
+        lib = _cuda_ms(lambda: torch.logsumexp((h @ table.T).float(), dim=-1))
+        print(f"phase 14d CE N={N} V={V} (targets shifted by {v0}) D={D} bf16: j {fwd:.4f} ms "
+              f"(bound {jb[0]:.4f} ms by {jb[1]}, {100 * jb[0] / fwd:.1f}%; plain {plain:.4f} "
+              f"ms, matmul+logsumexp {lib:.4f} ms), k {bwd:.4f} ms "
+              f"(bound {kb[0]:.4f} ms by {kb[1]}, {100 * kb[0] / bwd:.1f}%) (card {card})",
+              flush=True)
+
+
+def model_axis_phase(dev, counters: dict, card: str, spec: dict = PHASE14) -> None:
+    """Phase 14: the model axis (`core/mesh.py`): two gloo processes sharing
+    the card at data 1 x model 2, the flagship's experts split 3 / 3 (each
+    rank's periodic pass over P 2 / 3 positions) and its padded vocab of
+    1152 rows 576 / 576 (real 576 / 465), against this process with the
+    whole model:
+    a. `mp_steps` (phase 11b's steps): losses within 1e-5 relative, the
+       gathered parameters within 1e-4 of their largest, the two ranks'
+       (gathered and replicated) parameters bit-identical;
+    b. one bf16 step at B 64 x S 505 on each rank: launches a 12, b 12,
+       h 8, i 8, j 1, k 1, model-group collectives `model_collectives`
+       (20); prints their time;
+    c. the 20-beam search at phase 4's geometry (fp32): codes equal to one
+       process's, scores within 1e-4;
+    d. the kernels at the ranks' local shapes (CUDA only).
+    `spec` lets a test run it tiny."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase14_", dir=here)
+    cuda = dev.type == "cuda"
+    n = spec["model"]
+    worker = [os.path.abspath(__file__), "--model-axis", root, "cuda" if cuda else "cpu",
+              json.dumps(spec)]
+    t = time.perf_counter()
+    distributed.spawn_local([worker] * n, backend="gloo", timeout_s=MP_TIMEOUT_S)
+    workers_s = time.perf_counter() - t
+    res = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True) for r in range(n)]
+    one = model_axis_run(dev, spec)
+
+    # a. training steps against one process
+    a, ref = res[0]["steps"], one["steps"]
+    assert all(torch.equal(r["steps"]["params"], a["params"]) for r in res), (
+        "the ranks' parameters differ")
+    loss_rel = float(np.max(np.abs(np.subtract(a["losses"], ref["losses"]))
+                            / np.abs(ref["losses"])))
+    par_rel = float((a["params"] - ref["params"]).abs().max() / ref["params"].abs().max())
+    rows, blocks = spec["steps"]["geometry"][1:]
+    print(f"phase 14a data 1 x model {n}, {n} gloo processes on one {dev.type}, fp32 B={rows} "
+          f"S={blocks * 5} dropout {spec['steps']['cfg'].get('dropout_rate')}, "
+          f"{len(ref['losses'])} SGD steps: losses {[round(x, 6) for x in a['losses']]} vs one "
+          f"process {[round(x, 6) for x in ref['losses']]}, worst rel diff {loss_rel:.3e} (tol "
+          f"1e-5); parameters rel err {par_rel:.3e} (tol 1e-4), bit-identical across the ranks; "
+          f"steps {[round(x, 1) for x in a['step_ms']]} ms on rank 0, "
+          f"{[round(x, 1) for x in ref['step_ms']]} ms one process (card {card})", flush=True)
+    assert loss_rel <= 1e-5 and par_rel <= 1e-4, "the sharded steps differ from one process"
+
+    # b. launches and collectives of a sharded bf16 step on each rank
+    for r, rr in enumerate(res):
+        st = rr["step16"]
+        expected = st["expected_launches"] if cuda else {k: 0 for k in counters}
+        print(f"phase 14b rank {r} bf16 B={spec['step16']['geometry'][0]} "
+              f"S={spec['step16']['geometry'][1] * 5}: launches {st['launches']}; model-group "
+              f"collectives {st['collectives']} (predicted {st['expected']}) taking "
+              f"{st['collective_ms']:.3f} ms; step {st['ms']:.3f} ms host time, loss "
+              f"{st['loss']:.6f}; token table block, tied head, layer 0 experts "
+              f"{st['block']} (card {card})", flush=True)
+        assert st["launches"] == expected, f"rank {r}: launches {st['launches']} != {expected}"
+        assert st["collectives"] == st["expected"], (
+            f"rank {r}: {st['collectives']} model-group collectives, predicted {st['expected']}")
+
+    # c. the search on the sharded parameters against one process
+    c, ref = res[0]["search"], one["search"]
+    B, K = spec["search"]["geometry"][:2]
+    same = all(torch.equal(r["search"]["codes"], ref["codes"]) for r in res)
+    worst = max(float((r["search"]["scores"] - ref["scores"]).abs().max()) for r in res)
+    print(f"phase 14c search B={B} beams={K} {spec['search']['cfg'].get('dtype')}: codes equal "
+          f"to one process's on every rank: {same}; worst score diff {worst:.3e} (tol 1e-4); "
+          f"{c['s']:.3f} s on rank 0, {ref['s']:.3f} s one process (card {card})", flush=True)
+    assert same and worst <= 1e-4, "the sharded search differs from one process's"
+    if cuda:
+        _local_kernel_times(dev, card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14 wall time {time.perf_counter() - t_phase:.1f} s ({workers_s:.1f} s in the "
+          f"{n} processes)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2458,6 +2760,8 @@ def main() -> int:
     tokenizer_phase(dev, counters, card)
     # 13. the discriminative zoo through train_SMB_rec
     rec_phase(dev, counters, card)
+    # 14. the model axis: two gloo processes, experts and vocab split
+    model_axis_phase(dev, counters, card)
 
     csrc, tpu = "gamer_tpu_torch/ops/csrc/", "gamer_tpu/ops/"
     attn_fwd, attn_bwd = csrc + "fused_attention_fwd.cu", csrc + "fused_attention_bwd.cu"
@@ -2499,5 +2803,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-steps"]:  # one process of phase 11b
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _mp_steps_worker(*sys.argv[2:5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--model-axis"]:  # one process of phase 14
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _model_axis_worker(*sys.argv[2:5])
         sys.exit(0)
     sys.exit(main())

@@ -5,7 +5,11 @@ per-process example sharding, rank helpers, and the few collectives the port
 needs (a flat gradient sum, metric sums, a barrier). One process owns one
 card; the training loop sums gradients itself (`train/loop.Trainer`), so the
 global step is the JAX package's: one token mean over every process's
-tokens.
+tokens. The helpers take a process group (`group`, default the whole
+world): under a model axis (`core/mesh.py`) the data group of a rank is the
+ranks that hold the same parameter shards, and `ModelAxis` holds the
+collectives over its model group that the sharded modules differentiate
+through.
 
 Rendezvous, in precedence order:
  1. explicit kwargs to `maybe_initialize`;
@@ -30,6 +34,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import torch
 import torch.distributed as dist
@@ -117,38 +122,49 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
-def first_row(local_rows: int) -> int:
-    """The global batch row of this process's first row: the processes'
-    equal local batches stack in rank order into the global batch."""
-    return process_index() * local_rows
+def group_rank(group=None) -> int:
+    """This process's rank in `group` (the world by default); 0 without a group."""
+    return dist.get_rank(group) if is_initialized() else 0
 
 
-def shard_examples(examples, index: int | None = None, count: int | None = None):
-    """This process's stride-shard of an example list, truncated to the common
-    per-process length so every process runs the same number of steps
-    (the training analog of eval's example striding,
-    ref: DistributedSampler in SeqRec/tasks/test_SMB_decoder.py:434-438).
+def group_size(group=None) -> int:
+    """The number of processes of `group` (the world by default); 1 without a group."""
+    return dist.get_world_size(group) if is_initialized() else 1
+
+
+def first_row(local_rows: int, group=None) -> int:
+    """The global batch row of this process's first row: the equal local
+    batches of `group`'s processes (the data group) stack in rank order
+    into the global batch."""
+    return group_rank(group) * local_rows
+
+
+def shard_examples(examples, index: int | None = None, count: int | None = None, group=None):
+    """This process's stride-shard of an example list among `group`'s
+    processes, truncated to the common per-process length so every process
+    runs the same number of steps (the training analog of eval's example
+    striding, ref: DistributedSampler in SeqRec/tasks/test_SMB_decoder.py:434-438).
     """
-    idx = process_index() if index is None else index
-    cnt = process_count() if count is None else count
+    idx = group_rank(group) if index is None else index
+    cnt = group_size(group) if count is None else count
     if cnt <= 1:
         return examples
     per = len(examples) // cnt
     return examples[idx::cnt][:per]
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the group, in place (a no-op without a group)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over `group`, in place (a no-op without a group)."""
     if is_initialized():
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def all_reduce_flat(tensors: list[torch.Tensor]) -> None:
-    """Sum same-dtype tensors over the group in place, as one flat
-    all-reduce in the list's order; counts its calls in `.calls`."""
+def all_reduce_flat(tensors: list[torch.Tensor], group=None) -> None:
+    """Sum same-dtype tensors over `group` in place, as one flat all-reduce
+    in the list's order; counts its calls in `.calls`."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     all_reduce_flat.calls += 1
     offset = 0
     for t in tensors:
@@ -157,6 +173,112 @@ def all_reduce_flat(tensors: list[torch.Tensor]) -> None:
 
 
 all_reduce_flat.calls = 0
+
+
+def model_all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over a model group in place: one collective, counted in
+    `.calls` and timed in `.seconds` (host time from the card's last queued
+    work done to the sum back, so it holds the collective alone)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    start = time.perf_counter()
+    # 16-bit values travel as fp32: the sums of partial results stay exact
+    buf = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    if buf is not t:
+        t.copy_(buf)
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    model_all_reduce.seconds += time.perf_counter() - start
+    model_all_reduce.calls += 1
+    return t
+
+
+model_all_reduce.calls = 0
+model_all_reduce.seconds = 0.0
+
+
+class ModelAxis:
+    """A rank's place on the model axis: its `index` of `size` shards and
+    the collectives over its model `group`. The autograd pairs are
+    conjugate: `reduce` sums partial results (backward: the replicated
+    grad as it is), `copy` hands replicated tensors to a sharded region
+    (backward: the ranks' partial grads summed), `gather` concatenates the
+    ranks' blocks (backward: this rank's block). Without a process group
+    they do no collective (a test runs the shards in turn and sums them)."""
+
+    def __init__(self, index: int = 0, size: int = 1, group=None):
+        self.index, self.size, self.group = index, size, group
+
+    @property
+    def live(self) -> bool:
+        return self.size > 1 and is_initialized()
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(t, self) if self.live else t
+
+    def copy(self, *ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return _Copy.apply(self, *ts) if self.live else ts
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Gather.apply(t, self, dim) if self.live else t
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the group in place, outside autograd."""
+        return model_all_reduce(t, self.group) if self.live else t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' equal blocks concatenated along `dim`, outside autograd:
+        a zero-filled buffer with this rank's block, summed over the group
+        (exact: every other term is 0)."""
+        if not self.live:
+            return t
+        shape = list(t.shape)
+        n = shape[dim]
+        shape[dim] = n * self.size
+        buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        buf.narrow(dim, self.index * n, n).copy_(t)
+        return model_all_reduce(buf, self.group)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, *ts):
+        ctx.axis = axis
+        ctx.like = [(t.shape, t.dtype, t.device) for t in ts]
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(shape, dtype=dtype, device=device) if g is None else g
+              for g, (shape, dtype, device) in zip(gs, ctx.like)]
+        flat = ctx.axis.all_reduce(torch.cat([g.float().reshape(-1) for g in gs]))
+        out, offset = [], 0
+        for g in gs:
+            out.append(flat[offset:offset + g.numel()].view_as(g).to(g.dtype))
+            offset += g.numel()
+        return (None, *out)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, t.shape[dim]
+        return axis.all_gather(t.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n).contiguous(), None, None
 
 
 def barrier() -> None:
@@ -168,7 +290,8 @@ def spawn_local(argvs: list[list[str]], backend: str | None = None, cwd: str | N
                 timeout_s: float = DEFAULT_TIMEOUT_S) -> list[str]:
     """Run `python <argv>` for each argv of `argvs` as rank r of one group on
     this machine (GAMER_* variables, a free localhost port; GAMER_BACKEND
-    when `backend` is given; the group's timeout `timeout_s`), wait for all
+    when `backend` is given; the group's timeout `timeout_s`; unless set,
+    OMP_NUM_THREADS gives each process its share of the cores), wait for all
     within `timeout_s`, kill any left, and raise with its output's end if
     one failed. Returns each process's output."""
     with socket.socket() as s:
@@ -179,6 +302,8 @@ def spawn_local(argvs: list[list[str]], backend: str | None = None, cwd: str | N
     for r, argv in enumerate(argvs):
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("GAMER_", "MASTER_")) and k not in ("RANK", "WORLD_SIZE")}
+        # the processes share this host's cores
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // len(argvs))))
         env.update(GAMER_COORDINATOR=f"localhost:{port}", GAMER_NUM_PROCESSES=str(len(argvs)),
                    GAMER_PROCESS_ID=str(r), GAMER_DIST_TIMEOUT=str(timeout_s),
                    PYTHONPATH=os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p))

@@ -4,11 +4,11 @@ Counterpart of `__graft_entry__.py` (`_flagship_config`, `_make_batch`,
 `entry`, `dryrun_multichip`): `entry()` returns `(fn, (model, batch))` where
 `fn(model, batch)` is the training loss of flagship Qwen3Multi (dropout on,
 seeds from a fixed generator), differentiable in the model's parameters.
-`dryrun_multiprocess(n)` runs the data-parallel pipeline in n processes on
-gloo. Like every entry point of the port they run on CUDA unless the caller
+`dryrun_multiprocess(n)` runs the sharded pipeline in n processes on gloo,
+on a (data, model) mesh as `dryrun_multichip` builds it. Like every entry point of the port they run on CUDA unless the caller
 passes `device="cpu"`.
 
-    python -m gamer_tpu_torch.entry <out_dir> <device>   # one dry-run worker
+    python -m gamer_tpu_torch.entry <out_dir> <device> <model axis>   # one dry-run worker
 """
 
 from __future__ import annotations
@@ -84,13 +84,28 @@ def entry(tiny: bool = False, device: str | torch.device | None = None):
     return fn, (model, batch)
 
 
-def _dryrun(device) -> dict:
-    """Two gradient-accumulated `Trainer` micro-steps (one update) of the
-    tiny flagship with remat and dropout 0.2 on global batches of 4 rows x
-    4 blocks, this process feeding its rows of each; then a 4-beam search
-    with the trained parameters. Returns losses, codes and scores as lists."""
+def dryrun_config(model_axis: int) -> QwenFamilyConfig:
+    """The dry run's tiny flagship: remat on, dropout 0.2, fp32; on a model
+    axis the vocab grows by 3 (odd) and pads to a multiple of 8 x model_axis,
+    so the table really splits (as `dryrun_multichip`)."""
+    cfg = flagship_config(tiny=True, dropout_rate=0.2, remat=True, dtype="float32")
+    if model_axis > 1:
+        from gamer_tpu_torch.core.mesh import pad_to_multiple
+
+        cfg = cfg.replace(vocab_size=cfg.vocab_size + 3,
+                          padded_vocab_size=pad_to_multiple(cfg.vocab_size + 3, 8 * model_axis))
+    return cfg
+
+
+def _dryrun(device, model_axis: int = 1) -> dict:
+    """Two gradient-accumulated `Trainer` micro-steps (one update) of
+    `dryrun_config(model_axis)` on global batches of 4 rows x 4 blocks, this
+    process feeding its data index's rows of each and holding its model
+    index's blocks of the table and experts; then a 4-beam search with the
+    trained parameters. Returns losses, codes and scores as lists (one
+    process runs the whole model on the whole batches)."""
     from gamer_tpu_torch.core import distributed
-    from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size
+    from gamer_tpu_torch.core.mesh import MeshContext, default_mesh, local_batch_size
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.decode.trie import LeveledTrie
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
@@ -99,22 +114,28 @@ def _dryrun(device) -> dict:
     from gamer_tpu_torch.train.state import OptimizerConfig
 
     rows, blocks = 4, 4
-    ctx = MeshContext(device=device)
+    grouped = distributed.process_count() > 1
+    ctx = MeshContext(default_mesh(model=model_axis if grouped else 1), device=device)
     lb = local_batch_size(rows, ctx)
-    r0 = distributed.first_row(lb)
-    cfg = flagship_config(tiny=True, dropout_rate=0.2, remat=True, dtype="float32")
-    model = QwenFamilyModel(cfg, device=ctx.device, seed=0)
+    r0 = ctx.first_row(lb)
+    cfg = dryrun_config(model_axis)
+    model = ctx.shard_params(QwenFamilyModel(cfg, device=ctx.device, seed=0))
+    if ctx.n_model > 1:
+        assert model.embed_tokens.weight.shape[0] == cfg.padded_vocab_size // ctx.n_model, (
+            "vocab table not split on the model axis")
     trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
                       OptimizerConfig(total_steps=10),
                       TrainLoopConfig(epochs=1, save_checkpoints=False,
                                       gradient_accumulation_steps=2))
     rng = np.random.default_rng(0)
     losses = []
+    calls = distributed.model_all_reduce.calls
     for _ in range(2):  # two micro-steps = one accumulation cycle
         batch = make_batch(cfg, rows, blocks, rng)
         local = {k: v[r0:r0 + lb] for k, v in batch.items()}
         losses.append(float(trainer.train_step(ctx.shard_batch(local))))
     assert trainer.updates == 1 and np.isfinite(losses).all(), losses
+    train_collectives = distributed.model_all_reduce.calls - calls
 
     P = cfg.num_positions
     L, size = P - 1, 16
@@ -127,53 +148,61 @@ def _dryrun(device) -> dict:
     out_codes, scores = search(ctx.shard_batch(dbatch), 1)
     return {"losses": losses, "codes": out_codes.cpu().tolist(),
             "scores": scores.float().cpu().tolist(),
-            "process_count": distributed.process_count()}
+            "process_count": distributed.process_count(),
+            "mesh": [ctx.n_data, ctx.n_model], "model_collectives": train_collectives}
 
 
-def _dryrun_worker(out_dir: str, device: str) -> None:
+def _dryrun_worker(out_dir: str, device: str, model_axis: str) -> None:
     """One process of `dryrun_multiprocess`: joins the group its GAMER_*
     variables configure and writes its `_dryrun` result."""
     from gamer_tpu_torch.core import distributed
 
     distributed.maybe_initialize(device=device, backend="gloo")
     try:
-        result = _dryrun(device)
+        result = _dryrun(device, int(model_axis))
         with open(os.path.join(out_dir, f"rank{distributed.process_index()}.json"), "w") as f:
             json.dump(result, f)
     finally:
         distributed.shutdown()
 
 
-def dryrun_multiprocess(n: int, device: str | torch.device | None = None,
+def dryrun_multiprocess(n: int, model: int | None = None,
+                        device: str | torch.device | None = None,
                         timeout_s: float = 300.0) -> dict:
-    """The data-parallel pipeline in `n` processes on gloo (the data axis
-    only; the model axis is not ported): each runs `_dryrun` on its rows of
-    the same global batches, then the same search. Every process's codes
-    must equal those of one process fed the whole global batches (run here),
-    and its scores and losses agree within 1e-4. Raises on a failed or late
-    worker. Returns the one-process result."""
+    """The sharded pipeline in `n` processes on gloo, on a (n // model,
+    model) mesh; `model=None` takes JAX's rule (model 2 when n is even, as
+    `dryrun_multichip`). Each process runs `_dryrun` on its data index's
+    rows of the same global batches with its model index's blocks, then the
+    same search. Every process's codes must equal those of one process fed
+    the whole global batches with the whole model (run here), its scores
+    agree within 1e-4 and its losses within 1e-5. Raises on a failed or
+    late worker. Returns the one-process result."""
     from gamer_tpu_torch.core.device import resolve_device
     from gamer_tpu_torch.core.distributed import spawn_local
 
+    if model is None:
+        model = 2 if n % 2 == 0 and n >= 2 else 1
     dev = str(resolve_device(device))
     with tempfile.TemporaryDirectory() as out:
-        spawn_local([["-m", "gamer_tpu_torch.entry", out, dev]] * n, backend="gloo",
-                    timeout_s=timeout_s)
+        spawn_local([["-m", "gamer_tpu_torch.entry", out, dev, str(model)]] * n,
+                    backend="gloo", timeout_s=timeout_s)
         results = []
         for r in range(n):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 results.append(json.load(f))
-    single = _dryrun(dev)
+    single = _dryrun(dev, model)
     for r, res in enumerate(results):
-        assert res["process_count"] == n, res["process_count"]
+        assert res["process_count"] == n and res["mesh"] == [n // model, model], res["mesh"]
         np.testing.assert_array_equal(res["codes"], single["codes"],
                                       err_msg=f"process {r}: codes differ from one process's")
         np.testing.assert_allclose(res["scores"], single["scores"], rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(res["losses"], single["losses"], rtol=1e-4)
-    print(f"dryrun_multiprocess({n}): losses {single['losses']} over {n} gloo processes "
-          f"= one process's; decode codes equal, scores within 1e-4", flush=True)
+        np.testing.assert_allclose(res["losses"], single["losses"], rtol=1e-5)
+    print(f"dryrun_multiprocess({n}): mesh {n // model}x{model}, losses {single['losses']} "
+          f"over {n} gloo processes = one process's; decode codes equal, scores within 1e-4; "
+          f"{results[0]['model_collectives']} model-group collectives in the two micro-steps",
+          flush=True)
     return single
 
 
 if __name__ == "__main__":
-    _dryrun_worker(sys.argv[1], sys.argv[2])
+    _dryrun_worker(sys.argv[1], sys.argv[2], sys.argv[3])

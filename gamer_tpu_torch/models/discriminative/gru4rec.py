@@ -25,6 +25,7 @@ from torch import nn
 
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.models.discriminative.base import DIS_MODELS, DisModelConfig, gather_last
+from gamer_tpu_torch.modules.layers import Embedding
 from gamer_tpu_torch.modules.transformer import DropoutSeeds, dense
 
 
@@ -74,7 +75,7 @@ class GRU4Rec(nn.Module):
         self.cfg, self.n_items, self.max_his_len = cfg, n_items, max_his_len
         g = torch.Generator().manual_seed(seed)
         E = cfg.embedding_size
-        self.item_embedding = nn.Embedding(n_items + 1, E)
+        self.item_embedding = Embedding(n_items + 1, E)
         with torch.no_grad():  # flax xavier_normal: truncated at 2 std
             std = math.sqrt(2.0 / (n_items + 1 + E)) / 0.87962566103423978
             nn.init.trunc_normal_(self.item_embedding.weight, std=std, a=-2 * std, b=2 * std,

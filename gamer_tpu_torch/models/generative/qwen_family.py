@@ -27,6 +27,13 @@ level (`modules/moe.py`).
 Parameters are stored in fp32, as the JAX package stores them; the modules
 cast them to `cfg.dtype` at use, so a bf16 run updates fp32 master weights.
 
+On a model axis (`core/mesh.MeshContext.shard_params`) the padded token
+table is split by rows and the experts by expert (`modules/moe.py`). A rank
+looks up the ids in its rows (0 for the others) and the ranks' rows sum; its
+tied head is its real rows (the padded rows >= `vocab_size` never enter a
+logit or the CE), the training CE is `losses.vocab_parallel_ce_rows`, and the
+logits are the ranks' columns gathered over the vocab.
+
 `attention_impl`, `moe_impl` and `ce_impl` keep the JAX config's names and
 values: "jnp" selects the plain PyTorch path (materialized masks, einsum MoE,
 [B, S, V] logits); any other value ("auto", "pallas", "pallas_interpret")
@@ -47,7 +54,7 @@ from torch import nn
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout
-from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed
+from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed, lookup
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
@@ -267,6 +274,11 @@ class QwenFamilyModel(nn.Module):
     computes in `cfg.dtype`.
     """
 
+    model_axis = None  # distributed.ModelAxis of a row-split token table
+    # the parameters that run split on a model axis (core/mesh.shard_params)
+    model_axis_params = r"embed_tokens\.weight|layers\.\d+\.mlp\.experts_(gate|up|down)"
+    mesh_ctx = None  # the core/mesh.MeshContext that sharded the parameters
+
     def __init__(self, cfg: QwenFamilyConfig, device: str | torch.device | None = None,
                  seed: int = 0):
         super().__init__()
@@ -308,10 +320,40 @@ class QwenFamilyModel(nn.Module):
                 for w in mod.parameters(recurse=False):  # [(E,) d_in, d_out]
                     fill(w, 1.0 / math.sqrt(w.shape[-2]))
 
+    def vocab_block(self) -> tuple[int, int] | None:
+        """(first row, rows) of this rank's block of a row-split token table,
+        None when the table is whole."""
+        rows = self.embed_tokens.weight.shape[0]
+        if rows == (self.cfg.padded_vocab_size or self.cfg.vocab_size):
+            return None
+        return self.model_axis.index * rows, rows
+
     def lm_table(self) -> torch.Tensor:
         """The tied head: embedding rows of the real vocab (padded rows never
-        produce logits)."""
-        return self.embed_tokens.weight[:self.cfg.vocab_size]
+        produce logits); of a row-split table, this rank's real rows."""
+        block = self.vocab_block()
+        real = self.cfg.vocab_size if block is None else max(0, min(block[1],
+                                                                    self.cfg.vocab_size - block[0]))
+        return self.embed_tokens.weight[:real]
+
+    def _embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        block = self.vocab_block()
+        if block is None:
+            return embed(self.embed_tokens, input_ids, self.cfg.torch_dtype)
+        local = input_ids.long() - block[0]
+        inside = (local >= 0) & (local < block[1])
+        rows = lookup(torch.where(inside, local, 0), self.embed_tokens.weight)
+        rows = torch.where(inside[..., None], rows, 0.0).to(self.cfg.torch_dtype)
+        return self.model_axis.reduce(rows)
+
+    def _tied_logits(self, x: torch.Tensor) -> torch.Tensor:
+        table = self.lm_table()
+        logits = x @ table.to(x.dtype).T
+        block = self.vocab_block()
+        if block is None:
+            return logits
+        logits = torch.nn.functional.pad(logits, (0, block[1] - table.shape[0]))
+        return self.model_axis.gather(logits, -1)[..., :self.cfg.vocab_size]
 
     def forward(
         self,
@@ -344,7 +386,7 @@ class QwenFamilyModel(nn.Module):
                 raise ValueError("the training forward needs a torch.Generator for its dropout seeds")
             n_sites = sum(layer.dropout_sites for layer in self.layers)
             seeds = iter(torch.randint(0, 2 ** 31 - 1, (n_sites,), generator=generator).tolist())
-        x = embed(self.embed_tokens, input_ids, cfg.torch_dtype)
+        x = self._embed_tokens(input_ids)
         new_caches = {"self": [], "cross": []} if caches is not None else None
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
         if remat and cfg.remat_policy not in REMAT_POLICIES:
@@ -376,7 +418,7 @@ class QwenFamilyModel(nn.Module):
         if logits_last_only:
             x = x[:, -1:, :]
         if self.cfg.tie_word_embeddings:
-            logits = x @ self.lm_table().to(x.dtype).T
+            logits = self._tied_logits(x)
         else:
             logits = dense(self.lm_head, x)
         return {"logits": logits, "caches": new_caches}

@@ -43,9 +43,55 @@ def dense(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, mod.weight.to(x.dtype), bias)
 
 
+ONE_HOT_ELEMENTS = 1 << 25  # one-hot block of `_Lookup`'s backward (128 MiB in fp32)
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows of a table whose backward is a fixed-order sum: the one-hot of
+    the ids (in blocks of rows) times the incoming grads, so two runs give
+    the same bits on the card (see `lookup`)."""
+
+    @staticmethod
+    def forward(ctx, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        V = ctx.rows
+        ids, grad = ids.reshape(-1), grad.reshape(-1, grad.shape[-1])
+        dw = torch.zeros((V, grad.shape[-1]), dtype=grad.dtype, device=grad.device)
+        block = max(ONE_HOT_ELEMENTS // V, 1)
+        for lo in range(0, ids.numel(), block):
+            part = ids[lo:lo + block, None]
+            onehot = torch.zeros((part.shape[0], V), dtype=grad.dtype, device=grad.device)
+            dw.addmm_(onehot.scatter_(1, part, 1.0).T, grad[lo:lo + block])
+        return None, dw
+
+
+def lookup(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """`F.embedding(ids, weight)` whose grad is bit-reproducible: with a
+    grad to take, the table's backward is `_Lookup`'s one-hot product.
+    PyTorch's own CUDA embedding backward gave two passes that differed in
+    the last bits of the 4-row behavior tables (`scripts/probe_determinism.py`);
+    the one-hot product costs no device time at the flagship step."""
+    if weight.requires_grad and torch.is_grad_enabled():
+        return _Lookup.apply(ids.long(), weight)
+    return F.embedding(ids.long(), weight)
+
+
+class Embedding(nn.Embedding):
+    """`nn.Embedding` whose lookup is `lookup` (a bit-reproducible grad)."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return lookup(ids, self.weight)
+
+
 def embed(mod: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Rows of `mod`'s fp32 table, cast to `dtype` (flax `nn.Embed(dtype=...)`)."""
-    return F.embedding(ids.long(), mod.weight).to(dtype)
+    return lookup(ids, mod.weight).to(dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,

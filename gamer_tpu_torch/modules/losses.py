@@ -7,6 +7,13 @@ count returned as the denominator so callers can form a global token mean.
 The discriminative zoo's: full-softmax CE over candidates, BPR with one
 negative and in-batch InfoNCE (ref: SeqRec/modules/loss/BPR.py:5,
 SeqRec/modules/model_base/seq_model.py:64-82).
+
+Under a model axis the tied table is split by rows (`core/mesh.py`), and
+`vocab_parallel_ce_rows` is the fused CE over the ranks' rows: kernel j runs
+over this rank's real rows with the targets shifted by its first row (a
+target outside them matches nothing), the ranks' lse combine into the global
+one and their target logits (lse - nll) sum; the backward runs kernel k with
+the global lse and sums the ranks' partial dh.
 """
 
 from __future__ import annotations
@@ -49,18 +56,81 @@ def fused_causal_lm_loss_with_denom(
     labels: torch.Tensor,  # [B, S] with IGNORE_LABEL masked
     temperature: float = 1.0,
     row_valid: torch.Tensor | None = None,
+    vocab_shard: tuple | None = None,  # (first row, ModelAxis) of a row-split table
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`causal_lm_loss_with_denom` through the fused tied-head CE
-    (`ops/fused_ce.py`): the [B, S, V] logits are never stored."""
+    (`ops/fused_ce.py`): the [B, S, V] logits are never stored. With
+    `vocab_shard`, `table` is this rank's rows of the table
+    (`vocab_parallel_ce_rows`)."""
     from gamer_tpu_torch.ops.fused_ce import fused_ce_rows
 
     x = hidden[:, :-1, :]
     safe, valid = _shift_targets(labels, row_valid)
     D = x.shape[-1]
-    nll, _ = fused_ce_rows(x.reshape(-1, D), table, safe.reshape(-1).to(torch.int32),
-                           valid.reshape(-1).to(torch.int32), 1.0 / temperature)
+    args = (x.reshape(-1, D), table, safe.reshape(-1).to(torch.int32),
+            valid.reshape(-1).to(torch.int32), 1.0 / temperature)
+    if vocab_shard is not None:
+        nll = vocab_parallel_ce_rows(*args, *vocab_shard)
+    else:
+        nll, _ = fused_ce_rows(*args)
     denom = valid.sum().clamp(min=1)
     return nll.sum() / denom, denom
+
+
+def vocab_shard_ce(h, table, targets, valid, inv_t: float, v0: int):
+    """A rank's part of the vocab-parallel CE: (lse, target logit) [N] of its
+    rows `table` (global rows v0..), the target logit 0 where the target is
+    not among them. Kernel j (CUDA) or its plain version (CPU)."""
+    if table.shape[0] == 0:  # a rank of padded rows only
+        lse = torch.full((h.shape[0],), -torch.inf, dtype=torch.float32, device=h.device)
+        return lse, torch.zeros_like(lse)
+    from gamer_tpu_torch.ops.fused_ce import ce_rows_fwd
+
+    nll, lse = ce_rows_fwd(h, table, (targets.long() - v0).to(torch.int32), valid, inv_t)
+    return lse, torch.where(valid == 1, lse - nll, 0.0)
+
+
+def combine_vocab_shards(parts: torch.Tensor, valid: torch.Tensor):
+    """(nll, lse) [N] from the ranks' [n, 2, N] stacks of (lse, target logit)."""
+    lse = torch.logsumexp(parts[:, 0], dim=0)
+    return torch.where(valid == 1, lse - parts[:, 1].sum(dim=0), 0.0), lse
+
+
+def vocab_shard_ce_grads(h, table, targets, valid, inv_t: float, v0: int, lse, g):
+    """A rank's (partial dh, dtable) of the vocab-parallel CE for the global
+    lse. Kernel k (CUDA) or its plain version (CPU)."""
+    if table.shape[0] == 0:
+        return torch.zeros_like(h), torch.zeros_like(table)
+    from gamer_tpu_torch.ops.fused_ce import ce_rows_bwd
+
+    return ce_rows_bwd(h, table, (targets.long() - v0).to(torch.int32), valid, lse, g, inv_t)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The fused CE over a model axis's row blocks of the tied table (see
+    the module docstring): one collective forward, one backward."""
+
+    @staticmethod
+    def forward(ctx, h, table, targets, valid, inv_t, v0, axis):
+        lse, tgt = vocab_shard_ce(h, table, targets, valid, inv_t, v0)
+        parts = axis.all_gather(torch.stack([lse, tgt])[None], 0)
+        nll, lse = combine_vocab_shards(parts, valid)
+        ctx.save_for_backward(h, table, targets, valid, lse)
+        ctx.args = (inv_t, v0, axis)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        h, table, targets, valid, lse = ctx.saved_tensors
+        inv_t, v0, axis = ctx.args
+        dh, dtable = vocab_shard_ce_grads(h, table, targets, valid, inv_t, v0, lse, g)
+        return axis.all_reduce(dh.contiguous()), dtable, None, None, None, None, None
+
+
+def vocab_parallel_ce_rows(h, table, targets, valid, inv_t: float, v0: int, axis):
+    """nll [N] of h [N, D] against the whole tied table, from this rank's
+    rows `table` (global rows v0..) and the other ranks' over `axis`."""
+    return _VocabParallelCE.apply(h, table, targets, valid, inv_t, v0, axis)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, temperature: float = 1.0,

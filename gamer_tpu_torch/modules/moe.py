@@ -35,6 +35,18 @@ masks are those of the global batch (`modules/dropout.row_seed`).
 Expert weights stay stacked with a leading experts axis, in the JAX layout:
 gate/up [E, d_in, d_ff], down [E, d_ff, d_out], stored in fp32 and cast to
 the input's dtype at use.
+
+Expert parallelism (`model_axis`, set by `core/mesh.MeshContext.shard_params`
+when the rules split the experts): rank m keeps experts [m E/n, (m+1) E/n).
+Each periodic pass lo..lo+P-1 runs only the positions whose experts the rank
+holds (the fused kernels and the plain path alike, on the slices of the
+input, weights, bias table and behavior ids), the one-hot path only its
+experts; the rank's output is zero elsewhere, and the ranks' outputs sum
+over the model group (`ModelAxis.reduce`). The input and the replicated
+behavior table enter through `ModelAxis.copy`, whose backward sums the
+ranks' partial grads. A slice that starts at position p0 hashes its local
+expert index p - p0, so its dropout seed moves by p0 (`row_seed` with the
+hash's expert multiplier) and the masks stay those of one process.
 """
 
 from __future__ import annotations
@@ -46,8 +58,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gamer_tpu_torch.modules.dropout import hash_dropout, row_seed
-from gamer_tpu_torch.modules.layers import embed
-from gamer_tpu_torch.ops.fused_attention import keep_fraction
+from gamer_tpu_torch.modules.layers import lookup
+from gamer_tpu_torch.ops.fused_attention import _M2, keep_fraction
 from gamer_tpu_torch.ops.fused_moe import ACTS as _ACTS
 from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, moe_keep_mask
 
@@ -56,6 +68,8 @@ class PositionRoutedMLP(nn.Module):
     """Sparse (or dense) FFN with deterministic routing. mlp_type "qwen3":
     SwiGLU down(act(gate(x)) * up(x)); "t5": wo(act(wi(x))). The input width
     is d_model + behavior_dim when the behavior embedding is injected."""
+
+    model_axis = None  # distributed.ModelAxis of expert parallelism (module docstring)
 
     def __init__(self, d_model: int, d_ff: int, num_experts: int, is_sparse: bool = True,
                  mlp_type: str = "qwen3", hidden_act: str = "silu",
@@ -77,6 +91,7 @@ class PositionRoutedMLP(nn.Module):
         d_in = d_model + (behavior_dim if behavior_injection else 0)
         d_out = d_model // 2 if self.shared_expert else d_model
         E = num_experts if is_sparse else 1
+        self.num_experts = E
         shapes = {"gate": (d_in, d_ff), "up": (d_in, d_ff), "down": (d_ff, d_out),
                   "wi": (d_in, d_ff), "wo": (d_ff, d_out)}
         for n in self.weight_names:
@@ -106,12 +121,36 @@ class PositionRoutedMLP(nn.Module):
     def _weights(self, dtype: torch.dtype, prefix: str = "experts") -> tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f"{prefix}_{n}").to(dtype) for n in self.weight_names)
 
+    def _expert_range(self) -> tuple[int, int]:
+        """[e0, e1): the global experts whose weights this rank holds."""
+        local = getattr(self, f"experts_{self.weight_names[0]}").shape[0]
+        e0 = self.model_axis.index * local if local < self.num_experts else 0
+        return e0, e0 + local
+
+    def _windows(self, P: int, los: list[int]):
+        """For each pass lo of `los`: (p0, p1, w0), the positions [p0, p1)
+        whose experts lo + p this rank holds, from its local expert w0."""
+        e0, e1 = self._expert_range()
+        for lo in los:
+            p0, p1 = max(0, e0 - lo), min(P, e1 - lo)
+            yield p0, max(p0, p1), lo + p0 - e0
+
+    @staticmethod
+    def _place(out: torch.Tensor, p0: int, P: int) -> torch.Tensor:
+        """A window's [p1 - p0, ...] output in the [P, ...] layout, zero at
+        the positions of other ranks."""
+        if out.shape[0] == P:
+            return out
+        return F.pad(out, (0, 0) * (out.dim() - 1) + (p0, P - p0 - out.shape[0]))
+
     def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
-                        P: int, rate: float, seed: int, los: list[int]) -> list[torch.Tensor]:
+                        P: int, rate: float, seed: int, los: list[int],
+                        table: Optional[torch.Tensor]) -> list[torch.Tensor]:
         """Periodic passes through the fused FFN kernel, one with experts
-        lo..lo+P-1 for each lo of `los`, sharing the permuted input and the
-        cast weights: behavior injection becomes the exactly-equivalent
-        per-behavior bias table (concat(x, e_b) @ [Wx; Wb] == x @ Wx + e_b @ Wb)."""
+        lo..lo+P-1 for each lo of `los` (this rank's of them), sharing the
+        permuted input and the cast weights: behavior injection becomes the
+        exactly-equivalent per-behavior bias table (concat(x, e_b) @ [Wx; Wb]
+        == x @ Wx + e_b @ Wb)."""
         b, s, d = x.shape
         n = s // P
         T = b * n
@@ -119,9 +158,9 @@ class PositionRoutedMLP(nn.Module):
         gate, up, down = self._weights(x.dtype)
         wgu = torch.cat([gate[:, :d], up[:, :d]], dim=-1)
         if self.behavior_injection:
-            table = self.behavior_embedding.weight.to(x.dtype)  # [NB+1, bdim]
+            table = self.behavior_embedding.weight if table is None else table
             wb = torch.cat([gate[:, d:], up[:, d:]], dim=-1)
-            btab = torch.einsum("ae,pef->paf", table, wb)
+            btab = torch.einsum("ae,pef->paf", table.to(x.dtype), wb)  # [E, NB+1, 2F]
             beh = behavior_index.reshape(b, n, P).permute(2, 0, 1).reshape(P, T)
             beh = beh.to(torch.int32)
         else:
@@ -129,45 +168,60 @@ class PositionRoutedMLP(nn.Module):
                                device=x.device)
             beh = torch.zeros((P, T), dtype=torch.int32, device=x.device)
         outs = []
-        for lo in los:
-            out = fused_moe_ffn(xp, wgu[lo:lo + P], down[lo:lo + P], btab[lo:lo + P], beh, seed,
-                                self.hidden_act, rate, use_bias=self.behavior_injection)
+        for p0, p1, w0 in self._windows(P, los):
+            w = slice(w0, w0 + p1 - p0)
+            if p1 > p0:
+                out = fused_moe_ffn(xp[p0:p1], wgu[w], down[w], btab[w], beh[p0:p1],
+                                    row_seed(seed, p0, 1, _M2) if p0 else seed,
+                                    self.hidden_act, rate, use_bias=self.behavior_injection)
+                out = self._place(out, p0, P)
+            else:
+                out = xp.new_zeros((P, T, down.shape[-1]))
             outs.append(out.reshape(P, b, n, -1).permute(1, 2, 0, 3).reshape(b, s, -1)
                         .to(x.dtype))
         return outs
 
-    def _inputs(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor]) -> torch.Tensor:
-        """The FFN input: x, with the behavior embedding appended when injected."""
+    def _inputs(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The FFN input: x, with the behavior embedding (rows of `table`,
+        by default the module's) appended when injected."""
         if not self.behavior_injection:
             return x
-        return torch.cat([x, embed(self.behavior_embedding, behavior_index, x.dtype)], dim=-1)
+        table = self.behavior_embedding.weight if table is None else table
+        return torch.cat([x, lookup(behavior_index, table).to(x.dtype)], dim=-1)
 
     def _periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor], P: int,
-                  rate: float, seed: int, los: list[int]) -> list[torch.Tensor]:
+                  rate: float, seed: int, los: list[int],
+                  table: Optional[torch.Tensor] = None) -> list[torch.Tensor]:
         """Periodic passes over every token, one for each lo of `los`: token t
-        routes to expert lo + t % P. Pad/eos rows of a right-padded batch
-        compute with the "wrong" expert, but they are masked from every real
-        query's keys and from the loss."""
+        routes to expert lo + t % P (the positions of this rank's experts).
+        Pad/eos rows of a right-padded batch compute with the "wrong" expert,
+        but they are masked from every real query's keys and from the loss."""
         if self.use_kernel:
-            return self._fused_periodic(x, behavior_index, P, rate, seed, los)
-        x_in = self._inputs(x, behavior_index)
+            return self._fused_periodic(x, behavior_index, P, rate, seed, los, table)
+        x_in = self._inputs(x, behavior_index, table)
         w = self._weights(x.dtype)
         w_in = torch.cat(w[:2], dim=-1) if self.mlp_type == "qwen3" else w[0]
         act = _ACTS[self.hidden_act]
         b, s, din = x_in.shape
         xp = x_in.reshape(b, s // P, P, din).permute(2, 0, 1, 3)  # [P, b, n, din]
-        keep = (moe_keep_mask(seed, P, b * (s // P), self.d_ff, rate, x.device)
-                if rate > 0.0 else None)
         outs = []
-        for lo in los:
-            hin = torch.einsum("pbnd,pdf->pbnf", xp, w_in[lo:lo + P])
+        for p0, p1, w0 in self._windows(P, los):
+            w_sl = slice(w0, w0 + p1 - p0)
+            if p1 == p0:
+                outs.append(x.new_zeros((b, s, w[-1].shape[-1])))
+                continue
+            hin = torch.einsum("pbnd,pdf->pbnf", xp[p0:p1], w_in[w_sl])
             if self.mlp_type == "qwen3":
                 h = act(hin[..., :self.d_ff]) * hin[..., self.d_ff:]
             else:
                 h = act(hin)
-            if keep is not None:
+            if rate > 0.0:
+                keep = moe_keep_mask(row_seed(seed, p0, 1, _M2) if p0 else seed, p1 - p0,
+                                     b * (s // P), self.d_ff, rate, x.device)
                 h = torch.where(keep.view(h.shape), h * (1.0 / keep_fraction(rate)), 0.0)
-            out = torch.einsum("pbnf,pfd->pbnd", h, w[-1][lo:lo + P])
+            out = torch.einsum("pbnf,pfd->pbnd", h, w[-1][w_sl])
+            out = self._place(out, p0, P)
             outs.append(out.permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype))
         return outs
 
@@ -196,23 +250,29 @@ class PositionRoutedMLP(nn.Module):
             return self._expert(x_in, w, rate, dropout_seed, row0).to(x.dtype)
         shared = None
         if self.shared_expert:  # its own mask: seed + E, after the experts' seeds
-            E = getattr(self, f"experts_{self.weight_names[0]}").shape[0]
             shared = self._expert(self._inputs(x, behavior_index), self._weights(x.dtype, "shared"),
-                                  rate, dropout_seed + E, row0)
+                                  rate, dropout_seed + self.num_experts, row0)
+        sharded = self._expert_range() != (0, self.num_experts)
+        table = self.behavior_embedding.weight if self.behavior_injection else None
+        if sharded:  # the replicated inputs enter this rank's experts
+            x, *rest = self.model_axis.copy(*((x, table) if table is not None else (x,)))
+            table = rest[0] if rest else None
         out = self._routed(x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                           dropout_seed, row0)
+                           dropout_seed, row0, table)
+        if sharded:  # the ranks' experts' outputs
+            out = self.model_axis.reduce(out)
         if shared is not None:
             out = torch.cat([out, shared.to(out.dtype)], dim=-1)
         return out
 
     def _routed(self, x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                dropout_seed, row0=0):
-        """The routed experts' output [B, S, d_out] of a sparse layer."""
+                dropout_seed, row0=0, table=None):
+        """This rank's routed experts' output [B, S, d_out] of a sparse layer."""
         if route_mode == "periodic":
             # the periodic hash's row is t = b * n + block: n blocks a batch row
             dropout_seed = row_seed(dropout_seed, row0, x.shape[1] // P) if row0 else dropout_seed
             if expert_index is None:
-                return self._periodic(x, behavior_index, P, rate, dropout_seed, [1])[0]
+                return self._periodic(x, behavior_index, P, rate, dropout_seed, [1], table)[0]
             # MoeAction: the action level a is constant within an item block,
             # so each level is one pass with its own P experts, gated by the
             # block's level (from its first expert id; 0 = pad/eos block)
@@ -223,7 +283,8 @@ class PositionRoutedMLP(nn.Module):
             a_blk = torch.where(e0 > 0, torch.div(e0 - 1, P, rounding_mode="floor") + 1, 0)
             a_tok = a_blk.repeat_interleave(P, dim=1)[..., None]  # [b, s, 1]
             passes = self._periodic(x, behavior_index, P, rate, dropout_seed,
-                                    [P * (a - 1) + 1 for a in range(1, self.num_behavior + 1)])
+                                    [P * (a - 1) + 1 for a in range(1, self.num_behavior + 1)],
+                                    table)
             out = torch.zeros((), dtype=x.dtype, device=x.device)
             for a, level_out in enumerate(passes, start=1):
                 out = out + level_out * (a_tok == a).to(x.dtype)
@@ -234,13 +295,14 @@ class PositionRoutedMLP(nn.Module):
 
         # general path: every expert on every token, selected per token; exact
         # for any routing, used for decode steps and unaligned layouts
-        x_in = self._inputs(x, behavior_index)
+        x_in = self._inputs(x, behavior_index, table)
         w = self._weights(x.dtype)
         routing = expert_index if expert_index is not None else position_index
-        E = w[0].shape[0]
+        e0, e1 = self._expert_range()
         # one seed per expert draw: the experts' masks are independent
-        stacked = torch.stack([self._expert(x_in, tuple(t[e] for t in w), rate, dropout_seed + e,
-                                            row0) for e in range(E)], dim=0)  # [E, B, S, Dout]
-        sel = F.one_hot(routing.long(), E).to(stacked.dtype)  # [B, S, E]
+        stacked = torch.stack([self._expert(x_in, tuple(t[e - e0] for t in w), rate,
+                                            dropout_seed + e, row0)
+                               for e in range(e0, e1)], dim=0)  # [E, B, S, Dout]
+        sel = F.one_hot(routing.long(), self.num_experts)[..., e0:e1].to(stacked.dtype)
         out = torch.einsum("ebsd,bse->bsd", stacked, sel)
         return out.to(x.dtype)

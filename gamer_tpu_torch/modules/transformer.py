@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.layers import Embedding
 from gamer_tpu_torch.ops.masks import NEG_INF
 
 
@@ -69,7 +70,7 @@ def embedding(vocab: int, dim: int, generator: torch.Generator,
               std: Optional[float] = None) -> nn.Embedding:
     """`nn.Embedding` initialised as flax's `nn.Embed`: normal with `std`,
     by default 1/sqrt(dim) (flax's variance scaling over the features)."""
-    emb = nn.Embedding(vocab, dim)
+    emb = Embedding(vocab, dim)
     with torch.no_grad():
         emb.weight.copy_(torch.randn(vocab, dim, generator=generator)
                          * (dim ** -0.5 if std is None else std))

@@ -128,6 +128,35 @@ def fused_ce_rows_bwd_plain(h, table, targets, valid, g, inv_t: float):
         return torch.autograd.grad(nll, (h, table), g)
 
 
+def fused_ce_rows_bwd_lse_plain(h, table, targets, valid, lse, g, inv_t: float):
+    """Plain version of kernel k as the kernel takes it, with the lse given:
+    dlog = (exp(logit - lse) - onehot) * g * inv_t on valid rows, dh = dlog . E,
+    dE = dlog^T . h, in fp32 (a target outside [0, V) matches nothing)."""
+    logits = (h.float() @ table.float().T) * inv_t
+    cols = torch.arange(table.shape[0], device=h.device)
+    onehot = (cols[None, :] == targets.long()[:, None]).float()
+    scale = torch.where(valid == 1, g.float() * inv_t, 0.0)
+    dlog = (torch.exp(logits - lse.float()[:, None]) - onehot) * scale[:, None]
+    return (dlog @ table.float()).to(h.dtype), (dlog.T @ h.float()).to(table.dtype)
+
+
+def ce_rows_fwd(h, table, targets, valid, inv_t: float):
+    """(nll, lse) of `fused_ce_rows` outside autograd: kernel j for CUDA
+    tensors, the plain version for CPU tensors."""
+    if h.device.type == "cpu":
+        with torch.no_grad():
+            return fused_ce_rows_plain(h, table, targets, valid, inv_t)
+    return _launch_fwd(h, table, targets, valid, inv_t)
+
+
+def ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
+    """(dh, dtable) for the given lse: kernel k for CUDA tensors, its plain
+    version for CPU tensors."""
+    if h.device.type == "cpu":
+        return fused_ce_rows_bwd_lse_plain(h, table, targets, valid, lse, g, inv_t)
+    return fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t)
+
+
 class _FusedCE(torch.autograd.Function):
     """Kernel j forward, kernel k backward (the gradient flows from nll)."""
 

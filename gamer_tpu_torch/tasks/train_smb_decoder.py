@@ -24,8 +24,16 @@ apply to them (ignored with a warning, as in JAX).
 Under a process group (`core/distributed.py`, started by `Task.invoke`)
 each process stores its stride-shard of the examples and feeds
 micro // process_count rows a step; `Trainer` sums the gradients, so the
-step is the global batch's. Differences: `--device` picks the card (default) or the CPU;
-`--dtype auto` is bfloat16 on CUDA and float32 on the CPU;
+step is the global batch's. `run(mesh_ctx=...)` (the library's way, as in
+JAX; the CLI has no flag for it) takes a (data, model) mesh: with a model
+axis above 1 the vocab table is padded to a multiple of lcm(128, n_model)
+and split by rows, the experts split by expert (`core/mesh.shard_params`),
+the examples shard over the data axis, and the remat choice sees
+micro // n_data rows. JAX switches `moe_impl` to its einsum path there
+(`pallas_call` has no partitioning rule); the port keeps kernels h and i,
+each rank on its own experts: the same function. Differences: `--device`
+picks the card (default) or the CPU; `--dtype auto` is bfloat16 on CUDA and
+float32 on the CPU;
 `--attention_impl auto` is the kernels and `jnp` the plain path;
 `--profile_dir` writes a `torch.profiler` trace of five steps.
 """
@@ -42,7 +50,7 @@ import torch
 
 from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.logging import get_logger
-from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size
+from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size, pad_to_multiple
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.batching import DecoderBatcher, EncDecBatcher, iterate_batches
@@ -147,13 +155,18 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         inputs = prepare_train_inputs(cfg, batch)
         # under a process group the dropout masks are the global batch's
-        row0 = 0 if deterministic else distributed.first_row(batch["input_ids"].shape[0])
+        rows = batch["input_ids"].shape[0]
+        ctx = model.mesh_ctx
+        row0 = 0 if deterministic else (ctx.first_row(rows) if ctx is not None
+                                         else distributed.first_row(rows))
         out = model(**inputs, route_mode="periodic", return_hidden=fused,
                     deterministic=deterministic, generator=generator, row0=row0)
         if fused:
             table = model.lm_table().to(cfg.torch_dtype)
+            block = model.vocab_block()
             loss, denom = fused_causal_lm_loss_with_denom(
-                out["hidden"], table, batch["labels"], cfg.temperature, batch.get("row_valid"))
+                out["hidden"], table, batch["labels"], cfg.temperature, batch.get("row_valid"),
+                vocab_shard=None if block is None else (block[0], model.model_axis))
         else:
             loss, denom = causal_lm_loss_with_denom(
                 out["logits"], batch["labels"], cfg.temperature, batch.get("row_valid"))
@@ -224,7 +237,7 @@ class TrainSMBDecoder(Task):
             device="cuda", n_layers=0, hidden_size=0, attention_impl="auto",
             resume_from_checkpoint=False, save_epochs=0, profile_dir=None,
             wandb_run_name=None, gradient_checkpointing=None,
-            remat_policy="attn", model_overrides=None, **extra):
+            remat_policy="attn", model_overrides=None, mesh_ctx=None, **extra):
         dev = task_device(device)
         data = load_smb_train(dataset, data_path, max_his_len, index_file, tasks)
         corpus, builder = data.corpus, data.builder
@@ -263,6 +276,12 @@ class TrainSMBDecoder(Task):
         overrides.update(parse_model_overrides(model_overrides))
         cfg = make_model_config(backbone, data, base_model, temperature,
                                 model_max_length, dtype, **overrides)
+        ctx = mesh_ctx or MeshContext(device=dev)
+        if ctx.n_model > 1:
+            # pad the vocab table so it row-shards evenly on the model axis;
+            # logits stay [.., vocab_size]
+            cfg = cfg.replace(padded_vocab_size=pad_to_multiple(
+                cfg.vocab_size, _lcm(128, ctx.n_model)))
         # one sequence length across train+valid: the kernels see one shape
         batcher = DecoderBatcher.for_examples(
             data.train + data.valid, pad_multiple=_lcm(builder.tc, 8),
@@ -270,8 +289,9 @@ class TrainSMBDecoder(Task):
             only_train_response=only_train_response)
         if gradient_checkpointing is None and not cfg.remat:
             # no flag given: pick remat from the geometry (off when it fits)
-            cfg = cfg.replace(**auto_remat_overrides(cfg, hf["micro"], batcher.seq_len, dev))
-        model = QwenFamilyModel(cfg, device=dev, seed=seed)
+            cfg = cfg.replace(**auto_remat_overrides(cfg, hf["micro"] // ctx.n_data,
+                                                     batcher.seq_len, dev))
+        model = ctx.shard_params(QwenFamilyModel(cfg, device=dev, seed=seed))
         logger.info("model %s on %s: vocab=%d seq_len=%d train=%d valid=%d parameters %.2fM",
                     backbone, dev, cfg.vocab_size, batcher.seq_len, len(data.train),
                     len(data.valid), sum(p.numel() for p in model.parameters()) / 1e6)
@@ -298,8 +318,10 @@ def fit_and_save(task: Task, model: QwenFamilyModel, cfg: QwenFamilyConfig, voca
     # compiler exists); each process stores its stride-shard of the examples
     from gamer_tpu_torch import native
 
-    micro, seed = local_micro(hf["micro"], model.device), fit_kw["seed"]
-    stores = [native.ExampleStore(distributed.shard_examples(ex), vocab.behavior_token_ids,
+    ctx = model.mesh_ctx or MeshContext(device=model.device)
+    micro, seed = local_batch_size(hf["micro"], ctx), fit_kw["seed"]
+    stores = [native.ExampleStore(distributed.shard_examples(ex, group=ctx.data_group),
+                                  vocab.behavior_token_ids,
                                   only_train_response=only_train_response)
               for ex in (train, valid)]
     return _fit(task, model, cfg, vocab, len(train), hf,

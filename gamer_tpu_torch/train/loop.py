@@ -25,6 +25,14 @@ denom / global denom; an update all-reduces the accumulated grads once, as
 one flat buffer in parameter order, before the optimizer clips them. Every
 process then applies the same sum, so parameters stay bit-identical.
 `evaluate` sums its totals and weights over the group the same way.
+
+On a (data, model) mesh (the `core/mesh.MeshContext` whose `shard_params`
+the model went through) these sums run over the data
+group, and the model ranks of a data index compute the same loss on the same
+rows. Checkpoints and `best_params` hold whole tensors: each split parameter
+(and its optimizer moments and accumulated grad) gathered over the model
+group, written by process 0, so a sharded run's checkpoint loads in one
+process; `load_train_state` takes this rank's blocks of whole tensors.
 """
 
 from __future__ import annotations
@@ -81,6 +89,9 @@ class Trainer:
         eval_loss_fn: Callable[[dict], tuple[torch.Tensor, dict]] | None = None,
     ):
         self.loss_fn = loss_fn
+        self.ctx = getattr(model, "mesh_ctx", None)
+        self.data_group = self.ctx.data_group if self.ctx is not None else None
+        self.dims = self.ctx.sharded_dims(model) if self.ctx is not None else {}
         # the eval loss runs with dropout off: early stopping and the best
         # parameters must not follow dropout noise
         self.eval_loss_fn = eval_loss_fn
@@ -115,7 +126,8 @@ class Trainer:
         grouped = distributed.is_initialized()
         if grouped:  # the global token mean and this process's share of it
             w = _weight(batch, aux, loss.device)
-            stats = distributed.all_reduce_sum(torch.stack([loss.detach().double() * w, w]))
+            stats = distributed.all_reduce_sum(torch.stack([loss.detach().double() * w, w]),
+                                               self.data_group)
             share = (w / stats[1]).float()
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -132,7 +144,7 @@ class Trainer:
             p.grad = None
         if mini == k - 1:
             if grouped:
-                distributed.all_reduce_flat(list(self._acc.values()))
+                distributed.all_reduce_flat(list(self._acc.values()), self.data_group)
             self.optimizer.step(self._acc)
             self._acc = None
         self.step += 1
@@ -143,18 +155,32 @@ class Trainer:
         """Optimizer updates applied."""
         return self.optimizer.count
 
+    def _whole(self, tree: dict) -> dict:
+        """{parameter name: whole tensor} of this rank's blocks."""
+        return self.ctx.whole_state(tree, self.dims) if self.dims else tree
+
+    def _block(self, tree: dict) -> dict:
+        return self.ctx.block_state(tree, self.dims) if self.dims else tree
+
+    def model_state(self) -> dict:
+        """The model's state dict of whole tensors."""
+        return self._whole(self.model.state_dict())
+
     def train_state(self) -> dict:
         """Everything a resumed run needs: parameters, optimizer state,
-        micro-step and a mid-cycle gradient accumulator."""
-        return {"params": self.model.state_dict(), "opt": self.optimizer.state_dict(),
-                "step": self.step, "acc": self._acc or {}}
+        micro-step and a mid-cycle gradient accumulator (whole tensors)."""
+        opt = {k: (self._whole(v) if isinstance(v, dict) else v)
+               for k, v in self.optimizer.state_dict().items()}
+        return {"params": self.model_state(), "opt": opt, "step": self.step,
+                "acc": self._whole(self._acc or {})}
 
     def load_train_state(self, state: dict) -> None:
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt"])
+        self.model.load_state_dict(self._block(state["params"]))
+        self.optimizer.load_state_dict({k: (self._block(v) if isinstance(v, dict) else v)
+                                        for k, v in state["opt"].items()})
         self.step = int(state["step"])
         device = next(iter(self.params.values())).device
-        self._acc = {k: v.to(device) for k, v in state["acc"].items()} or None
+        self._acc = {k: v.to(device) for k, v in self._block(state["acc"]).items()} or None
 
     # ------------------------------------------------------------------ loops
 
@@ -177,7 +203,7 @@ class Trainer:
             sums = torch.zeros(2, dtype=torch.float64, device=device)
             if total is not None:
                 sums[0], sums[1] = total.double(), weight.double()
-            total, weight = distributed.all_reduce_sum(sums)
+            total, weight = distributed.all_reduce_sum(sums, self.data_group)
         if total is None:
             return 0.0
         return float(total) / max(float(weight), 1.0)
@@ -223,11 +249,11 @@ class Trainer:
                 best = metric
                 evals_since_best = 0
                 if self.ckpt:
-                    self.ckpt.save("best", self.model.state_dict(),
+                    self.ckpt.save("best", self.model_state(),
                                    {"epoch": epoch, "metric": float(metric), "step": self.step})
                 else:
                     self._best_state = {k: v.detach().clone()
-                                        for k, v in self.model.state_dict().items()}
+                                        for k, v in self.model_state().items()}
             else:
                 evals_since_best += 1
                 if cfg.patience > 0 and evals_since_best >= cfg.patience:
@@ -265,13 +291,13 @@ class Trainer:
                     break
             if self.ckpt:
                 if cfg.snapshot_every_epochs > 0 and (epoch + 1) % cfg.snapshot_every_epochs == 0:
-                    self.ckpt.save(f"epoch_{epoch}", self.model.state_dict(), {"epoch": epoch})
+                    self.ckpt.save(f"epoch_{epoch}", self.model_state(), {"epoch": epoch})
                     if distributed.is_main_process():
                         self._prune_snapshots(cfg.snapshot_limit)
                 self.ckpt.save("last_state", self.train_state(),
                                {"epoch": epoch, "best": float(best), "step": self.step})
         if self.ckpt:
-            self.ckpt.save("last", self.model.state_dict(), {"step": self.step})
+            self.ckpt.save("last", self.model_state(), {"step": self.step})
         return {"best_metric": float(best), "history": history, "steps": self.step}
 
     # --------------------------------------------------------------- restore
@@ -287,14 +313,15 @@ class Trainer:
                 os.remove(meta)
 
     def best_params(self) -> dict[str, Any]:
-        """The state dict of the best eval: the "best" checkpoint, or without
-        an output directory the copy kept in memory, else the current one."""
+        """The state dict (whole tensors) of the best eval: the "best"
+        checkpoint, or without an output directory the copy kept in memory,
+        else the current one."""
         if self.ckpt and self.ckpt.exists("best"):
             return self.ckpt.restore("best", map_location=self.model.device
                                      if hasattr(self.model, "device") else "cpu")
         if self._best_state is not None:
             return self._best_state
-        return {k: v.detach() for k, v in self.model.state_dict().items()}
+        return {k: v.detach() for k, v in self.model_state().items()}
 
 
 def _weight(batch: dict, aux: dict, device) -> torch.Tensor:

@@ -15,7 +15,9 @@ accumulator at 0, rmsprop adds eps outside the square root):
   rmsprop               v = 0.9 v + 0.1 g^2 (from 0), u = g / sqrt(v + 1e-8)
 
 The schedule counts optimizer updates (`schedule_horizon`): its step is the
-number of updates applied before this one. No decay applies to parameters
+number of updates applied before this one. On a model axis the global norm
+sums each split parameter's squares over the model group and counts each
+replicated one once, so it equals the one-process norm. No decay applies to parameters
 whose flax name ends in "scale" or "bias" (`decay_mask`).
 """
 
@@ -93,8 +95,9 @@ class Optimizer:
     """The optimizer chain of `make_optimizer` over named fp32 tensors."""
 
     def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
-                 decay: Mapping[str, bool]):
+                 decay: Mapping[str, bool], sharded: frozenset = frozenset(), model_axis=None):
         self.cfg = cfg
+        self.sharded, self.model_axis = sharded, model_axis
         self.optim = cfg.optim.lower().replace("_torch", "")
         if self.optim not in ("adamw", "adam", "sgd", "adagrad", "rmsprop"):
             logging.getLogger("gamer_tpu_torch.train").warning(
@@ -116,7 +119,13 @@ class Optimizer:
         max_norm = self.cfg.max_grad_norm
         if not max_norm or max_norm <= 0:
             return dict(grads)
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+        squares = lambda split: sum((g.float().square().sum() for k, g in grads.items()
+                                     if (k in self.sharded) == split),
+                                    torch.zeros((), device=next(iter(grads.values())).device))
+        total = squares(False)
+        if self.sharded:
+            total = total + self.model_axis.all_reduce(squares(True).reshape(1))[0]
+        norm = torch.sqrt(total)
         if norm < max_norm:
             return dict(grads)
         return {k: g / norm * max_norm for k, g in grads.items()}
@@ -174,5 +183,9 @@ class Optimizer:
 def make_optimizer(cfg: OptimizerConfig, model: torch.nn.Module) -> Optimizer:
     """The optimizer family of `cfg.optim` over `model`'s parameters (adamw
     decays decoupled; adam, sgd, adagrad and rmsprop add coupled L2 decay;
-    an unknown name falls back to adam without decay, as in JAX)."""
-    return Optimizer(cfg, dict(model.named_parameters()), decay_mask(model))
+    an unknown name falls back to adam without decay, as in JAX); over the
+    blocks of a model sharded on a model axis (`core/mesh.shard_params`)."""
+    ctx = getattr(model, "mesh_ctx", None)
+    sharded = frozenset(ctx.sharded_dims(model)) if ctx is not None else frozenset()
+    return Optimizer(cfg, dict(model.named_parameters()), decay_mask(model), sharded,
+                     ctx.model_axis if sharded else None)

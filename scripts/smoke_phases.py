@@ -6,8 +6,9 @@ Imports `chip_smoke.py` and `gamer_tpu_torch` from `<tree>` (a checkout,
 e.g. a `git archive` of another commit unpacked into a git-ignored
 directory), builds its kernel libraries and runs the named phases with the
 launch counters and TF32 off as the script does: 5 (`train_phase`), 7
-(`task_phase`), 11 (`multiprocess_phase`), 12 (`tokenizer_phase`), 13
-(`rec_phase`, trees that have it). To
+(`task_phase`), 9 (`remat_phase`), 10 (`encdec_phase`), 11
+(`multiprocess_phase`), 12 (`tokenizer_phase`), 13 (`rec_phase`), 14
+(`model_axis_phase`), each where the tree has it. To
 compare two commits on one card, run it for each tree in one call, in turns
 (parent, change, change, parent). Raises (exit code != 0) if a phase fails.
 """
@@ -55,14 +56,20 @@ def main(argv: list[str]) -> int:
             step_ms = cs.train_phase(dev, counters, card)["step_ms"]
         elif phase == "7":
             cs.task_phase(dev, counters, card, step_ms)
+        elif phase == "9":
+            cs.remat_phase(dev, counters, card)
+        elif phase == "10":
+            cs.encdec_phase(dev, counters, card)
         elif phase == "11":
             cs.multiprocess_phase(dev, counters, card)
         elif phase == "12":
             cs.tokenizer_phase(dev, counters, card)
         elif phase == "13":
             cs.rec_phase(dev, counters, card)
+        elif phase == "14":
+            cs.model_axis_phase(dev, counters, card)
         else:
-            raise ValueError(f"unknown phase {phase!r}; one of 5, 7, 11, 12, 13")
+            raise ValueError(f"unknown phase {phase!r}; one of 5, 7, 9, 10, 11, 12, 13, 14")
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     return 0
 

@@ -194,8 +194,14 @@ def test_mesh_context_data_axis_only():
     batch = ctx.shard_batch({"x": np.arange(6).reshape(2, 3)})
     assert isinstance(batch["x"], torch.Tensor) and batch["x"].device.type == "cpu"
     assert local_batch_size(8, ctx) == 8 and pad_to_multiple(1041, 8) == 1048
-    with pytest.raises(NotImplementedError, match="§1.10"):
-        MeshContext(n_model=2, device="cpu")
+    # one process: a 1 x 1 mesh; a model axis needs the processes to fill it
+    from gamer_tpu_torch.core.mesh import ProcessMesh, default_mesh
+
+    assert ctx.mesh == ProcessMesh(1, 1) and (ctx.data_index, ctx.model_index) == (0, 0)
+    assert default_mesh(model=2, processes=4) == ProcessMesh(2, 2)
+    assert ProcessMesh(2, 2).coords(3) == (1, 1) and ProcessMesh(2, 2).model_ranks(1) == [2, 3]
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
+        MeshContext(ProcessMesh(1, 2), device="cpu")
 
 
 # --------------------------------------------------------------------------- dropout masks
@@ -304,9 +310,11 @@ def test_two_process_test_smb_decoder_matches_one(tmp_path):
 
 
 def test_dryrun_multiprocess_two_processes():
+    """The data axis alone (data 2 x model 1); the model axis is in
+    `tests/test_torch_model_axis.py`."""
     from gamer_tpu_torch.entry import dryrun_multiprocess
 
-    result = dryrun_multiprocess(2, device="cpu", timeout_s=WORKER_TIMEOUT_S)
+    result = dryrun_multiprocess(2, model=1, device="cpu", timeout_s=WORKER_TIMEOUT_S)
     assert len(result["losses"]) == 2 and np.isfinite(result["losses"]).all()
 
 

@@ -653,8 +653,8 @@ def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
     `_remat_launches` (full and dots run kernels a and h again in the
     backward, attn only h: a 12/24/12/24, h 16, the rest as remat off), and
     the loss and every grad bit-identical to remat off's on the same weights
-    and dropout seeds, with PyTorch's deterministic algorithms (its default
-    CUDA embedding backward accumulates with atomics)."""
+    and dropout seeds (PyTorch's default algorithms: the port's table
+    lookups sum their grads in a fixed order, `modules/layers.lookup`)."""
     import chip_smoke as cs
     from gamer_tpu_torch.entry import flagship_config, make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
@@ -675,9 +675,8 @@ def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
         return loss.detach(), {n: p.grad for n, p in model.named_parameters()}, {
             k: f.launches for k, f in counters.items()}
 
-    with cs.deterministic_algorithms():
-        want, want_grads, _ = step(cfg)
-        loss, grads, launches = step(cfg.replace(remat=True, remat_policy=policy))
+    want, want_grads, _ = step(cfg)
+    loss, grads, launches = step(cfg.replace(remat=True, remat_policy=policy))
     assert launches == cs._remat_launches(cfg, policy)
     assert torch.equal(loss, want)
     for name, g in want_grads.items():
@@ -807,3 +806,98 @@ def test_discriminative_step_card_matches_cpu(dev, backbone, tmp_path):
     CheckpointManager(str(tmp_path)).save("best", model.state_dict())
     batch = cs.random_rec_batch(64, L, his, n_items, n_users, seed=5)
     cs.rec_steps_agree(backbone, str(tmp_path), dev, batch, n_items, n_users)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_kernels_on_a_vocab_block_take_shifted_targets(dev, dtype):
+    """Kernels j and k on one rank's rows of a split table (`modules/losses.
+    vocab_shard_ce`): the targets shifted by the block's first row, so some
+    are negative and some at or past its rows, match nothing there; k takes
+    a global lse larger than the block's. Against the plain versions."""
+    g = torch.Generator().manual_seed(3)
+    N, D, V, v0 = 203, 256, 288, 288  # the second of four blocks of 1152 rows
+    h = torch.randn(N, D, generator=g).to(dev, dtype)
+    table = (torch.randn(V, D, generator=g) * 0.1).to(dev, dtype)
+    targets = (torch.randint(0, 1041, (N,), generator=g) - v0).to(dev, torch.int32)
+    assert (targets < 0).any() and (targets >= V).any() and ((targets >= 0) & (targets < V)).any()
+    valid = (torch.rand(N, generator=g) > 0.1).to(dev, torch.int32)
+    nll, lse = FC.ce_rows_fwd(h, table, targets, valid, 1.0)
+    ref_nll, ref_lse = fused_ce_rows_plain(h.float(), table.float(), targets, valid, 1.0)
+    torch.cuda.synchronize()
+    _close(nll, ref_nll, dtype)
+    _close(lse, ref_lse, dtype)
+    lse_global = lse + torch.rand(N, generator=g).to(dev)
+    gnll = torch.rand(N, generator=g).to(dev)
+    dh, de = FC.fused_ce_rows_bwd(h, table, targets, valid, lse_global, gnll, 1.0)
+    ref_dh, ref_de = FC.fused_ce_rows_bwd_lse_plain(h.float(), table.float(), targets, valid,
+                                                    lse_global, gnll, 1.0)
+    _close(dh, ref_dh, dtype)
+    _close(de, ref_de, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernels_on_an_expert_slice(dev, dtype):
+    """Kernels h and i on positions [p0, P) of a pass (a rank's experts,
+    `modules/moe.py`) with the dropout seed moved by p0: against the plain
+    versions of the whole pass at those positions, dropout 0.2."""
+    from gamer_tpu_torch.modules.dropout import row_seed
+    from gamer_tpu_torch.ops.fused_attention import _M2
+
+    g = torch.Generator().manual_seed(4)
+    P, p0, T, D, F, NB, seed, rate = 5, 2, 131, 64, 96, 4, 1234, 0.2
+    rnd = lambda *s: (torch.randn(*s, generator=g) * 0.2).to(dev, dtype)
+    xp, wgu, wd, btab = rnd(P, T, D), rnd(P, D, 2 * F), rnd(P, F, D), rnd(P, NB, 2 * F)
+    beh = torch.randint(0, NB, (P, T), generator=g).to(dev, torch.int32)
+    gout = rnd(P - p0, T, D)
+    part = (xp[p0:], wgu[p0:], wd[p0:], btab[p0:], beh[p0:])
+    shifted = row_seed(seed, p0, 1, _M2)
+    out = fused_moe_ffn(*part, shifted, "silu", rate, True)
+    leaves = [t.float().requires_grad_(True) for t in (xp, wgu, wd, btab)]
+    whole = fused_moe_ffn_plain(*leaves, beh, True, seed, rate, "silu")
+    torch.cuda.synchronize()
+    _close(out, whole[p0:], dtype)
+    grads = FM.fused_moe_ffn_bwd(*part, gout, shifted, rate, True, "silu")
+    want = torch.autograd.grad(whole[p0:], leaves, gout.float())
+    for got, ref in zip(grads, want):
+        _close(got, ref[p0:], dtype)
+
+
+def test_flagship_bf16_step_backward_reproduces(dev):
+    """Two forward and backward passes of the flagship training step (bf16,
+    B 64 x S 505, dropout 0.2, the kernels) with the same seeds give every
+    grad bit for bit (`modules/layers.lookup`; `chip_smoke.py` phase 9)."""
+    import chip_smoke as cs
+
+    cfg = cs.flagship_config(dropout_rate=cs.DROP_RATE)
+    cs._two_passes_agree(cfg, cs.make_batch(cfg, 64, 101, seed=3), dev)
+
+
+def test_mbht_incidence_card_matches_cpu(dev):
+    """MBHT's hypergraph incidence matrix at phase 13's geometry (the
+    shipped config, batch 256 x 21, 6000 items) on the card against the CPU
+    on the same weights and batch: the same edges (the top-k's `>=` against
+    the sorted k-th largest and the 0.01 floor for negative similarities
+    leave ties), their weights within 1e-5."""
+    import os
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    n_items, n_users, his, L = 6000, 700, 20, 21
+    cfg = DisModelConfig.from_file(os.path.join(repo, "config", "dis-models", "MBHT"))
+    cfg = cfg.replace(scales=[5, 3, 7])  # the task's adjustment at length 21
+    batch = cs.random_rec_batch(256, L, his, n_items, n_users, seed=13)
+    mats = []
+    for where in ("cpu", dev):
+        model = TR.build_dis_model("MBHT", cfg, n_items, L, 3, n_users, where, seed=2)
+        seq = torch.as_tensor(batch["inputs"], device=where)
+        with torch.no_grad():
+            mats.append(model.hypergraph.incidence(seq, model.item_embedding(seq.long()))[1].cpu())
+    cpu, card = mats
+    flips = int(((cpu > 0) != (card > 0)).sum())
+    print(f"MBHT incidence B=256 L={L}: {int((cpu > 0).sum())} edges on the CPU, {flips} "
+          f"differ on the card")
+    assert flips == 0, f"{flips} hyperedges flip between the CPU and the card"
+    torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-5)

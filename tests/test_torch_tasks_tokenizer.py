@@ -2,7 +2,9 @@
 `python -m gamer_tpu_torch`'s `main(argv)` against the JAX package's, each
 package on its own copy of one synthetic dataset:
 
-- `SemEmb`'s hash backend: the `.npy` byte-identical;
+- `SemEmb`'s hash backend: the `.npy` byte-identical; its AutoModel
+  backend on a tiny random BERT the test writes itself (offline,
+  `local_files_only`): the embeddings within 1e-5 of JAX's task's;
 - `tokenize` cid (plain and shuffled) and rid: the JSON byte-identical; the
   reference flag aliases (`--cid`, `--rid`, `--rq_kmeans`, `--checkpoint`);
 - `tokenize --mode rq_vae` on a JAX RQ-VAE checkpoint carried over by
@@ -76,6 +78,38 @@ def test_semantic_emb_hash_is_byte_identical(data):
                    "--plm_name", "hash"])
         assert res["shape"] == [N_ITEMS, 48]
     _same_file(data, ".emb-hash-td.npy")
+
+
+def _tiny_bert(path) -> str:
+    """A random 2-layer BERT of width 32 and its WordPiece tokenizer (the
+    special tokens, letters, digits and their ## forms) saved in `path`."""
+    from transformers import BertConfig, BertModel, BertTokenizerFast
+
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + [str(d) for d in range(10)]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *chars, *(f"##{c}" for c in chars)]
+    path.mkdir()
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    BertTokenizerFast(vocab_file=str(path / "vocab.txt"), do_lower_case=True).save_pretrained(
+        str(path))
+    torch.manual_seed(0)
+    BertModel(BertConfig(vocab_size=len(vocab), hidden_size=32, num_hidden_layers=2,
+                         num_attention_heads=2, intermediate_size=64,
+                         max_position_embeddings=128)).save_pretrained(str(path))
+    return str(path)
+
+
+def test_semantic_emb_automodel_matches_jax_task(data, tmp_path, monkeypatch):
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    ckpt = _tiny_bert(tmp_path / "bert")
+    out = {}
+    for pkg, run in (("jax", run_jax), ("port", run_port)):
+        res = run(["SemEmb", "--dataset", "Synth", "--data_path", data / pkg, "--plm_name",
+                   "tinybert", "--plm_checkpoint", ckpt, "--max_sent_len", "64"])
+        assert res["shape"] == [N_ITEMS, 32]
+        out[pkg] = np.load(data / pkg / "Synth" / "Synth.emb-tinybert-td.npy")
+    assert np.abs(out["port"]).max() > 0
+    np.testing.assert_allclose(out["port"], out["jax"], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("argv,suffix", [
