@@ -4,11 +4,12 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the six hand-written CUDA kernel libraries from
+1. build the seven hand-written CUDA kernel libraries from
    `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
    started together), and count each library's tensor-core instructions
    (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: every
-   library (attention a, b; MoE h, i; CE j, k) must have some;
+   library of a-k (attention a, b; MoE h, i; CE j, k) must have some (the
+   elementwise hash dropout has none by design);
 2. hold each forward kernel (a, h, j) against its plain PyTorch version at
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
@@ -33,6 +34,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    hidden 512 (D = Dout 512, F 1024) and at D 200, F 344 (the pad route), CE
    j/k at D 512 and 1024, attention a/b at head dims 48, 96, 256 and, on
    the wide route, 320 and 512 (B 8 x S 505);
+2d. the residual hash dropout (`ops/hash_dropout.py`): K1 (with and
+   without its residual) and K2 against their plain versions, bit for bit,
+   at the flagship residual [64, 505, 256] bf16 (rates 0.2 and 0.1), fp32
+   at the zoo's shape, an odd length at an aligned and at an offset
+   pointer, and rows from row0 > 0 against the
+   global batch's mask; K1 and K2 timed beside their plain versions and
+   bounds;
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator: once through the kernels with the launch counts reset
@@ -43,7 +51,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    finite sorted scores, every returned code path in the trie;
 5. the training step of flagship Qwen3Multi through `Trainer` (bf16, batch
    64 x 101 blocks, dropout 0.2, AdamW lr 5e-4, 10 updates on one batch):
-   per step exactly 12/12/8/8/1/1 launches of kernels a/b/h/i/j/k, finite
+   per step exactly 12/12/8/8/1/1 launches of kernels a/b/h/i/j/k and
+   20/20 of the hash dropout's K1/K2 (one a residual site), finite
    losses, the mean of the last 3 below the first; then one fp32 step at
    batch 16, kernel path against plain path on the same weights and dropout
    seeds (loss within 1e-5, every parameter's grad within 1e-3);
@@ -71,7 +80,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 9. the remat policies and the memory estimate (`remat_phase`): flagship
    Qwen3Multi bf16 at B 64 x S 505 and B 16 x S 8190, each of remat off,
    full, attn and dots for a warm-up and a timed `Trainer` step: launches
-   per step (a 12/24/12/24, h 8/16/16/16, b 12, i 8, j 1, k 1), the loss
+   per step (a 12/24/12/24, h 8/16/16/16, K1 20/32/32/32, b 12, i 8, j 1,
+   k 1, K2 20), the loss
    and a third step's grads bit-identical to remat off, two remat-off passes
    bit-identical (PyTorch's default algorithms), peak memory full < attn,
    dots < off, and
@@ -84,7 +94,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    PBATransformer (batch 64 x 100 blocks) and test_SMB_decoder, 20 beams
    at batch 128; losses fall, the reloaded `best`, beams in the trie,
    metrics in [0, 1], no launch of kernels a-k (the enc-dec family runs
-   none, as in JAX).
+   none, as in JAX; it runs the hash dropout's K1 and K2, whose counts
+   are printed).
 11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
    train_SMB_decoder in a one-process NCCL group against the same run
    ungrouped (launches as phase 5, one gradient
@@ -108,14 +119,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bit-identical) and against the CPU (loss 1e-5, grads 1e-4;
    ill-conditioned grads against float64), SASRec's sampled eval and a BPR
    epoch; losses fall, metrics in [0, 1], no launch of a-k (the zoo runs
-   none, as in JAX).
+   none, as in JAX; its dropout runs on K1 and K2, whose counts are
+   printed).
 14. the model axis (`model_axis_phase`, `core/mesh.py`): two gloo processes
    sharing the card at data 1 x model 2 (the flagship's experts 3 / 3, its
    vocab padded to 1152 rows, 576 / 576) against one process with the
    whole model: 4 fp32 steps at a global batch of 16 x S 505, dropout 0.2
    (losses 1e-5, gathered parameters 1e-4, the ranks' parameters
    bit-identical); one bf16 step at B 64 x S 505 on each rank (launches a
-   12, b 12, h 8, i 8, j 1, k 1, 20 model-group collectives, their time);
+   12, b 12, h 8, i 8, j 1, k 1, K1 20, K2 20, 20 model-group collectives,
+   their time);
    the 20-beam search of phase 4's geometry in fp32 (codes equal, scores
    1e-4); then h/i at P 2 and 3 and j/k at V 576 and 465 timed.
 
@@ -141,6 +154,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+F32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores, NVIDIA data sheet
+# libraries with no tensor-core work by design (elementwise, bound by bytes)
+NO_TENSOR_CORES = ("hash_dropout",)
+# the launch counters of the tensor-core kernels a-k (phases 10 and 13 launch none)
+A_TO_K = ("fused_mask_attention", "fused_mask_attention_bwd", "fused_moe_ffn",
+          "fused_moe_ffn_bwd", "fused_ce_rows", "fused_ce_rows_bwd")
 F32_TOL, BF16_TOL, LOSS_TOL = 1e-4, 2e-2, 1e-2
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-3  # fp32 train step, kernel path vs plain path
 # bf16 train step, kernel path vs plain path, set from the readings of
@@ -250,6 +269,47 @@ def _cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in a CUDA
+    graph and replayed, so that the host's cost of a launch, which exceeds a
+    short kernel's device time, is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host time of one call of `fn` (a launch's Python, checks and CUDA runtime
+    call), with the card kept busy ahead of it: µs a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
 def _rel_err(out, ref) -> tuple[float, float]:
     err = (out.float() - ref.float()).abs().max().item()
     return err, err / max(ref.float().abs().max().item(), 1e-30)
@@ -286,7 +346,8 @@ def _cuobjdump() -> str:
 
 def tensor_core_counts() -> dict:
     """{library: {"HMMA": n, "HGMMA": n}} from each built library's SASS;
-    raises if a library has no tensor-core instruction."""
+    raises if a library has no tensor-core instruction (except the
+    elementwise ones, `NO_TENSOR_CORES`)."""
     from gamer_tpu_torch.ops import _build
 
     tool, counts = _cuobjdump(), {}
@@ -297,7 +358,7 @@ def tensor_core_counts() -> dict:
         print(f"sass {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA "
               f"tensor-core instructions", flush=True)
     for name in _build.KERNEL_SOURCES:
-        if not sum(counts[name].values()):
+        if name not in NO_TENSOR_CORES and not sum(counts[name].values()):
             raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
     return counts
 
@@ -847,15 +908,132 @@ def width_phase(dev, card: str) -> None:
                     lib=("sdpa(bool mask, no dropout)", sdpa))
 
 
+def _bits(t):
+    """t's bit patterns as integers, so that == compares bit for bit."""
+    import torch
+
+    return t.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+
+def dropout_phase(dev, card: str) -> dict:
+    """Phase 2d: the residual hash dropout's kernels against their plain
+    versions on the same inputs, bit for bit: K1 with and without its
+    residual and K2 at the flagship residual [64, 505, 256] bf16 (rates 0.2
+    and 0.1, whose scale rounds in bf16), fp32 at the zoo's SASRec shape
+    [256, 20, 128] (rate 0.5), an odd length at a 16-byte aligned and at
+    an offset pointer (the scalar route), and rows from row0 > 0 against
+    the global batch's plain mask. Times K1 (with residual) and K2 at the flagship
+    shape, in a CUDA graph (a launch's host time exceeds the kernel's
+    device time), beside their plain versions, bounds and host time a call;
+    no single PyTorch call computes this hash (`F.dropout` draws Philox
+    bits), so no library time."""
+    import torch
+
+    from gamer_tpu_torch.modules.dropout import hash_dropout_add, keep_threshold
+    from gamer_tpu_torch.ops import hash_dropout as HD
+
+    g = torch.Generator().manual_seed(4)
+    rnd = lambda shape, dtype: torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def same(label, got, want):
+        ok = got.dtype == want.dtype and got.shape == want.shape and bool(
+            (_bits(got) == _bits(want)).all())
+        err = (got.float() - want.float()).abs().max().item() if got.shape == want.shape else -1
+        print(f"check {label}: {'bit-identical' if ok else 'DIFFERS'} (max abs err {err:.3e})",
+              flush=True)
+        assert ok, f"{label}: the kernel differs from its plain version"
+        return err
+
+    def k1_k2(label, y, r, rate, seed=DROP_SEED):
+        thr, kp = keep_threshold(rate)
+        errs = [same(f"{label} K1+residual", HD.hash_dropout_fwd(y, seed, thr, kp, r),
+                     HD.hash_dropout_add_plain(y, seed, thr, kp, r)),
+                same(f"{label} K1", HD.hash_dropout_fwd(y, seed, thr, kp),
+                     HD.hash_dropout_add_plain(y, seed, thr, kp)),
+                same(f"{label} K2", HD.hash_dropout_bwd(y, seed, thr, kp),
+                     HD.apply_mask(y, seed, thr, kp))]
+        return max(errs)
+
+    shape = (64, 505, 256)
+    err = 0.0
+    for rate in (DROP_RATE, 0.1):
+        y, r = rnd(shape, torch.bfloat16), rnd(shape, torch.bfloat16)
+        err = max(err, k1_k2(f"hash_dropout[{list(shape)},bf16,rate={rate}]", y, r, rate))
+    zoo = (256, 20, 128)
+    err = max(err, k1_k2(f"hash_dropout[{list(zoo)},fp32,rate=0.5]", rnd(zoo, torch.float32),
+                         rnd(zoo, torch.float32), 0.5))
+    n = 1_000_003  # not a multiple of 8
+    for dtype in (torch.bfloat16, torch.float32):
+        base_y, base_r = rnd((n + 1,), dtype), rnd((n + 1,), dtype)
+        err = max(err, k1_k2(f"hash_dropout[n={n},{dtype},aligned]", base_y[:n], base_r[:n],
+                             0.1))
+        y, r = base_y[1:], base_r[1:]  # 2 or 4 bytes past a 16-byte boundary
+        assert y.data_ptr() % 16 != 0
+        err = max(err, k1_k2(f"hash_dropout[n={n},{dtype},offset pointer]", y, r, 0.1))
+    # rows from row0 > 0: the global batch's mask
+    B, row0 = 8, 3
+    y, r = rnd((B, 505, 256), torch.bfloat16), rnd((B, 505, 256), torch.bfloat16)
+    thr, kp = keep_threshold(DROP_RATE)
+    want = HD.hash_dropout_add_plain(y, DROP_SEED, thr, kp, r)[row0:]
+    err = max(err, same(f"hash_dropout[rows {row0}..{B} of {B},bf16] K1+residual",
+                        hash_dropout_add(r[row0:], y[row0:], DROP_SEED, DROP_RATE, row0), want))
+
+    # times at the flagship shape, bf16, rate 0.2; the calls cycle through 6
+    # input sets (200 MB for K1), so that the inputs come from device memory
+    # and not from the 50 MB L2, as in a step
+    sets = [(rnd(shape, torch.bfloat16), rnd(shape, torch.bfloat16)) for _ in range(6)]
+    turn = iter(range(1 << 30))
+    pick = lambda: sets[next(turn) % len(sets)]
+    y, r = sets[0]
+    thr, kp = keep_threshold(DROP_RATE)
+    numel = y.numel()
+    entries = {}
+    for name, n_in, kern, plain in (
+            ("hash_dropout_fwd", 2,
+             lambda: (lambda y, r: HD.hash_dropout_fwd(y, DROP_SEED, thr, kp, r))(*pick()),
+             lambda: HD.hash_dropout_add_plain(y, DROP_SEED, thr, kp, r)),
+            ("hash_dropout_bwd", 1, lambda: HD.hash_dropout_bwd(pick()[0], DROP_SEED, thr, kp),
+             lambda: HD.apply_mask(y, DROP_SEED, thr, kp))):
+        n_bytes = 2 * numel * (n_in + 1)  # each input read once, the output written once
+        flops = numel * n_in  # the multiply, and the residual add
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        ms = _graph_ms(kern)
+        host_us, paced_ms = _host_us(kern), _cuda_ms(kern, iters=20)
+        plain_ms = _cuda_ms(plain, iters=3)
+        entries[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                             bound_by=by, max_abs_err=err)
+        print(f"time {name} {list(shape)} bf16 rate {DROP_RATE}: kernel {ms:.4f} ms in a CUDA "
+              f"graph ({n_bytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of bound), "
+              f"{paced_ms:.4f} ms a call launched from Python ({host_us:.1f} us host time a "
+              f"call), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); library: none "
+              f"(card {card})", flush=True)
+    return entries
+
+
+def _dropout_sites(cfg) -> list:
+    """Hash-dropout applications of each layer in one training forward (K1
+    launches; K2 the same in the backward): the residual sites (2, with a
+    cross-attention 3) and a dense layer's MLP activation (a sparse layer's
+    is inside kernel h); none when the rate is 0 or 1."""
+    if not 0.0 < cfg.dropout_rate < 1.0:
+        return [0] * cfg.num_hidden_layers
+    return [(3 if i in cfg.cross_attention_layers else 2) + (i not in cfg.sparse_layers)
+            for i in range(cfg.num_hidden_layers)]
+
+
 def _step_launches(cfg) -> dict:
     """Wrapper calls of one training step: an attention forward and backward
     per self- and cross-attention, an MoE forward and backward per sparse
-    layer (MoeAction: one per behavior level), one CE forward and backward."""
+    layer (MoeAction: one per behavior level), one CE forward and backward,
+    and K1 and K2 at each hash-dropout site (`_dropout_sites`)."""
     attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
     moe = len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action else 1)
+    drop = sum(_dropout_sites(cfg))
     return {"fused_mask_attention": attn, "fused_mask_attention_bwd": attn,
             "fused_moe_ffn": moe, "fused_moe_ffn_bwd": moe,
-            "fused_ce_rows": 1, "fused_ce_rows_bwd": 1}
+            "fused_ce_rows": 1, "fused_ce_rows_bwd": 1,
+            "hash_dropout_fwd": drop, "hash_dropout_bwd": drop}
 
 
 def _step_grads(model, loss_fn, batch, seed: int):
@@ -1323,12 +1501,17 @@ PHASE9_POLICIES = (None, "full", "attn", "dots")  # None = remat off
 def _remat_launches(cfg, policy) -> dict:
     """`_step_launches` of a step under remat `policy`: "full" and "dots" run
     every attention forward (a) and MoE forward (h) again in the backward,
-    "attn" only the MoE forwards (the attention cores keep their outputs)."""
+    "attn" only the MoE forwards (the attention cores keep their outputs).
+    Every policy runs each layer's dropout sites again but its last: the
+    recompute stops once it has rebuilt the last tensor the backward saved
+    (`torch.utils.checkpoint`'s early stop), and the last residual's K1
+    saves none."""
     launches = _step_launches(cfg)
     if policy in ("full", "dots"):
         launches["fused_mask_attention"] *= 2
     if policy is not None:
         launches["fused_moe_ffn"] *= 2
+        launches["hash_dropout_fwd"] += sum(max(n - 1, 0) for n in _dropout_sites(cfg))
     return launches
 
 
@@ -1560,7 +1743,7 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     before = {k: w.launches for k, w in counters.items()}
-    none = {k: 0 for k in counters}
+    none = {k: 0 for k in counters if k in A_TO_K}
 
     def pipeline(label, train_task, args, his, n_min, train, valid, test, prefix_of, corpus,
                  eval_argv):
@@ -1577,7 +1760,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         assert len(losses) >= n_min, f"{label}: only {len(losses)} training steps"
         assert np.isfinite(losses).all() and np.isfinite(res["best_metric"]), losses
         assert np.mean(losses[-3:]) < np.mean(losses[:3]), f"{label}: the loss did not fall"
-        assert all(st == none for st in rec["steps"]), f"{label}: a kernel ran {rec['steps'][0]}"
+        a_to_k = [{k: n for k, n in st.items() if k in A_TO_K} for st in rec["steps"]]
+        assert all(st == none for st in a_to_k), f"{label}: a kernel of a-k ran {a_to_k[0]}"
         with open(os.path.join(out, "config.json")) as f:
             assert json.load(f)["family"] == "encdec"
         batch = int(args[args.index("--batch_size") + 1])
@@ -1589,7 +1773,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
               f"{[round(x, 4) for x in losses[-3:]]}, best valid loss {res['best_metric']:.6f}; "
               f"encoder S {batcher.enc_len}, decoder S {batcher.dec_len}; step {step_ms:.3f} ms "
               f"median with host collation ({batch / (step_ms / 1e3):.1f} sequences/s); peak "
-              f"memory {peak:.3f} GiB; fit {fit_s:.1f} s (card {card})", flush=True)
+              f"memory {peak:.3f} GiB; fit {fit_s:.1f} s; launches of the first step "
+              f"{rec['steps'][0]} (card {card})", flush=True)
 
         # the reloaded "best" gives the in-memory best eval loss
         model, cfg, vocab, family = load_generative_model(out, "best", dev)
@@ -1667,6 +1852,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
           f"{ {k: round(v, 5) for k, v in ev['merged'].items()} } ({num_beams} beams, "
           f"card {card})", flush=True)
     moved = {k: w.launches - before[k] for k, w in counters.items()}
+    print(f"phase 10 launches in the whole phase: {moved}", flush=True)
+    moved = {k: n for k, n in moved.items() if k in A_TO_K}
     assert moved == none, f"phase 10 launched kernels {moved}: a model other than the enc-dec ran"
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2250,7 +2437,7 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     before = {k: w.launches for k, w in counters.items()}
-    none = {k: 0 for k in counters}
+    none = {k: 0 for k in counters if k in A_TO_K}
     his = int(train_args[train_args.index("--max_his_len") + 1])
     batch_size = int(train_args[train_args.index("--batch_size") + 1])
     corpus = SMBCorpus(DataFiles(data, "Synth"))
@@ -2356,7 +2543,9 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
         neg[neg.index("--tasks") + 1] = "smb_dis_neg"
         fit("SASRec-BPR", "SASRec", config("SASRec", loss_type="BPR"), tuple(neg))
         moved = {k: w.launches - before[k] for k, w in counters.items()}
-        assert moved == none, f"phase 13 launched kernels {moved}: the zoo runs none"
+        print(f"phase 13 launches in the whole phase: {moved}", flush=True)
+        moved = {k: n for k, n in moved.items() if k in A_TO_K}
+        assert moved == none, f"phase 13 launched kernels {moved}: the zoo runs none of a-k"
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2376,15 +2565,18 @@ PHASE14 = dict(steps=PHASE11_STEPS, step16=dict(cfg=dict(dropout_rate=DROP_RATE)
 
 
 def kernel_counters() -> dict:
-    """The kernel wrappers whose `.launches` count the launches of a-k."""
+    """The kernel wrappers whose `.launches` count the launches of a-k and
+    of the hash dropout's K1 and K2."""
     from gamer_tpu_torch.ops import fused_attention as FA
     from gamer_tpu_torch.ops import fused_ce as FC
     from gamer_tpu_torch.ops import fused_moe as FM
+    from gamer_tpu_torch.ops import hash_dropout as HD
 
     return {"fused_mask_attention": FA.fused_mask_attention,
             "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
             "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd,
+            "hash_dropout_fwd": HD.hash_dropout_fwd, "hash_dropout_bwd": HD.hash_dropout_bwd}
 
 
 def model_collectives(cfg, n_model: int) -> int:
@@ -2667,6 +2859,8 @@ def main() -> int:
     entries.update(bwd_entries)
     # 2c. the widths past the flagship's
     width_phase(dev, card)
+    # 2d. the residual hash dropout's K1 and K2, bit for bit
+    entries.update(dropout_phase(dev, card))
 
     # 3. scoring forward, kernels then plain path, same weights
     cfg = flagship_config()
@@ -2740,10 +2934,7 @@ def main() -> int:
     del bmodel, search
 
     # 5. training steps; 6. the long-history step
-    counters = {"fused_mask_attention": FA.fused_mask_attention,
-                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
-                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    counters = kernel_counters()
     train = train_phase(dev, counters, card)
     long_launches = long_phase(dev, counters)
     # 7. the task pipeline through the CLI
@@ -2770,7 +2961,12 @@ def main() -> int:
                "fused_moe_ffn": (csrc + "fused_moe_fwd.cu", tpu + "pallas_moe.py:73"),
                "fused_moe_ffn_bwd": (csrc + "fused_moe_bwd.cu", tpu + "pallas_moe.py:88"),
                "fused_ce_rows": (csrc + "fused_ce_fwd.cu", tpu + "pallas_ce.py:53"),
-               "fused_ce_rows_bwd": (csrc + "fused_ce_bwd.cu", tpu + "pallas_ce.py:67")}
+               "fused_ce_rows_bwd": (csrc + "fused_ce_bwd.cu", tpu + "pallas_ce.py:67"),
+               # XLA's fusion of the hash dropout into its residual add (no pallas_call)
+               "hash_dropout_fwd": (csrc + "hash_dropout.cu",
+                                    "gamer_tpu/modules/dropout.py:119-146"),
+               "hash_dropout_bwd": (csrc + "hash_dropout.cu",
+                                    "gamer_tpu/modules/dropout.py:119-146")}
     row = lambda name, src, rep, n, e: dict(
         name=name, route="cuda", source=src, replaces=rep, launches=n,
         max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -66,7 +66,7 @@ class LinearAttention(nn.Module):
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
         probs = drop(torch.softmax(scores, dim=-1))
         ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v).transpose(1, 2).reshape(B, L, -1)
-        return self.ln(drop(self.dense(ctx)) + x)
+        return self.ln(drop.add(x, self.dense(ctx)))
 
 
 class MultiScaleLayer(nn.Module):
@@ -97,7 +97,7 @@ class MultiScaleLayer(nn.Module):
         fused = self.out_fc(cat.transpose(1, 2)).transpose(1, 2)
         # FeedForward with residual + LN (ref transformer.FeedForward)
         f = self.ff2(drop(self.act(self.ff1(fused))))
-        return self.ff_ln(drop(f) + fused)
+        return self.ff_ln(drop.add(fused, f))
 
 
 class HypergraphBranch(nn.Module):

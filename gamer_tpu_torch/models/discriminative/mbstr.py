@@ -112,7 +112,7 @@ class MBSAttention(nn.Module):
         else:
             ctx = torch.einsum("BhQK,BhKd->BhQd", probs, v)
         ctx = ctx.transpose(1, 2).reshape(B, L, H)
-        return self.ln(drop(ctx) + x)
+        return self.ln(drop.add(x, ctx))
 
 
 class MBSLayer(nn.Module):
@@ -144,7 +144,7 @@ class MBSLayer(nn.Module):
             f = torch.einsum("bBLH,BLb->BLH", torch.stack(outs, 0), sel)
         else:
             f = self.ffn_2(drop(self.act(self.ffn_1(x))))
-        return self.ffn_ln(drop(f) + x)
+        return self.ffn_ln(drop.add(x, f))
 
 
 class CGCHead(nn.Module):

@@ -153,8 +153,8 @@ class FBAttention(nn.Module):
         probs = drop(torch.softmax(scores, dim=-1))
         ctx_m = torch.einsum("BhQK,BhKd->BhQd", probs, v1).transpose(1, 2).reshape(B, L, H)
         ctx_c = torch.einsum("BhQK,BhKd->BhQd", probs, v2).transpose(1, 2).reshape(B, L, H)
-        hm = self.out_ln(drop(self.mean_dense(ctx_m)) + xm)
-        hc = self.out_ln(drop(self.cov_dense(ctx_c)) + xc)
+        hm = self.out_ln(drop.add(xm, self.mean_dense(ctx_m)))
+        hc = self.out_ln(drop.add(xc, self.cov_dense(ctx_c)))
         return hm, hc
 
 
@@ -177,8 +177,8 @@ class BehaviorFFN(nn.Module):
         outs = [torch.zeros_like(x)]
         for i in range(n):
             f = drop(F.elu(getattr(self, f"ffn_{i}_1")(x)))
-            f = drop(getattr(self, f"ffn_{i}_2")(f))
-            outs.append(getattr(self, f"ffn_{i}_ln")(f + x))
+            f = drop.add(x, getattr(self, f"ffn_{i}_2")(f))
+            outs.append(getattr(self, f"ffn_{i}_ln")(f))
         sel = F.one_hot(type_seq.long(), n + 1).to(x.dtype)
         return torch.einsum("bBLH,BLb->BLH", torch.stack(outs, 0), sel)
 

@@ -41,7 +41,7 @@ from torch import nn
 
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
-from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout
+from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout, hash_dropout_add
 from gamer_tpu_torch.modules.layers import RMSNorm, dense, embed
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops.fused_attention import attention_keep_mask, keep_fraction
@@ -222,11 +222,11 @@ class EncDecBlock(nn.Module):
         # (cross-attention probs and residual,) MLP activation and residual
         self.dropout_sites = 6 if decoder else 4
 
-    def mlp_block(self, h, norm, position_index, behavior_index, seeds, drop, row0=0):
+    def mlp_block(self, h, norm, position_index, behavior_index, seeds, drop_add, row0=0):
         m = self.mlp(norm(h), position_index, behavior_index, route_mode="onehot",
                      num_positions=self.num_positions, deterministic=seeds is None,
                      dropout_seed=0 if seeds is None else seeds[-2], row0=row0)
-        return h + drop(m, None if seeds is None else seeds[-1])
+        return drop_add(h, m, None if seeds is None else seeds[-1])
 
 
 class EncDecModel(nn.Module):
@@ -342,6 +342,8 @@ class EncDecModel(nn.Module):
         take = lambda n: None if seeds is None else [next(seeds) for _ in range(n)]
         one = lambda: None if seeds is None else next(seeds)
         drop = lambda y, seed: y if seed is None else hash_dropout(y, seed, cfg.dropout_rate, row0)
+        drop_add = (lambda r, y, seed: r + y if seed is None
+                    else hash_dropout_add(r, y, seed, cfg.dropout_rate, row0))
         attn_seed = lambda s, i: None if s is None else attention_row_seed(s[i], row0,
                                                                             cfg.num_heads)
 
@@ -356,9 +358,9 @@ class EncDecModel(nn.Module):
                 s = take(layer.dropout_sites)
                 a, bias, _ = layer.self_attn(layer.ln1(h), allowed=enc_allowed, pos_bias=bias,
                                              dropout_seed=attn_seed(s, 0))
-                h = h + drop(a, None if s is None else s[1])
-                h = layer.mlp_block(h, layer.ln2, enc_position_index, enc_behavior_index, s, drop,
-                                    row0)
+                h = drop_add(h, a, None if s is None else s[1])
+                h = layer.mlp_block(h, layer.ln2, enc_position_index, enc_behavior_index, s,
+                                    drop_add, row0)
             encoder_hidden = drop(self.encoder_norm(h), one())
         elif seeds is not None:  # the encoder's seeds, unused
             take(2 + sum(layer.dropout_sites for layer in self.encoder_layers))
@@ -391,14 +393,14 @@ class EncDecModel(nn.Module):
                 layer.ln1(h), allowed=self_allowed, pos_bias=bias, q_positions=qpos,
                 k_positions=kpos, kv_cache=None if caches is None else caches[i]["self"],
                 cache_index=cache_index, dropout_seed=attn_seed(s, 0))
-            h = h + drop(a, None if s is None else s[1])
+            h = drop_add(h, a, None if s is None else s[1])
             a, _, ckv = layer.cross_attn(
                 layer.ln2(h), kv=encoder_hidden, allowed=cross_allowed,
                 shared_kv=None if cross_kv is None else cross_kv[i], emit_kv=emit_cross_kv,
                 dropout_seed=attn_seed(s, 2))
-            h = h + drop(a, None if s is None else s[3])
-            h = layer.mlp_block(h, layer.ln3, dec_position_index, dec_behavior_index, s, drop,
-                                row0)
+            h = drop_add(h, a, None if s is None else s[3])
+            h = layer.mlp_block(h, layer.ln3, dec_position_index, dec_behavior_index, s,
+                                drop_add, row0)
             if new_caches is not None:
                 entry = {"self": self_cache}
                 if emit_cross_kv:

@@ -53,7 +53,7 @@ from torch import nn
 
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
-from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout
+from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout_add
 from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed, lookup
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
@@ -232,7 +232,9 @@ class DecoderLayer(nn.Module):
         (`modules/dropout.row_seed`)."""
         det = seeds is None
         s = [0] * self.dropout_sites if det else list(seeds)
-        drop = lambda y, seed: y if det else hash_dropout(y, seed, self.dropout_rate, row0)
+        # r + dropout(y), one K1 launch on the card
+        drop_add = (lambda r, y, seed: r + y if det
+                    else hash_dropout_add(r, y, seed, self.dropout_rate, row0))
         attn_seed = lambda seed: attention_row_seed(seed, row0, self.self_attn.num_heads)
         stage = ((lambda fn, *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False))
                  if keep_attention else (lambda fn, *a: fn(*a)))
@@ -243,17 +245,17 @@ class DecoderLayer(nn.Module):
                          expert_index=expert_index if self.moe_action else None,
                          route_mode=route_mode, num_positions=self.num_positions,
                          deterministic=det, dropout_seed=s[-2], row0=row0)
-            return x + drop(h, s[-1])
+            return drop_add(x, h, s[-1])
 
         qkv = stage(lambda x: self.self_attn.qkv(self.input_layernorm(x), rope_positions), x)
         o, new_self = self.self_attn.core(*qkv, self_allowed, caches.get("self"), cache_index,
                                           self.self_mask_kind, streams, det, attn_seed(s[0]))
         if not self.is_cross:
-            x = stage(lambda x, o: mlp(x + drop(self.self_attn.output(x, o), s[1])), x, o)
+            x = stage(lambda x, o: mlp(drop_add(x, self.self_attn.output(x, o), s[1])), x, o)
             return x, new_self, None
 
         def after_self(x, o):
-            x = x + drop(self.self_attn.output(x, o), s[1])
+            x = drop_add(x, self.self_attn.output(x, o), s[1])
             h = self.post_self_attention_layernorm(x)  # also the gate's input
             return (x, h, *self.cross_attn.qkv(h, rope_positions, action_index))
 
@@ -261,7 +263,7 @@ class DecoderLayer(nn.Module):
         o, new_cross = self.cross_attn.core(*qkv, cross_allowed, caches.get("cross"),
                                             cache_index, self.cross_mask_kind, streams, det,
                                             attn_seed(s[2]))
-        x = stage(lambda x, h, o: mlp(x + drop(self.cross_attn.output(h, o), s[3])), x, h, o)
+        x = stage(lambda x, h, o: mlp(drop_add(x, self.cross_attn.output(h, o), s[3])), x, h, o)
         return x, new_self, new_cross
 
 

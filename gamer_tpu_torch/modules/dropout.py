@@ -6,9 +6,12 @@ mask is fmix32 of (flat element index * M3 + seed) in uint32, kept when
 >= the 32-bit threshold of `keep_threshold`, and the kept values are scaled
 by 1/keep_prob. The mask is a pure function of (seed, index), so the backward
 regenerates it from the seed instead of saving it, and a remat recompute
-draws it again exactly. The arithmetic runs in int64 holding uint32
-(`ops/fused_attention.fmix32`), bit-exact with JAX; it is plain elementwise
-PyTorch, as in JAX it lies outside every Pallas kernel.
+draws it again exactly. `hash_dropout_add(r, y, ...)` is `r + hash_dropout(y,
+...)` in one pass, the form of every residual site. Both run through
+`ops/hash_dropout.py`: on the card the CUDA kernel K1 (forward, fused with
+the residual add, as XLA fuses it on the TPU) and K2 (backward); on the CPU
+its plain version, bit-exact with JAX. Inputs are made contiguous here (the
+mask is defined on the logical index, so the result is unchanged).
 
 The port uses this hash on every residual and plain-path dropout site, where
 the JAX package's "bits" impl draws from its rng stream (which torch cannot
@@ -25,8 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from gamer_tpu_torch.ops.fused_attention import (
-    _M2, _M3, _U32, _mul32, drop_threshold, fmix32, keep_fraction)
+from gamer_tpu_torch.ops import hash_dropout as HD
+from gamer_tpu_torch.ops.fused_attention import _M2, _M3, _U32, drop_threshold, keep_fraction
 
 
 def row_seed(seed: int, row0: int, row_stride: int, mult: int = _M3) -> int:
@@ -51,34 +54,6 @@ def keep_threshold(rate: float) -> tuple[int, float]:
     return drop_threshold(rate), keep_fraction(rate)
 
 
-def _hash_keep_mask(seed: int, shape, threshold: int, device=None) -> torch.Tensor:
-    n = 1
-    for s in shape:
-        n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    x = (_mul32(idx, _M3) + (int(seed) & _U32)) & _U32
-    return (fmix32(x) >= threshold).reshape(shape)
-
-
-def _apply_mask(x: torch.Tensor, seed: int, threshold: int, keep_prob: float) -> torch.Tensor:
-    keep = _hash_keep_mask(seed, x.shape, threshold, x.device)
-    scale = torch.tensor(1.0 / keep_prob, dtype=x.dtype, device=x.device)
-    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-class _HashDropout(torch.autograd.Function):
-    """Saves only the seed; the backward regenerates the mask."""
-
-    @staticmethod
-    def forward(ctx, x, seed, threshold, keep_prob):
-        ctx.args = (seed, threshold, keep_prob)
-        return _apply_mask(x, seed, threshold, keep_prob)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _apply_mask(g, *ctx.args), None, None, None
-
-
 def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torch.Tensor:
     """Inverted dropout of `x` by the hash keyed on `seed`; `x`'s rows
     (dim 0) are rows `row0`, `row0 + 1`, ... of the global batch."""
@@ -89,4 +64,19 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torc
     threshold, keep_prob = keep_threshold(rate)
     if row0:
         seed = row_seed(seed, row0, x.numel() // x.shape[0])
-    return _HashDropout.apply(x, int(seed), threshold, keep_prob)
+    return HD.hash_dropout(x.contiguous(), int(seed), threshold, keep_prob)
+
+
+def hash_dropout_add(r: torch.Tensor, y: torch.Tensor, seed: int, rate: float,
+                     row0: int = 0) -> torch.Tensor:
+    """`r + hash_dropout(y, seed, rate, row0)` in one pass (K1 with its
+    residual on the card); r and y have one shape."""
+    if rate == 0.0:
+        return r + y
+    if rate == 1.0:
+        return r + torch.zeros_like(y)
+    threshold, keep_prob = keep_threshold(rate)
+    if row0:
+        seed = row_seed(seed, row0, y.numel() // y.shape[0])
+    return HD.hash_dropout(y.contiguous(), int(seed), threshold, keep_prob,
+                           residual=r.contiguous())

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.modules.dropout import hash_dropout, hash_dropout_add
 from gamer_tpu_torch.modules.layers import Embedding
 from gamer_tpu_torch.ops.masks import NEG_INF
 
@@ -42,13 +42,22 @@ class DropoutSeeds:
     def __init__(self, generator: Optional[torch.Generator], rate: float):
         self.generator, self.rate = generator, rate
 
+    def _seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
+
     def __call__(self, x: torch.Tensor, rate: Optional[float] = None) -> torch.Tensor:
         """Hash dropout of `x` at `rate` (default: the model's) under the
         next seed; `x` itself when deterministic."""
         if self.generator is None:
             return x
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
-        return hash_dropout(x, seed, self.rate if rate is None else rate)
+        return hash_dropout(x, self._seed(), self.rate if rate is None else rate)
+
+    def add(self, r: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """`r + self(y)` in one pass (a residual site; one K1 launch on the
+        card); `r + y` when deterministic."""
+        if self.generator is None:
+            return r + y
+        return hash_dropout_add(r, y, self._seed(), self.rate)
 
 
 DETERMINISTIC = DropoutSeeds(None, 0.0)
@@ -122,9 +131,9 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, allowed: torch.Tensor,
                 drop: DropoutSeeds = DETERMINISTIC) -> torch.Tensor:
         a = self.attn(x, allowed, drop)
-        x = self.ln1(x + drop(a))
+        x = self.ln1(drop.add(x, a))
         f = drop(self.act(self.ff1(x)))
-        return self.ln2(x + drop(self.ff2(f)))
+        return self.ln2(drop.add(x, self.ff2(f)))
 
 
 class TransformerEncoder(nn.Module):

@@ -43,7 +43,9 @@ HIDDEN_SAVES_F32 = 2  # fp32 copies the layer's two RMSNorms save
 CROSS_HIDDEN_SAVES, CROSS_HIDDEN_SAVES_F32 = 2, 1  # a cross-attention layer's third norm
 QKV_SAVES = 4  # act-dtype copies of q (projection, norm, RoPE, core output) and k/v widths
 ROPE_SAVES = 4  # cos and sin [token, head_dim], for q and for k
-DROPOUT_TEMP_BYTES = 40  # bytes per [token, H] element live in the backward (int64 hash temporaries)
+# [token, H] act-dtype tensors the hash dropout keeps live in the backward: K2's
+# output (ops/hash_dropout.py; the kernels draw the mask in registers)
+DROPOUT_TEMP_SAVES = 1
 PARAM_BYTES = 4 + 8 + 4 + 2  # fp32 master, AdamW m and v, fp32 grad, the act-dtype cast at use
 ACT_MARGIN = 1.1  # the estimate stays above the measured peak, within 1.3x of it
 
@@ -100,7 +102,7 @@ def estimate_train_hbm_bytes(cfg, micro: int, seq_len: int) -> dict:
     cross = attention + ab * CROSS_HIDDEN_SAVES * H + 4 * CROSS_HIDDEN_SAVES_F32 * H
     per_token = (L * layer + len(cfg.cross_attention_layers) * cross
                  + ab * 3 * H + 4 * H  # final norm, CE input
-                 + DROPOUT_TEMP_BYTES * H * (cfg.dropout_rate > 0))
+                 + ab * DROPOUT_TEMP_SAVES * H * (cfg.dropout_rate > 0))
     tokens = micro * seq_len
     acts_bytes = ACT_MARGIN * tokens * per_token
 

@@ -6,11 +6,15 @@ On one CUDA card, flagship Qwen3Multi (bf16, dropout 0.2) through `Trainer`:
 for each geometry (B x S) and remat policy it prints a timed step's time,
 its peak memory over what was allocated before the model
 (`torch.cuda.max_memory_allocated` after a warm-up step) and the launches
-of the port's kernels; at the remat-off geometries it also sums the tensors
-the step saves for its backward (`torch.autograd.graph.saved_tensors_hooks`,
-each storage once) by dtype and shape, the census from which
-`train/memory.py` counts its per-token terms. Prints the card's name and
-power limit; writes every record as JSON to `--out`.
+of the port's kernels (a-k and the hash dropout's K1/K2); at the remat-off
+geometries it also sums the tensors the step saves for its backward
+(`torch.autograd.graph.saved_tensors_hooks`, each storage once) by dtype
+and shape, the census from which `train/memory.py` counts its per-token
+terms, and prints `estimate_train_hbm_bytes` beside the peak. The same for
+Qwen3MoeAction at the flagship widths (h and i once per behavior level) at
+phase 8's batch of 256 x 21 blocks and at B 16 x S 8190, remat off: the
+estimate away from the geometry it was fitted at. Prints the card's name
+and power limit; writes every record as JSON to `--out`.
 """
 
 from __future__ import annotations
@@ -28,19 +32,37 @@ GEOMETRIES = [(64, 101, None), (32, 202, None), (16, 410, None), (8, 1000, None)
               (64, 101, "full"), (64, 101, "attn"), (64, 101, "dots"),
               (16, 1638, None), (16, 1638, "full"), (16, 1638, "attn"), (16, 1638, "dots"),
               (64, 1638, "attn")]
+MOE_ACTION_GEOMETRIES = [(256, 21), (16, 1638)]  # remat off
 
 
-def step(B: int, blocks: int, policy, counters: dict, census: bool) -> dict:
-    import torch
-
-    from gamer_tpu_torch.entry import flagship_config, make_batch
-    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
-    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
-    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
-    from gamer_tpu_torch.train.state import OptimizerConfig
+def config(backbone: str, policy):
+    """The flagship widths (bf16, dropout 0.2, up to S 8190) of `backbone`."""
+    from gamer_tpu_torch.entry import flagship_config
+    from gamer_tpu_torch.models.generative.qwen_family import build_config
 
     cfg = flagship_config(dtype="bfloat16", dropout_rate=0.2, model_max_length=8192,
                           remat=policy is not None, remat_policy=policy or "attn")
+    if backbone == "Qwen3Multi":
+        return cfg
+    return build_config(backbone, **{k: getattr(cfg, k) for k in (
+        "vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
+        "num_key_value_heads", "head_dim", "intermediate_size", "dropout_rate", "num_positions",
+        "num_experts", "num_behavior", "behavior_embedding_dim", "behavior_base",
+        "model_max_length", "dtype", "remat", "remat_policy")})
+
+
+def step(B: int, blocks: int, policy, counters: dict, census: bool,
+         backbone: str = "Qwen3Multi") -> dict:
+    import torch
+
+    from gamer_tpu_torch.entry import make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.memory import estimate_train_hbm_bytes
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = config(backbone, policy)
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -58,9 +80,11 @@ def step(B: int, blocks: int, policy, counters: dict, census: bool) -> dict:
     t = time.perf_counter()
     loss = float(trainer.train_step(batch))
     ms = (time.perf_counter() - t) * 1e3
-    rec = dict(B=B, S=blocks * cfg.num_positions, policy=policy or "off", ms=ms, loss=loss,
-               peak=torch.cuda.max_memory_allocated() - base, resident=resident,
-               launches={k: w.launches for k, w in counters.items()})
+    rec = dict(backbone=backbone, B=B, S=blocks * cfg.num_positions, policy=policy or "off",
+               ms=ms, loss=loss, peak=torch.cuda.max_memory_allocated() - base,
+               resident=resident, launches={k: w.launches for k, w in counters.items()})
+    if policy is None:
+        rec["estimate"] = estimate_train_hbm_bytes(cfg, B, rec["S"])["total"]
     if census:
         sizes, seen = {}, set()
 
@@ -95,23 +119,30 @@ def main(argv=None) -> int:
     from gamer_tpu_torch.ops import fused_attention as FA
     from gamer_tpu_torch.ops import fused_ce as FC
     from gamer_tpu_torch.ops import fused_moe as FM
+    from gamer_tpu_torch.ops import hash_dropout as HD
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     _build.build()
     counters = {"a": FA.fused_mask_attention, "b": FA.fused_mask_attention_bwd,
                 "h": FM.fused_moe_ffn, "i": FM.fused_moe_ffn_bwd, "j": FC.fused_ce_rows,
-                "k": FC.fused_ce_rows_bwd}
+                "k": FC.fused_ce_rows_bwd, "K1": HD.hash_dropout_fwd, "K2": HD.hash_dropout_bwd}
     records = []
-    for B, blocks, policy in GEOMETRIES:
-        rec = step(B, blocks, policy, counters, census=policy is None and B in (64, 16))
+    runs = [("Qwen3Multi", B, blocks, policy) for B, blocks, policy in GEOMETRIES]
+    runs += [("Qwen3MoeAction", B, blocks, None) for B, blocks in MOE_ACTION_GEOMETRIES]
+    for backbone, B, blocks, policy in runs:
+        rec = step(B, blocks, policy, counters, policy is None and B in (64, 16), backbone)
         records.append(rec)
         extra = (f", saved {rec['saved_bytes_per_token']:.1f} B a token; largest "
                  f"{[(sig, round(b, 1)) for sig, b in rec['saved_by_shape'][:10]]}"
                  if "saved_by_shape" in rec else "")
-        print(f"B={rec['B']} S={rec['S']} remat {rec['policy']}: step {rec['ms']:.3f} ms, peak "
-              f"{rec['peak'] / 2 ** 30:.3f} GiB (resident {rec['resident'] / 2 ** 30:.3f}), "
-              f"launches {rec['launches']}{extra} (card {card})", flush=True)
+        if "estimate" in rec:
+            extra = (f", estimate {rec['estimate'] / 2 ** 30:.3f} GiB = "
+                     f"{rec['estimate'] / rec['peak']:.3f}x the peak" + extra)
+        print(f"{backbone} B={rec['B']} S={rec['S']} remat {rec['policy']}: step "
+              f"{rec['ms']:.3f} ms, peak {rec['peak'] / 2 ** 30:.3f} GiB (resident "
+              f"{rec['resident'] / 2 ** 30:.3f}), launches {rec['launches']}{extra} "
+              f"(card {card})", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "records": records}, f, indent=1)

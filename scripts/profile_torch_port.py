@@ -11,11 +11,14 @@ model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
 shapes of `chip_smoke.py`). For each it prints the wall time per iteration
 (timed without the profiler), the device busy share (summed kernel time over
 that wall time, one stream), the device kernels by total time and the sums
-of the attention, MoE and CE kernels (a: `attn_fwd*`; b: `attn_dkv*`,
-`attn_dq*`, `attn_delta*`; h: `moe_fwd*`; i: `moe_bwd*`, `moe_gemm*`; j:
-`ce_fwd*`; k: `ce_dh*`, `ce_de*`). The split reduce that b (at small batch),
-i and k end with is one kernel by name for all three and is counted in no
-group. Needs CUDA; builds the kernels first.
+of the attention, MoE, CE and hash-dropout kernels (a: `attn_fwd*`; b:
+`attn_dkv*`, `attn_dq*`, `attn_delta*`; h: `moe_fwd*`; i: `moe_bwd*`,
+`moe_gemm*`; j: `ce_fwd*`; k: `ce_dh*`, `ce_de*`; K1 and K2:
+`hash_dropout_kernel`), and the kernels that compute on int64 (`long` in
+their name) with `arange`'s, where a hash computed in plain PyTorch would
+show. The split reduce that b (at small batch), i and k end with is one
+kernel by name for all three and is counted in no group. Needs CUDA;
+builds the kernels first.
 
 With `rec` it traces instead three training steps (forward, backward, AdamW
 update; `tasks/train_smb_rec.train_step`) of each discriminative backbone
@@ -66,10 +69,18 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
     groups = {"attention a": ("attn_fwd",),
               "attention b": ("attn_dkv", "attn_dq", "attn_delta"),
               "MoE h": ("moe_fwd",), "MoE i": ("moe_bwd", "moe_gemm"),
-              "CE j": ("ce_fwd",), "CE k": ("ce_dh", "ce_de")}
+              "CE j": ("ce_fwd",), "CE k": ("ce_dh", "ce_de"),
+              "hash dropout K1+K2": ("hash_dropout_kernel",),
+              "int64 elementwise and arange": ("<long", "long>", "arange")}
     for label, keys in groups.items():
-        ms = sum(dev(e) for e in kernels if any(k in e.key for k in keys)) / 1e3 / iters
-        print(f"  {label}: {ms:.4f} ms/iteration ({100 * ms / busy_ms:.1f}% of device time)")
+        group = [e for e in kernels if any(k in e.key for k in keys)]
+        ms = sum(dev(e) for e in group) / 1e3 / iters
+        print(f"  {label}: {ms:.4f} ms/iteration ({100 * ms / busy_ms:.1f}% of device time), "
+              f"{sum(e.count for e in group) // iters} launches")
+        if label.startswith("int64"):  # name them: the plain hash would show here
+            for e in sorted(group, key=dev, reverse=True)[:6]:
+                print(f"    {dev(e) / 1e3 / iters:9.4f} ms {e.count // iters:5d} calls  "
+                      f"{e.key.replace('(anonymous namespace)::', '')[:150]}")
 
 
 def profile_rec(n_items: int = 6000, n_users: int = 700, batch_size: int = 256,

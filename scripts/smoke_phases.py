@@ -5,8 +5,9 @@
 Imports `chip_smoke.py` and `gamer_tpu_torch` from `<tree>` (a checkout,
 e.g. a `git archive` of another commit unpacked into a git-ignored
 directory), builds its kernel libraries and runs the named phases with the
-launch counters and TF32 off as the script does: 5 (`train_phase`), 7
-(`task_phase`), 9 (`remat_phase`), 10 (`encdec_phase`), 11
+launch counters and TF32 off as the script does: 2d (`dropout_phase`), 5
+(`train_phase`), 7 (`task_phase`), 8 (`seq_phase`), 9 (`remat_phase`), 10
+(`encdec_phase`), 11
 (`multiprocess_phase`), 12 (`tokenizer_phase`), 13 (`rec_phase`), 14
 (`model_axis_phase`), each where the tree has it. To
 compare two commits on one card, run it for each tree in one call, in turns
@@ -31,9 +32,6 @@ def main(argv: list[str]) -> int:
 
     import chip_smoke as cs
     from gamer_tpu_torch.ops import _build
-    from gamer_tpu_torch.ops import fused_attention as FA
-    from gamer_tpu_torch.ops import fused_ce as FC
-    from gamer_tpu_torch.ops import fused_moe as FM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -44,18 +42,19 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    counters = {"fused_mask_attention": FA.fused_mask_attention,
-                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
-                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    counters = cs.kernel_counters()
     dev = torch.device("cuda")
     step_ms = 0.0
     for phase in phases:
         t = time.perf_counter()
-        if phase == "5":
+        if phase == "2d":
+            cs.dropout_phase(dev, card)
+        elif phase == "5":
             step_ms = cs.train_phase(dev, counters, card)["step_ms"]
         elif phase == "7":
             cs.task_phase(dev, counters, card, step_ms)
+        elif phase == "8":
+            cs.seq_phase(dev, counters, card)
         elif phase == "9":
             cs.remat_phase(dev, counters, card)
         elif phase == "10":
@@ -69,7 +68,8 @@ def main(argv: list[str]) -> int:
         elif phase == "14":
             cs.model_axis_phase(dev, counters, card)
         else:
-            raise ValueError(f"unknown phase {phase!r}; one of 5, 7, 9, 10, 11, 12, 13, 14")
+            raise ValueError(f"unknown phase {phase!r}; one of 2d, 5, 7, 8, 9, 10, 11, 12, 13, "
+                             "14")
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     return 0
 

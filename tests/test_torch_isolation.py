@@ -212,11 +212,13 @@ def _counters():
     from gamer_tpu_torch.ops import fused_attention as FA
     from gamer_tpu_torch.ops import fused_ce as FC
     from gamer_tpu_torch.ops import fused_moe as FM
+    from gamer_tpu_torch.ops import hash_dropout as HD
 
     return {"fused_mask_attention": FA.fused_mask_attention,
             "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
             "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd,
+            "hash_dropout_fwd": HD.hash_dropout_fwd, "hash_dropout_bwd": HD.hash_dropout_bwd}
 
 
 def test_chip_smoke_remat_phase_on_cpu():
@@ -232,7 +234,13 @@ def test_chip_smoke_remat_phase_on_cpu():
     assert cs._remat_launches(cs.flagship_config(), "attn")["fused_mask_attention"] == 12
     assert cs._remat_launches(cs.flagship_config(), "dots") == {
         "fused_mask_attention": 24, "fused_mask_attention_bwd": 12, "fused_moe_ffn": 16,
-        "fused_moe_ffn_bwd": 8, "fused_ce_rows": 1, "fused_ce_rows_bwd": 1}
+        "fused_moe_ffn_bwd": 8, "fused_ce_rows": 1, "fused_ce_rows_bwd": 1,
+        "hash_dropout_fwd": 0, "hash_dropout_bwd": 0}
+    # flagship at dropout 0.2: 20 residual sites, all but each layer's last run again
+    dropped = cs.flagship_config(dropout_rate=cs.DROP_RATE)
+    for policy, k1 in ((None, 20), ("full", 32), ("attn", 32), ("dots", 32)):
+        launches = cs._remat_launches(dropped, policy)
+        assert (launches["hash_dropout_fwd"], launches["hash_dropout_bwd"]) == (k1, 20)
 
 
 def test_chip_smoke_encdec_phase_on_cpu():

@@ -9,7 +9,8 @@ Hopper GPU and nvcc, run them with
 not have). Small, ragged shapes: S, T and N not multiples of the 64-row
 tiles, right-padded rows, rows with no allowed key, every mask kind, both
 dtypes; the backward kernels (b, i, k) against autograd through the plain
-versions, with dropout off and on (the same seed on both sides).
+versions, with dropout off and on (the same seed on both sides); the
+residual hash dropout's K1 and K2 against their plain versions bit for bit.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from gamer_tpu_torch.ops import fused_attention as FA
 from gamer_tpu_torch.ops import fused_ce as FC
 from gamer_tpu_torch.ops import fused_moe as FM
+from gamer_tpu_torch.ops import hash_dropout as HD
 from gamer_tpu_torch.ops.fused_attention import fused_mask_attention, fused_mask_attention_plain
 from gamer_tpu_torch.ops.fused_ce import fused_ce_rows, fused_ce_rows_plain
 from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, fused_moe_ffn_plain
@@ -600,13 +602,15 @@ def _step_counters():
     return {"fused_mask_attention": FA.fused_mask_attention,
             "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
             "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd,
+            "hash_dropout_fwd": HD.hash_dropout_fwd, "hash_dropout_bwd": HD.hash_dropout_bwd}
 
 
 def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
     """A bf16 training step on CUDA with moe_impl "auto" launches kernels h
     and i num_behavior (3) times on each of the 8 sparse layers: a 8, b 8,
-    h 24, i 24, j 1, k 1; loss and grads finite."""
+    h 24, i 24, j 1, k 1, and the hash dropout's K1 and K2 at the 16
+    residual sites; loss and grads finite."""
     from gamer_tpu_torch.entry import make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -621,7 +625,7 @@ def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
                                                              torch.Generator().manual_seed(0))
     loss.backward()
     torch.cuda.synchronize()
-    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1]
+    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1, 16, 16]
     assert torch.isfinite(loss)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
@@ -651,7 +655,8 @@ def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
     """A flagship Qwen3Multi training step (dropout 0.2, B 8 x 101 blocks)
     under each remat policy: per-step launches of chip_smoke's
     `_remat_launches` (full and dots run kernels a and h again in the
-    backward, attn only h: a 12/24/12/24, h 16, the rest as remat off), and
+    backward, attn only h: a 12/24/12/24, h 16; every policy K1 32, each
+    layer's dropout sites but its last; the rest as remat off), and
     the loss and every grad bit-identical to remat off's on the same weights
     and dropout seeds (PyTorch's default algorithms: the port's table
     lookups sum their grads in a fixed order, `modules/layers.lookup`)."""
@@ -901,3 +906,62 @@ def test_mbht_incidence_card_matches_cpu(dev):
           f"differ on the card")
     assert flips == 0, f"{flips} hyperedges flip between the CPU and the card"
     torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- hash dropout
+
+
+def _hd_bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _hd_same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_hd_bits(got), _hd_bits(want))
+
+
+@pytest.mark.parametrize("rate", [0.2, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(64 * 505 * 8, 0), (1001, 0), (1001, 1), (7, 0)])
+def test_hash_dropout_kernels_match_plain_bitwise(dev, rate, dtype, n, offset):
+    """K1 with and without its residual and K2 against their plain versions
+    on the same CUDA tensors, bit for bit: a length of whole 16-byte vectors,
+    an odd length (the scalar tail), an offset pointer (the scalar route),
+    fewer elements than one vector; rate 0.1's scale rounds in bf16."""
+    g = torch.Generator().manual_seed(n + offset)
+    y = torch.randn(n + offset, generator=g).to(dev, dtype)[offset:]
+    r = torch.randn(n + offset, generator=g).to(dev, dtype)[offset:]
+    from gamer_tpu_torch.modules.dropout import keep_threshold
+
+    thr, kp = keep_threshold(rate)
+    before = (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches)
+    _hd_same(HD.hash_dropout_fwd(y, 977, thr, kp, r), HD.hash_dropout_add_plain(y, 977, thr, kp, r))
+    _hd_same(HD.hash_dropout_fwd(y, 977, thr, kp), HD.hash_dropout_add_plain(y, 977, thr, kp))
+    _hd_same(HD.hash_dropout_bwd(y, 977, thr, kp), HD.apply_mask(y, 977, thr, kp))
+    assert (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches) == (before[0] + 2,
+                                                                            before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hash_dropout_add_autograd_and_row0_on_card(dev, dtype):
+    """`modules/dropout.hash_dropout_add` on the card: its output and the
+    grads of both inputs equal the CPU's plain path bit for bit, rows from
+    row0 > 0 draw the global batch's mask, one K1 and one K2 launch."""
+    from gamer_tpu_torch.modules.dropout import hash_dropout_add
+
+    g = torch.Generator().manual_seed(5)
+    y, r, go = (torch.randn(6, 37, 24, generator=g).to(dtype) for _ in range(3))
+    outs = {}
+    for where in ("cpu", "cuda"):
+        yy, rr = (t.to(where).requires_grad_(True) for t in (y, r))
+        before = (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches)
+        out = hash_dropout_add(rr, yy, 41, 0.1, row0=2)
+        dy, dr = torch.autograd.grad(out, (yy, rr), go.to(where))
+        moved = (HD.hash_dropout_fwd.launches - before[0], HD.hash_dropout_bwd.launches - before[1])
+        assert moved == ((1, 1) if where == "cuda" else (0, 0))
+        outs[where] = [t.detach().cpu() for t in (out, dy, dr)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _hd_same(got, want)
+    # rows 2.. of a global batch of 8 from row 0
+    full = hash_dropout_add(torch.cat([r[:2], r]).to(dev), torch.cat([y[:2], y]).to(dev), 41, 0.1)
+    _hd_same(outs["cuda"][0], full[2:].cpu())
