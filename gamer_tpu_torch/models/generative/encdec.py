@@ -46,6 +46,7 @@ from gamer_tpu_torch.modules.layers import RMSNorm, dense, embed
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops.fused_attention import attention_keep_mask, keep_fraction
 from gamer_tpu_torch.ops.masks import NEG_INF
+from gamer_tpu_torch.ops.seeds import site_seeds
 
 
 class EncDecConfig(Config):
@@ -324,21 +325,20 @@ class EncDecModel(nn.Module):
         logits_last_only: bool = False,
         cross_kv: Optional[list] = None,  # per-layer beam-shared cross k/v (decode)
         emit_cross_kv: bool = False,  # prefill: return the projected cross k/v per layer
-        generator: Optional[torch.Generator] = None,  # dropout seeds (training)
+        generator=None,  # dropout seeds (training): a torch.Generator or the seed table
         row0: int = 0,  # first global batch row of this process's rows
     ) -> dict:
         """`deterministic=False` (training) draws one int32 dropout seed a
-        site from `generator` (a CPU generator), in layer order. Under a
-        process group `row0` makes every dropout mask that of the global
-        batch (`modules/dropout.row_seed`)."""
+        site from `generator` (a CPU generator), in layer order, or reads
+        them from `generator` given as the step's [dropout_sites] int32 seed
+        table on the model's device (`ops/seeds.site_seeds`; the same
+        masks). Under a process group `row0` makes every dropout mask that
+        of the global batch (`modules/dropout.row_seed`)."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
         seeds = None
         if not deterministic:
-            if generator is None:
-                raise ValueError("the training forward needs a torch.Generator for its dropout seeds")
-            seeds = iter(torch.randint(0, 2 ** 31 - 1, (self.dropout_sites,),
-                                       generator=generator).tolist())
+            seeds = iter(site_seeds(generator, self.dropout_sites, self.device))
         take = lambda n: None if seeds is None else [next(seeds) for _ in range(n)]
         one = lambda: None if seeds is None else next(seeds)
         drop = lambda y, seed: y if seed is None else hash_dropout(y, seed, cfg.dropout_rate, row0)

@@ -58,9 +58,15 @@ from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed, 
 from gamer_tpu_torch.modules.moe import PositionRoutedMLP
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
+from gamer_tpu_torch.ops.seeds import site_seeds
 
 
 REMAT_POLICIES = ("full", "attn", "dots")
+# Every `torch.utils.checkpoint` here passes preserve_rng_state=False: the
+# forward draws no torch random numbers on the card (every dropout mask is a
+# hash of its seed), so there is no RNG state to stash and restore, and
+# stashing the CUDA RNG state is refused while a CUDA graph is captured
+# (`train/loop.Trainer`'s compiled step).
 # what the backward keeps under remat, besides each layer's input. "full":
 # nothing, the whole layer runs again (kernels a and h with it). "dots": the
 # results of the dense products without batch dims (aten mm/addmm: the
@@ -236,7 +242,8 @@ class DecoderLayer(nn.Module):
         drop_add = (lambda r, y, seed: r + y if det
                     else hash_dropout_add(r, y, seed, self.dropout_rate, row0))
         attn_seed = lambda seed: attention_row_seed(seed, row0, self.self_attn.num_heads)
-        stage = ((lambda fn, *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False))
+        stage = (functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False,
+                                   preserve_rng_state=False)
                  if keep_attention else (lambda fn, *a: fn(*a)))
         caches = caches or {}
 
@@ -322,6 +329,11 @@ class QwenFamilyModel(nn.Module):
                 for w in mod.parameters(recurse=False):  # [(E,) d_in, d_out]
                     fill(w, 1.0 / math.sqrt(w.shape[-2]))
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward draws: each layer's sites."""
+        return sum(layer.dropout_sites for layer in self.layers)
+
     def vocab_block(self) -> tuple[int, int] | None:
         """(first row, rows) of this rank's block of a row-split token table,
         None when the table is whole."""
@@ -374,20 +386,20 @@ class QwenFamilyModel(nn.Module):
         logits_last_only: bool = False,
         return_hidden: bool = False,
         streams: Optional[dict] = None,  # fused-attention integer mask streams
-        generator: Optional[torch.Generator] = None,  # dropout seeds (training)
+        generator=None,  # dropout seeds (training): a torch.Generator or the seed table
         row0: int = 0,  # first global batch row of this process's rows
     ) -> dict:
         """`deterministic=False` (training) draws one int32 dropout seed a
-        site from `generator` (a CPU generator), in layer order. Under a
-        process group `row0` makes every dropout mask that of the global
-        batch (`modules/dropout.row_seed`)."""
+        site from `generator` (a CPU generator), in layer order, or reads
+        them from `generator` given as the step's [dropout_sites] int32 seed
+        table on the model's device (`ops/seeds.site_seeds`: the compiled
+        step's, whose kernels read the seeds on the card; the same masks).
+        Under a process group `row0` makes every dropout mask that of the
+        global batch (`modules/dropout.row_seed`)."""
         cfg = self.cfg
         seeds = None
         if not deterministic:
-            if generator is None:
-                raise ValueError("the training forward needs a torch.Generator for its dropout seeds")
-            n_sites = sum(layer.dropout_sites for layer in self.layers)
-            seeds = iter(torch.randint(0, 2 ** 31 - 1, (n_sites,), generator=generator).tolist())
+            seeds = iter(site_seeds(generator, self.dropout_sites, self.device))
         x = self._embed_tokens(input_ids)
         new_caches = {"self": [], "cross": []} if caches is not None else None
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -409,7 +421,7 @@ class QwenFamilyModel(nn.Module):
                 x, new_self, new_cross = layer(*args, True, row0)
             else:
                 x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
-                    layer, *args, False, row0, use_reentrant=False,
+                    layer, *args, False, row0, use_reentrant=False, preserve_rng_state=False,
                     **_REMAT_CONTEXT[cfg.remat_policy])
             if new_caches is not None:
                 new_caches["self"].append(new_self)

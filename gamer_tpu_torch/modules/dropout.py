@@ -29,20 +29,23 @@ from __future__ import annotations
 import torch
 
 from gamer_tpu_torch.ops import hash_dropout as HD
+from gamer_tpu_torch.ops import seeds as SD
 from gamer_tpu_torch.ops.fused_attention import _M2, _M3, _U32, drop_threshold, keep_fraction
 
 
-def row_seed(seed: int, row0: int, row_stride: int, mult: int = _M3) -> int:
+def row_seed(seed, row0: int, row_stride: int, mult: int = _M3):
     """The seed under which a hash keyed on local coordinates draws the mask
     of the global batch, for rows that start at global row `row0`: a hash of
     `coord * mult + seed` whose coordinate advances `row_stride` a batch row
     (the residual's flat index: S * D; attention's b * H + h: H, with
     `mult` M2; the MoE's row t = b * n + block: n) sees
-    `local * mult + (row0 * row_stride * mult + seed)`, mod 2^32."""
-    return (int(seed) + row0 * row_stride * mult) & _U32
+    `local * mult + (row0 * row_stride * mult + seed)`, mod 2^32. A seed
+    in device memory (`ops/seeds.DeviceSeed`) keeps its table entry and
+    carries the offset in its add."""
+    return SD.shift(seed, (row0 * row_stride * mult) & _U32)
 
 
-def attention_row_seed(seed: int, row0: int, num_heads: int) -> int:
+def attention_row_seed(seed, row0: int, num_heads: int):
     """`row_seed` of an attention-probability mask, whose hash row is
     b * num_heads + h (times M2)."""
     return row_seed(seed, row0, num_heads, _M2) if row0 else seed
@@ -54,7 +57,7 @@ def keep_threshold(rate: float) -> tuple[int, float]:
     return drop_threshold(rate), keep_fraction(rate)
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed, rate: float, row0: int = 0) -> torch.Tensor:
     """Inverted dropout of `x` by the hash keyed on `seed`; `x`'s rows
     (dim 0) are rows `row0`, `row0 + 1`, ... of the global batch."""
     if rate == 0.0:
@@ -64,10 +67,10 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torc
     threshold, keep_prob = keep_threshold(rate)
     if row0:
         seed = row_seed(seed, row0, x.numel() // x.shape[0])
-    return HD.hash_dropout(x.contiguous(), int(seed), threshold, keep_prob)
+    return HD.hash_dropout(x.contiguous(), seed, threshold, keep_prob)
 
 
-def hash_dropout_add(r: torch.Tensor, y: torch.Tensor, seed: int, rate: float,
+def hash_dropout_add(r: torch.Tensor, y: torch.Tensor, seed, rate: float,
                      row0: int = 0) -> torch.Tensor:
     """`r + hash_dropout(y, seed, rate, row0)` in one pass (K1 with its
     residual on the card); r and y have one shape."""
@@ -78,5 +81,5 @@ def hash_dropout_add(r: torch.Tensor, y: torch.Tensor, seed: int, rate: float,
     threshold, keep_prob = keep_threshold(rate)
     if row0:
         seed = row_seed(seed, row0, y.numel() // y.shape[0])
-    return HD.hash_dropout(y.contiguous(), int(seed), threshold, keep_prob,
+    return HD.hash_dropout(y.contiguous(), seed, threshold, keep_prob,
                            residual=r.contiguous())

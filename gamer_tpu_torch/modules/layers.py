@@ -100,7 +100,9 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int,
     half-rotation layout)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    # theta filled on the device (no copy from the host, which a CUDA graph capture refuses)
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / torch.pow(base, exps)
     angles = positions.float()[..., None] * freqs  # [B, S, half]
     cos = torch.cat([torch.cos(angles), torch.cos(angles)], dim=-1)
     sin = torch.cat([torch.sin(angles), torch.sin(angles)], dim=-1)

@@ -56,6 +56,19 @@ __device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t bh, uint32_t r
   const uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA6Bu + bh * 0xC2B2AE35u + seed;
   return fmix32(x) >= thresh;
 }
+// A dropout seed as the C entry points take it: `*ptr + add` (mod 2^32), or
+// `add` alone when ptr is null. The eager callers pass null and the seed as
+// an int; a captured training step (train/loop.py) passes a pointer into the
+// step's seed table in device memory, which the host rewrites before every
+// replay, and in `add` the static row and expert offsets of the call site
+// (modules/dropout.py `row_seed`), so both give the same masks. Each thread
+// reads the word once, at the top of the kernel.
+struct Seed {
+  const uint32_t* ptr;
+  uint32_t add;
+  __device__ __forceinline__ uint32_t get() const { return (ptr ? __ldg(ptr) : 0u) + add; }
+};
+
 // The same hash split in a per-row part and a per-column step (uint32
 // addition wraps, so the sum is the same in any order): a tile computes
 // hash_row once a row and hash_keep_at per element.

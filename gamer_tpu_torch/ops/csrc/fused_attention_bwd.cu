@@ -308,7 +308,8 @@ __global__ void __launch_bounds__(NT) attn_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     Streams st, float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv, int kind,
-    float scale, uint32_t seed, uint32_t thresh, float inv_keep, int dw) {
+    float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep, int dw) {
+  const uint32_t seed = seed_in.get();
   constexpr int R = F32Tile<D>::R, TB = F32Tile<D>::TB;
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
@@ -389,8 +390,9 @@ template <int D, bool WIDE = false>
 __global__ void __launch_bounds__(NT) attn_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    Streams st, float* __restrict__ dq, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
-    uint32_t thresh, float inv_keep, int dw) {
+    Streams st, float* __restrict__ dq, int S, int H, int Hkv, int kind, float scale,
+    gamer::Seed seed_in, uint32_t thresh, float inv_keep, int dw) {
+  const uint32_t seed = seed_in.get();
   constexpr int R = F32Tile<D>::R, TB = F32Tile<D>::TB;
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
@@ -520,7 +522,8 @@ __global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : 3) attn_dkv_
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dk, bf16* __restrict__ dv,
     float* __restrict__ ws, int nsplit, int S, int H, int Hkv, int kind, float scale,
-    uint32_t seed, uint32_t thresh, float inv_keep) {
+    gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LD = D + 8;
   constexpr int NDT = TcCols<D>::DO / 8;   // 8-wide dK/dV column tiles of this CTA
   constexpr int QC = D > 64 ? 16 : D > 32 ? 32 : 64;  // query columns a step (registers)
@@ -714,7 +717,8 @@ __global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : 3) attn_dq_t
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dq, int S, int H, int Hkv,
-    int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int kind, float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LD = D + 8;
   constexpr int NDT = TcCols<D>::DO / 8;  // 8-wide dQ column tiles of this CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -889,7 +893,8 @@ __global__ void __launch_bounds__(TC_NT) attn_dq_wide_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dq, int S, int H, int Hkv,
-    int D, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int D, int kind, float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LK = WO + 8;
   constexpr int NDT = WO / 8;  // 8-wide dQ column tiles of this CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1019,8 +1024,9 @@ __global__ void __launch_bounds__(TC_NT) attn_dkv_wide_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, Streams st, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int S, int H, int Hkv, int D, int kind, float scale, uint32_t seed, uint32_t thresh,
+    int S, int H, int Hkv, int D, int kind, float scale, gamer::Seed seed_in, uint32_t thresh,
     float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LQ = WO + 8;
   constexpr int NDT = WO / 8;  // 8-wide dK/dV column tiles of this CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1181,7 +1187,7 @@ cudaError_t launch_delta(const void* out, const void* dout, float* delta, int B,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* out, const void* dout,
                const float* lse, float* delta, Streams st, void* dq, void* dk, void* dv,
-               float* ws, int B, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
+               float* ws, int B, int S, int H, int Hkv, int kind, float scale, gamer::Seed seed,
                uint32_t thresh, float inv_keep, int nsplit, cudaStream_t stream) {
   if (nsplit != 1) return cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes<D>();
@@ -1213,7 +1219,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out, con
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
                 const float* lse, float* delta, Streams st, void* dq, void* dk, void* dv,
-                float* ws, int B, int S, int H, int Hkv, int kind, float scale, uint32_t seed,
+                float* ws, int B, int S, int H, int Hkv, int kind, float scale, gamer::Seed seed,
                 uint32_t thresh, float inv_keep, int nsplit, cudaStream_t stream) {
   if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
   constexpr size_t smem_kv = dkv_tc_smem_bytes<D>(), smem_q = dq_tc_smem_bytes<D>();
@@ -1254,7 +1260,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 // dQ kernels, each CTA owning WO columns of one head; no split (nsplit 1).
 int launch_wide(const void* q, const void* k, const void* v, const void* out, const void* dout,
                 const float* lse, float* delta, Streams st, void* dq, void* dk, void* dv, int B,
-                int S, int H, int Hkv, int D, int kind, float scale, uint32_t seed,
+                int S, int H, int Hkv, int D, int kind, float scale, gamer::Seed seed,
                 uint32_t thresh, float inv_keep, int dtype, cudaStream_t stream) {
   const size_t rows = static_cast<size_t>(B) * S * H;
   const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + 255) / 256);
@@ -1330,9 +1336,11 @@ extern "C" int gamer_fused_attention_bwd(const void* q, const void* k, const voi
                                          float* delta, const int* attn, const int* sid,
                                          const int* act, const int* blk, void* dq, void* dk,
                                          void* dv, float* ws, int B, int S, int H, int Hkv, int D,
-                                         int kind, float scale, unsigned int seed,
-                                         unsigned int thresh, float inv_keep, int nsplit,
+                                         int kind, float scale, const unsigned int* seed_ptr,
+                                         unsigned int seed_add, unsigned int thresh,
+                                         float inv_keep, int nsplit,
                                          int dtype, void* stream) {
+  const gamer::Seed seed{seed_ptr, seed_add};
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || kind < 0 || kind > 3 ||
       nsplit <= 0 || B > 65535 || (S + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;

@@ -17,7 +17,8 @@
 // writes 0 where it is 0.
 //
 // Dropout (training): the keep mask is the stateless hash of (seed, b*H + h,
-// query row, key column) (common.cuh `hash_keep`). The row normaliser l sums
+// query row, key column) (common.cuh `hash_keep`), the seed read on the card
+// (`gamer::Seed`: a pointer and an add). The row normaliser l sums
 // the UNDROPPED exp values; only the P.V accumulation takes the kept ones, and
 // the epilogue rescales by 1/keep, so out = sum_j keep*P/keep_frac*V exactly as
 // the TPU kernels compute it. `lse` (optional, fp32 [B, H, S]) saves
@@ -105,7 +106,8 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ attn, const int* __restrict__ sid, const int* __restrict__ act,
     const int* __restrict__ blk, float* __restrict__ out, float* __restrict__ lse, int S, int H,
-    int Hkv, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int dw) {
+    int Hkv, int kind, float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep, int dw) {
+  const uint32_t seed = seed_in.get();
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BQ][D+1]
   float* Ks = Qs + BQ * (D + 1);       // [BK][D+1]
@@ -290,7 +292,8 @@ __global__ void __launch_bounds__(TC_NT, D > 128 ? 1 : D > 64 ? 2 : D > 32 ? 3 :
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ attn, const int* __restrict__ sid, const int* __restrict__ act,
     const int* __restrict__ blk, bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
-    int Hkv, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int Hkv, int kind, float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LD = D + 8;
   constexpr int NDT = D / 8;  // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -479,7 +482,8 @@ __global__ void __launch_bounds__(TC_NT) attn_fwd_wide_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ attn, const int* __restrict__ sid, const int* __restrict__ act,
     const int* __restrict__ blk, bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
-    int Hkv, int D, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int Hkv, int D, int kind, float scale, gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   using L = StreamTiles<8, false>;
   constexpr int LV = WO + 8;
   constexpr int NDT = WO / 8;  // 8-wide output column tiles
@@ -628,7 +632,7 @@ __global__ void __launch_bounds__(TC_NT) attn_fwd_wide_tc_kernel(
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const int* attn, const int* sid,
                const int* act, const int* blk, void* out, float* lse, int B, int S, int H, int Hkv,
-               int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+               int kind, float scale, gamer::Seed seed, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D>,
@@ -646,7 +650,7 @@ int launch_f32(const void* q, const void* k, const void* v, const int* attn, con
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const int* attn, const int* sid,
                 const int* act, const int* blk, void* out, float* lse, int B, int S, int H,
-                int Hkv, int kind, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+                int Hkv, int kind, float scale, gamer::Seed seed, uint32_t thresh, float inv_keep,
                 cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_tc_kernel<D>,
@@ -665,7 +669,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* attn, co
 // columns of one head.
 int launch_wide(const void* q, const void* k, const void* v, const int* attn, const int* sid,
                 const int* act, const int* blk, void* out, float* lse, int B, int S, int H,
-                int Hkv, int D, int kind, float scale, uint32_t seed, uint32_t thresh,
+                int Hkv, int D, int kind, float scale, gamer::Seed seed, uint32_t thresh,
                 float inv_keep, int dtype, cudaStream_t stream) {
   const int nq = (S + BQ - 1) / BQ, ncb = D / WO;
   if (dtype == gamer::kFloat32) {
@@ -704,8 +708,10 @@ extern "C" int gamer_fused_attention_fwd(const void* q, const void* k, const voi
                                          const int* attn, const int* sid, const int* act,
                                          const int* blk, void* out, float* lse, int B, int S,
                                          int H, int Hkv, int D, int kind, float scale,
-                                         unsigned int seed, unsigned int thresh, float inv_keep,
+                                         const unsigned int* seed_ptr, unsigned int seed_add,
+                                         unsigned int thresh, float inv_keep,
                                          int dtype, void* stream) {
+  const gamer::Seed seed{seed_ptr, seed_add};
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || kind < 0 || kind > 3 ||
       B > 65535 || (S + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;

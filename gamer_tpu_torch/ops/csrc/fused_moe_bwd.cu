@@ -79,7 +79,8 @@ __global__ void __launch_bounds__(NT) moe_bwd_act_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, const T* __restrict__ gout,
     T* __restrict__ dgu, T* __restrict__ hdrop, int T_rows, int D, int F, int Dout, int NB,
-    int use_bias, int act, uint32_t seed, uint32_t thresh, float inv_keep) {
+    int use_bias, int act, gamer::Seed seed_in, uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   __shared__ float As[TM][KT + 1];       // x or gout slice
   __shared__ float Ws[KT][2 * FC + 1];   // gate | up weight slice
   __shared__ float Wds[KT][FC + 1];      // Wd slice, transposed
@@ -324,7 +325,7 @@ cudaError_t gemm(const T* A, const T* B, OutT* C, GemmArgs g, int nsplit, cudaSt
 template <typename T>
 int run(const T* x, const T* wgu, const T* wd, const T* btab, const int* beh, const T* gout,
         T* dx, T* dwgu, T* dwd, T* dbtab, T* dgu, T* hdrop, float* ws, int P, int T_rows, int D,
-        int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
+        int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed, uint32_t thresh,
         float inv_keep, int n_gu, int kc_gu, int n_d, int kc_d, int n_b, int kc_b,
         cudaStream_t s) {
   const long long F2 = 2LL * F;
@@ -384,8 +385,9 @@ __global__ void __launch_bounds__(TC_NT, 3) moe_bwd_act_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, const bf16* __restrict__ gout,
     bf16* __restrict__ dgu, bf16* __restrict__ hdrop, float* __restrict__ wsb, int T_rows, int D,
-    int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
+    int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in, uint32_t thresh,
     float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int NJ = P1_FC / 8;  // 8-wide column tiles of g, u and dh
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);  // stage s: x or gout slice, then weights
@@ -694,7 +696,7 @@ cudaError_t gemm_tc(const bf16* A, const bf16* B, OutT* C, TcGemmArgs g, int nsp
 int run_bf16(const bf16* x, const bf16* wgu, const bf16* wd, const bf16* btab, const int* beh,
              const bf16* gout, bf16* dx, bf16* dwgu, bf16* dwd, bf16* dbtab, bf16* dgu,
              bf16* hdrop, float* ws, int P, int T_rows, int D, int F, int Dout, int NB,
-             int use_bias, int act, uint32_t seed, uint32_t thresh, float inv_keep, int n_gu,
+             int use_bias, int act, gamer::Seed seed, uint32_t thresh, float inv_keep, int n_gu,
              int kc_gu, int n_d, int kc_d, int n_b, int /*kc_b*/, cudaStream_t s) {
   const long long F2 = 2LL * F;
   const size_t smem = p1_smem_bytes(NB);
@@ -743,9 +745,11 @@ extern "C" int gamer_fused_moe_bwd(const void* x, const void* wgu, const void* w
                                    const void* btab, const int* beh, const void* gout, void* dx,
                                    void* dwgu, void* dwd, void* dbtab, void* dgu, void* hdrop,
                                    float* ws, int P, int T_rows, int D, int F, int Dout, int NB,
-                                   int use_bias, int act, unsigned int seed, unsigned int thresh,
+                                   int use_bias, int act, const unsigned int* seed_ptr,
+                                   unsigned int seed_add, unsigned int thresh,
                                    float inv_keep, int n_gu, int kc_gu, int n_d, int kc_d,
                                    int n_b, int kc_b, int dtype, void* stream) {
+  const gamer::Seed seed{seed_ptr, seed_add};
   if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || n_gu <= 0 ||
       n_d <= 0 || n_b <= 0 || kc_gu % KT || kc_d % KT || act < 0 || act > 2)
     return cudaErrorInvalidValue;

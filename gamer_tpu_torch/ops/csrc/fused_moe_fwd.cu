@@ -9,7 +9,8 @@
 // The [T, 2F] gate/up activations never reach global memory: a CTA walks F
 // in chunks, computes that chunk's gate and up columns for its rows, forms h
 // and accumulates y = h @ Wd in registers. The dropout mask is the
-// stateless hash of (seed, expert p, absolute row t, column f) (common.cuh),
+// stateless hash of (seed, expert p, absolute row t, column f) (common.cuh;
+// the seed read on the card from `gamer::Seed`),
 // as pallas_moe.py:80-82 keys it; T has no row padding here, so the
 // coordinates of real rows are the JAX kernel's.
 //
@@ -90,8 +91,9 @@ template <typename T, bool XRES>
 __global__ void __launch_bounds__(NT) moe_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, T* __restrict__ out, int T_rows,
-    int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed, uint32_t thresh,
+    int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in, uint32_t thresh,
     float inv_keep) {
+  const uint32_t seed = seed_in.get();
   extern __shared__ float smem[];
   const int LX = (XRES ? D : KT) + 1;
   float* Xs = smem;                                  // [TM][LX]
@@ -230,7 +232,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
 template <typename T, bool XRES>
 int launch(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
            void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias, int act,
-           uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+           gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const size_t smem = smem_bytes<XRES>(D);
   cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T, XRES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -256,8 +258,9 @@ template <int DP, int NO>
 __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
-    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed,
+    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in,
     uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int LX = DP + 8;           // x tile row stride
   constexpr int LW = 2 * TC_FC + 8;    // gate|up tile row stride
   constexpr int LV = NO + 8;           // Wd tile row stride
@@ -397,8 +400,9 @@ constexpr size_t wide_smem_bytes() {
 __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
-    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, uint32_t seed,
+    int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in,
     uint32_t thresh, float inv_keep) {
+  const uint32_t seed = seed_in.get();
   constexpr int NH = W_FC / 8;   // 8-wide gate (and up) tiles of a chunk
   constexpr int NJO = W_NO / 8;  // 8-wide y column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -501,7 +505,7 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
 
 int launch_wide(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                 void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = wide_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(moe_fwd_wide_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -518,7 +522,7 @@ int launch_wide(const void* x, const void* wgu, const void* wd, const void* btab
 template <int DP, int NO>
 int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                 void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<DP, NO>();
   cudaError_t err = cudaFuncSetAttribute(moe_fwd_tc_kernel<DP, NO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,7 +544,7 @@ int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab
 template <int DP>
 int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                   void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                  int act, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
+                  int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
   if (Dout <= 64) return launch_bf16<DP, 64>(GAMER_FWD_ARGS);
   if (Dout <= 128) return launch_bf16<DP, 128>(GAMER_FWD_ARGS);
   return launch_bf16<DP, 256>(GAMER_FWD_ARGS);
@@ -558,8 +562,10 @@ int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* bt
 extern "C" int gamer_fused_moe_fwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, void* out, int P,
                                    int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                                   int act, unsigned int seed, unsigned int thresh,
-                                   float inv_keep, int dtype, void* stream) {
+                                   int act, const unsigned int* seed_ptr, unsigned int seed_add,
+                                   unsigned int thresh, float inv_keep, int dtype,
+                                   void* stream) {
+  const gamer::Seed seed{seed_ptr, seed_add};
   if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || act < 0 || act > 2)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

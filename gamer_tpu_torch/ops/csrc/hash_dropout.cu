@@ -9,7 +9,8 @@
 // a residual (dr = g needs no launch).
 //
 // The keep mask is fmix32 of the element's logical row-major flat index i,
-// in uint32 with native wrap-around: x = i * M3 + seed, x ^= x >> 16,
+// in uint32 with native wrap-around (the seed read on the card from
+// `gamer::Seed`, common.cuh): x = i * M3 + seed, x ^= x >> 16,
 // x *= M1, x ^= x >> 15, kept when x >= thresh. It rounds where the plain
 // version (ops/hash_dropout.py) and JAX round: `scale` is 1 / keep_prob
 // already rounded to the dtype by the caller, y * scale is rounded to the
@@ -78,7 +79,8 @@ __device__ __forceinline__ float dropped(float y, uint32_t i, uint32_t seed, uin
 template <typename T, bool HAS_R, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     hash_dropout_kernel(const T* __restrict__ y, const T* __restrict__ r, T* __restrict__ out,
-                        uint32_t n, uint32_t seed, uint32_t thresh, float scale) {
+                        uint32_t n, gamer::Seed seed_in, uint32_t thresh, float scale) {
+  const uint32_t seed = seed_in.get();
   const uint64_t groups = (static_cast<uint64_t>(n) + kVec - 1) / kVec;
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kThreads;
   for (uint64_t g = blockIdx.x * static_cast<uint64_t>(kThreads) + threadIdx.x; g < groups;
@@ -116,7 +118,7 @@ int sm_count() {
 }
 
 template <typename T, bool HAS_R>
-cudaError_t launch(const void* y, const void* r, void* out, uint32_t n, uint32_t seed,
+cudaError_t launch(const void* y, const void* r, void* out, uint32_t n, gamer::Seed seed,
                    uint32_t thresh, float scale, cudaStream_t st) {
   const uint64_t groups = (static_cast<uint64_t>(n) + kVec - 1) / kVec;
   const uint64_t want = (groups + kThreads - 1) / kThreads;
@@ -141,8 +143,10 @@ cudaError_t launch(const void* y, const void* r, void* out, uint32_t n, uint32_t
 // y, r and out [n] of one dtype; r null for the dropout alone (K1 without a
 // residual, and K2). `scale` is 1 / keep_prob rounded to the dtype.
 extern "C" int gamer_hash_dropout(const void* y, const void* r, void* out, unsigned int n,
-                                  unsigned int seed, unsigned int thresh, float scale, int dtype,
+                                  const unsigned int* seed_ptr, unsigned int seed_add,
+                                  unsigned int thresh, float scale, int dtype,
                                   void* stream) {
+  const gamer::Seed seed{seed_ptr, seed_add};
   if (n == 0 || y == nullptr || out == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool has_r = r != nullptr;

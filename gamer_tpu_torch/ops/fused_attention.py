@@ -4,8 +4,9 @@
 `fused_mask_attention`: q [B, S, H*D], k/v [B, S, Hkv*D] in the
 projection-native layout, the mask evaluated from the integer streams, rows
 with no allowed key giving 0 (and 0 grads), optional attention-prob dropout
-keyed on `dropout_seed` by the stateless hash `dropout_keep_tile`. For CUDA
-tensors it launches `csrc/fused_attention_fwd.cu` (saving the per-row
+keyed on `dropout_seed` by the stateless hash `dropout_keep_tile` (an int or a
+seed in device memory, `ops/seeds.DeviceSeed`, which the kernels read on the
+card). For CUDA tensors it launches `csrc/fused_attention_fwd.cu` (saving the per-row
 logsumexp when a gradient is needed) behind a `torch.autograd.Function` whose
 backward launches `csrc/fused_attention_bwd.cu` (`fused_mask_attention_bwd`);
 both kernels serve every S. The C entry points pick the kernel by dtype
@@ -37,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from gamer_tpu_torch.ops import _build
+from gamer_tpu_torch.ops import _build, seeds
 from gamer_tpu_torch.ops.masks import streams_allowed
 
 KINDS = {"causal": 0, "session": 1, "multi": 2, "session_multi": 3}
@@ -71,9 +72,11 @@ def keep_fraction(rate: float) -> float:
     return (4294967296 - drop_threshold(rate)) / 4294967296.0
 
 
-def hash_keep(seed: int, bh, rows, cols, rate: float) -> torch.Tensor:
-    """Keep mask of the hash of (seed, bh, row, col), broadcasting int tensors."""
-    x = (_mul32(rows, _M3) + _mul32(cols, _M1) + _mul32(bh, _M2) + (int(seed) & _U32)) & _U32
+def hash_keep(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Keep mask of the hash of (seed, bh, row, col), broadcasting int tensors;
+    `seed` an int or an `ops/seeds.DeviceSeed`."""
+    x = (_mul32(rows, _M3) + _mul32(cols, _M1) + _mul32(bh, _M2)
+         + seeds.hash_term(seed, rows.device)) & _U32
     return fmix32(x) >= drop_threshold(rate)
 
 
@@ -154,17 +157,20 @@ def _unpad_heads(t: torch.Tensor, D: int, Dp: int) -> torch.Tensor:
     return t.reshape(B, S, HDp // Dp, Dp)[..., :D].reshape(B, S, HDp // Dp * D)
 
 
-def _dropout_args(seed: int, rate: float) -> tuple[int, int, float]:
+def _dropout_args(seed, rate: float, device) -> tuple[int | None, int, int, float]:
+    """(seed pointer, seed add, threshold, 1 / keep fraction) of the C entry
+    points; the seed an int or a `DeviceSeed` (`ops/seeds.kernel_args`)."""
     if rate <= 0.0:
-        return 0, 0, 1.0
-    return int(seed) & _U32, drop_threshold(rate), 1.0 / keep_fraction(rate)
+        return None, 0, 0, 1.0
+    return (*seeds.kernel_args(seed, device), drop_threshold(rate), 1.0 / keep_fraction(rate))
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+# the dropout arguments: seed pointer, seed add, threshold, 1 / keep fraction
+_DROPOUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
+    _DROPOUT_ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
+    _DROPOUT_ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def dkv_splits(B: int, S: int, Hkv: int, G: int, kind: str, sms: int) -> int:
@@ -191,7 +197,7 @@ def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
         _build.launch("fused_attention_fwd", _FWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), *(t.data_ptr() for t in streams), out.data_ptr(),
                       lse.data_ptr() if with_lse else None, B, S, num_heads, Hkv, Dp,
-                      KINDS[kind], D ** -0.5, *_dropout_args(seed, rate),
+                      KINDS[kind], D ** -0.5, *_dropout_args(seed, rate, q.device),
                       _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention.launches += 1
     return (out if Dp == D else _unpad_heads(out, D, Dp)), lse
@@ -230,7 +236,7 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
                       delta.data_ptr(), *(t.data_ptr() for t in streams), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), ws.data_ptr() if ws is not None else None,
                       B, S, num_heads, Hkv, D, KINDS[kind], D_real ** -0.5,
-                      *_dropout_args(dropout_seed, dropout_rate), nsplit,
+                      *_dropout_args(dropout_seed, dropout_rate, q.device), nsplit,
                       _build.dtype_code(q), _build.stream_of(q))
     fused_mask_attention_bwd.launches += 1
     if D != D_real:

@@ -4,7 +4,8 @@
 `fused_moe_ffn`, on the expert-major layout: xp [P, T, D], wgu [P, D, 2F]
 (gate | up), wdown [P, F, Dout], btab [P, NB, 2F] per-behavior bias rows,
 beh [P, T] int32 bias ids, `seed` and `rate` of the hash dropout on h, keyed
-on (seed, expert p, row t, column f). For CUDA tensors it launches
+on (seed, expert p, row t, column f); the seed an int or a seed in device
+memory (`ops/seeds.DeviceSeed`), which the kernels read on the card. For CUDA tensors it launches
 `csrc/fused_moe_fwd.cu` behind a `torch.autograd.Function` whose backward
 launches `csrc/fused_moe_bwd.cu` (`fused_moe_ffn_bwd`): dx plus dWgu, dWd and
 dbtab summed in fp32 and cast to the weights' dtype, as the TPU kernel does.
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops.fused_attention import (
-    _dropout_args, hash_keep, keep_fraction)
+    _DROPOUT_ARGTYPES, _dropout_args, hash_keep, keep_fraction)
 
 TM = 64  # row tile of the kernels; the bf16 backward sums dbtab per row tile
 
@@ -137,10 +138,10 @@ def weight_grad_splits(T: int, P: int, D: int, F: int, Dout: int, sms: int,
     return n_gu, kc_gu, n_d, kc_d, n_b, kc_b
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-    ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
-    ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [
+    ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [
+    ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name="silu"):
@@ -155,7 +156,8 @@ def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name="silu"
     with torch.cuda.device(xp.device):
         _build.launch("fused_moe_fwd", _FWD_ARGTYPES, xp.data_ptr(), wgu.data_ptr(),
                       wdown.data_ptr(), btab.data_ptr(), beh.data_ptr(), out.data_ptr(),
-                      P, T, Dp, Fp, Doutp, NB, int(use_bias), act, *_dropout_args(seed, rate),
+                      P, T, Dp, Fp, Doutp, NB, int(use_bias), act,
+                      *_dropout_args(seed, rate, xp.device),
                       _build.dtype_code(xp), _build.stream_of(xp))
     fused_moe_ffn.launches += 1
     return out if Doutp == Dout else out[..., :Dout]
@@ -196,8 +198,8 @@ def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: floa
                       wdown.data_ptr(), btab.data_ptr(), beh.data_ptr(), gout.data_ptr(),
                       dx.data_ptr(), dwgu.data_ptr(), dwd.data_ptr(), dbtab.data_ptr(),
                       dgu.data_ptr(), hdrop.data_ptr(), ws.data_ptr(), P, T, D, Fd, Dout, NB,
-                      int(use_bias), act, *_dropout_args(seed, rate), n_gu, kc_gu, n_d, kc_d,
-                      n_b, kc_b, _build.dtype_code(xp), _build.stream_of(xp))
+                      int(use_bias), act, *_dropout_args(seed, rate, xp.device), n_gu, kc_gu,
+                      n_d, kc_d, n_b, kc_b, _build.dtype_code(xp), _build.stream_of(xp))
     fused_moe_ffn_bwd.launches += 1
     if (D, Fd, Dout) != real:
         dx, dwd = dx[..., :real[0]], dwd[:, :real[1], :real[2]]

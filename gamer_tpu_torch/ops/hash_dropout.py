@@ -8,13 +8,14 @@ threshold, keep_prob, residual=r)` is r + where(keep, y * scale, 0), or the
 plain dropout without `residual`; the keep mask is fmix32 of the element's
 logical row-major flat index (times M3, plus the seed) in uint32, kept when
 >= `threshold`. For CUDA tensors it launches `csrc/hash_dropout.cu` behind a
-`torch.autograd.Function` that saves only (seed, threshold, keep_prob): the
-backward regenerates the mask in K2, dy = where(keep, g * scale, 0), the
-same kernel without a residual; the residual's grad is g itself. For CPU
-tensors it runs the plain versions `apply_mask` and
-`hash_dropout_add_plain`, bit-exact with JAX: the arithmetic in int64
-holding uint32 (`ops/fused_attention.fmix32`), the scale rounded to y's
-dtype, y * scale rounded to it, then r added.
+`torch.autograd.Function` that saves only (seed, threshold, keep_prob), the
+seed an int or a seed in device memory (`ops/seeds.DeviceSeed`, read by the
+kernels on the card): the backward regenerates the mask in K2, dy =
+where(keep, g * scale, 0), the same kernel without a residual; the
+residual's grad is g itself. For CPU tensors it runs the plain versions
+`apply_mask` and `hash_dropout_add_plain`, bit-exact with JAX: the
+arithmetic in int64 holding uint32 (`ops/fused_attention.fmix32`), the
+scale rounded to y's dtype, y * scale rounded to it, then r added.
 
 Both routes take only contiguous tensors of one shape, one dtype (the
 port's call sites pass no mixed pair) and one device, with fewer than 2^32
@@ -30,25 +31,25 @@ import functools
 
 import torch
 
-from gamer_tpu_torch.ops import _build
+from gamer_tpu_torch.ops import _build, seeds
 from gamer_tpu_torch.ops.fused_attention import _M3, _U32, _mul32, fmix32
 
 MAX_NUMEL = 2 ** 32  # the kernel indexes elements in uint32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def hash_keep_mask(seed: int, shape, threshold: int, device=None) -> torch.Tensor:
+def hash_keep_mask(seed, shape, threshold: int, device=None) -> torch.Tensor:
     """Boolean keep mask of `shape`: fmix32(i * M3 + seed) >= threshold for
-    the logical row-major flat index i."""
+    the logical row-major flat index i; `seed` an int or a `DeviceSeed`."""
     n = 1
     for s in shape:
         n *= int(s)
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    x = (_mul32(idx, _M3) + (int(seed) & _U32)) & _U32
+    x = (_mul32(idx, _M3) + seeds.hash_term(seed, device)) & _U32
     return (fmix32(x) >= threshold).reshape(shape)
 
 
-def apply_mask(x: torch.Tensor, seed: int, threshold: int, keep_prob: float) -> torch.Tensor:
+def apply_mask(x: torch.Tensor, seed, threshold: int, keep_prob: float) -> torch.Tensor:
     """Plain version of K1 without a residual and of K2: where(keep, x *
     scale, 0), the scale rounded to x's dtype first."""
     keep = hash_keep_mask(seed, x.shape, threshold, x.device)
@@ -56,7 +57,7 @@ def apply_mask(x: torch.Tensor, seed: int, threshold: int, keep_prob: float) -> 
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def hash_dropout_add_plain(y: torch.Tensor, seed: int, threshold: int, keep_prob: float,
+def hash_dropout_add_plain(y: torch.Tensor, seed, threshold: int, keep_prob: float,
                            residual: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K1: residual + apply_mask(y), or apply_mask(y)."""
     d = apply_mask(y, seed, threshold, keep_prob)
@@ -86,8 +87,8 @@ def _check(y: torch.Tensor, residual: torch.Tensor | None) -> None:
         raise ValueError(f"the hash dropout kernel takes fewer than 2^32 elements, not {y.numel()}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                          ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_uint, ctypes.c_void_p] + [ctypes.c_uint] * 2 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _launch(y, seed, threshold, keep_prob, residual=None) -> torch.Tensor:
@@ -98,12 +99,13 @@ def _launch(y, seed, threshold, keep_prob, residual=None) -> torch.Tensor:
         with torch.cuda.device(y.device):
             _build.launch("hash_dropout", _ARGTYPES, y.data_ptr(),
                           None if residual is None else residual.data_ptr(), out.data_ptr(),
-                          y.numel(), int(seed) & _U32, int(threshold), _scale(keep_prob, y.dtype),
+                          y.numel(), *seeds.kernel_args(seed, y.device), int(threshold),
+                          _scale(keep_prob, y.dtype),
                           _build.dtype_code(y), _build.stream_of(y))
     return out
 
 
-def hash_dropout_fwd(y: torch.Tensor, seed: int, threshold: int, keep_prob: float,
+def hash_dropout_fwd(y: torch.Tensor, seed, threshold: int, keep_prob: float,
                      residual: torch.Tensor | None = None) -> torch.Tensor:
     """K1 outside autograd: residual + dropout(y) (or dropout(y)); the plain
     version for CPU tensors."""
@@ -115,7 +117,7 @@ def hash_dropout_fwd(y: torch.Tensor, seed: int, threshold: int, keep_prob: floa
     return out
 
 
-def hash_dropout_bwd(g: torch.Tensor, seed: int, threshold: int, keep_prob: float) -> torch.Tensor:
+def hash_dropout_bwd(g: torch.Tensor, seed, threshold: int, keep_prob: float) -> torch.Tensor:
     """K2: where(keep, g * scale, 0) of the incoming grad g (in y's dtype);
     the plain version for CPU tensors."""
     _check(g, None)
@@ -127,8 +129,9 @@ def hash_dropout_bwd(g: torch.Tensor, seed: int, threshold: int, keep_prob: floa
 
 
 class _HashDropout(torch.autograd.Function):
-    """K1 forward, K2 backward; saves only the seed, threshold and keep
-    probability. The residual's grad is g itself."""
+    """K1 forward, K2 backward; saves only the seed (an int, or a
+    `DeviceSeed`: the table and the add), threshold and keep probability.
+    The residual's grad is g itself."""
 
     @staticmethod
     def forward(ctx, y, residual, seed, threshold, keep_prob):
@@ -141,7 +144,7 @@ class _HashDropout(torch.autograd.Function):
         return dy, g if ctx.needs_input_grad[1] else None, None, None, None
 
 
-def hash_dropout(y: torch.Tensor, seed: int, threshold: int, keep_prob: float,
+def hash_dropout(y: torch.Tensor, seed, threshold: int, keep_prob: float,
                  residual: torch.Tensor | None = None) -> torch.Tensor:
     """residual + where(keep, y * scale, 0), or the dropout alone without
     `residual`; differentiable in y and the residual."""

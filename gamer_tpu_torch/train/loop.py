@@ -13,9 +13,28 @@ every steps-mode eval, "last" at the end, and with `snapshot_every_epochs`
 "epoch_<N>" snapshots keeping the newest `snapshot_limit`; `resume` restores
 "last_state" and continues from the epoch after it.
 
-The loop consumes `loss_fn(batch, generator) -> (loss, aux)`, differentiable
-in the model's parameters; each micro-step's dropout seeds come from a CPU
-`torch.Generator` seeded by `(loop seed, micro-step)`.
+The loop consumes `loss_fn(batch, seeds) -> (loss, aux)`, differentiable
+in the model's parameters; each micro-step's dropout seeds are drawn from a
+CPU `torch.Generator` seeded by `(loop seed, micro-step)`.
+
+A micro-step is the counterpart of JAX's jitted step (`_build_train_step`),
+in two parts. The host part stages the batch's arrays, the step's dropout
+seeds (drawn from the generator into the model's [dropout_sites] int32 seed
+table, `ops/seeds.py`), the accumulation divisor and, on an update, the
+optimizer's scalars (`Optimizer.prepare`) into static device buffers,
+through pinned memory without waiting for the card (`train/staging.py`).
+The device part, `_device_step`, is forward, backward, the running-mean
+accumulation into static accumulators, and on the update micro-step the
+optimizer's device half (kernel L on the card); it reads no device value
+into Python. On CUDA without a process group the device part is captured
+once per (input shapes and dtypes, accumulation phase) as a CUDA graph, as
+`jax.jit` traces once per shape: the first step of each runs eagerly on a
+side stream (PyTorch's whole-network capture recipe: the warm-up is the
+real step), then the capture records it, and every later step replays it.
+All graphs of a `Trainer` share one memory pool. `graphed=False` keeps the
+eager device part (the same code, launched op by op); a model without a
+seed table (`dropout_sites`) gets the generator itself and runs eagerly. A
+capture that fails raises.
 
 Under a process group (`core/distributed.py`) each process feeds its own
 rows, and the step is the JAX package's global one: the loss is one token
@@ -24,7 +43,8 @@ denom), whose ratio is the returned loss, and weighs its local grads by
 denom / global denom; an update all-reduces the accumulated grads once, as
 one flat buffer in parameter order, before the optimizer clips them. Every
 process then applies the same sum, so parameters stay bit-identical.
-`evaluate` sums its totals and weights over the group the same way.
+`evaluate` sums its totals and weights over the group the same way. Under a
+process group the device part runs eagerly (no capture).
 
 On a (data, model) mesh (the `core/mesh.MeshContext` whose `shard_params`
 the model went through) these sums run over the data
@@ -51,6 +71,8 @@ from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
 from gamer_tpu_torch.core.metrics import MetricWriter
+from gamer_tpu_torch.ops.seeds import draw
+from gamer_tpu_torch.train.staging import Staging
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
 logger = logging.getLogger("gamer_tpu_torch.train")
@@ -87,6 +109,7 @@ class Trainer:
         metric_writer: MetricWriter | None = None,
         eval_fn: Callable[[torch.nn.Module], tuple[float, dict]] | None = None,
         eval_loss_fn: Callable[[dict], tuple[torch.Tensor, dict]] | None = None,
+        graphed: bool = True,
     ):
         self.loss_fn = loss_fn
         self.ctx = getattr(model, "mesh_ctx", None)
@@ -105,8 +128,23 @@ class Trainer:
         self.optimizer = make_optimizer(opt_cfg, model)
         self.params = dict(model.named_parameters())
         self.step = 0  # micro-steps taken
-        self._acc: dict[str, torch.Tensor] | None = None
         self._best_state: dict[str, torch.Tensor] | None = None
+        # the compiled step (module docstring): static buffers, graphs, pool
+        self.graphed = graphed
+        self.device = self.optimizer.scalars.device
+        k = max(loop_cfg.gradient_accumulation_steps, 1)
+        # the running mean of a cycle's grads, mid-cycle state of a checkpoint
+        self._acc = {n: torch.zeros_like(p) for n, p in self.params.items()} if k > 1 else None
+        n_seeds = getattr(model, "dropout_sites", None)
+        self._seeds = (torch.zeros(n_seeds, dtype=torch.int32, device=self.device)
+                       if n_seeds is not None else None)
+        self._div = torch.ones((), dtype=torch.float32, device=self.device)
+        self._per_step = Staging({"div": self._div} if self._seeds is None
+                                 else {"div": self._div, "seeds": self._seeds})
+        self._inputs: dict[tuple, tuple[dict, Staging]] = {}
+        self._graphs: dict[tuple, _Graph] = {}
+        self._pool = None
+        self._side = None
 
     # ------------------------------------------------------------------ steps
 
@@ -120,10 +158,58 @@ class Trainer:
         (detached) loss."""
         k = max(self.cfg.gradient_accumulation_steps, 1)
         mini = self.step % k
+        inputs, seeds = self._prepare(batch, mini, k)
+        if self.captures:
+            loss = self._graph_step(inputs, seeds, mini, k)
+        else:
+            loss = self._device_step(inputs, seeds, mini, k, batch)
+        self.step += 1
+        return loss
+
+    @property
+    def captures(self) -> bool:
+        """Whether the device part is captured and replayed as CUDA graphs:
+        on the card, `graphed`, and without a process group."""
+        return self.graphed and self.device.type == "cuda" and not distributed.is_initialized()
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured: one per input geometry and accumulation phase."""
+        return len(self._graphs)
+
+    def _prepare(self, batch: dict, mini: int, k: int) -> tuple[dict, Any]:
+        """The host part of a micro-step: the batch into its static device
+        buffers, the dropout seeds and the accumulation divisor into theirs,
+        and on the update micro-step the optimizer's scalars. Returns (the
+        device batch, the seed table or, for a model without one, the
+        generator)."""
+        arrays = {n: v if isinstance(v, torch.Tensor) else np.asarray(v) for n, v in batch.items()}
+        key = tuple((n, tuple(v.shape), _dtype(v)) for n, v in arrays.items())
+        if key not in self._inputs:
+            static = {n: torch.empty(shape, dtype=dtype, device=self.device)
+                      for n, shape, dtype in key}
+            self._inputs[key] = (static, Staging(static))
+        static, staging = self._inputs[key]
+        staging.write(arrays)
+        per_step = {"div": np.float32(mini + 1)}
+        seeds = self.generator(self.step)
+        if self._seeds is not None:
+            per_step["seeds"] = draw(seeds, self._seeds.numel()).to(torch.int32)
+            seeds = self._seeds
+        self._per_step.write(per_step)
+        if mini == k - 1:
+            self.optimizer.prepare()
+        return static, seeds
+
+    def _device_step(self, inputs: dict, seeds, mini: int, k: int,
+                     batch: dict | None = None) -> torch.Tensor:
+        """The device part of a micro-step on the staged inputs; changes no
+        host state, so it can run inside a capture. `batch` (the host
+        arrays) weighs the loss under a process group."""
+        grouped = distributed.is_initialized()
         for p in self.params.values():
             p.grad = None
-        loss, aux = self.loss_fn(batch, self.generator(self.step))
-        grouped = distributed.is_initialized()
+        loss, aux = self.loss_fn(inputs, seeds)
         if grouped:  # the global token mean and this process's share of it
             w = _weight(batch, aux, loss.device)
             stats = distributed.all_reduce_sum(torch.stack([loss.detach().double() * w, w]),
@@ -135,20 +221,51 @@ class Trainer:
         if grouped:
             grads = {n: g * share for n, g in grads.items()}
             loss = (stats[0] / stats[1]).float()
-        if self._acc is None:
-            self._acc = grads
-        else:  # running mean, as optax.MultiSteps: acc + (g - acc) / (n + 1)
+        if self._acc is not None:  # running mean, as optax.MultiSteps: acc + (g - acc) / (n + 1)
             for n, g in grads.items():
-                self._acc[n].add_((g - self._acc[n]) / (mini + 1))
+                if mini == 0:
+                    self._acc[n].copy_(g)
+                else:
+                    self._acc[n].add_((g - self._acc[n]) / self._div)
+            grads = self._acc
         for p in self.params.values():
             p.grad = None
         if mini == k - 1:
             if grouped:
-                distributed.all_reduce_flat(list(self._acc.values()), self.data_group)
-            self.optimizer.step(self._acc)
-            self._acc = None
-        self.step += 1
+                distributed.all_reduce_flat(list(grads.values()), self.data_group)
+            self.optimizer.apply(grads)
         return loss.detach()
+
+    def _graph_step(self, inputs: dict, seeds, mini: int, k: int) -> torch.Tensor:
+        """The device part through the CUDA graph of its key, captured at its
+        first step (which runs eagerly on a side stream: the warm-up)."""
+        if not isinstance(seeds, torch.Tensor):
+            raise ValueError("the captured step reads its dropout seeds from device memory: the "
+                             "model must give its seed count (`dropout_sites`); pass "
+                             "graphed=False to run it eagerly")
+        phase = "update" if k == 1 else ("first" if mini == 0 else
+                                         "last" if mini == k - 1 else "middle")
+        key = (tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()), phase)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.graph.replay()
+            return graph.loss.clone()  # out of the graph's memory, which the next replay reuses
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            loss = self._device_step(inputs, seeds, mini, k)
+        torch.cuda.current_stream(self.device).wait_stream(self._side)
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph, pool=self._pool):
+            graph_loss = self._device_step(inputs, seeds, mini, k)
+        if self._pool is None:
+            self._pool = cuda_graph.pool()
+        table = self.optimizer.last_table if mini == k - 1 else None
+        self._graphs[key] = _Graph(cuda_graph, graph_loss, table)
+        logger.info("captured the training step's CUDA graph %d (%s, %s)", len(self._graphs),
+                    phase, ", ".join(f"{n} {list(t.shape)}" for n, t in inputs.items()))
+        return loss
 
     @property
     def updates(self) -> int:
@@ -171,16 +288,18 @@ class Trainer:
         micro-step and a mid-cycle gradient accumulator (whole tensors)."""
         opt = {k: (self._whole(v) if isinstance(v, dict) else v)
                for k, v in self.optimizer.state_dict().items()}
+        k = max(self.cfg.gradient_accumulation_steps, 1)
+        acc = self._acc if self._acc is not None and self.step % k else {}
         return {"params": self.model_state(), "opt": opt, "step": self.step,
-                "acc": self._whole(self._acc or {})}
+                "acc": self._whole(acc)}
 
     def load_train_state(self, state: dict) -> None:
         self.model.load_state_dict(self._block(state["params"]))
         self.optimizer.load_state_dict({k: (self._block(v) if isinstance(v, dict) else v)
                                         for k, v in state["opt"].items()})
         self.step = int(state["step"])
-        device = next(iter(self.params.values())).device
-        self._acc = {k: v.to(device) for k, v in self._block(state["acc"]).items()} or None
+        for k, v in self._block(state["acc"]).items():  # a mid-cycle accumulator
+            self._acc[k].copy_(v)
 
     # ------------------------------------------------------------------ loops
 
@@ -298,7 +417,10 @@ class Trainer:
                                {"epoch": epoch, "best": float(best), "step": self.step})
         if self.ckpt:
             self.ckpt.save("last", self.model_state(), {"step": self.step})
-        return {"best_metric": float(best), "history": history, "steps": self.step}
+        if self.captures:
+            logger.info("the fit captured %d CUDA graphs of the training step", self.graphs)
+        return {"best_metric": float(best), "history": history, "steps": self.step,
+                "graphs": self.graphs}
 
     # --------------------------------------------------------------- restore
 
@@ -322,6 +444,19 @@ class Trainer:
         if self._best_state is not None:
             return self._best_state
         return {k: v.detach() for k, v in self.model_state().items()}
+
+
+class _Graph:
+    """A captured device step: the graph, its loss in the graph's memory,
+    and the optimizer's record table it reads (kept alive with it)."""
+
+    def __init__(self, graph, loss: torch.Tensor, table):
+        self.graph, self.loss, self.table = graph, loss, table
+
+
+def _dtype(v) -> torch.dtype:
+    """The torch dtype of a tensor or numpy array."""
+    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(np.empty(0, v.dtype)).dtype
 
 
 def _weight(batch: dict, aux: dict, device) -> torch.Tensor:

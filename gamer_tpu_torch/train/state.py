@@ -15,10 +15,14 @@ accumulator at 0, rmsprop adds eps outside the square root):
   rmsprop               v = 0.9 v + 0.1 g^2 (from 0), u = g / sqrt(v + 1e-8)
 
 The schedule counts optimizer updates (`schedule_horizon`): its step is the
-number of updates applied before this one. On a model axis the global norm
-sums each split parameter's squares over the model group and counts each
-replicated one once, so it equals the one-process norm. No decay applies to parameters
-whose flax name ends in "scale" or "bias" (`decay_mask`).
+number of updates applied before this one; it is host state, and each update
+writes its learning rate and bias corrections into a device buffer that the
+update reads (`Optimizer.prepare`), so an update reads no device value into
+Python. On the card the update is kernel L (`ops/fused_optimizer.py`);
+`plain_update` is its plain version, for the CPU. On a model axis the global
+norm sums each split parameter's squares over the model group and counts each
+replicated one once, so it equals the one-process norm. No decay applies to
+parameters whose flax name ends in "scale" or "bias" (`decay_mask`).
 """
 
 from __future__ import annotations
@@ -27,10 +31,13 @@ import logging
 import math
 from typing import Callable, Mapping
 
+import numpy as np
 import torch
 
 from gamer_tpu_torch.convert import flax_path
 from gamer_tpu_torch.core.config import Config
+from gamer_tpu_torch.ops import fused_optimizer as FO
+from gamer_tpu_torch.train.staging import Staging
 
 
 class OptimizerConfig(Config):
@@ -91,8 +98,24 @@ def decay_mask(model: torch.nn.Module) -> dict[str, bool]:
             for name, _ in model.named_parameters()}
 
 
+# each family's two moments as kernel L's records hold them (m, v)
+_MOMENTS = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "fallback_adam": ("mu", "nu"),
+            "sgd": (None, None), "adagrad": (None, "sum_sq"), "rmsprop": (None, "nu")}
+
+
 class Optimizer:
-    """The optimizer chain of `make_optimizer` over named fp32 tensors."""
+    """The optimizer chain of `make_optimizer` over named fp32 tensors.
+
+    An update has a host half and a device half. `prepare` advances the
+    update count and writes this update's learning rate and bias corrections
+    into the device scalar buffer `scalars` (fp32 [lr, 1 - b1^t, 1 - b2^t,
+    0], through pinned memory, no wait). `apply` clips and updates in place
+    and reads nothing back to the host: on the card it runs kernel L
+    (`ops/fused_optimizer.py`: L1 the global norm, then L2 the update) over
+    a record table of the tensors, built once per set of grad addresses;
+    on the CPU the plain version `plain_update`. `step` is both."""
+
+    TABLES = 8  # record tables kept, one per set of grad addresses
 
     def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
                  decay: Mapping[str, bool], sharded: frozenset = frozenset(), model_axis=None):
@@ -114,21 +137,24 @@ class Optimizer:
             self.sum_sq = {k: torch.full_like(p, 0.1) for k, p in self.params.items()}
         elif self.optim == "rmsprop":
             self.nu = zeros()
+        device = next(iter(self.params.values())).device
+        self.scalars = torch.zeros(4, dtype=torch.float32, device=device)
+        self._staging = Staging({"scalars": self.scalars})
+        self._tables: dict[tuple, FO.RecordTable] = {}
+        self.last_table: FO.RecordTable | None = None  # the table of the last `apply` on the card
 
-    def _clip(self, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        max_norm = self.cfg.max_grad_norm
-        if not max_norm or max_norm <= 0:
-            return dict(grads)
-        squares = lambda split: sum((g.float().square().sum() for k, g in grads.items()
-                                     if (k in self.sharded) == split),
-                                    torch.zeros((), device=next(iter(grads.values())).device))
-        total = squares(False)
-        if self.sharded:
-            total = total + self.model_axis.all_reduce(squares(True).reshape(1))[0]
-        norm = torch.sqrt(total)
-        if norm < max_norm:
-            return dict(grads)
-        return {k: g / norm * max_norm for k, g in grads.items()}
+    @property
+    def betas(self) -> tuple[float, float, float]:
+        """(b1, b2, eps) of the adam family (the fallback's are optax's defaults)."""
+        if self.optim == "fallback_adam":
+            return 0.9, 0.999, 1e-8
+        return self.cfg.adam_b1, self.cfg.adam_b2, self.cfg.adam_eps
+
+    @property
+    def coupled(self) -> bool:
+        """Whether the family adds L2 decay to the grads (adamw decays
+        decoupled, the fallback not at all)."""
+        return self.optim in ("adam", "sgd", "adagrad", "rmsprop") and bool(self.cfg.weight_decay)
 
     def state_dict(self) -> dict:
         """The update count and the family's moments or accumulators, for
@@ -146,38 +172,103 @@ class Optimizer:
                 for k, t in tensors.items():
                     getattr(self, name)[k].copy_(t)
 
+    def prepare(self) -> float:
+        """The host half of an update: count it and write its learning rate
+        and bias corrections into `scalars`. Returns the learning rate."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2, _ = self.betas
+        t = self.count
+        self._staging.write({"scalars": np.array([lr, 1 - b1 ** t, 1 - b2 ** t, 0.0], np.float32)})
+        return lr
+
     @torch.no_grad()
+    def apply(self, grads: Mapping[str, torch.Tensor]) -> None:
+        """The device half: clip and update the parameters in place with the
+        scalars of the last `prepare`; kernel L on the card, `plain_update`
+        on the CPU."""
+        if self.scalars.device.type == "cpu":
+            plain_update(self, grads)
+            return
+        table = self._table(grads)
+        totals = FO.global_norm_sq(table)
+        if self.sharded:  # the split tensors' squares over the model group
+            self.model_axis.all_reduce(totals[1:])
+        b1, b2, eps = self.betas
+        FO.apply_update(table, self.scalars, self.optim, b1, b2, eps, self.cfg.weight_decay,
+                        self.cfg.max_grad_norm)
+
     def step(self, grads: Mapping[str, torch.Tensor]) -> float:
         """Apply one update in place; returns the learning rate it used."""
-        cfg = self.cfg
-        lr = self.schedule(self.count)
-        grads = self._clip(grads)
-        self.count += 1
-        t = self.count
-        coupled = (self.optim in ("adam", "sgd", "adagrad", "rmsprop") and cfg.weight_decay)
-        for k, p in self.params.items():
-            g = grads[k]
-            if coupled and self.decay[k]:
-                g = g + cfg.weight_decay * p
-            if self.optim in ("adamw", "adam", "fallback_adam"):
-                b1, b2, eps = ((0.9, 0.999, 1e-8) if self.optim == "fallback_adam"
-                               else (cfg.adam_b1, cfg.adam_b2, cfg.adam_eps))
-                self.mu[k].mul_(b1).add_(g, alpha=1 - b1)
-                self.nu[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-                u = (self.mu[k] / (1 - b1 ** t)) / (torch.sqrt(self.nu[k] / (1 - b2 ** t)) + eps)
-                if self.optim == "adamw" and self.decay[k]:
-                    u = u + cfg.weight_decay * p
-            elif self.optim == "sgd":
-                u = g
-            elif self.optim == "adagrad":
-                self.sum_sq[k].addcmul_(g, g)
-                s = self.sum_sq[k]
-                u = g * torch.where(s > 0, torch.rsqrt(s + 1e-7), 0.0)
-            else:  # rmsprop
-                self.nu[k].mul_(0.9).addcmul_(g, g, value=0.1)
-                u = g * torch.rsqrt(self.nu[k] + 1e-8)
-            p.add_(u, alpha=-lr)
+        lr = self.prepare()
+        self.apply(grads)
         return lr
+
+    def _table(self, grads: Mapping[str, torch.Tensor]) -> FO.RecordTable:
+        """The record table of these grads (kept by their addresses)."""
+        gs = [grads[k] for k in self.params]
+        key = tuple(g.data_ptr() for g in gs)
+        table = self._tables.get(key)
+        if table is None:
+            ms, vs = ([getattr(self, m)[k] if m else None for k in self.params]
+                      for m in _MOMENTS[self.optim])
+            decays = self.optim == "adamw" or self.coupled
+            flags = [(FO.SHARDED if k in self.sharded else 0)
+                     | (FO.DECAYED if decays and self.decay[k] else 0) for k in self.params]
+            table = FO.RecordTable(self.params.values(), gs, ms, vs, flags, self.scalars.device)
+            if len(self._tables) >= self.TABLES:
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[key] = table
+        self.last_table = table
+        return table
+
+
+def _clip(opt: Optimizer, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """optax's clip_by_global_norm as a select on the device: g where the
+    norm is under `max_grad_norm`, else g / norm * max_grad_norm."""
+    max_norm = opt.cfg.max_grad_norm
+    if not max_norm or max_norm <= 0:
+        return dict(grads)
+    squares = lambda split: sum((g.float().square().sum() for k, g in grads.items()
+                                 if (k in opt.sharded) == split),
+                                torch.zeros((), device=next(iter(grads.values())).device))
+    total = squares(False)
+    if opt.sharded:
+        total = total + opt.model_axis.all_reduce(squares(True).reshape(1))[0]
+    norm = torch.sqrt(total)
+    keep = norm < max_norm
+    return {k: torch.where(keep, g, g / norm * max_norm) for k, g in grads.items()}
+
+
+@torch.no_grad()
+def plain_update(opt: Optimizer, grads: Mapping[str, torch.Tensor]) -> None:
+    """The plain version of kernel L: clip, then the family's update of each
+    tensor in place, with the learning rate and bias corrections read from
+    `opt.scalars` as tensors (no read into Python)."""
+    cfg = opt.cfg
+    lr, bc1, bc2 = opt.scalars[0], opt.scalars[1], opt.scalars[2]
+    grads = _clip(opt, grads)
+    for k, p in opt.params.items():
+        g = grads[k]
+        if opt.coupled and opt.decay[k]:
+            g = g + cfg.weight_decay * p
+        if opt.optim in ("adamw", "adam", "fallback_adam"):
+            b1, b2, eps = opt.betas
+            opt.mu[k].mul_(b1).add_(g, alpha=1 - b1)
+            opt.nu[k].mul_(b2).addcmul_(g, g, value=1 - b2)
+            u = (opt.mu[k] / bc1) / (torch.sqrt(opt.nu[k] / bc2) + eps)
+            if opt.optim == "adamw" and opt.decay[k]:
+                u = u + cfg.weight_decay * p
+        elif opt.optim == "sgd":
+            u = g
+        elif opt.optim == "adagrad":
+            opt.sum_sq[k].addcmul_(g, g)
+            s = opt.sum_sq[k]
+            u = g * torch.where(s > 0, torch.rsqrt(s + 1e-7), 0.0)
+        else:  # rmsprop
+            opt.nu[k].mul_(0.9).addcmul_(g, g, value=0.1)
+            u = g * torch.rsqrt(opt.nu[k] + 1e-8)
+        p.sub_(u * lr)
 
 
 def make_optimizer(cfg: OptimizerConfig, model: torch.nn.Module) -> Optimizer:

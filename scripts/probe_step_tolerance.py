@@ -92,24 +92,18 @@ def main() -> int:
     from gamer_tpu_torch.data.seq import SeqCorpus, SeqExampleBuilder
     from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
     from gamer_tpu_torch.models.generative.qwen_family import build_config
-    from gamer_tpu_torch.ops import fused_attention as FA
-    from gamer_tpu_torch.ops import fused_ce as FC
-    from gamer_tpu_torch.ops import fused_moe as FM
     from gamer_tpu_torch.tasks.test_decoder import seq_inter_type
     from gamer_tpu_torch.tasks.train_mb_decoder import load_mb_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = {"fused_mask_attention": FA.fused_mask_attention,
-                "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
-                "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-                "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd}
+    counters = cs.kernel_counters()
     batch_size = 256
     rows = []
 
     def run(label, cfg, batch, seed):
         loss, grad, at = cs._paths_agree(label, cfg, batch, dev, seed, counters,
-                                         cs._step_launches(cfg), loss_tol=math.inf,
+                                         cs._step_launches(cfg, update=False), loss_tol=math.inf,
                                          grad_tol=math.inf)
         rows.append(dict(label=label, loss_rel=loss, grad_rel=grad, grad_at=at))
 

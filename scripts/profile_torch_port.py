@@ -7,14 +7,16 @@ Traces, with torch.profiler (CPU + CUDA activities), three steady-state
 iterations of the flagship Qwen3Multi scoring forward (bf16, batch 64 x
 S = 505, through the hand-written kernels), three training steps of the same
 model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
-`chip_smoke.py` phase 5) and one 20-beam constrained search (batch 128, the
+`chip_smoke.py` phase 5), compiled (CUDA graph replays, the default) and
+eager (`graphed=False`), and one 20-beam constrained search (batch 128, the
 shapes of `chip_smoke.py`). For each it prints the wall time per iteration
 (timed without the profiler), the device busy share (summed kernel time over
 that wall time, one stream), the device kernels by total time and the sums
 of the attention, MoE, CE and hash-dropout kernels (a: `attn_fwd*`; b:
 `attn_dkv*`, `attn_dq*`, `attn_delta*`; h: `moe_fwd*`; i: `moe_bwd*`,
 `moe_gemm*`; j: `ce_fwd*`; k: `ce_dh*`, `ce_de*`; K1 and K2:
-`hash_dropout_kernel`), and the kernels that compute on int64 (`long` in
+`hash_dropout_kernel`; L1 and L2: `norm_partials*`, `norm_total*`,
+`update_kernel*`), and the kernels that compute on int64 (`long` in
 their name) with `arange`'s, where a hash computed in plain PyTorch would
 show. The split reduce that b (at small batch), i and k end with is one
 kernel by name for all three and is counted in no group. Needs CUDA;
@@ -24,7 +26,8 @@ With `rec` it traces instead three training steps (forward, backward, AdamW
 update; `tasks/train_smb_rec.train_step`) of each discriminative backbone
 at its shipped config and `chip_smoke.py` phase 13's geometry (batch 256 x
 20, 6000 items, 700 users, a random batch, dropout on), fp32, no kernel of
-the port.
+a-k (the dropout runs on K1 and K2, the update on kernel L; the zoo's own
+loop is not captured as a CUDA graph).
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
         ms = dev(e) / 1e3 / iters
         name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:80]
         print(f"  {ms:9.4f} ms {100 * ms / busy_ms:5.1f}%  {e.count // iters:5d} calls  {name}")
-    groups = {"attention a": ("attn_fwd",),
+    groups = {"optimizer L1+L2": ("norm_partials", "norm_total", "update_kernel"),
+              "attention a": ("attn_fwd",),
               "attention b": ("attn_dkv", "attn_dq", "attn_delta"),
               "MoE h": ("moe_fwd",), "MoE i": ("moe_bwd", "moe_gemm"),
               "CE j": ("ce_fwd",), "CE k": ("ce_dh", "ce_de"),
@@ -141,13 +145,15 @@ def main() -> int:
     from gamer_tpu_torch.train.state import OptimizerConfig
 
     train_cfg = cs.flagship_config(dropout_rate=cs.DROP_RATE)
-    train_model = QwenFamilyModel(train_cfg, device="cuda")
-    trainer = Trainer(make_loss_fn(train_model, train_cfg, deterministic=False), train_model,
-                      OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant"),
-                      TrainLoopConfig(seed=0))
-    _profile(lambda: trainer.train_step(batch), 3,
-             f"train step Qwen3Multi bf16 B=64 S=505 dropout {cs.DROP_RATE}", top=24)
-    del trainer, train_model
+    for graphed in (True, False):
+        train_model = QwenFamilyModel(train_cfg, device="cuda")
+        trainer = Trainer(make_loss_fn(train_model, train_cfg, deterministic=False), train_model,
+                          OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant"),
+                          TrainLoopConfig(seed=0), graphed=graphed)
+        _profile(lambda: trainer.train_step(batch), 3,
+                 f"train step Qwen3Multi bf16 B=64 S=505 dropout {cs.DROP_RATE}, "
+                 f"{'compiled (CUDA graph replays)' if graphed else 'eager'}", top=24)
+        del trainer, train_model
     trie, prompts, behaviors = cs.make_trie_and_prompts(
         cfg, cs.BEAM_BATCH, cs.N_ITEMS, cs.LEVELS, cs.LEVEL_SIZE, cs.PROMPT_BLOCKS)
     search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=cs.NUM_BEAMS))

@@ -965,3 +965,108 @@ def test_hash_dropout_add_autograd_and_row0_on_card(dev, dtype):
     # rows 2.. of a global batch of 8 from row 0
     full = hash_dropout_add(torch.cat([r[:2], r]).to(dev), torch.cat([y[:2], y]).to(dev), 41, 0.1)
     _hd_same(outs["cuda"][0], full[2:].cpu())
+
+
+# --------------------------------------------------- the compiled training step
+
+@pytest.mark.parametrize("optim", ["adamw", "adam", "sgd", "adagrad", "rmsprop", "lion"])
+def test_fused_optimizer_matches_plain(dev, optim):
+    """Kernel L (L1, L2) against `plain_update` over ragged tensors (odd
+    lengths, a tensor under one chunk and one over two), five updates with
+    the clip triggered on some: parameters and moments within 1e-5 of each
+    tensor's largest entry (the norm is summed in fp64 by L, in fp32 by the
+    plain version); a second run of L bit-identical."""
+    from gamer_tpu_torch.train.state import Optimizer, OptimizerConfig, plain_update
+
+    g = torch.Generator().manual_seed(3)
+    shapes = [(7,), (3, 5), (129, 256), (40000,), (2, 3, 4)]
+    start = {f"w{i}": torch.randn(s, generator=g).to(dev) for i, s in enumerate(shapes)}
+    decay = {n: i % 2 == 0 for i, n in enumerate(start)}
+    grads = [{n: (torch.randn(p.shape, generator=g) * (0.002 if i % 2 else 0.02)).to(dev)
+              for n, p in start.items()} for i in range(5)]
+
+    def run(kernel):
+        params = {n: p.clone() for n, p in start.items()}
+        opt = Optimizer(OptimizerConfig(optim=optim, learning_rate=1e-2, warmup_steps=1,
+                                        total_steps=5, max_grad_norm=1.0, weight_decay=0.1),
+                        params, decay)
+        for gr in grads:
+            opt.prepare()
+            opt.apply(gr) if kernel else plain_update(opt, gr)
+        return {"p": params, **{k: v for k, v in opt.state_dict().items() if k != "count"}}
+
+    got, again, want = run(True), run(True), run(False)
+    torch.cuda.synchronize()
+    norms = [float(torch.sqrt(sum(t.square().sum() for t in gr.values()))) for gr in grads]
+    assert min(norms) < 1.0 < max(norms)
+    for slot, tensors in want.items():
+        for n, w in tensors.items():
+            assert (got[slot][n] - w).abs().max() <= 1e-5 * max(w.abs().max().item(), 1e-6)
+            assert torch.equal(got[slot][n], again[slot][n])
+
+
+def test_device_seed_kernels_equal_int_seed(dev):
+    """a, b, h, i, K1 and K2 with their seed read from device memory (table
+    entry plus an add) against the same value passed as an int: bit for bit."""
+    from gamer_tpu_torch.modules.dropout import keep_threshold
+    from gamer_tpu_torch.ops.seeds import DeviceSeed
+
+    table = torch.tensor([5, 1234567, 2 ** 31 - 2], dtype=torch.int32, device=dev)
+    seed, value = DeviceSeed(table, 2, 3_000_000_000), (2 ** 31 - 2 + 3_000_000_000) % 2 ** 32
+    bits = lambda t: t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    same = lambda a, b: all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    y, r = rnd(4, 33, 64), rnd(4, 33, 64)
+    thr, kp = keep_threshold(0.2)
+    for fn in (lambda s: HD.hash_dropout_fwd(y, s, thr, kp, r),
+               lambda s: HD.hash_dropout_bwd(y, s, thr, kp)):
+        assert same([fn(seed)], [fn(value)])
+    q, k, v, streams, H = _attn_inputs(dev, torch.bfloat16, 77, 64, 1)
+
+    def attention(s):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fused_mask_attention(*leaves, *streams, s, H, "causal", 0.2)
+        return [out, *torch.autograd.grad(out.float().square().sum(), leaves)]
+
+    assert same(attention(seed), attention(value))
+    P, T, D, F = 3, 100, 64, 96
+    xp, wgu, wd = rnd(P, T, D), rnd(P, D, 2 * F) * 0.1, rnd(P, F, D) * 0.1
+    btab, beh = rnd(P, 2, 2 * F), torch.randint(0, 2, (P, T), dtype=torch.int32, device=dev)
+
+    def moe(s):
+        x = xp.clone().requires_grad_(True)
+        out = fused_moe_ffn(x, wgu, wd, btab, beh, s, "silu", 0.2, use_bias=True)
+        return [out, *torch.autograd.grad(out.float().square().sum(), (x,))]
+
+    assert same(moe(seed), moe(value))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_graphed_trainer_matches_eager(dev, k):
+    """Five `Trainer` steps of a small Qwen3Multi (bf16, dropout 0.2, kernels
+    on) on two alternating batch shapes, captured as CUDA graphs and
+    replayed, against the eager step: every loss and parameter bit for bit;
+    one graph per (shape, accumulation phase)."""
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = flagship_config(num_hidden_layers=2, dtype="bfloat16", dropout_rate=0.2)
+    batches = [make_batch(cfg, 4, blocks, np.random.default_rng(blocks)) for blocks in (20, 13)]
+
+    def run(graphed):
+        model = QwenFamilyModel(cfg, device=dev, seed=0)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                          OptimizerConfig(total_steps=5, warmup_steps=1),
+                          TrainLoopConfig(gradient_accumulation_steps=k), graphed=graphed)
+        losses = [trainer.train_step(batches[i % 2]) for i in range(5)]
+        torch.cuda.synchronize()
+        return losses, [p.detach().clone() for p in model.parameters()], trainer.graphs
+
+    graphed, eager = run(True), run(False)
+    assert graphed[2] == 2 and eager[2] == 0  # two shapes; k = 2 meets each in one phase
+    assert all(torch.equal(a, b) for a, b in zip(graphed[0], eager[0]))
+    assert all(torch.equal(a, b) for a, b in zip(graphed[1], eager[1]))

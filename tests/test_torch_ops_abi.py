@@ -17,6 +17,7 @@ import pytest
 from gamer_tpu_torch.ops import fused_attention as FA
 from gamer_tpu_torch.ops import fused_ce as FC
 from gamer_tpu_torch.ops import fused_moe as FM
+from gamer_tpu_torch.ops import fused_optimizer as FO
 from gamer_tpu_torch.ops import hash_dropout as HD
 from gamer_tpu_torch.ops._build import CSRC, KERNEL_SOURCES
 
@@ -28,6 +29,7 @@ WRAPPERS = {
     "gamer_fused_moe_fwd": FM._FWD_ARGTYPES,
     "gamer_fused_moe_bwd": FM._BWD_ARGTYPES,
     "gamer_hash_dropout": HD._ARGTYPES,
+    "gamer_fused_optimizer": FO._ARGTYPES,
 }
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(gamer_\w+)\s*\(([^)]*)\)', re.S)
