@@ -53,12 +53,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    `torch.optim.AdamW(fused=True)`);
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
-   a seeded generator: once through the kernels with the launch counts reset
-   just before and read just after, once through the plain path; the losses
-   must be finite and agree within 1e-2 relative;
-4. trie-constrained beam search (20 beams, batch 128, 4 code levels of 256,
-   several thousand items, left-padded prompts of up to 100 blocks): shapes,
-   finite sorted scores, every returned code path in the trie;
+   a seeded generator, through `Trainer.evaluate` (`eval_phase`), compiled
+   (its eval step captured as a CUDA graph and replayed) and eager
+   (`graphed=False`): every eval loss bit-identical between the two, each
+   run of the eval step's device part (the eager runs, the capture)
+   launching exactly a 12, h 8, j 1, a profiled replay running the eager
+   eval's kernels of the port by name and count, each mode's median host
+   time, busy share and peak memory; then the plain path on the same
+   weights, the losses finite and within 1e-2 relative;
+4. trie-constrained beam search (`search_phase`: 20 beams, batch 128, 4
+   code levels of 256, several thousand items, left-padded prompts of up to
+   100 blocks), compiled (one CUDA graph a key) and eager, with per-example,
+   scalar and `None` behavior ids (the last the behavior-token decode over
+   the behavior + item trie): codes equal and scores bit-identical between
+   the two in each mode, two graphs captured, no launch of the port's
+   kernels, a profiled replay running the eager search's kernels by name
+   and count; shapes, finite sorted scores, every returned code path in the
+   trie; each mode's median host time, beams/s, busy share, peak memory and
+   the memory the graphs keep reserved;
 5. the training step of flagship Qwen3Multi through `Trainer` (bf16, batch
    64 x 101 blocks, dropout 0.2, AdamW lr 5e-4, 10 updates on one batch),
    compiled (the step captured as a CUDA graph and replayed, the default)
@@ -82,9 +94,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    steps replayed; the number of graphs printed), the C++ collation, the
    saved checkpoints, the reloaded "best" giving the best eval loss; the
    same epoch again from the same data and seed giving every step loss and
-   the best valid loss bit for bit), test_SMB_decoder with 20 beams and
-   test_SMB_rule; prints the step time with host collation, the
-   eval's wall time and beams/s, and the metrics;
+   the best valid loss bit for bit; the eval step compiled, one or two
+   graphs, each run launching one scoring forward's kernels),
+   test_SMB_decoder with 20 beams (one search graph: the last chunk is
+   padded) and test_SMB_rule; prints the step time with host collation,
+   the fit's peak memory, the eval's wall time, beams/s and graphs, and the
+   metrics;
 8. the multi- and single-behavior pipelines through the CLI at the
    presets' full widths (`seq_phase`): on phase 7's dataset, one bf16 epoch
    of train_MB_decoder (Qwen3MoeAction, mb_explicit_decoder_4, batch 256:
@@ -92,8 +107,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    behavior level), the reloaded "best", test_MB_decoder's three modes
    (the behavior-token decode included) with 20 beams; one bf16 epoch of
    train_decoder (Qwen3Moe, batch 256: a 8, b 8, h 8, i 8, j 1, k 1) and
-   test_decoder; prints the step times, S, peak memory and each eval's
-   wall time and beams/s;
+   test_decoder (one search graph each mode and eval, one or two eval-step
+   graphs a fit); prints the step times, S, peak memory and each eval's
+   wall time, beams/s and graphs;
 9. the remat policies and the memory estimate (`remat_phase`): flagship
    Qwen3Multi bf16 at B 64 x S 505 and B 16 x S 8190, each of remat off,
    full, attn and dots for a compiled `Trainer` step (its warm-up and
@@ -114,7 +130,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    at batch 128; losses fall, the reloaded `best`, beams in the trie,
    metrics in [0, 1], no launch of kernels a-k (the enc-dec family runs
    none, as in JAX; it runs the hash dropout's K1 and K2 and kernel L,
-   whose counts are printed).
+   whose counts are printed), the eval step and each search compiled (one
+   graph a search object).
 11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
    train_SMB_decoder in a one-process NCCL group against the same run
    ungrouped (launches as phase 5, one gradient
@@ -123,6 +140,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    against one process (losses 1e-5, parameters 1e-4, the processes'
    parameters bit-identical; the all-reduce's time a step); test_SMB_decoder
    striped over two processes against one (counts equal, metrics 1e-2);
+   under a process group every step, eval and search runs eagerly: the
+   grouped run, the worker processes and the striped eval capture no
+   graph;
 12. the item-tokenizer chain (`tokenizer_phase`) at the shipped RQ-VAE
    widths on phase 7's 6000 items: SemEmb (hash, 768-d), RQVAE 20 epochs
    with --kmeans_init and CF embeddings, tokenize --mode rq_vae (collision
@@ -149,7 +169,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    12, b 12, h 8, i 8, j 1, k 1, K1 20, K2 20, 20 model-group collectives,
    their time);
    the 20-beam search of phase 4's geometry in fp32 (codes equal, scores
-   1e-4); then h/i at P 2 and 3 and j/k at V 576 and 465 timed.
+   1e-4, no graph captured under the group); then h/i at P 2 and 3 and j/k
+   at V 576 and 465 timed, with their plain versions and j/k's library
+   call (`matmul` + `logsumexp`).
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -209,10 +231,14 @@ def make_batch(cfg, batch_size: int, blocks: int, seed: int = 0) -> dict:
 
 
 def make_trie_and_prompts(cfg, batch_size: int, n_items: int, levels: int, level_size: int,
-                          max_blocks: int, seed: int = 0):
+                          max_blocks: int, seed: int = 0, behavior_level: bool = False):
     """A trie of `n_items` distinct code rows over `levels` levels of
     `level_size` codes (token base 17 + level_size * level), and left-padded
-    prompts of whole item blocks plus the target behavior token."""
+    prompts of whole item blocks plus the target behavior token. With
+    `behavior_level`, the trie of the behavior-token decode (level 0 the
+    behavior token, then the item's levels, as test_MB_decoder's
+    BEHAVIOR_ITEM mode builds it) and prompts that end at a block boundary
+    (one more column of padding)."""
     from gamer_tpu_torch.data.vocab import PAD_ID
     from gamer_tpu_torch.decode.trie import LeveledTrie
 
@@ -220,7 +246,13 @@ def make_trie_and_prompts(cfg, batch_size: int, n_items: int, levels: int, level
     codes = np.unique(rng.integers(0, level_size, (n_items, levels)), axis=0)
     code_base = cfg.behavior_base + cfg.num_behavior
     bases = [code_base + level_size * lvl for lvl in range(levels)]
-    trie = LeveledTrie.build(codes, [level_size] * levels, bases)
+    if behavior_level:
+        n = cfg.num_behavior
+        trie = LeveledTrie.build(
+            np.concatenate([np.repeat(np.arange(n), len(codes))[:, None], np.tile(codes, (n, 1))],
+                           axis=1), [n] + [level_size] * levels, [cfg.behavior_base] + bases)
+    else:
+        trie = LeveledTrie.build(codes, [level_size] * levels, bases)
     S = max_blocks * (levels + 1) + 1
     ids = np.full((batch_size, S), PAD_ID, np.int32)
     attn = np.zeros((batch_size, S), np.int32)
@@ -231,8 +263,9 @@ def make_trie_and_prompts(cfg, batch_size: int, n_items: int, levels: int, level
         blocks = max_blocks if b % 2 == 0 else int(rng.integers(1, max_blocks))
         items = codes[rng.integers(0, len(codes), blocks)] + np.asarray(bases)
         behs = rng.integers(0, cfg.num_behavior, blocks + 1)
+        tail = [] if behavior_level else [[cfg.behavior_base + behs[-1]]]
         toks = np.concatenate([np.concatenate([[cfg.behavior_base + behs[i]], items[i]])
-                               for i in range(blocks)] + [[cfg.behavior_base + behs[-1]]])
+                               for i in range(blocks)] + tail)
         n = len(toks)
         ids[b, S - n:] = toks
         attn[b, S - n:] = 1
@@ -1275,9 +1308,10 @@ def _port_kernel_names() -> list:
 
 def _profiled_step(step) -> dict:
     """One call of `step` under torch.profiler (CPU and CUDA activities):
-    the device kernels' summed time (ms), their count, and the kernels of the
+    the device kernels' summed time (ms), their count, the kernels of the
     port's sources by name and count (inside a replayed CUDA graph as well:
-    CUPTI reports a graph's kernels)."""
+    CUPTI reports a graph's kernels), and every kernel by name and count
+    (copies and fills from the host, which a graph does not hold, left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1295,7 +1329,225 @@ def _profiled_step(step) -> dict:
         if name is not None:
             ours[name] = ours.get(name, 0) + e.count
     return dict(device_ms=sum(dev(e) for e in kernels) / 1e3,
-                launches=sum(e.count for e in kernels), ours=ours)
+                launches=sum(e.count for e in kernels), ours=ours,
+                kernels={e.key: e.count for e in kernels
+                         if not e.key.startswith(("Memcpy", "Memset"))})
+
+
+def _scoring_launches(cfg, cuda: bool, names) -> dict:
+    """Wrapper calls of one scoring forward, for each counter of `names`: an
+    attention forward per self- and cross-attention, an MoE forward per
+    sparse layer (MoeAction: one per behavior level), one CE forward; none
+    on the CPU."""
+    launches = {k: 0 for k in names}
+    if cuda:
+        launches.update(fused_mask_attention=cfg.num_hidden_layers + len(cfg.cross_attention_layers),
+                        fused_moe_ffn=len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action
+                                                                else 1),
+                        fused_ce_rows=1)
+    return launches
+
+
+def eval_phase(dev, counters: dict, card: str, cfg=None, geometry=(64, 101),
+               calls: int = 6) -> dict:
+    """Phase 3: the scoring forward of flagship Qwen3Multi in bf16 (B 64 x
+    101 blocks, dropout off, random weights from seed 0) through
+    `Trainer.evaluate`, compiled (its eval step, `train/loop.EvalStep`,
+    captured as a CUDA graph and replayed: the default) and eager
+    (`graphed=False`), `calls` evaluations of one batch each, from the same
+    weights. Gates: every result bit-identical between the two; each run of
+    the eval step's device part (eager, or the capture) launching exactly
+    a 12, h 8, j 1 and nothing else, with the counts zeroed just before each
+    mode's run and read just after; the compiled eval one graph, replayed
+    by every call after the first; a profiled replay running the eager
+    eval's kernels of the port by name and count. Prints each mode's median
+    host time of calls 2 on, busy share and peak memory. Then the plain path
+    on the same weights: losses within LOSS_TOL relative. `cfg`, `geometry`
+    and `calls` let a test run it tiny."""
+    import torch
+
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = cfg or flagship_config()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    batch = make_batch(cfg, *geometry)
+    expected = _scoring_launches(cfg, cuda, counters)
+    runs = {}
+    for graphed in (True, False):
+        label = "compiled" if graphed else "eager"
+        model, eval_loss = run_forward(cfg, dev)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
+                          TrainLoopConfig(), eval_loss_fn=eval_loss, graphed=graphed)
+        if cuda:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():
+            w.launches = 0
+        losses, times = [], []
+        with _recording(counters) as rec, _captures() as cap:
+            for _ in range(calls):
+                t = time.perf_counter()
+                losses.append(trainer.evaluate([batch]))  # ends in a host read of the sums
+                times.append(time.perf_counter() - t)
+        totals = {k: w.launches for k, w in counters.items()}
+        captured = graphed and cuda
+        want_calls = [(False, expected), (True, expected)] if captured else [(False, expected)] * calls
+        assert rec["eval_calls"] == want_calls, f"phase 3 {label}: {rec['eval_calls']}"
+        assert totals == {k: sum(d[k] for _, d in rec["eval_calls"]) for k in totals}, (
+            f"phase 3 {label}: launches outside the eval step: {totals}")
+        assert trainer.eval_step().graphs == int(captured) and cap == (
+            {"eval step": 1} if captured else {}), (trainer.eval_step().graphs, cap)
+        assert np.isfinite(losses).all(), f"non-finite scoring loss {losses}"
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        prof = _profiled_step(lambda: trainer.evaluate([batch])) if cuda else None
+        runs[label] = dict(losses=losses, ms=float(np.median(times[1:])) * 1e3,
+                           first_ms=times[0] * 1e3, peak=peak, prof=prof)
+        busy = (f"a profiled call: {prof['device_ms']:.3f} ms of device kernels, "
+                f"{100 * prof['device_ms'] / runs[label]['ms']:.1f}% busy, {prof['launches']} "
+                f"kernels, the port's {prof['ours']}; " if prof else "")
+        print(f"phase 3 scoring forward Qwen3Multi {cfg.dtype} B={geometry[0]} "
+              f"S={geometry[1] * cfg.num_positions} through Trainer.evaluate, {label}: "
+              f"{runs[label]['ms']:.3f} ms a batch (median of calls 2-{calls}, host time to the "
+              f"read of the sums; the first {times[0] * 1e3:.1f} ms); launches of each run of "
+              f"the eval step {[d for _, d in rec['eval_calls']][:1]}, captured "
+              f"{[c for c, _ in rec['eval_calls']]}, graphs {cap}; {busy}peak memory "
+              f"{peak / 2 ** 30:.3f} GiB (card {card})", flush=True)
+        del trainer, model, eval_loss
+        if cuda:
+            torch.cuda.empty_cache()
+    compiled, eager = runs["compiled"], runs["eager"]
+    same = sum(a == b for a, b in zip(compiled["losses"], eager["losses"]))
+    print(f"phase 3 compiled vs eager: {same} of {calls} eval losses bit-identical "
+          f"({compiled['losses'][0]!r})", flush=True)
+    assert compiled["losses"] == eager["losses"], "the compiled eval differs from eager"
+    if cuda:
+        assert compiled["prof"]["ours"] == eager["prof"]["ours"] and compiled["prof"]["ours"], (
+            "a replay does not run the eager eval's kernels")
+
+    plain_cfg = cfg.replace(attention_impl="jnp", moe_impl="jnp", ce_impl="jnp")
+    _, plain_loss_fn = run_forward(plain_cfg, dev)
+    plain_loss, plain_aux = plain_loss_fn(batch)
+    sync()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        plain_loss_fn(batch)
+        sync()
+        times.append(time.perf_counter() - t)
+    plain_ms = float(np.median(times)) * 1e3
+    loss, plain_loss = compiled["losses"][0], float(plain_loss)
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    print(f"phase 3 scoring loss {loss:.6f} (kernels, compiled) vs {plain_loss:.6f} (plain), rel "
+          f"diff {rel:.3e} (tol {LOSS_TOL}); denom {int(plain_aux['denom'])}; plain forward "
+          f"{plain_ms:.3f} ms (median host time, card {card})", flush=True)
+    assert np.isfinite(plain_loss) and rel <= LOSS_TOL, "kernel and plain scoring losses disagree"
+    return dict(ms=compiled["ms"], eager_ms=eager["ms"], launches=expected)
+
+
+def search_phase(dev, counters: dict, card: str, cfg=None,
+                 geometry=(BEAM_BATCH, NUM_BEAMS, N_ITEMS, LEVELS, LEVEL_SIZE, PROMPT_BLOCKS),
+                 timed: int = 3) -> dict:
+    """Phase 4: the trie-constrained beam search of flagship Qwen3Multi in
+    bf16 at serving geometry (batch 128, 20 beams, 4 code levels of 256,
+    4096 items, left-padded prompts of up to 100 blocks) through
+    `make_beam_search_fn`'s objects, compiled (one CUDA graph a key: the
+    default) and eager (`graphed=False`), on the same weights: per-example
+    behavior ids, a scalar id (the per-example key's graph) and `None` (the
+    behavior-token decode over the behavior + item trie: a second object and
+    key). Gates: codes equal and scores bit-identical between the two in
+    every mode; no launch of a kernel of `kernel_counters` (the search runs
+    none, as in JAX); two graphs captured by the compiled searches, none by
+    the eager; a profiled replay running the same kernels by name and count
+    as a profiled eager search; shapes, finite sorted scores, every code
+    path in the trie. Prints each mode's median host time of `timed` calls
+    after the first, beams/s, the busy share, and the peak memory and the
+    memory the graphs keep reserved. `cfg` and `geometry` let a test run it
+    tiny."""
+    import torch
+
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+
+    cfg = cfg or flagship_config()
+    B, K, n_items, levels, size, blocks = geometry
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    trie, pbatch, beh_ids = make_trie_and_prompts(cfg, B, n_items, levels, size, blocks)
+    btrie, bbatch, _ = make_trie_and_prompts(cfg, B, n_items, levels, size, blocks,
+                                             behavior_level=True)
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    modes = {"per-example": ("item", pbatch, beh_ids), "scalar": ("item", pbatch, 2),
+             "None": ("behavior", bbatch, None)}
+    runs = {}
+    for graphed in (True, False):
+        label = "compiled" if graphed else "eager"
+        searches = {name: make_beam_search_fn(model, t, BeamSearchConfig(num_beams=K),
+                                              graphed=graphed)
+                    for name, t in (("item", trie), ("behavior", btrie))}
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reserved0 = torch.cuda.memory_reserved()
+        for w in counters.values():
+            w.launches = 0
+        out, ms, first = {}, {}, {}
+        with _captures() as cap:
+            for mode, (name, batch, beh) in modes.items():
+                times = []
+                for _ in range(timed + 1):
+                    t = time.perf_counter()
+                    codes, scores = searches[name](batch, beh)
+                    sync()
+                    times.append(time.perf_counter() - t)
+                out[mode] = (codes.cpu(), scores.float().cpu())
+                ms[mode], first[mode] = float(np.median(times[1:])) * 1e3, times[0] * 1e3
+                check_beams(btrie if name == "behavior" else trie, codes, scores, B, K)
+        launches = {k: w.launches for k, w in counters.items()}
+        assert not any(launches.values()), f"phase 4 {label}: the search launched {launches}"
+        graphs = sum(s.graphs for s in searches.values())
+        captured = graphed and cuda
+        assert graphs == 2 * captured and cap == ({"beam search": 2} if captured else {}), (
+            graphs, cap)
+        peak = reserved = 0
+        if cuda:
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved() - reserved0
+        prof = (_profiled_step(lambda: searches["item"](pbatch, beh_ids)) if cuda else None)
+        runs[label] = dict(out=out, ms=ms, prof=prof)
+        for mode in modes:
+            busy = (f", a profiled call {prof['device_ms']:.3f} ms of device kernels, "
+                    f"{100 * prof['device_ms'] / ms[mode]:.1f}% busy, {prof['launches']} kernels"
+                    if prof and mode == "per-example" else "")
+            print(f"phase 4 beam search {label} B={B} beams={K} "
+                  f"L={levels + (modes[mode][0] == 'behavior')} items={n_items} prompt "
+                  f"S={pbatch['input_ids'].shape[1]} behavior "
+                  f"{mode}: {ms[mode]:.3f} ms a search (median host time of {timed} after the "
+                  f"first, which took {first[mode]:.1f} ms), {B * K / (ms[mode] / 1e3):.1f} "
+                  f"beams/s{busy} (card {card})", flush=True)
+        print(f"phase 4 {label}: graphs captured {cap}; peak memory {peak / 2 ** 30:.3f} GiB, "
+              f"kept reserved by the search objects {reserved / 2 ** 30:.3f} GiB; kernel "
+              f"launches {launches}", flush=True)
+        del searches
+    compiled, eager = runs["compiled"], runs["eager"]
+    for mode in modes:
+        (c, s), (c2, s2) = compiled["out"][mode], eager["out"][mode]
+        print(f"phase 4 compiled vs eager, behavior {mode}: codes equal {torch.equal(c, c2)}, "
+              f"scores bit-identical {torch.equal(s, s2)}", flush=True)
+        assert torch.equal(c, c2) and torch.equal(s, s2), f"phase 4 {mode}: compiled != eager"
+    if cuda:
+        same = compiled["prof"]["kernels"] == eager["prof"]["kernels"]
+        print(f"phase 4 a profiled replay runs the eager search's {len(eager['prof']['kernels'])} "
+              f"kernels by name and count: {same}", flush=True)
+        assert same and compiled["prof"]["kernels"], "a replay does not run the eager kernels"
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(ms=compiled["ms"]["per-example"], eager_ms=eager["ms"]["per-example"])
 
 
 def train_phase(dev, counters: dict, card: str) -> dict:
@@ -1405,14 +1657,17 @@ def _recording(counters: dict):
     batch's S; in "calls", a list a step of (captured, launches) for each
     run of the step's device part (`Trainer._device_step`): an eager run,
     or the capture of its CUDA graph (a replayed step has none: its kernels
-    are launched by the graph, not by the wrappers); and each
-    `Trainer.evaluate`'s launches."""
+    are launched by the graph, not by the wrappers); each
+    `Trainer.evaluate`'s launches; and in "eval_calls" (captured, launches)
+    for each run of the eval step's device part (`EvalStep.device_part`)."""
     import torch
 
     from gamer_tpu_torch.train import loop as TL
 
-    rec = {"steps": [], "calls": [], "stamps": [], "evals": [], "S": None, "losses": []}
+    rec = {"steps": [], "calls": [], "stamps": [], "evals": [], "eval_calls": [], "S": None,
+           "losses": []}
     step0, device0, eval0 = TL.Trainer.train_step, TL.Trainer._device_step, TL.Trainer.evaluate
+    eval_device0 = TL.EvalStep.device_part
     snapshot = lambda: {k: w.launches for k, w in counters.items()}
 
     def train_step(self, batch):
@@ -1438,13 +1693,34 @@ def _recording(counters: dict):
         rec["evals"].append({k: v - before[k] for k, v in snapshot().items()})
         return loss
 
+    def eval_device(self, static):
+        before = snapshot()
+        eval_device0(self, static)
+        captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        rec["eval_calls"].append((captured, {k: v - before[k] for k, v in snapshot().items()}))
+
     TL.Trainer.train_step, TL.Trainer.evaluate = train_step, evaluate
-    TL.Trainer._device_step = device_step
+    TL.Trainer._device_step, TL.EvalStep.device_part = device_step, eval_device
     try:
         yield rec
     finally:
         TL.Trainer.train_step, TL.Trainer.evaluate = step0, eval0
-        TL.Trainer._device_step = device0
+        TL.Trainer._device_step, TL.EvalStep.device_part = device0, eval_device0
+
+
+@contextlib.contextmanager
+def _captures():
+    """While the block runs, count the CUDA graphs captured, by cache name
+    (`core/graphs.GraphCache.captured`): "training step", "eval step",
+    "beam search", "enc-dec beam search"."""
+    from gamer_tpu_torch.core.graphs import GraphCache
+
+    before, got = dict(GraphCache.captured), {}
+    try:
+        yield got
+    finally:
+        got.update({k: n - before.get(k, 0) for k, n in GraphCache.captured.items()
+                    if n > before.get(k, 0)})
 
 
 def check_step_launches(label: str, rec: dict, expected: dict) -> tuple[int, int]:
@@ -1462,6 +1738,31 @@ def check_step_launches(label: str, rec: dict, expected: dict) -> tuple[int, int
         assert [c for c, _ in calls] in ([], [False], [False, True]), f"{label}: {calls}"
     return (sum(not calls for calls in rec["calls"]),
             sum(c for calls in rec["calls"] for c, _ in calls))
+
+
+def _check_fit_evals(label: str, rec: dict, cap: dict, expected: dict, dev) -> None:
+    """A fit's graphs (`_captures`) and evals (`_recording`): on the card the
+    training step's graphs and one or two of the eval step (a short last
+    valid batch is a second key), each run of the eval step's device part,
+    eager or captured, launching `expected` (one scoring forward's kernels,
+    `_scoring_launches`); on the CPU no graph."""
+    assert rec["evals"] and all(d == expected for _, d in rec["eval_calls"]), (
+        f"{label}: eval launches {rec['eval_calls']} != {expected}")
+    if dev.type == "cuda":
+        train_graphs = sum(c for calls in rec["calls"] for c, _ in calls)
+        assert cap.get("training step") == train_graphs and cap.get("eval step") in (1, 2), (
+            f"{label}: graphs {cap}")
+        assert sum(c for c, _ in rec["eval_calls"]) == cap["eval step"], (label, cap)
+    else:
+        assert cap == {}, f"{label}: graphs captured on the CPU {cap}"
+
+
+def _check_search_graphs(label: str, cap: dict, dev, n: int,
+                         name: str = "beam search") -> None:
+    """An eval's searches captured `n` CUDA graphs (`_captures`) on the card
+    (one a search object: the tasks pad their last chunk), none on the CPU."""
+    want = {name: n} if dev.type == "cuda" else {}
+    assert cap == want, f"{label}: graphs captured {cap}, expected {want}"
 
 
 def _reload_check(label: str, out: str, dev, train, valid, vocab, pad_multiple: int,
@@ -1536,11 +1837,14 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
                              "--base_model", os.path.join(here, "config", "s2s-models",
                                                           "Qwen3Multi"),
                              *train_args, "--epochs", "1", "--output_dir", out])
-    with _recording(counters) as rec:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with _recording(counters) as rec, _captures() as cap:
         t = time.perf_counter()
         res = train(out)
         sync()
         fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
     steps = rec["steps"]
     losses = [h["train_loss"] for h in res["history"]] + [res["best_metric"]]
     assert np.isfinite(losses).all(), f"non-finite losses {losses}"
@@ -1552,6 +1856,8 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
     assert captured == res["graphs"] and replayed == (len(steps) - captured) * (
         dev.type == "cuda"), (replayed, captured)
     assert captured >= (dev.type == "cuda"), "the compiled step was not captured"
+    _check_fit_evals("phase 7", rec, cap, _scoring_launches(cfg, dev.type == "cuda", counters),
+                     dev)
     for name in ("best", "last", "config.json", "vocab.json"):
         assert os.path.exists(os.path.join(out, name)), f"{name} was not saved"
     step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
@@ -1559,9 +1865,10 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
           f"train loss {res['history'][0]['train_loss']:.5f}, best valid loss "
           f"{res['best_metric']:.6f}; {res['graphs']} CUDA graphs captured, {replayed} steps "
           f"replayed one; launches at each capture and warm-up {expected}, eval "
-          f"{rec['evals']}; step "
+          f"{rec['evals']}, eval step graphs {cap.get('eval step', 0)}; step "
           f"{step_ms:.3f} ms median with host collation ({64 / (step_ms / 1e3):.1f} "
           f"sequences/s; phase 5 random-batch step {phase5_ms:.3f} ms); fit {fit_s:.1f} s; "
+          f"peak memory {peak:.3f} GiB (the training and the eval graphs' pools); "
           f"native collation {native.AVAILABLE} (card {card})", flush=True)
 
     # the same run again from the same data and seed: bit-identical
@@ -1580,19 +1887,21 @@ def task_phase(dev, counters: dict, card: str, phase5_ms: float, spec: dict = PH
                   math.lcm(d.builder.tc, 8),
                   int(train_args[train_args.index("--batch_size") + 1]), res["best_metric"])
 
-    t = time.perf_counter()
-    ev = cli(["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path", out,
-              "--num_beams", str(num_beams), "--test_batch_size", "128",
-              "--results_file", os.path.join(root, "test.json")])
-    sync()
-    eval_s = time.perf_counter() - t
+    with _captures() as search_cap:
+        t = time.perf_counter()
+        ev = cli(["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path",
+                  out, "--num_beams", str(num_beams), "--test_batch_size", "128",
+                  "--results_file", os.path.join(root, "test.json")])
+        sync()
+        eval_s = time.perf_counter() - t
+    _check_search_graphs("phase 7 test_SMB_decoder", search_cap, dev, 1)
     rule = cli(["test_SMB_rule", *common, "--test_task", "smb_explicit", "--unique",
                 "--results_file", os.path.join(root, "rule.json")])
     for label, r in (("test_SMB_decoder", ev), ("test_SMB_rule", rule)):
         assert r["merged"] and all(0.0 <= v <= 1.0 for v in r["merged"].values()), (label, r)
     rows = sum(ev["counts"].values())
     print(f"phase 7 test_SMB_decoder {num_beams} beams batch 128: {rows} rows in {eval_s:.3f} s "
-          f"wall ({rows * num_beams / eval_s:.1f} beams/s); merged "
+          f"wall ({rows * num_beams / eval_s:.1f} beams/s), graphs {search_cap}; merged "
           f"{ {k: round(v, 5) for k, v in ev['merged'].items()} }; test_SMB_rule --unique merged "
           f"{ {k: round(v, 5) for k, v in rule['merged'].items()} } (card {card})", flush=True)
     shutil.rmtree(root, ignore_errors=True)
@@ -1657,7 +1966,7 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     def fit(task, args, out, n_min):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        with _recording(counters) as rec:
+        with _recording(counters) as rec, _captures() as cap:
             t = time.perf_counter()
             res = cli([task, *common, *args, "--epochs", "1", "--output_dir", out])
             sync()
@@ -1670,13 +1979,15 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
         assert len(steps) >= n_min, f"{task}: only {len(steps)} training steps"
         replayed, captured = check_step_launches(f"phase 8 {task}", rec, expected)
         assert captured == res["graphs"] and captured >= cuda, (replayed, captured)
+        _check_fit_evals(f"phase 8 {task}", rec, cap, _scoring_launches(cfg, cuda, counters), dev)
         step_ms = float(np.median(np.diff(rec["stamps"][1:]))) * 1e3
         batch = int(args[args.index("--batch_size") + 1])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
         print(f"phase 8 {task} {' '.join(args)}: {len(steps)} steps + eval: train loss "
               f"{res['history'][0]['train_loss']:.5f}, best valid loss {res['best_metric']:.6f}; "
               f"{captured} CUDA graphs, {replayed} steps replayed; launches at each capture and "
-              f"warm-up {expected}, eval {rec['evals']}; S {rec['S']}; step "
+              f"warm-up {expected}, eval {rec['evals']}, eval step graphs "
+              f"{cap.get('eval step', 0)}; S {rec['S']}; step "
               f"{step_ms:.3f} ms median with host collation ({batch / (step_ms / 1e3):.1f} "
               f"sequences/s); peak memory {peak:.3f} GiB; fit {fit_s:.1f} s (card {card})",
               flush=True)
@@ -1693,14 +2004,16 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
                   pad_multiple, batch, res["best_metric"])
     _task_paths_agree("phase 8 train_MB_decoder", mb_out, dev, counters, train, valid,
                       corpus.vocab, pad_multiple, batch)
-    times = []  # (seconds, rows) of each evaluation mode, in order
+    times = []  # (seconds, rows, graphs captured) of each evaluation mode, in order
 
     def timed(fn):
         def run(*args, **kwargs):
-            t = time.perf_counter()
-            totals, count = fn(*args, **kwargs)
-            sync()
-            times.append((time.perf_counter() - t, count))
+            with _captures() as cap:
+                t = time.perf_counter()
+                totals, count = fn(*args, **kwargs)
+                sync()
+                sec = time.perf_counter() - t
+            times.append((sec, count, cap))
             return totals, count
         return run
 
@@ -1723,8 +2036,11 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
         assert all(0.0 <= v <= 1.0 for k, v in r.items() if k != "eval_type"), r
     print("phase 8 test_MB_decoder " + "; ".join(
         f"{r['eval_type']}: {n} rows in {sec:.3f} s wall ({n * num_beams / sec:.1f} beams/s), "
-        f"{ {k: round(v, 5) for k, v in r.items() if k != 'eval_type'} }"
-        for r, (sec, n) in zip(ev, times)) + f" ({num_beams} beams, card {card})", flush=True)
+        f"graphs {cap}, { {k: round(v, 5) for k, v in r.items() if k != 'eval_type'} }"
+        for r, (sec, n, cap) in zip(ev, times)) + f" ({num_beams} beams, card {card})",
+        flush=True)
+    for r, (_, _, cap) in zip(ev, times):
+        _check_search_graphs(f"phase 8 test_MB_decoder {r['eval_type']}", cap, dev, 1)
 
     # 2. single-behavior: train_decoder, test_decoder
     seq_out = os.path.join(root, "seq")
@@ -1735,16 +2051,19 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     _task_paths_agree("phase 8 train_decoder", seq_out, dev, counters, builder.build("train"),
                       builder.build("valid"), corpus.vocab, math.lcm(corpus.sole_item_len, 8),
                       batch)
-    t = time.perf_counter()
-    ev = cli(["test_decoder", *common, "--ckpt_path", seq_out, "--num_beams", str(num_beams),
-              "--test_batch_size", "128", "--results_file", os.path.join(root, "seq.json")])
-    sync()
-    eval_s = time.perf_counter() - t
+    with _captures() as cap:
+        t = time.perf_counter()
+        ev = cli(["test_decoder", *common, "--ckpt_path", seq_out, "--num_beams",
+                  str(num_beams), "--test_batch_size", "128", "--results_file",
+                  os.path.join(root, "seq.json")])
+        sync()
+        eval_s = time.perf_counter() - t
+    _check_search_graphs("phase 8 test_decoder", cap, dev, 1)
     assert ev["metrics"] and all(0.0 <= v <= 1.0 for v in ev["metrics"].values()), ev
     assert set(ev["collision_info"]) == {"total", "collision_items", "collision_samples",
                                          "collision_ratio"}, ev
     print(f"phase 8 test_decoder: {ev['count']} rows in {eval_s:.3f} s wall "
-          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), "
+          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), graphs {cap}, "
           f"{ {k: round(v, 5) for k, v in ev['metrics'].items()} }; collision_info "
           f"{ev['collision_info']} ({num_beams} beams, card {card})", flush=True)
     shutil.rmtree(root, ignore_errors=True)
@@ -2030,12 +2349,13 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         out = os.path.join(root, label)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        with _recording(counters) as rec:
+        with _recording(counters) as rec, _captures() as cap:
             t = time.perf_counter()
             res = cli([train_task, "--dataset", "Synth", "--data_path", data, "--max_his_len",
                        str(his), *args, "--epochs", "1", "--output_dir", out])
             sync()
             fit_s = time.perf_counter() - t
+        _check_fit_evals(f"phase 10 {label}", rec, cap, {k: 0 for k in counters}, dev)
         losses = [float(x) for x in rec["losses"]]
         assert len(losses) >= n_min, f"{label}: only {len(losses)} training steps"
         assert np.isfinite(losses).all() and np.isfinite(res["best_metric"]), losses
@@ -2053,8 +2373,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
               f"{[round(x, 4) for x in losses[-3:]]}, best valid loss {res['best_metric']:.6f}; "
               f"encoder S {batcher.enc_len}, decoder S {batcher.dec_len}; step {step_ms:.3f} ms "
               f"median with host collation ({batch / (step_ms / 1e3):.1f} sequences/s); peak "
-              f"memory {peak:.3f} GiB; fit {fit_s:.1f} s; launches of the first step "
-              f"{rec['steps'][0]} (card {card})", flush=True)
+              f"memory {peak:.3f} GiB; fit {fit_s:.1f} s; graphs {cap}; launches of the first "
+              f"step {rec['steps'][0]} (card {card})", flush=True)
 
         # the reloaded "best" gives the in-memory best eval loss
         model, cfg, vocab, family = load_generative_model(out, "best", dev)
@@ -2087,29 +2407,35 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         trie = LeveledTrie.from_token_rows(corpus.item_codes[~corpus.collision_rows], vocab)
         rows = test[:128]
         search = make_beam_search_encdec_fn(model, trie, BeamSearchConfig(num_beams=num_beams))
-        codes, scores = search(EncDecBatcher.for_examples(test, eos_id=EOS_ID).collate(rows),
-                               prefix_of(rows, vocab, cfg))
+        with _captures() as cap:
+            codes, scores = search(EncDecBatcher.for_examples(test, eos_id=EOS_ID).collate(rows),
+                                   prefix_of(rows, vocab, cfg))
+        _check_search_graphs(f"phase 10 {label} search", cap, dev, 1, "enc-dec beam search")
         check_beams(trie, codes, scores, len(rows), num_beams)
-        del model, trainer
+        del model, trainer, search
 
-        t = time.perf_counter()
-        ev = cli([*eval_argv, "--dataset", "Synth", "--data_path", data, "--max_his_len",
-                  str(his), "--ckpt_path", out, "--num_beams", str(num_beams),
-                  "--test_batch_size", "128", "--results_file", os.path.join(root, label + ".json")])
-        sync()
-        return ev, time.perf_counter() - t
+        with _captures() as cap:
+            t = time.perf_counter()
+            ev = cli([*eval_argv, "--dataset", "Synth", "--data_path", data, "--max_his_len",
+                      str(his), "--ckpt_path", out, "--num_beams", str(num_beams),
+                      "--test_batch_size", "128", "--results_file",
+                      os.path.join(root, label + ".json")])
+            sync()
+            eval_s = time.perf_counter() - t
+        _check_search_graphs(f"phase 10 {eval_argv[0]}", cap, dev, 1, "enc-dec beam search")
+        return ev, eval_s, cap
 
     # 1. TIGER on the single-behavior data: train_decoder, test_decoder
     corpus = SeqCorpus(DataFiles(data, "Synth"), ".index.json", multi_behavior=False)
     builder = SeqExampleBuilder(corpus, 20)
-    ev, eval_s = pipeline(
+    ev, eval_s, cap = pipeline(
         "tiger", "train_decoder", seq_args, 20, min_steps[0], builder.build("train"),
         builder.build("valid"), builder.build("test"),
         lambda rows, vocab, cfg: np.array([cfg.decoder_start_token_id], np.int32), corpus,
         ["test_decoder"])
     assert ev["metrics"] and all(0.0 <= v <= 1.0 for v in ev["metrics"].values()), ev
     print(f"phase 10 test_decoder TIGER: {ev['count']} rows in {eval_s:.3f} s wall "
-          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), "
+          f"({ev['count'] * num_beams / eval_s:.1f} beams/s), graphs {cap}, "
           f"{ {k: round(v, 5) for k, v in ev['metrics'].items()} } ({num_beams} beams, "
           f"card {card})", flush=True)
 
@@ -2122,13 +2448,13 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
                  for ex in rows]
         return np.stack([np.full(len(rows), cfg.decoder_start_token_id), btoks], 1).astype(np.int32)
 
-    ev, eval_s = pipeline("pbat", "train_SMB_decoder", smb_args, 100, min_steps[1], d.train,
+    ev, eval_s, cap = pipeline("pbat", "train_SMB_decoder", smb_args, 100, min_steps[1], d.train,
                           d.valid, test, smb_prefix, d.corpus,
                           ["test_SMB_decoder", "--test_task", "smb_explicit"])
     assert ev["merged"] and all(0.0 <= v <= 1.0 for v in ev["merged"].values()), ev
     rows = sum(ev["counts"].values())
     print(f"phase 10 test_SMB_decoder PBATransformer: {rows} rows in {eval_s:.3f} s wall "
-          f"({rows * num_beams / eval_s:.1f} beams/s); merged "
+          f"({rows * num_beams / eval_s:.1f} beams/s), graphs {cap}; merged "
           f"{ {k: round(v, 5) for k, v in ev['merged'].items()} } ({num_beams} beams, "
           f"card {card})", flush=True)
     moved = {k: w.launches - before[k] for k, w in counters.items()}
@@ -2234,7 +2560,8 @@ def mp_steps(cfg, batches: list[dict], dev, ctx=None) -> dict:
             reduce_ms.append((time.perf_counter() - t) * 1e3)
         reduce_ms = reduce_ms[1:]
     return {"losses": losses, "params": params.cpu(), "step_ms": step_ms,
-            "reduce_ms": float(np.median(reduce_ms)) if reduce_ms else None}
+            "reduce_ms": float(np.median(reduce_ms)) if reduce_ms else None,
+            "graphs": trainer.graphs}
 
 
 def _mp_steps_worker(out: str, device: str, spec_json: str) -> None:
@@ -2313,10 +2640,13 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
             if grouped:
                 stack.enter_context(_group_env(1, 0, _free_port()))
             rec = stack.enter_context(_recording(counters))
+            cap = stack.enter_context(_captures())
             cli([*train, "--output_dir", out])
             sync()
             assert distributed.is_initialized() == grouped, "the task did not join its group"
         runs[grouped] = (rec, distributed.all_reduce_flat.calls - calls, out)
+        if grouped:  # under a process group every step and eval runs eagerly
+            assert cap == {}, f"phase 11a: the grouped run captured {cap}"
     (plain, _, _), (rec, reductions, out) = runs[False], runs[True]
     expected = (_train_step_launches(QwenFamilyConfig.from_file(out)) if cuda
                 else {k: 0 for k in counters})
@@ -2345,6 +2675,7 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     one = mp_steps(cfg, _mp_batches(cfg, *steps_spec["geometry"]), dev)
     res = [torch.load(os.path.join(mp_dir, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
     assert torch.equal(res[0]["params"], res[1]["params"]), "the processes' parameters differ"
+    assert [r["graphs"] for r in res] == [0, 0], "a grouped process captured its step"
     loss_rel = float(np.max(np.abs(np.subtract(res[0]["losses"], one["losses"]))
                             / np.abs(one["losses"])))
     par_rel = float((res[0]["params"] - one["params"]).abs().max() / one["params"].abs().max())
@@ -2363,15 +2694,19 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     # c. test_SMB_decoder over two processes
     evaluate = ["test_SMB_decoder", *common, "--test_task", "smb_explicit", "--ckpt_path", out,
                 "--num_beams", str(num_beams), "--test_batch_size", "128"]
-    t = time.perf_counter()
-    single = cli([*evaluate, "--results_file", os.path.join(root, "one.json")])
-    sync()
-    one_s = time.perf_counter() - t
+    with _captures() as cap:
+        t = time.perf_counter()
+        single = cli([*evaluate, "--results_file", os.path.join(root, "one.json")])
+        sync()
+        one_s = time.perf_counter() - t
+    _check_search_graphs("phase 11c one process", cap, dev, 1)
     t = time.perf_counter()
     cmd = ["-m", "gamer_tpu_torch", *evaluate, "--results_file", os.path.join(root, "two.json"),
            *extra_args]
-    distributed.spawn_local([cmd, cmd], backend="gloo", timeout_s=MP_TIMEOUT_S)
+    logs = distributed.spawn_local([cmd, cmd], backend="gloo", timeout_s=MP_TIMEOUT_S)
     two_s = time.perf_counter() - t
+    # process 0 logs its search's graphs: none under the group
+    assert "the search captured 0 CUDA graphs" in logs[0], logs[0][-2000:]
     with open(os.path.join(root, "two.json")) as f:
         merged = json.load(f)
     worst = max(abs(merged["merged"][k] - v) for k, v in single["merged"].items())
@@ -2942,7 +3277,7 @@ def model_axis_run(dev, spec: dict, ctx=None) -> dict:
     codes, scores = search(pbatch, beh_ids)
     sync()
     out["search"] = dict(codes=codes.cpu(), scores=scores.float().cpu(),
-                         s=time.perf_counter() - t)
+                         s=time.perf_counter() - t, graphs=search.graphs)
     return out
 
 
@@ -2968,7 +3303,10 @@ def _local_kernel_times(dev, card: str) -> None:
     """Phase 14d: kernels h and i on a rank's experts (P 2 and 3 of the
     flagship's 5) and j and k on a rank's vocab rows (576 and 465 of 1041,
     the targets shifted by the rank's first row), bf16 at the flagship
-    shapes, beside the whole-model shapes; CUDA events over 10 launches."""
+    shapes, beside the whole-model shapes; CUDA events over 10 launches;
+    each beside its plain version (i: autograd through h's; k: with the
+    lse given, as the kernel takes it) and, for j and k, the library call
+    (`matmul` + `logsumexp`, its backward for k)."""
     import torch
 
     from gamer_tpu_torch.ops import fused_ce as FC
@@ -2992,10 +3330,15 @@ def _local_kernel_times(dev, card: str) -> None:
                        2.0 * P * T * (3 * D * 2 * F + 2 * F * D))
         plain = _cuda_ms(lambda: FM.fused_moe_ffn_plain(*args, True, DROP_SEED, DROP_RATE),
                          iters=3)
+        leaves = [t.clone().requires_grad_(True) for t in (xp, wgu, down, btab)]
+        with torch.enable_grad():  # i's plain version: autograd through h's, as phase 2b
+            pout = FM.fused_moe_ffn_plain(*leaves, beh, True, DROP_SEED, DROP_RATE)
+        plain_bwd = _grad_ms(pout, leaves, gout, iters=3)
+        del pout, leaves
         print(f"phase 14d MoE P={P} T={T} D={D} F={F} bf16: h {fwd:.4f} ms (bound "
               f"{hb[0]:.4f} ms by {hb[1]}, {100 * hb[0] / fwd:.1f}%; plain {plain:.4f} ms), "
-              f"i {bwd:.4f} ms (bound {ib[0]:.4f} ms by {ib[1]}, {100 * ib[0] / bwd:.1f}%) "
-              f"(card {card})", flush=True)
+              f"i {bwd:.4f} ms (bound {ib[0]:.4f} ms by {ib[1]}, {100 * ib[0] / bwd:.1f}%; "
+              f"plain {plain_bwd:.4f} ms) (card {card})", flush=True)
     N, inv_t = 64 * 504, 1.0
     h = rnd(N, D)
     targets = torch.randint(0, 1041, (N,), generator=g, device=dev, dtype=torch.int32)
@@ -3013,11 +3356,23 @@ def _local_kernel_times(dev, card: str) -> None:
         plain = _cuda_ms(lambda: FC.fused_ce_rows_plain(h, table, shifted, valid, inv_t),
                          iters=3)
         lib = _cuda_ms(lambda: torch.logsumexp((h @ table.T).float(), dim=-1))
+        # k's library call: the backward of matmul + logsumexp - the target
+        # logit (phase 2b's), the targets outside this block's rows masked
+        leaves = [t.clone().requires_grad_(True) for t in (h, table)]
+        inside = ((shifted >= 0) & (shifted < V)).float()
+        with torch.enable_grad():
+            logits = (leaves[0] @ leaves[1].T).float()
+            lnll = torch.logsumexp(logits, dim=-1) - logits.gather(
+                1, shifted.clamp(0, V - 1).long()[:, None])[:, 0] * inside
+        lib_bwd = _grad_ms(lnll, leaves, gnll)
+        del logits, lnll, leaves
+        plain_bwd = _cuda_ms(lambda: FC.fused_ce_rows_bwd_lse_plain(h, table, shifted, valid,
+                                                                     lse, gnll, inv_t), iters=3)
         print(f"phase 14d CE N={N} V={V} (targets shifted by {v0}) D={D} bf16: j {fwd:.4f} ms "
               f"(bound {jb[0]:.4f} ms by {jb[1]}, {100 * jb[0] / fwd:.1f}%; plain {plain:.4f} "
               f"ms, matmul+logsumexp {lib:.4f} ms), k {bwd:.4f} ms "
-              f"(bound {kb[0]:.4f} ms by {kb[1]}, {100 * kb[0] / bwd:.1f}%) (card {card})",
-              flush=True)
+              f"(bound {kb[0]:.4f} ms by {kb[1]}, {100 * kb[0] / bwd:.1f}%; plain {plain_bwd:.4f} "
+              f"ms, matmul+logsumexp backward {lib_bwd:.4f} ms) (card {card})", flush=True)
 
 
 def model_axis_phase(dev, counters: dict, card: str, spec: dict = PHASE14) -> None:
@@ -3096,6 +3451,7 @@ def model_axis_phase(dev, counters: dict, card: str, spec: dict = PHASE14) -> No
           f"to one process's on every rank: {same}; worst score diff {worst:.3e} (tol 1e-4); "
           f"{c['s']:.3f} s on rank 0, {ref['s']:.3f} s one process (card {card})", flush=True)
     assert same and worst <= 1e-4, "the sharded search differs from one process's"
+    assert [r["search"]["graphs"] for r in res] == [0] * n, "a grouped search was captured"
     if cuda:
         _local_kernel_times(dev, card)
     shutil.rmtree(root, ignore_errors=True)
@@ -3110,12 +3466,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
-    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.ops import _build
-    from gamer_tpu_torch.ops import fused_attention as FA
-    from gamer_tpu_torch.ops import fused_ce as FC
-    from gamer_tpu_torch.ops import fused_moe as FM
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3148,79 +3499,13 @@ def main() -> int:
     # 2e. the optimizer update, kernel L, against its plain version
     entries.update(optimizer_phase(dev, card))
 
-    # 3. scoring forward, kernels then plain path, same weights
-    cfg = flagship_config()
-    batch = make_batch(cfg, 64, 101)
-    wrappers = {"fused_mask_attention": FA.fused_mask_attention, "fused_moe_ffn": FM.fused_moe_ffn,
-                "fused_ce_rows": FC.fused_ce_rows}
-    model, loss_fn = run_forward(cfg, dev)
-    loss_fn(batch)  # warm-up (kernel load)
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    loss, aux = loss_fn(batch)
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"scoring forward launches: {launches}", flush=True)
-    expected = {"fused_mask_attention": cfg.num_hidden_layers + len(cfg.cross_attention_layers),
-                "fused_moe_ffn": len(cfg.sparse_layers), "fused_ce_rows": 1}
-    assert launches == expected, f"kernel launches {launches}, expected {expected}"
-    times = []
-    for _ in range(5):
-        t = time.perf_counter()
-        loss_fn(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    fwd_ms = float(np.median(times)) * 1e3
-
-    plain_cfg = cfg.replace(attention_impl="jnp", moe_impl="jnp", ce_impl="jnp")
-    _, plain_loss_fn = run_forward(plain_cfg, dev)
-    plain_loss, plain_aux = plain_loss_fn(batch)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        plain_loss_fn(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    plain_fwd_ms = float(np.median(times)) * 1e3
-    loss, plain_loss = float(loss), float(plain_loss)
-    rel = abs(loss - plain_loss) / abs(plain_loss)
-    print(f"scoring forward Qwen3Multi bf16 B=64 S=505: loss {loss:.6f} (kernels) vs "
-          f"{plain_loss:.6f} (plain), rel diff {rel:.3e} (tol {LOSS_TOL}); denom "
-          f"{int(aux['denom'])}; {fwd_ms:.3f} ms/forward with kernels, {plain_fwd_ms:.3f} ms "
-          f"plain (median host time, card {card})", flush=True)
-    assert np.isfinite(loss) and np.isfinite(plain_loss), "non-finite scoring loss"
-    assert int(aux["denom"]) == int(plain_aux["denom"])
-    assert rel <= LOSS_TOL, "kernel and plain scoring losses disagree"
-    del model
-
-    # 4. constrained beam search at serving geometry
-    trie, pbatch, beh_ids = make_trie_and_prompts(cfg, BEAM_BATCH, N_ITEMS, LEVELS, LEVEL_SIZE,
-                                                  PROMPT_BLOCKS)
-    bmodel = QwenFamilyModel(cfg, device=dev)
-    search = make_beam_search_fn(bmodel, trie, BeamSearchConfig(num_beams=NUM_BEAMS))
-    codes, scores = search(pbatch, beh_ids)
-    torch.cuda.synchronize()
-    check_beams(trie, codes, scores, BEAM_BATCH, NUM_BEAMS)
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        codes, scores = search(pbatch, beh_ids)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    codes_s, scores_s = search(pbatch, 2)  # scalar behavior id
-    check_beams(trie, codes_s, scores_s, BEAM_BATCH, NUM_BEAMS)
-    search_s = float(np.median(times))
-    print(f"beam search B={BEAM_BATCH} beams={NUM_BEAMS} L={LEVELS} items={trie.leaf_candidate.size} "
-          f"prompt S={pbatch['input_ids'].shape[1]}: {search_s * 1e3:.3f} ms/search, "
-          f"{BEAM_BATCH * NUM_BEAMS / search_s:.1f} beams/s (median host time, card {card})",
-          flush=True)
-
-    del bmodel, search
+    # 3. the scoring forward through the compiled and the eager eval step
+    counters = kernel_counters()
+    eval_phase(dev, counters, card)
+    # 4. the constrained beam search at serving geometry, compiled and eager
+    search_phase(dev, counters, card)
 
     # 5. training steps; 6. the long-history step
-    counters = kernel_counters()
     train = train_phase(dev, counters, card)
     long_launches = long_phase(dev, counters)
     # 7. the task pipeline through the CLI

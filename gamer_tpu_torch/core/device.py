@@ -18,3 +18,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "available; pass device='cpu' to run the plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_device(value, device) -> torch.Tensor:
+    """A tensor moved to `device` (itself when it is there: a staged batch's
+    buffers are never copied), anything else made a tensor there."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.as_tensor(value, device=device)

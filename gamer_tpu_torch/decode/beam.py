@@ -22,6 +22,12 @@ PBATransformer) runs the encoder once and the decoder prefix
 [decoder_start(, behavior token)], projects the encoder's cross k/v once,
 shared by the beams ([B, Senc]), and keeps a per-beam decoder self cache of
 P0 + L positions, of which each step moves only the generated slice.
+
+`make_beam_search_fn` and `make_beam_search_encdec_fn` return the compiled
+searches, the counterparts of the JAX package's jitted ones: on the card the
+search (prefill and every step) is one CUDA graph a key, replayed
+(`_CompiledSearch`); `constrained_beam_search` and
+`constrained_beam_search_encdec` run the same device part eagerly.
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core.graphs import GraphCache, capture_enabled
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.models.generative.encdec import EncDecModel
 from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
+from gamer_tpu_torch.train.staging import StaticInputs, as_array
 
 NEG = -1e30
 
@@ -124,7 +132,7 @@ def constrained_beam_search(
     search_cfg: BeamSearchConfig = BeamSearchConfig(),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (codes [B, num_beams, L] 0-based per-level codes sorted by
-    score desc, scores [B, num_beams] fp32 sums of log-probs).
+    score desc, scores [B, num_beams] fp32 sums of log-probs), eagerly.
 
     `batch` holds the left-padded prompt ([B, S] `input_ids`,
     `attention_mask`, per preset `session_ids`, `actions`,
@@ -133,15 +141,23 @@ def constrained_beam_search(
     of the trie then decodes the behavior token, and each beam's behavior
     embedding id is its level-0 code + 1 (behavior tokens are a contiguous
     vocab range)."""
+    return BeamSearch(model, trie, search_cfg, graphed=False)(batch, behavior_emb_id)
+
+
+def _search(model: QwenFamilyModel, batch: dict, trie: LeveledTrie, tables, beh,
+            search_cfg: BeamSearchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device part of `constrained_beam_search`: prefill and the L - 1
+    steps on the device tensors of `batch` (the prompt keys), the trie's
+    device `tables` (`_trie_tables`) and `beh`, the [B] int32 behavior ids
+    or None (the behavior-token decode). Reads nothing into Python and
+    copies nothing from the host."""
     cfg = model.cfg
     device = model.device
-    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     L = trie.num_levels
     K = search_cfg.num_beams
     B, S = batch["input_ids"].shape
     cache_dtype = resolve_cache_dtype(search_cfg.cache_dtype, device)
-    allowed_tables = [torch.as_tensor(a, device=device) for a in trie.allowed]
-    child_tables = [torch.as_tensor(c, device=device).long() for c in trie.child]
+    allowed_tables, child_tables = tables
 
     inputs, consts = prepare_prefill(cfg, batch)
     out = model(**inputs, caches=init_caches(cfg, B, S, cache_dtype, device), cache_index=0,
@@ -173,11 +189,10 @@ def constrained_beam_search(
         max_esid_t = consts["max_esid"].repeat_interleave(K)
     prompt_len_t = batch["prompt_len"].to(torch.int32).repeat_interleave(K)
 
-    if behavior_emb_id is None:  # from the decoded behavior tokens
+    if beh is None:  # from the decoded behavior tokens
         beh_bk = (codes0 + 1).to(torch.int32)
     else:
-        beh = torch.as_tensor(behavior_emb_id, dtype=torch.int32, device=device)
-        beh_bk = (beh[:, None] if beh.dim() == 1 else beh).expand(B, K).contiguous()
+        beh_bk = beh[:, None].expand(B, K).contiguous()
 
     for step in range(1, L):
         # token processed now = code chosen at level step-1
@@ -229,15 +244,86 @@ def constrained_beam_search(
     return gen_codes, scores
 
 
-def make_beam_search_fn(model: QwenFamilyModel, trie: LeveledTrie,
-                        search_cfg: BeamSearchConfig = BeamSearchConfig()):
-    """fn(batch, behavior_emb_id) -> (codes, scores) bound to one model,
-    trie and search config (the JAX package jits this closure; the port runs
-    it eagerly)."""
-    def fn(batch: dict, behavior_emb_id):
-        return constrained_beam_search(model, batch, trie, behavior_emb_id, search_cfg)
+PROMPT_KEYS = ("input_ids", "attention_mask", "session_ids", "actions", "extended_session_ids",
+               "prompt_len")
 
-    return fn
+
+def _trie_tables(trie: LeveledTrie, device) -> tuple[list, list]:
+    """The trie's per-level `allowed` and (int64) `child` tables on `device`."""
+    return ([torch.as_tensor(a, device=device) for a in trie.allowed],
+            [torch.as_tensor(c, device=device).long() for c in trie.child])
+
+
+class _CompiledSearch:
+    """A search bound to one model, trie and search config, in two parts
+    (JAX jits the whole search, `gamer_tpu/decode/beam.py`
+    `make_beam_search_fn`). The trie's tables move to the device once, here.
+    The host part (`stage`) writes a call's arrays into static device buffers
+    (`train/staging.StaticInputs`); the device part (`device_part`) runs the
+    search on them, reading nothing into Python. On CUDA without a process
+    group, and `graphed`, the device part is captured as a CUDA graph once
+    per key (the staged arrays' names, shapes and dtypes) and replayed
+    (`core/graphs.GraphCache`, a memory pool a search object: the prefill's
+    peak stays reserved while the object lives), its codes and scores cloned
+    out of the graph's memory; else it runs eagerly."""
+
+    name = "beam search"
+
+    def __init__(self, model, trie: LeveledTrie, search_cfg: BeamSearchConfig, graphed: bool):
+        self.model, self.trie, self.search_cfg, self.graphed = model, trie, search_cfg, graphed
+        self.device = torch.device(model.device)
+        self.tables = _trie_tables(trie, self.device)
+        self._inputs = StaticInputs(self.device)
+        self._graphs = GraphCache(self.device, self.name)
+
+    @property
+    def captures(self) -> bool:
+        """On the card, `graphed`, and without a process group (as
+        `train/loop.Trainer.captures`)."""
+        return capture_enabled(self.graphed, self.device)
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured: one per key."""
+        return len(self._graphs)
+
+    @torch.no_grad()
+    def __call__(self, batch: dict, arg) -> tuple[torch.Tensor, torch.Tensor]:
+        key, static = self.stage(batch, arg)
+        if self.captures:
+            return self._graphs.run(key, lambda: self.device_part(static))
+        return self.device_part(static)
+
+
+class BeamSearch(_CompiledSearch):
+    """`search(batch, behavior_emb_id) -> (codes, scores)`: the decoder-only
+    search (`constrained_beam_search`'s arguments and results). An int
+    behavior id is staged as the [B] array of that id, so the scalar and
+    per-example modes share one key; `None` (the behavior-token decode) is
+    a key of its own."""
+
+    def stage(self, batch: dict, behavior_emb_id) -> tuple[tuple, dict]:
+        arrays = {k: as_array(batch[k]) for k in PROMPT_KEYS if k in batch}
+        if behavior_emb_id is not None:
+            rows = arrays["input_ids"].shape[0]
+            arrays["behavior_emb_id"] = np.array(np.broadcast_to(
+                np.asarray(behavior_emb_id, np.int32), (rows,)))
+        return self._inputs.write(arrays)
+
+    @torch.no_grad()
+    def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        batch = {k: t for k, t in static.items() if k != "behavior_emb_id"}
+        return _search(self.model, batch, self.trie, self.tables,
+                       static.get("behavior_emb_id"), self.search_cfg)
+
+
+def make_beam_search_fn(model: QwenFamilyModel, trie: LeveledTrie,
+                        search_cfg: BeamSearchConfig = BeamSearchConfig(),
+                        graphed: bool = True) -> BeamSearch:
+    """search(batch, behavior_emb_id) -> (codes, scores) bound to one model,
+    trie and search config: JAX's jitted closure as a CUDA graph a key on
+    the card (`graphed=False`: the same device part, eagerly)."""
+    return BeamSearch(model, trie, search_cfg, graphed)
 
 
 def _first_level(logits0: torch.Tensor, trie: LeveledTrie, allowed_tables, child_tables,
@@ -262,7 +348,7 @@ def constrained_beam_search_encdec(
     decoder_prefix,
     search_cfg: BeamSearchConfig = BeamSearchConfig(),
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Beam search of the enc-dec family (TIGER/PBATransformer).
+    """Beam search of the enc-dec family (TIGER/PBATransformer), eagerly.
 
     `batch` holds the right-padded encoder `input_ids` and `attention_mask`
     [B, Se] (tensors or numpy arrays). `decoder_prefix` is the [P0] (or
@@ -271,19 +357,22 @@ def constrained_beam_search_encdec(
     (ref test_SMB_decoder.py:188-195). Decoder tokens route by their
     absolute decoder position. Returns (codes [B, num_beams, L], fp32
     scores [B, num_beams])."""
+    return EncDecBeamSearch(model, trie, search_cfg, graphed=False)(batch, decoder_prefix)
+
+
+def _search_encdec(model: EncDecModel, batch: dict, trie: LeveledTrie, tables, prefix,
+                   search_cfg: BeamSearchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device part of `constrained_beam_search_encdec` on the device
+    tensors of `batch` (encoder `input_ids`, `attention_mask`), the trie's
+    device `tables` and the [B, P0] int32 `prefix`."""
     cfg = model.cfg
     device = model.device
-    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     L = trie.num_levels
     K = search_cfg.num_beams
     B = batch["input_ids"].shape[0]
-    prefix = torch.as_tensor(np.asarray(decoder_prefix), dtype=torch.int32, device=device)
-    if prefix.dim() == 1:
-        prefix = prefix[None].expand(B, -1)
     P0 = prefix.shape[1]
     cache_dtype = resolve_cache_dtype(search_cfg.cache_dtype, device)
-    allowed_tables = [torch.as_tensor(a, device=device) for a in trie.allowed]
-    child_tables = [torch.as_tensor(c, device=device).long() for c in trie.child]
+    allowed_tables, child_tables = tables
     routing = lambda pos, rows: ((pos % cfg.num_positions) + 1)[None].expand(rows, -1)
 
     # prefill: the encoder, the decoder prefix, the encoder's cross k/v
@@ -314,7 +403,7 @@ def constrained_beam_search_encdec(
         prev = gen_codes[:, :, step - 1].reshape(B * K)
         tok = (prev + trie.level_token_base[step - 1]).to(torch.int32)[:, None]
         dpos = P0 + step - 1
-        dpos_t = torch.tensor([dpos], device=device)
+        dpos_t = torch.full((1,), dpos, dtype=torch.int64, device=device)
         pidx = routing(dpos_t, B * K)
         out = model(cross_kv=cross_kv, encoder_attention_mask=batch["attention_mask"],
                     decoder_input_ids=tok, dec_position_index=pidx,
@@ -349,11 +438,31 @@ def constrained_beam_search_encdec(
     return gen_codes, scores
 
 
-def make_beam_search_encdec_fn(model: EncDecModel, trie: LeveledTrie,
-                               search_cfg: BeamSearchConfig = BeamSearchConfig()):
-    """fn(batch, decoder_prefix) -> (codes, scores) bound to one enc-dec
-    model, trie and search config (run eagerly)."""
-    def fn(batch: dict, decoder_prefix):
-        return constrained_beam_search_encdec(model, batch, trie, decoder_prefix, search_cfg)
+class EncDecBeamSearch(_CompiledSearch):
+    """`search(batch, decoder_prefix) -> (codes, scores)`: the enc-dec
+    search (`constrained_beam_search_encdec`'s arguments and results); a
+    [P0] prefix is staged as its [B, P0] rows."""
 
-    return fn
+    name = "enc-dec beam search"
+
+    def stage(self, batch: dict, decoder_prefix) -> tuple[tuple, dict]:
+        arrays = {k: as_array(batch[k]) for k in ("input_ids", "attention_mask")}
+        prefix = np.asarray(decoder_prefix, np.int32)
+        if prefix.ndim == 1:
+            prefix = np.array(np.broadcast_to(prefix, (arrays["input_ids"].shape[0],
+                                                       prefix.shape[0])))
+        return self._inputs.write({**arrays, "decoder_prefix": prefix})
+
+    @torch.no_grad()
+    def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        batch = {k: t for k, t in static.items() if k != "decoder_prefix"}
+        return _search_encdec(self.model, batch, self.trie, self.tables,
+                              static["decoder_prefix"], self.search_cfg)
+
+
+def make_beam_search_encdec_fn(model: EncDecModel, trie: LeveledTrie,
+                               search_cfg: BeamSearchConfig = BeamSearchConfig(),
+                               graphed: bool = True) -> EncDecBeamSearch:
+    """search(batch, decoder_prefix) -> (codes, scores) bound to one
+    enc-dec model, trie and search config, compiled as `make_beam_search_fn`."""
+    return EncDecBeamSearch(model, trie, search_cfg, graphed)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core.device import to_device
 from gamer_tpu_torch.models.generative.encdec import EncDecConfig, EncDecModel, shift_right
 from gamer_tpu_torch.modules.losses import IGNORE_LABEL
 from gamer_tpu_torch.ops import router as router_ops
@@ -52,7 +53,7 @@ def encdec_loss_fn(model: EncDecModel, cfg: EncDecConfig | None = None,
 
     def loss_fn(batch: dict, generator: torch.Generator | None = None):
         with torch.set_grad_enabled(not deterministic and torch.is_grad_enabled()):
-            batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+            batch = {k: to_device(v, model.device) for k, v in batch.items()}
             # under a process group the dropout masks are the global batch's
             row0 = 0 if deterministic else distributed.first_row(batch["labels"].shape[0])
             out = model(**prepare_encdec_inputs(cfg, batch), deterministic=deterministic,

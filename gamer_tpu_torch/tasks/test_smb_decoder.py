@@ -8,7 +8,9 @@ beams (ref :122-195), hit/recall/ndcg with session-target normalization,
 duplicate-vs-history ratio (ref :217-223), merged-behavior weighted metrics
 (ref :287-304), collision reporting (ref :66-88), and a --valid_loss mode
 (ref :306-322). Every behavior's rows go through one mixed-behavior search
-per chunk of `--test_batch_size` rows (`decode/beam.py`, eagerly). Under a
+per chunk of `--test_batch_size` rows, the last chunk padded to the batch
+with its first row (ref :168-170), so the compiled search (`decode/beam.py`,
+a CUDA graph on the card) captures once. Under a
 process group (`core/distributed.py`) each process searches every
 process_count-th row, the fixed-shape metric sums are added up with one
 all-reduce (ref :232-255 gathers pickled lists), and process 0 writes the
@@ -41,6 +43,7 @@ from gamer_tpu_torch.models.generative.qwen_family import prepare_train_inputs
 from gamer_tpu_torch.modules.losses import causal_lm_loss
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
 from gamer_tpu_torch.tasks.test_decoder import load_generative_model, strip_behavior
+from gamer_tpu_torch.train.loop import EvalStep
 
 logger = get_logger("tasks.test_smb_decoder")
 
@@ -107,6 +110,7 @@ class TestSMBDecoder(Task):
                 rows.append((behavior, b_idx, ex))
         acc = self._eval_mixed(corpus, vocab, trie, rows, behaviors, test_batch_size,
                                metric_list)
+        logger.info("the search captured %d CUDA graphs", self._search.graphs)
         per_behavior: dict[str, dict] = {}
         counts: dict[str, int] = {}
         dup_ratios: dict[str, float] = {}
@@ -155,6 +159,9 @@ class TestSMBDecoder(Task):
         acc = {b: {"totals": {m: 0.0 for m in metric_list}, "count": 0,
                    "dup_sum": 0.0, "dup_n": 0} for b in behaviors}
         for batch_rows in _chunks(rows, batch_size):
+            n_real = len(batch_rows)
+            if n_real < batch_size:  # pad to the batch with its first row: one graph key
+                batch_rows = list(batch_rows) + [batch_rows[0]] * (batch_size - n_real)
             btoks = np.asarray([vocab.behavior_token(r[0]) for r in batch_rows], np.int32)
             examples = [r[2] for r in batch_rows]
             if getattr(self, "family", "decoder_only") == "encdec":
@@ -168,7 +175,8 @@ class TestSMBDecoder(Task):
                 batch = self._batcher.collate(examples, append_behavior_token=btoks,
                                               append_action_level=levels)
                 codes, _ = self._search(batch, beh_emb_ids)
-            codes = codes.cpu().numpy()  # [B, K, L] 0-based level codes
+            codes = codes.cpu().numpy()[:n_real]  # [B, K, L] 0-based level codes
+            batch_rows = batch_rows[:n_real]
             # targets: strip the behavior token column -> per-level codes
             target_codes = [vocab.decode_tokens(strip_behavior(r[2].targets, L, vocab))
                             for r in batch_rows]
@@ -192,33 +200,31 @@ class TestSMBDecoder(Task):
             acc = _sum_over_processes(acc, behaviors, metric_list, self._device)
         return acc
 
-    @torch.no_grad()
     def _valid_loss(self, model, cfg, dataset, data_path, max_his_len, index_file,
                     results_file):
         """The training objective on the valid split (ref :306-322), through
         the one-hot route (the enc-dec CE for an enc-dec model), batches of 32
-        weighted by their real rows."""
+        weighted by their real rows; each batch through the eval step
+        (`train/loop.EvalStep`, compiled on the card as JAX jits it), the
+        sums in float64 as the reference sums on the host."""
         tdata = load_smb_train(dataset, data_path, max_his_len, index_file, "smb_explicit")
         if getattr(self, "family", "decoder_only") == "encdec":
             batcher = EncDecBatcher.for_examples(tdata.valid, eos_id=EOS_ID)
-            encdec_loss = encdec_loss_fn(model, cfg, deterministic=True)
-            loss_of = lambda batch: encdec_loss(batch)[0]
+            loss_of = encdec_loss_fn(model, cfg, deterministic=True)
         else:
             batcher = DecoderBatcher.for_examples(
                 tdata.valid, behavior_token_ids=tdata.corpus.vocab.behavior_token_ids)
 
             def loss_of(batch):
-                batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
                 out = model(**prepare_train_inputs(cfg, batch), route_mode="onehot")
                 return causal_lm_loss(out["logits"], batch["labels"], cfg.temperature,
-                                      batch.get("row_valid"))
-        total, n = 0.0, 0
+                                      batch.get("row_valid")), {}
+        step = EvalStep(loss_of, model.device, dtype=torch.float64, by_rows=True)
         for batch in iterate_batches(tdata.valid, 32, batcher.collate):
-            w = int(batch["row_valid"].sum())
-            total += float(loss_of(batch)) * w
-            n += w
+            step.add(batch)
+        total, n = step.sums.tolist()
         loss = total / max(n, 1)
-        logger.info("valid loss: %.4f", loss)
+        logger.info("valid loss: %.4f (%d CUDA graphs)", loss, step.graphs)
         results = {"valid_loss": loss}
         os.makedirs(os.path.dirname(results_file) or ".", exist_ok=True)
         with open(results_file, "w") as f:

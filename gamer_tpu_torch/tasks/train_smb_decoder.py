@@ -49,6 +49,7 @@ import re
 import torch
 
 from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core.device import to_device
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size, pad_to_multiple
 from gamer_tpu_torch.core.metrics import MetricWriter
@@ -152,7 +153,7 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
             return _loss(batch, generator)
 
     def _loss(batch: dict, generator):
-        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+        batch = {k: to_device(v, model.device) for k, v in batch.items()}
         inputs = prepare_train_inputs(cfg, batch)
         # under a process group the dropout masks are the global batch's
         rows = batch["input_ids"].shape[0]

@@ -30,11 +30,17 @@ into Python. On CUDA without a process group the device part is captured
 once per (input shapes and dtypes, accumulation phase) as a CUDA graph, as
 `jax.jit` traces once per shape: the first step of each runs eagerly on a
 side stream (PyTorch's whole-network capture recipe: the warm-up is the
-real step), then the capture records it, and every later step replays it.
-All graphs of a `Trainer` share one memory pool. `graphed=False` keeps the
-eager device part (the same code, launched op by op); a model without a
-seed table (`dropout_sites`) gets the generator itself and runs eagerly. A
-capture that fails raises.
+real step), then the capture records it, and every later step replays it
+(`core/graphs.GraphCache`). All training-step graphs of a `Trainer` share
+one memory pool. `graphed=False` keeps the eager device part (the same
+code, launched op by op); a model without a seed table (`dropout_sites`)
+gets the generator itself and runs only eagerly. A capture that fails
+raises.
+
+`evaluate` is JAX's jitted eval step (`_build_eval_step`) the same way
+(`EvalStep`): each batch staged into static buffers, the loss and the
+running sums on the card, captured once per batch shape, in a pool of its
+own; one host read at the end.
 
 Under a process group (`core/distributed.py`) each process feeds its own
 rows, and the step is the JAX package's global one: the loss is one token
@@ -44,7 +50,7 @@ denom / global denom; an update all-reduces the accumulated grads once, as
 one flat buffer in parameter order, before the optimizer clips them. Every
 process then applies the same sum, so parameters stay bit-identical.
 `evaluate` sums its totals and weights over the group the same way. Under a
-process group the device part runs eagerly (no capture).
+process group the device parts of both steps run eagerly (no capture).
 
 On a (data, model) mesh (the `core/mesh.MeshContext` whose `shard_params`
 the model went through) these sums run over the data
@@ -70,9 +76,10 @@ import torch
 from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
+from gamer_tpu_torch.core.graphs import GraphCache, capture_enabled
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.ops.seeds import draw
-from gamer_tpu_torch.train.staging import Staging
+from gamer_tpu_torch.train.staging import Staging, StaticInputs, as_array
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
 logger = logging.getLogger("gamer_tpu_torch.train")
@@ -141,10 +148,9 @@ class Trainer:
         self._div = torch.ones((), dtype=torch.float32, device=self.device)
         self._per_step = Staging({"div": self._div} if self._seeds is None
                                  else {"div": self._div, "seeds": self._seeds})
-        self._inputs: dict[tuple, tuple[dict, Staging]] = {}
-        self._graphs: dict[tuple, _Graph] = {}
-        self._pool = None
-        self._side = None
+        self._inputs = StaticInputs(self.device)
+        self._graphs = GraphCache(self.device, "training step")
+        self._eval: EvalStep | None = None
 
     # ------------------------------------------------------------------ steps
 
@@ -170,7 +176,7 @@ class Trainer:
     def captures(self) -> bool:
         """Whether the device part is captured and replayed as CUDA graphs:
         on the card, `graphed`, and without a process group."""
-        return self.graphed and self.device.type == "cuda" and not distributed.is_initialized()
+        return capture_enabled(self.graphed, self.device)
 
     @property
     def graphs(self) -> int:
@@ -183,14 +189,7 @@ class Trainer:
         and on the update micro-step the optimizer's scalars. Returns (the
         device batch, the seed table or, for a model without one, the
         generator)."""
-        arrays = {n: v if isinstance(v, torch.Tensor) else np.asarray(v) for n, v in batch.items()}
-        key = tuple((n, tuple(v.shape), _dtype(v)) for n, v in arrays.items())
-        if key not in self._inputs:
-            static = {n: torch.empty(shape, dtype=dtype, device=self.device)
-                      for n, shape, dtype in key}
-            self._inputs[key] = (static, Staging(static))
-        static, staging = self._inputs[key]
-        staging.write(arrays)
+        _, static = self._inputs.write({n: as_array(v) for n, v in batch.items()})
         per_step = {"div": np.float32(mini + 1)}
         seeds = self.generator(self.step)
         if self._seeds is not None:
@@ -246,26 +245,9 @@ class Trainer:
         phase = "update" if k == 1 else ("first" if mini == 0 else
                                          "last" if mini == k - 1 else "middle")
         key = (tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()), phase)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            graph.graph.replay()
-            return graph.loss.clone()  # out of the graph's memory, which the next replay reuses
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        self._side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._side):
-            loss = self._device_step(inputs, seeds, mini, k)
-        torch.cuda.current_stream(self.device).wait_stream(self._side)
-        cuda_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(cuda_graph, pool=self._pool):
-            graph_loss = self._device_step(inputs, seeds, mini, k)
-        if self._pool is None:
-            self._pool = cuda_graph.pool()
-        table = self.optimizer.last_table if mini == k - 1 else None
-        self._graphs[key] = _Graph(cuda_graph, graph_loss, table)
-        logger.info("captured the training step's CUDA graph %d (%s, %s)", len(self._graphs),
-                    phase, ", ".join(f"{n} {list(t.shape)}" for n, t in inputs.items()))
-        return loss
+        # an update's graph reads the optimizer's record table: kept with it
+        hold = (lambda: self.optimizer.last_table) if mini == k - 1 else None
+        return self._graphs.run(key, lambda: self._device_step(inputs, seeds, mini, k), hold)
 
     @property
     def updates(self) -> int:
@@ -303,29 +285,37 @@ class Trainer:
 
     # ------------------------------------------------------------------ loops
 
-    @torch.no_grad()
     def evaluate(self, batches: Iterable[dict]) -> float:
         """Global mean loss over batches: batch means re-weighted by the
         loss's valid-target count (aux "denom"), else by valid rows, so the
         result is one token mean whatever the batch split (and, under a
-        process group, over every process's batches)."""
-        total = weight = None
-        loss_fn = self.eval_loss_fn or (lambda b: self.loss_fn(b, self.generator(0)))
+        process group, over every process's batches). Each batch goes
+        through the eval step (`EvalStep`: captured once per batch shape on
+        the card, as the training step is); the sums are read once, at the
+        end."""
+        step = self.eval_step()
+        step.reset()
         for batch in batches:
-            loss, aux = loss_fn(batch)
-            w = _weight(batch, aux, loss.device).float()
-            contrib = loss.float() * w
-            total = contrib if total is None else total + contrib
-            weight = w if weight is None else weight + w
+            step.add(batch)
+        sums = step.sums
         if distributed.is_initialized():
-            device = next(iter(self.params.values())).device
-            sums = torch.zeros(2, dtype=torch.float64, device=device)
-            if total is not None:
-                sums[0], sums[1] = total.double(), weight.double()
-            total, weight = distributed.all_reduce_sum(sums, self.data_group)
-        if total is None:
-            return 0.0
-        return float(total) / max(float(weight), 1.0)
+            sums = distributed.all_reduce_sum(sums.double(), self.data_group)
+        total, weight = sums.tolist()
+        return total / max(weight, 1.0)
+
+    def eval_step(self) -> "EvalStep":
+        """The eval step of `evaluate`, made at first use: `eval_loss_fn`, or
+        without one the training loss with the dropout seeds of
+        `generator(0)` (in a seed table where the model has one)."""
+        if self._eval is None:
+            loss_fn = self.eval_loss_fn
+            if loss_fn is None:
+                seeds = self.generator(0)
+                if self._seeds is not None:
+                    seeds = draw(seeds, self._seeds.numel()).to(torch.int32).to(self.device)
+                loss_fn = lambda b: self.loss_fn(b, seeds)  # noqa: E731
+            self._eval = EvalStep(loss_fn, self.device, self.graphed)
+        return self._eval
 
     def fit(self, train_batches: Callable[[int], Iterator[dict]],
             eval_batches: Callable[[], Iterator[dict]] | None = None) -> dict:
@@ -446,17 +436,67 @@ class Trainer:
         return {k: v.detach() for k, v in self.model_state().items()}
 
 
-class _Graph:
-    """A captured device step: the graph, its loss in the graph's memory,
-    and the optimizer's record table it reads (kept alive with it)."""
+class EvalStep:
+    """JAX's jitted eval step (`Trainer._build_eval_step`) and the device
+    sums of its `evaluate`, for a loss `loss_fn(batch) -> (loss, aux)`.
 
-    def __init__(self, graph, loss: torch.Tensor, table):
-        self.graph, self.loss, self.table = graph, loss, table
+    `add(batch)` is one batch in two parts. The host part stages the
+    batch's arrays and its valid-row count (the sum of "row_valid", else 1)
+    into static device buffers (`train/staging.StaticInputs`). The device
+    part runs the loss and adds loss * w and w into `sums` ([total,
+    weight], of `dtype`), w being aux "denom" (the valid-target count) where
+    the loss gives one and `by_rows` is off, else the valid rows; it reads
+    nothing into Python. On CUDA without a process group, and `graphed`, the
+    device part is captured once per input key (a short last batch is a
+    second key, as `jax.jit` compiles again for it) and replayed; the eval
+    graphs have a memory pool of their own. The caller reads `sums` once."""
 
+    def __init__(self, loss_fn: Callable[[dict], tuple[torch.Tensor, dict]], device,
+                 graphed: bool = True, dtype: torch.dtype = torch.float32,
+                 by_rows: bool = False):
+        self.loss_fn = loss_fn
+        self.device = torch.device(device)
+        self.graphed = graphed
+        self.by_rows = by_rows
+        self.sums = torch.zeros(2, dtype=dtype, device=self.device)
+        self._inputs = StaticInputs(self.device)
+        self._graphs = GraphCache(self.device, "eval step")
 
-def _dtype(v) -> torch.dtype:
-    """The torch dtype of a tensor or numpy array."""
-    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(np.empty(0, v.dtype)).dtype
+    @property
+    def captures(self) -> bool:
+        """As `Trainer.captures`: on the card, `graphed`, without a group."""
+        return capture_enabled(self.graphed, self.device)
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured: one per input key."""
+        return len(self._graphs)
+
+    def reset(self) -> None:
+        self.sums.zero_()
+
+    def stage(self, batch: dict) -> tuple[tuple, dict]:
+        """The host part: (the input key, the static device batch, whose
+        "row_w" entry is the batch's valid-row count)."""
+        rows = float(np.asarray(batch.get("row_valid", np.ones(1))).sum())
+        return self._inputs.write({**{n: as_array(v) for n, v in batch.items()},
+                                   "row_w": torch.tensor(rows, dtype=self.sums.dtype)})
+
+    def device_part(self, static: dict) -> None:
+        """Adds the batch's loss * w and w into `sums`."""
+        batch = {n: t for n, t in static.items() if n != "row_w"}
+        loss, aux = self.loss_fn(batch)
+        w = (static["row_w"] if self.by_rows or "denom" not in aux
+             else aux["denom"].to(self.sums.dtype))
+        self.sums.add_(torch.stack([loss.detach().to(self.sums.dtype) * w, w]))
+
+    @torch.no_grad()
+    def add(self, batch: dict) -> None:
+        key, static = self.stage(batch)
+        if self.captures:
+            self._graphs.run(key, lambda: self.device_part(static))
+        else:
+            self.device_part(static)
 
 
 def _weight(batch: dict, aux: dict, device) -> torch.Tensor:

@@ -8,12 +8,14 @@ with a non-blocking copy on the current stream, so the copy runs in stream
 order before the next replay. The pinned buffers are double-buffered behind
 CUDA events: before the host overwrites a buffer it waits for the copy that
 last read it, so it never overwrites one whose copy has not run. On the CPU
-the values are copied in directly.
+the values are copied in directly. `StaticInputs` keeps one set of such
+buffers a key (the names, shapes and dtypes of a call's arrays), as
+`jax.jit` keeps one executable a key.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -54,3 +56,34 @@ class Staging:
         event = torch.cuda.Event()
         event.record()
         self._events[slot] = event
+
+
+class StaticInputs:
+    """Static device buffers on `device`, one set a key, each written
+    through its `Staging`."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._by_key: dict[tuple, tuple[dict, Staging]] = {}
+
+    def write(self, arrays: Mapping[str, object]) -> Tuple[tuple, dict]:
+        """Stage `arrays` ({name: numpy array or tensor}) into the buffers of
+        their key; returns (the key, {name: static device tensor})."""
+        key = tuple((n, tuple(v.shape), dtype_of(v)) for n, v in arrays.items())
+        if key not in self._by_key:
+            static = {n: torch.empty(shape, dtype=dtype, device=self.device)
+                      for n, shape, dtype in key}
+            self._by_key[key] = (static, Staging(static))
+        static, staging = self._by_key[key]
+        staging.write(arrays)
+        return key, static
+
+
+def as_array(v):
+    """A tensor as it is, anything else as a numpy array."""
+    return v if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def dtype_of(v) -> torch.dtype:
+    """The torch dtype of a tensor or numpy array."""
+    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(np.empty(0, v.dtype)).dtype

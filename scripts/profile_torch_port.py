@@ -5,11 +5,14 @@
 
 Traces, with torch.profiler (CPU + CUDA activities), three steady-state
 iterations of the flagship Qwen3Multi scoring forward (bf16, batch 64 x
-S = 505, through the hand-written kernels), three training steps of the same
-model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
-`chip_smoke.py` phase 5), compiled (CUDA graph replays, the default) and
-eager (`graphed=False`), and one 20-beam constrained search (batch 128, the
-shapes of `chip_smoke.py`). For each it prints the wall time per iteration
+S = 505, through the hand-written kernels) as `Trainer.evaluate` of one
+batch (the eval step of `chip_smoke.py` phase 3), three training steps of
+the same model through `Trainer` (bf16, dropout 0.2, AdamW; the step of
+`chip_smoke.py` phase 5), and the 20-beam constrained search (batch 128,
+per-example behavior ids, the shapes of `chip_smoke.py` phase 4), each
+compiled (CUDA graph replays, the default) and eager (`graphed=False`),
+then the search's prefill (the prompt forward filling the caches) alone.
+For each it prints the wall time per iteration
 (timed without the profiler), the device busy share (summed kernel time over
 that wall time, one stream), the device kernels by total time and the sums
 of the attention, MoE, CE and hash-dropout kernels (a: `attn_fwd*`; b:
@@ -40,7 +43,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _profile(fn, iters: int, label: str, top: int = 14) -> None:
+def _profile(fn, iters: int, label: str, top: int = 14, width: int = 80) -> None:
     """Wall time per iteration without the profiler, then the device kernels
     of the same iterations under it (kernel durations; launches overlap
     nothing on one stream, so their sum is the busy time)."""
@@ -67,7 +70,8 @@ def _profile(fn, iters: int, label: str, top: int = 14) -> None:
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle; {sum(e.count for e in kernels) // iters} launches")
     for e in sorted(kernels, key=dev, reverse=True)[:top]:
         ms = dev(e) / 1e3 / iters
-        name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:80]
+        name = e.key.replace("(anonymous namespace)::", "").replace("at::native::", "")
+        name = name.split("(")[0][:width]
         print(f"  {ms:9.4f} ms {100 * ms / busy_ms:5.1f}%  {e.count // iters:5d} calls  {name}")
     groups = {"optimizer L1+L2": ("norm_partials", "norm_total", "update_kernel"),
               "attention a": ("attn_fwd",),
@@ -137,12 +141,20 @@ def main() -> int:
     cfg = cs.flagship_config()
     batch = cs.make_batch(cfg, 64, 101)
     model, loss_fn = cs.run_forward(cfg, "cuda")
-    _profile(lambda: loss_fn(batch), 3, "scoring forward Qwen3Multi bf16 B=64 S=505")
 
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
     from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
     from gamer_tpu_torch.train.state import OptimizerConfig
+
+    for graphed in (True, False):
+        evaluator = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                            OptimizerConfig(), TrainLoopConfig(), eval_loss_fn=loss_fn,
+                            graphed=graphed)
+        _profile(lambda: evaluator.evaluate([batch]), 3,
+                 f"scoring forward Qwen3Multi bf16 B=64 S=505 (Trainer.evaluate of one batch), "
+                 f"{'compiled (CUDA graph replays)' if graphed else 'eager'}")
+        del evaluator
 
     train_cfg = cs.flagship_config(dropout_rate=cs.DROP_RATE)
     for graphed in (True, False):
@@ -156,9 +168,24 @@ def main() -> int:
         del trainer, train_model
     trie, prompts, behaviors = cs.make_trie_and_prompts(
         cfg, cs.BEAM_BATCH, cs.N_ITEMS, cs.LEVELS, cs.LEVEL_SIZE, cs.PROMPT_BLOCKS)
-    search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=cs.NUM_BEAMS))
-    _profile(lambda: search(prompts, behaviors), 1,
-             f"beam search B={cs.BEAM_BATCH} beams={cs.NUM_BEAMS} S={prompts['input_ids'].shape[1]}")
+    for graphed in (True, False):
+        search = make_beam_search_fn(model, trie, BeamSearchConfig(num_beams=cs.NUM_BEAMS),
+                                     graphed=graphed)
+        _profile(lambda: search(prompts, behaviors), 3,
+                 f"beam search B={cs.BEAM_BATCH} beams={cs.NUM_BEAMS} "
+                 f"S={prompts['input_ids'].shape[1]}, "
+                 f"{'compiled (CUDA graph replays)' if graphed else 'eager'}", top=24, width=160)
+        del search
+    # the search's prefill alone (eager): the prompt forward that fills the caches
+    from gamer_tpu_torch.decode.beam import init_caches, prepare_prefill
+
+    dbatch = {k: torch.as_tensor(v, device="cuda") for k, v in prompts.items()}
+    B, S = dbatch["input_ids"].shape
+    with torch.no_grad():
+        inputs, _ = prepare_prefill(cfg, dbatch)
+        _profile(lambda: model(**inputs, caches=init_caches(cfg, B, S, torch.bfloat16, "cuda"),
+                               cache_index=0, logits_last_only=True, route_mode="onehot"), 3,
+                 f"the search's prefill alone B={B} S={S}, eager", top=12, width=160)
     return 0
 
 

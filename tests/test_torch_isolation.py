@@ -97,6 +97,42 @@ def test_chip_smoke_phases_on_cpu():
         cs.check_beams(trie, codes, scores, 3, 5)
 
 
+def _tiny_flagship(**kw):
+    import chip_smoke as cs
+
+    return cs.flagship_config(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=2, head_dim=32, intermediate_size=128,
+                              dtype="float32", **kw)
+
+
+def test_chip_smoke_eval_phase_on_cpu():
+    """Phase 3 of chip_smoke.py (`Trainer.evaluate` through the eval step,
+    compiled and eager, then the plain path) at a tiny size on the CPU: both
+    modes run the device part eagerly, bit-identical, no launch, no graph."""
+    import chip_smoke as cs
+
+    res = cs.eval_phase(torch.device("cpu"), _counters(), "cpu", cfg=_tiny_flagship(),
+                        geometry=(2, 6), calls=3)
+    assert set(res) == {"ms", "eager_ms", "launches"} and not any(res["launches"].values())
+    assert cs._scoring_launches(cs.flagship_config(), True, cs.kernel_counters()) == {
+        **{k: 0 for k in cs.kernel_counters()}, "fused_mask_attention": 12,
+        "fused_moe_ffn": 8, "fused_ce_rows": 1}
+
+
+def test_chip_smoke_search_phase_on_cpu():
+    """Phase 4 of chip_smoke.py (the per-example, scalar and behavior-token
+    searches, compiled and eager, with their gates) at a tiny size on the
+    CPU: every code path in its trie, compiled equal to eager, no graph."""
+    import chip_smoke as cs
+
+    cs.search_phase(torch.device("cpu"), _counters(), "cpu", cfg=_tiny_flagship(),
+                    geometry=(3, 5, 200, 4, 16, 4), timed=1)
+    trie, prompts, _ = cs.make_trie_and_prompts(_tiny_flagship(), 3, 200, 4, 16, 4,
+                                                behavior_level=True)
+    assert trie.num_levels == 5 and trie.level_sizes[0] == 3
+    assert (prompts["attention_mask"].sum(1) % 5 == 0).all()  # whole blocks, no target token
+
+
 def test_chip_smoke_train_step_on_cpu():
     """The kernel-path-vs-plain-path training step of phases 5 and 6 at a
     tiny size: on the CPU no kernel launches and the two paths agree."""

@@ -1070,3 +1070,163 @@ def test_graphed_trainer_matches_eager(dev, k):
     assert graphed[2] == 2 and eager[2] == 0  # two shapes; k = 2 meets each in one phase
     assert all(torch.equal(a, b) for a, b in zip(graphed[0], eager[0]))
     assert all(torch.equal(a, b) for a, b in zip(graphed[1], eager[1]))
+
+
+# ---- the compiled eval step and the compiled searches: CUDA graphs against
+# the eager device parts
+
+def _all_counters():
+    import chip_smoke as cs
+
+    return cs.kernel_counters()
+
+
+def _reset(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def test_compiled_eval_matches_eager(dev):
+    """`Trainer.evaluate` of a 2-layer Qwen3Multi (bf16, kernels on) over
+    batches of 4, 4 and a short last 2, three times: compiled (the eval
+    step captured once per batch shape and replayed) and eager
+    (`graphed=False`) bit-identical; two graphs, each capture launching one
+    scoring forward's kernels (a per self- and cross-attention, h per
+    sparse layer, j once: the flagship's 12/8/1 per 8 layers) and no other
+    kernel of the port, later evaluations launching nothing from Python; a
+    replay under `set_sync_debug_mode("error")` does not raise."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = flagship_config(num_hidden_layers=2, dtype="bfloat16")
+    batches = [make_batch(cfg, B, 20, np.random.default_rng(s)) for s, B in enumerate((4, 4, 2))]
+    counters = _all_counters()
+    per_forward = cs._scoring_launches(cfg, True, counters)
+    assert (per_forward["fused_mask_attention"], per_forward["fused_moe_ffn"]) == (
+        cfg.num_hidden_layers + len(cfg.cross_attention_layers), len(cfg.sparse_layers))
+
+    def run(graphed):
+        model = QwenFamilyModel(cfg, device=dev, seed=0)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
+                          TrainLoopConfig(), eval_loss_fn=make_loss_fn(model, cfg), graphed=graphed)
+        _reset(counters)
+        captured = dict(GraphCache.captured)
+        losses = [trainer.evaluate(batches)]
+        first = {k: f.launches for k, f in counters.items()}
+        losses += [trainer.evaluate(batches) for _ in range(2)]
+        again = {k: f.launches - first[k] for k, f in counters.items()}
+        new = GraphCache.captured.get("eval step", 0) - captured.get("eval step", 0)
+        return losses, trainer, first, again, new
+
+    g_losses, trainer, first, again, new = run(True)
+    e_losses, eager, e_first, _, e_new = run(False)
+    assert g_losses == e_losses and np.isfinite(g_losses).all()
+    assert trainer.eval_step().graphs == new == 2 and eager.eval_step().graphs == e_new == 0
+    # two shapes: each key's warm-up and capture; nothing from Python after
+    assert first == {k: 4 * n for k, n in per_forward.items()}, first
+    assert not any(again.values()), again
+    assert e_first == {k: 3 * n for k, n in per_forward.items()}, e_first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.eval_step().add(batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("backbone", ["Qwen3Multi", "Qwen3MoeAction"])
+def test_compiled_search_matches_eager(dev, backbone):
+    """The decoder-only search objects (bf16 caches, 2 layers, batch 4, 6
+    beams, 4 levels of 16 codes) compiled and eager, per-example, scalar and
+    `None` behavior ids (the last over the behavior + item trie), each twice:
+    codes and scores bit-identical; one graph per key (the scalar id
+    replays the per-example graph), no kernel of the port (a-k, K1, K2, L)
+    launched in the captures or anywhere; a replay under
+    `set_sync_debug_mode("error")` does not raise."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
+    from gamer_tpu_torch.entry import flagship_config
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+
+    cfg = (flagship_config(num_hidden_layers=2, dtype="bfloat16") if backbone == "Qwen3Multi"
+           else _moe_action_config(num_hidden_layers=2, dtype="bfloat16"))
+    model = QwenFamilyModel(cfg, device=dev, seed=0)
+    trie, prompts, behaviors = cs.make_trie_and_prompts(cfg, 4, 200, 4, 16, 4)
+    btrie, bprompts, _ = cs.make_trie_and_prompts(cfg, 4, 200, 4, 16, 4, behavior_level=True)
+    counters = _all_counters()
+
+    def run(graphed):
+        item, beh = (make_beam_search_fn(model, t, BeamSearchConfig(num_beams=6),
+                                         graphed=graphed) for t in (trie, btrie))
+        _reset(counters)
+        captured = GraphCache.captured.get("beam search", 0)
+        outs = [fn(*args) for fn, args in ((item, (prompts, behaviors)), (item, (prompts, 2)),
+                                           (beh, (bprompts, None))) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert not any(f.launches for f in counters.values()), {
+            k: f.launches for k, f in counters.items()}
+        return outs, (item.graphs, beh.graphs,
+                      GraphCache.captured.get("beam search", 0) - captured), item
+
+    g_outs, g_graphs, item = run(True)
+    e_outs, e_graphs, _ = run(False)
+    assert g_graphs == (1, 1, 2) and e_graphs == (0, 0, 0)
+    for (gc, gs), (ec, es) in zip(g_outs, e_outs):
+        assert torch.equal(gc, ec) and torch.equal(gs, es)
+    cs.check_beams(trie, *g_outs[0], 4, 6)
+    cs.check_beams(btrie, *g_outs[4], 4, 6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        item(prompts, behaviors)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_compiled_encdec_search_matches_eager(dev, tmp_path):
+    """The enc-dec search object (TIGER, bf16 caches, batch 4, 6 beams),
+    compiled and eager, a shared and a per-row prefix of the same tokens
+    (one key), each twice: codes and scores bit-identical, one graph, no
+    kernel of the port launched."""
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.data.vocab import SemanticVocab
+    from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_encdec_fn
+    from gamer_tpu_torch.decode.trie import LeveledTrie
+    from gamer_tpu_torch.models.generative.encdec import EncDecModel, build_encdec_config
+
+    levels = [16, 16, 16]
+    vocab = SemanticVocab(levels, behaviors=["a", "b", "c"])
+    cfg = build_encdec_config("TIGER", vocab_size=vocab.vocab_size, num_behavior=3,
+                              behavior_base=14)
+    model = EncDecModel(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    codes = np.unique(rng.integers(0, 16, (300, 3)), axis=0)
+    trie = LeveledTrie.from_token_rows(vocab.encode_codes(codes), vocab)
+    ids = rng.integers(17, vocab.vocab_size, (4, 20)).astype(np.int32)
+    attn = np.ones((4, 20), np.int32)
+    attn[1, 15:] = 0
+    batch = {"input_ids": np.where(attn == 1, ids, 0).astype(np.int32), "attention_mask": attn}
+    shared = np.array([cfg.decoder_start_token_id], np.int32)
+    counters = _all_counters()
+
+    def run(graphed):
+        search = make_beam_search_encdec_fn(model, trie, BeamSearchConfig(num_beams=6),
+                                            graphed=graphed)
+        _reset(counters)
+        captured = GraphCache.captured.get("enc-dec beam search", 0)
+        outs = [search(batch, p) for p in (shared, shared, np.tile(shared, (4, 1)))]
+        torch.cuda.synchronize()
+        assert not any(f.launches for f in counters.values())
+        return outs, search.graphs, GraphCache.captured.get("enc-dec beam search", 0) - captured
+
+    g_outs, g_graphs, g_new = run(True)
+    e_outs, e_graphs, e_new = run(False)
+    assert (g_graphs, g_new, e_graphs, e_new) == (1, 1, 0, 0)
+    for (gc, gs), (ec, es) in zip(g_outs, e_outs):
+        assert torch.equal(gc, ec) and torch.equal(gs, es)
