@@ -148,7 +148,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with --kmeans_init and CF embeddings, tokenize --mode rq_vae (collision
    rate 0 after repair), an fp32 RQ-VAE step on the card against the CPU
    (1e-4), and one epoch of train_SMB_decoder on the emitted semantic IDs
-   through the kernels;
+   through the kernels; the RQ-VAE's training step and emit compiled (one
+   CUDA graph each, L1/L2 once at the capture), and one epoch of the
+   compiled step and the compiled emit from best_collision against their
+   eager forms: bit-identical, the replay's kernels those of the eager
+   step; each form's step time and busy share;
 13. the discriminative zoo (`rec_phase`): one epoch of train_SMB_rec for
    each of SASRec, GRU4Rec, BERT4Rec, MBSTR, MBHT and PBAT from their
    shipped configs at scripts/train_SMB_rec.sh's geometry (smb_dis,
@@ -159,7 +163,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ill-conditioned grads against float64), SASRec's sampled eval and a BPR
    epoch; losses fall, metrics in [0, 1], no launch of a-k (the zoo runs
    none, as in JAX; its dropout runs on K1 and K2 and its update on kernel
-   L, whose counts are printed).
+   L, whose counts are printed). The training step and the scorer are
+   compiled (one CUDA graph each a fit, K1/K2 once a dropout site and L1/L2
+   once at the capture); 5 compiled steps from `best` against 5 eager ones
+   and the compiled scorer against the eager one: bit-identical, the
+   replay's kernels those of the eager step; each form's step time and busy
+   share.
 14. the model axis (`model_axis_phase`, `core/mesh.py`): two gloo processes
    sharing the card at data 1 x model 2 (the flagship's experts 3 / 3, its
    vocab padded to 1152 rows, 576 / 576) against one process with the
@@ -2750,8 +2759,14 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     after the repair, each training step's launches those of phase 5, and
     one fp32 RQ-VAE training step on the card against the same step on the
     CPU (same parameters, batch and diversity noise, TF32 off) within 1e-4
-    relative. Prints the k-means init's cluster sizes and time, the epoch
-    time, tokenize's wall time and the decoder's step time. `spec`, the
+    relative. The task's training step and emit are compiled: one graph
+    each, the step's warm-up and capture launching L1/L2 once and nothing
+    else, every later step replayed; then one epoch of the compiled step
+    against the eager one from best_collision, and the compiled emit
+    against the eager one (`rqvae_forms_agree`: bit-identical; the step time
+    and busy share of both forms printed). Prints the k-means init's
+    cluster sizes and time, the epoch time, tokenize's wall time and the
+    decoder's step time. `spec`, the
     argument tuples, the sizes, `extra_args` and the counts let a test run
     it tiny."""
     import copy
@@ -2784,11 +2799,18 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     np.save(cf, np.random.default_rng(0).standard_normal((spec["n_items"], e_dim)).astype(
         np.float32))
     t = time.perf_counter()
-    rq = cli(["RQVAE", *ds, "--emb_file", emb, "--cf_emb_file", cf, "--kmeans_init",
-              *rq_args, "--epochs", str(epochs), "--eval_step", str(eval_step),
-              "--output_dir", ckpt])
-    sync()
+    with _recording_calls(counters, TR.RQVAEStep) as rq_rec, _captures() as rq_cap:
+        rq = cli(["RQVAE", *ds, "--emb_file", emb, "--cf_emb_file", cf, "--kmeans_init",
+                  *rq_args, "--epochs", str(epochs), "--eval_step", str(eval_step),
+                  "--output_dir", ckpt])
+        sync()
     rq_s = time.perf_counter() - t
+    rq_expected = staged_step_launches(rq_rec["owner"].model, cuda, counters)
+    rq_replayed, rq_captured = check_step_launches("phase 12 RQVAE", rq_rec, rq_expected)
+    want = {"rq-vae training step": 1, "rq-vae emit": 1} if cuda else {}
+    assert rq_cap == want and rq_captured == int(cuda), f"phase 12 RQVAE graphs {rq_cap}"
+    print(f"phase 12 RQVAE compiled: graphs {rq_cap}, {rq_replayed} of {len(rq_rec['steps'])} "
+          f"steps replayed, launches at the warm-up and capture {rq_expected}", flush=True)
     hist = rq["history"]
     sizes = [np.asarray(s) for s in rq["init_cluster_sizes"]]
     print(f"phase 12 RQVAE {' '.join(rq_args)}: k-means init {rq['init_s']:.2f} s, cluster "
@@ -2843,6 +2865,8 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     print(f"phase 12 RQ-VAE fp32 step B={len(x)}: loss {steps[dev.type]:.7f} ({dev.type}) vs "
           f"{steps['cpu']:.7f} (cpu), rel diff {step_rel:.3e} (tol 1e-4)", flush=True)
     assert step_rel <= 1e-4, "the RQ-VAE step on the card differs from the CPU's"
+    rqvae_forms_agree(cfg, state, TR.load_embeddings(emb), np.load(cf), labels.numpy(),
+                      int(rq_args[rq_args.index("--batch_size") + 1]), dev, card, counters)
 
     # the generative model on the emitted semantic IDs, through the kernels
     index = os.path.basename(tok["output_file"]).removeprefix("Synth")
@@ -2866,6 +2890,52 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
           f"(card {card})", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def rqvae_forms_agree(cfg, state: dict, x: np.ndarray, cf: np.ndarray, labels: np.ndarray,
+                      batch_size: int, dev, card: str, counters: dict) -> None:
+    """Phase 12's compiled RQ-VAE against its eager form from the same
+    state: one epoch of `tasks/rqvae.RQVAEStep` over a seeded permutation
+    of every item, wrapped to whole batches as the task wraps it
+    (`staged_forms_agree`: each step's [loss, recon, quant, cf] and every
+    parameter bit-identical, one graph, L1/L2 once at the capture, the
+    replay's kernels those of the eager step), then `RQVAEEmit` over every
+    item on each form's model: the codes equal, one emit graph."""
+    import torch
+
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE
+    from gamer_tpu_torch.tasks import rqvae as TR
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    xs = torch.as_tensor(x, device=dev)
+    cfs = torch.as_tensor(cf, device=dev)
+    n = len(x)
+    pad_n = -(-n // batch_size) * batch_size
+    order = np.random.default_rng(0).permutation(n)
+    order = np.concatenate([order, order[:pad_n - n]])
+
+    def make(graphed):
+        model = RQVAE(cfg, device=dev)
+        model.load_state_dict(state)
+        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3,
+                                             weight_decay=1e-4, lr_scheduler_type="constant",
+                                             warmup_ratio=0.0, max_grad_norm=0.0), model)
+        step = TR.RQVAEStep(model, opt, xs, cfs, graphed)
+        step.set_labels(labels)
+        return step, model
+
+    calls = [lambda st, s=s: st(order[s:s + batch_size], TR.step_generator(0, 0, s))
+             for s in range(0, pad_n, batch_size)]
+    runs = staged_forms_agree(f"phase 12 RQ-VAE epoch B={batch_size} ({len(calls)} steps)",
+                              make, calls, TR.RQVAEStep, counters, dev, card)
+    with _captures() as cap:
+        codes = {form: TR.RQVAEEmit(model, xs, batch_size, form == "compiled")()
+                 for form, (_, model, _) in runs.items()}
+    print(f"phase 12 RQ-VAE emit of {n} items: compiled vs eager codes equal "
+          f"{bool((codes['compiled'] == codes['eager']).all())}; graphs {cap}", flush=True)
+    assert codes["compiled"].shape == (n, cfg.num_levels)
+    assert (codes["compiled"] == codes["eager"]).all(), "the compiled emit differs from eager"
+    assert cap == ({"rq-vae emit": 1} if dev.type == "cuda" else {}), cap
 
 
 # --------------------------------------------------------------------------- phase 13
@@ -2949,6 +3019,7 @@ def rec_step_on(backbone: str, out: str, where, batch: dict, n_items: int, n_use
     same on every device."""
     import torch
 
+    from gamer_tpu_torch.core.device import to_device
     from gamer_tpu_torch.models.discriminative import DisModelConfig
     from gamer_tpu_torch.tasks import train_smb_rec as TR
 
@@ -2957,8 +3028,8 @@ def rec_step_on(backbone: str, out: str, where, batch: dict, n_items: int, n_use
     model = TR.build_dis_model(backbone, cfg, n_items, L, cfg.n_behaviors, n_users, where)
     model.load_state_dict(torch.load(os.path.join(out, "best", "state.pt"), weights_only=True))
     model.to(dtype or torch.float32)
-    loss = TR.make_dis_loss_fn(backbone, model, cfg)(TR.to_device(batch, where),
-                                                     TR.step_generator(seed, 0))
+    loss = TR.make_dis_loss_fn(backbone, model, cfg)(
+        {k: to_device(v, where) for k, v in batch.items()}, TR.step_generator(seed, 0))
     loss.backward()
     tables = [f"{n}.weight" for n, m in model.named_modules() if isinstance(m, torch.nn.Embedding)]
     return (float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
@@ -2987,23 +3058,173 @@ def rec_steps_agree(backbone: str, out: str, dev, batch: dict, n_items: int,
 
 
 @contextlib.contextmanager
-def _recording_rec():
-    """While the block runs, record each train_SMB_rec training step's start
-    time (`tasks/train_smb_rec.train_step`)."""
-    from gamer_tpu_torch.tasks import train_smb_rec as TR
+def _recording_calls(counters: dict, cls):
+    """While the block runs, record each call of the staged step class
+    `cls` (`tasks/train_smb_rec.RecTrainStep`, `tasks/rqvae.RQVAEStep`: its
+    host part, then its device part through `core/graphs.StagedGraphs`) as
+    `_recording` records `Trainer.train_step`: its start time ("stamps"),
+    its launches ("steps"), and a list a call of (captured, launches) for
+    each run of its device part ("calls": an eager run, or the capture of
+    its CUDA graph; a replay has none). "owner" is the last step object."""
+    import torch
 
-    stamps = []
-    step0 = TR.train_step
+    rec = {"steps": [], "calls": [], "stamps": [], "owner": None}
+    call0, part0 = cls.__call__, cls.device_part
+    snapshot = lambda: {k: w.launches for k, w in counters.items()}
 
-    def train_step(*args, **kwargs):
-        stamps.append(time.perf_counter())
-        return step0(*args, **kwargs)
+    def call(self, *args, **kwargs):
+        before = snapshot()
+        rec["stamps"].append(time.perf_counter())
+        rec["calls"].append([])
+        rec["owner"] = self
+        out = call0(self, *args, **kwargs)
+        rec["steps"].append({k: v - before[k] for k, v in snapshot().items()})
+        return out
 
-    TR.train_step = train_step
+    def part(self, static):
+        before = snapshot()
+        out = part0(self, static)
+        captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        rec["calls"][-1].append((captured, {k: v - before[k] for k, v in snapshot().items()}))
+        return out
+
+    cls.__call__, cls.device_part = call, part
     try:
-        yield stamps
+        yield rec
     finally:
-        TR.train_step = step0
+        cls.__call__, cls.device_part = call0, part0
+
+
+def staged_step_launches(model, cuda: bool, names) -> dict:
+    """Wrapper calls of one zoo or RQ-VAE training step, for each counter
+    of `names`: K1 once a dropout site (`model.dropout_sites`: every site
+    drops at a rate in (0, 1)), K2 once a site on the gradient's path (all
+    but the RQ-VAE encoder's first, which drops the input embeddings), L1
+    and L2 once (the update); none on the CPU."""
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE
+
+    launches = {k: 0 for k in names}
+    if cuda:
+        sites = model.dropout_sites
+        launches.update(hash_dropout_fwd=sites,
+                        hash_dropout_bwd=sites - int(isinstance(model, RQVAE) and sites > 0),
+                        **UPDATE_LAUNCHES)
+    return launches
+
+
+def staged_forms_agree(label: str, make, calls: list, cls, counters: dict, dev,
+                       card: str) -> dict:
+    """`calls` (each one step of a staged step object, `cls`) on `make(graphed)`
+    (a fresh step object and its model, from the same state each time),
+    compiled then eager (`graphed=False`): every run of the device part
+    (the eager runs, the capture) launching exactly `staged_step_launches`,
+    read as the change of the counts over it, nothing launched outside it,
+    the compiled form one graph replayed by every call after the first;
+    the outputs and every parameter and buffer bit-identical between the
+    forms; a profiled extra call of each running the same kernels of the
+    port by name and count. Prints each form's median step time (calls 2 on,
+    each ending in a synchronize) and busy share (the profiled call's device
+    time over that median). Returns {form: (the last step object, the model,
+    {"ms", "prof"})}."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    runs = {}
+    for graphed in (True, False):
+        form = "compiled" if graphed else "eager"
+        step, model = make(graphed)
+        expected = staged_step_launches(model, cuda, counters)
+        outs, times = [], []
+        with _recording_calls(counters, cls) as rec:
+            for call in calls:
+                sync()
+                t = time.perf_counter()
+                outs.append(call(step))
+                sync()
+                times.append(time.perf_counter() - t)
+        replayed, captured = check_step_launches(f"{label} {form}", rec, expected)
+        want = (len(calls) - 1, 1) if graphed and cuda else (0, 0)
+        assert (replayed, captured, step.calls.graphs) == (*want, want[1]), (
+            f"{label} {form}: replayed {replayed}, captured {captured}, graphs "
+            f"{step.calls.graphs}, expected {want}")
+        state = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        ms = float(np.median(times[1:])) * 1e3
+        prof = _profiled_step(lambda: calls[-1](step)) if cuda else None
+        runs[form] = (step, model, dict(outs=[o.cpu() for o in outs], state=state, ms=ms,
+                                        prof=prof, expected=expected))
+        busy = (f"; a profiled step {prof['device_ms']:.3f} ms of device kernels, "
+                f"{100 * prof['device_ms'] / ms:.1f}% busy, {prof['launches']} kernels, the "
+                f"port's {prof['ours']}" if prof else "")
+        print(f"{label} {form}: {len(calls)} steps, {ms:.3f} ms a step (median of steps "
+              f"2-{len(calls)}, host time to a synchronize; the first {times[0] * 1e3:.1f} ms); "
+              f"launches at each run of the device part {expected}, captured "
+              f"{[c for calls_ in rec['calls'] for c, _ in calls_]}{busy} (card {card})",
+              flush=True)
+    c, e = runs["compiled"][2], runs["eager"][2]
+    same_out = sum(torch.equal(a, b) for a, b in zip(c["outs"], e["outs"]))
+    same_state = [n for n in c["state"] if torch.equal(c["state"][n], e["state"][n])]
+    print(f"{label} compiled vs eager: {same_out} of {len(calls)} step outputs and "
+          f"{len(same_state)} of {len(c['state'])} parameters and buffers bit-identical "
+          f"({c['outs'][0].tolist()})", flush=True)
+    assert same_out == len(calls), f"{label}: the compiled step's outputs differ from eager"
+    assert len(same_state) == len(c["state"]), f"{label}: the compiled step's state differs"
+    if cuda:
+        assert c["prof"]["ours"] == e["prof"]["ours"], (
+            f"{label}: a replay does not run the eager step's kernels: {c['prof']['ours']} vs "
+            f"{e['prof']['ours']}")
+    return runs
+
+
+REC_STAGED_STEPS = 5  # phase 13's compiled and eager steps a backbone
+
+
+def rec_forms_agree(backbone: str, out: str, dev, card: str, counters: dict, batcher, train,
+                    test, batch_size: int, n_items: int, n_users: int,
+                    eval_batch_size: int = 128) -> None:
+    """Phase 13, 4.: `REC_STAGED_STEPS` steps of `tasks/train_smb_rec.RecTrainStep`
+    on the first training batches, compiled and eager, from `out`'s `best`
+    (`staged_forms_agree`: outputs and parameters bit-identical, one graph,
+    the launches at the capture, the replay's kernels); then `RecScorer`
+    compiled (its capture, then a replay) and eager on the first test
+    chunk, padded as the task pads it: the scores bit-identical, one graph."""
+    import torch
+
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    cfg = DisModelConfig.from_file(out)
+    L = batcher.seq_len
+    state = torch.load(os.path.join(out, "best", "state.pt"), weights_only=True)
+
+    def make(graphed):
+        model = TR.build_dis_model(backbone, cfg, n_items, L, cfg.n_behaviors, n_users, dev)
+        model.load_state_dict(state)
+        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3,
+                                             lr_scheduler_type="constant", warmup_ratio=0.0,
+                                             max_grad_norm=0.0), model)
+        return TR.RecTrainStep(backbone, model, cfg, opt, graphed), model
+
+    n = min(REC_STAGED_STEPS, len(train) // batch_size)
+    batches = [batcher.collate(train[i * batch_size:(i + 1) * batch_size]) for i in range(n)]
+    calls = [lambda st, b=b, i=i: st(b, TR.step_generator(0, i)) for i, b in enumerate(batches)]
+    runs = staged_forms_agree(f"phase 13 {backbone} step B={batch_size} L={L}", make, calls,
+                              TR.RecTrainStep, counters, dev, card)
+    model = runs["compiled"][1]
+    chunk = list(test[:eval_batch_size])
+    chunk += [chunk[0]] * (eval_batch_size - len(chunk))
+    ev = batcher.collate(chunk)
+    with _captures() as cap:
+        compiled = TR.RecScorer(backbone, model, dev)
+        scores = [compiled(ev) for _ in range(2)]
+    eager = TR.RecScorer(backbone, model, dev, graphed=False)(ev)
+    same = [torch.equal(s, eager) for s in scores]
+    print(f"phase 13 {backbone} scorer B={eval_batch_size}: compiled (capture, replay) vs "
+          f"eager bit-identical {same}; graphs {cap}", flush=True)
+    assert all(same), f"{backbone}: the compiled scorer differs from eager"
+    assert cap == ({"rec scorer": 1} if dev.type == "cuda" else {}), cap
+    del runs, model
 
 
 def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
@@ -3020,7 +3241,15 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     the first training batch (TF32 off, the same masked-LM draws and hash
     dropout seeds), loss within 1e-5 relative, every grad within 1e-4 of
     its largest (`rec_steps_agree`; where fp32 is ill-conditioned, within
-    twice the CPU's error of a float64 reference). Then SASRec's
+    twice the CPU's error of a float64 reference); 4. `REC_STAGED_STEPS`
+    steps of the compiled `RecTrainStep` (a CUDA graph) against as many
+    eager ones (`graphed=False`) from `best`, and the compiled scorer
+    against the eager one (`rec_forms_agree`: bit-identical, one graph
+    each, K1/K2 once a dropout site and L1/L2 once at the capture, the
+    replay's kernels those of the eager step; the step time and busy share
+    of both forms printed). The fit's training step and scorer are
+    compiled: one graph each, the warm-up and capture launching as step 4's,
+    every later step replayed. Then SASRec's
     `--only_test` with `--test_task smb_dis_sample` (1000 sampled
     negatives) and one epoch of
     SASRec on smb_dis_neg with loss_type BPR (a config copy). Gates: finite
@@ -3043,6 +3272,7 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     from gamer_tpu_torch.data.smb_dis import DisBatcher, SMBDisBuilder
     from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
     from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
     from gamer_tpu_torch.tasks.train_smb_rec import MASKED_MODELS
 
     t_phase = time.perf_counter()
@@ -3080,13 +3310,18 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
         out = os.path.join(root, label)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        with _recording_rec() as stamps:
+        with _recording_calls(counters, TR.RecTrainStep) as rec, _captures() as cap:
             t = time.perf_counter()
             res = cli(["train_SMB_rec", *ds, "--backbone", backbone, "--base_model", cfg_path,
                        *args, "--epochs", "1", "--output_dir", out,
                        "--result_dir", os.path.join(out, "results")])
             sync()
             fit_s = time.perf_counter() - t
+        stamps = rec["stamps"]
+        expected = staged_step_launches(rec["owner"].model, cuda, counters)
+        replayed, captured = check_step_launches(f"phase 13 {label}", rec, expected)
+        want = {"rec training step": 1, "rec scorer": 1} if cuda else {}
+        assert cap == want and captured == int(cuda), f"{label}: graphs {cap}, captured {captured}"
         losses = res["losses"]
         assert len(losses) >= min_steps, f"{label}: only {len(losses)} training steps"
         assert np.isfinite(losses).all(), f"{label}: non-finite losses"
@@ -3096,7 +3331,9 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
         step_ms = float(np.median(np.diff(stamps))) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
         print(f"phase 13 {label} {' '.join(args)}: {len(losses)} steps, loss mean of the first "
-              f"{window} {first:.5f} -> last {window} {last:.5f}; step {step_ms:.3f} ms median "
+              f"{window} {first:.5f} -> last {window} {last:.5f}; compiled: graphs {cap}, "
+              f"{replayed} steps replayed, launches at the warm-up and capture {expected}; "
+              f"step {step_ms:.3f} ms median "
               f"with host collation ({batch_size / (step_ms / 1e3):.1f} sequences/s); fit "
               f"(epoch, valid and test evals) {fit_s:.2f} s; peak memory {peak:.3f} GiB "
               f"(card {card})", flush=True)
@@ -3142,6 +3379,9 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
                   f"{len(held)} parameters over it held to float64 instead (worst error against "
                   f"it {e64[0]:.3e} on the {dev.type}, {e64[1]:.3e} on the cpu; tol 2x the "
                   f"cpu's){': ' + ', '.join(sorted(held)) if held else ''}", flush=True)
+            # 4. the compiled step and scorer against their eager forms, from best
+            rec_forms_agree(backbone, out, dev, card, counters, batcher, train, b.build_eval(
+                "test", append_mask_slot=masked), batch_size, b.num_items, len(corpus.users))
             if backbone == "SASRec":
                 t = time.perf_counter()
                 sampled = cli(["train_SMB_rec", *ds, "--backbone", backbone, "--base_model",

@@ -16,6 +16,12 @@ pool. A capture that fails raises.
 
 `GraphCache.captured` counts captures by cache name across the process,
 as the kernel wrappers count their launches.
+
+`StagedGraphs` pairs a cache with the static input buffers of
+`train/staging.StaticInputs`: the host part of a call stages its arrays into
+the buffers of their key, and the device part, a function of those buffers,
+runs through the graph of that key. The zoo's training step and scorer and
+the RQ-VAE's training step and emit are each one.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Any, Callable, Hashable
 import torch
 
 from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.train.staging import StaticInputs
 
 logger = logging.getLogger("gamer_tpu_torch.graphs")
 
@@ -77,6 +84,46 @@ class GraphCache:
         GraphCache.captured[self.name] = GraphCache.captured.get(self.name, 0) + 1
         logger.info("captured the %s's CUDA graph %d (%s)", self.name, len(self._graphs), key)
         return out
+
+
+class StagedGraphs:
+    """A device function on staged inputs, captured once per input key.
+
+    `stage(arrays)` is the host part: it writes a call's arrays (numpy
+    arrays or CPU tensors, by name) into static device buffers, one set a
+    key (their names, shapes and dtypes), through pinned memory without
+    waiting for the card. `run(key, fn, static)` is the device part: `fn`
+    of those buffers, which reads no device value into Python and makes no
+    tensor from host data, through the CUDA graph of `key` where
+    `capture_enabled(graphed, device)`, else eagerly (`graphed=False`, the
+    CPU, a process group)."""
+
+    def __init__(self, device, name: str, graphed: bool = True):
+        self.device = torch.device(device)
+        self.graphed = graphed
+        self._inputs = StaticInputs(self.device)
+        self._graphs = GraphCache(self.device, name)
+
+    @property
+    def captures(self) -> bool:
+        return capture_enabled(self.graphed, self.device)
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured: one per key."""
+        return len(self._graphs)
+
+    def stage(self, arrays) -> tuple[tuple, dict]:
+        """(the key, {name: static device buffer}) of `arrays`, staged."""
+        return self._inputs.write(arrays)
+
+    def run(self, key: Hashable, fn: Callable[[dict], Any], static: dict,
+            hold: Callable[[], Any] | None = None) -> Any:
+        """`fn(static)`, replayed or captured under `key` (`GraphCache.run`,
+        whose `hold` it takes) when captures are on, else run eagerly."""
+        if self.captures:
+            return self._graphs.run(key, lambda: fn(static), hold)
+        return fn(static)
 
 
 def _clone(tree):

@@ -37,13 +37,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gamer_tpu_torch.core.graphs import GraphCache, capture_enabled
+from gamer_tpu_torch.core.graphs import StagedGraphs
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.models.generative.encdec import EncDecModel
 from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
-from gamer_tpu_torch.train.staging import StaticInputs, as_array
+from gamer_tpu_torch.train.staging import as_array
 
 NEG = -1e30
 
@@ -258,41 +258,38 @@ class _CompiledSearch:
     """A search bound to one model, trie and search config, in two parts
     (JAX jits the whole search, `gamer_tpu/decode/beam.py`
     `make_beam_search_fn`). The trie's tables move to the device once, here.
-    The host part (`stage`) writes a call's arrays into static device buffers
-    (`train/staging.StaticInputs`); the device part (`device_part`) runs the
-    search on them, reading nothing into Python. On CUDA without a process
-    group, and `graphed`, the device part is captured as a CUDA graph once
-    per key (the staged arrays' names, shapes and dtypes) and replayed
-    (`core/graphs.GraphCache`, a memory pool a search object: the prefill's
-    peak stays reserved while the object lives), its codes and scores cloned
-    out of the graph's memory; else it runs eagerly."""
+    The host part (`stage`) writes a call's arrays into static device buffers;
+    the device part (`device_part`) runs the search on them, reading nothing
+    into Python. On CUDA without a process group, and `graphed`, the device
+    part is captured as a CUDA graph once per key (the staged arrays' names,
+    shapes and dtypes) and replayed (`core/graphs.StagedGraphs`, a memory
+    pool a search object: the prefill's peak stays reserved while the object
+    lives), its codes and scores cloned out of the graph's memory; else it
+    runs eagerly."""
 
     name = "beam search"
 
     def __init__(self, model, trie: LeveledTrie, search_cfg: BeamSearchConfig, graphed: bool):
-        self.model, self.trie, self.search_cfg, self.graphed = model, trie, search_cfg, graphed
+        self.model, self.trie, self.search_cfg = model, trie, search_cfg
         self.device = torch.device(model.device)
         self.tables = _trie_tables(trie, self.device)
-        self._inputs = StaticInputs(self.device)
-        self._graphs = GraphCache(self.device, self.name)
+        self.calls = StagedGraphs(self.device, self.name, graphed)
 
     @property
     def captures(self) -> bool:
         """On the card, `graphed`, and without a process group (as
         `train/loop.Trainer.captures`)."""
-        return capture_enabled(self.graphed, self.device)
+        return self.calls.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per key."""
-        return len(self._graphs)
+        return self.calls.graphs
 
     @torch.no_grad()
     def __call__(self, batch: dict, arg) -> tuple[torch.Tensor, torch.Tensor]:
         key, static = self.stage(batch, arg)
-        if self.captures:
-            return self._graphs.run(key, lambda: self.device_part(static))
-        return self.device_part(static)
+        return self.calls.run(key, self.device_part, static)
 
 
 class BeamSearch(_CompiledSearch):
@@ -308,7 +305,7 @@ class BeamSearch(_CompiledSearch):
             rows = arrays["input_ids"].shape[0]
             arrays["behavior_emb_id"] = np.array(np.broadcast_to(
                 np.asarray(behavior_emb_id, np.int32), (rows,)))
-        return self._inputs.write(arrays)
+        return self.calls.stage(arrays)
 
     @torch.no_grad()
     def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -451,7 +448,7 @@ class EncDecBeamSearch(_CompiledSearch):
         if prefix.ndim == 1:
             prefix = np.array(np.broadcast_to(prefix, (arrays["input_ids"].shape[0],
                                                        prefix.shape[0])))
-        return self._inputs.write({**arrays, "decoder_prefix": prefix})
+        return self.calls.stage({**arrays, "decoder_prefix": prefix})
 
     @torch.no_grad()
     def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:

@@ -13,7 +13,12 @@ it; the tests pass "cpu") and `seed`: its weights come from a CPU
 `torch.Generator` seeded with it, with flax's initializers. A training
 forward takes `generator`, a CPU `torch.Generator` from which it draws
 its masked-LM positions and one hash-dropout seed a site in call order
-(`modules/transformer.DropoutSeeds`); None means deterministic.
+(`modules/transformer.DropoutSeeds`); None means deterministic. In place
+of the generator it takes the step's seed table on the device, its
+masked-LM draws then handed over (`uniforms=`): `training_draws` draws both
+from a generator on the host, as the forward would, for a step whose device
+part reads them from static buffers. Each model states how many seeds
+(`dropout_sites`) and which uniforms (`uniform_shapes`) its forward takes.
 
 Batch contract (ref SMB_dis_dataset.py:318-338): item ids are +1 shifted so
 0 is the padding index; `seq_len` counts real events.
@@ -28,6 +33,7 @@ import torch
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.registry import Registry
 from gamer_tpu_torch.modules.losses import bpr_loss, sequence_ce_loss
+from gamer_tpu_torch.ops.seeds import draw
 
 DIS_MODELS = Registry("discriminative model")
 
@@ -74,10 +80,32 @@ def gather_last(output: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
 
 def uniform_draw(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """U[0, 1) of `shape` from the CPU `generator`, on `device` (the
-    masked-LM draws; JAX draws them with `jax.random.uniform`)."""
-    if generator is None:
-        raise ValueError("a training forward needs a torch.Generator for its random draws")
+    masked-LM draws; JAX draws them with `jax.random.uniform`). A forward
+    given a seed table instead of a generator must be handed its draws
+    (`training_draws`)."""
+    if not isinstance(generator, torch.Generator):
+        raise ValueError("a training forward needs a torch.Generator for its random draws, or "
+                         "its draws handed over (`uniforms=`)")
     return torch.rand(shape, generator=generator).to(device)
+
+
+def training_draws(model, B: int, L: int, generator: torch.Generator) -> dict:
+    """The host draws of one training forward of `model` on a [B, L] batch,
+    from `generator` in the order that forward draws them from it: the
+    masked-LM uniforms of `model.uniform_shapes(B, L)` ("uniform_0", ...),
+    then the int32 seed table of its `dropout_sites` sites ("seeds"). CPU
+    tensors, to be staged; `draw_uniforms` gives a forward's `uniforms=`."""
+    out = {f"uniform_{i}": torch.rand(shape, generator=generator)
+           for i, shape in enumerate(model.uniform_shapes(B, L))}
+    out["seeds"] = draw(generator, model.dropout_sites).to(torch.int32)
+    return out
+
+
+def draw_uniforms(draws: dict):
+    """The `uniforms=` of a forward from its staged `training_draws`: None,
+    the one [B, L] tensor, or BERT4Rec's (rows, mask) pair."""
+    us = [draws[k] for k in sorted(draws) if k.startswith("uniform_")]
+    return None if not us else us[0] if len(us) == 1 else tuple(us)
 
 
 def range_mask(scores: torch.Tensor, item_range) -> torch.Tensor:

@@ -53,6 +53,17 @@ class BERT4Rec(nn.Module):
     def mask_token(self) -> int:
         return self.n_items + 1
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the input's, then four a
+        layer (`TransformerEncoderLayer`)."""
+        return 1 + 4 * self.cfg.n_layers
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws of `calculate_loss`, in draw order: the per-row
+        fine-tune coin, then the MLM positions."""
+        return [(B, 1), (B, L)]
+
     def hidden_states(self, item_seq: torch.Tensor,
                       generator: Optional[torch.Generator] = None):
         """[B, L] -> ([B, L, H] head-projected states, item table [n+2, H], bias)."""

@@ -86,6 +86,15 @@ class GRU4Rec(nn.Module):
         self.dense = dense(cfg.hidden_size, E, g)
         self.to(device)
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the embedding's."""
+        return 1
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws a training forward takes: none."""
+        return []
+
     def encode_with_table(self, item_seq: torch.Tensor, seq_len: torch.Tensor,
                           batch: dict | None = None,
                           generator: Optional[torch.Generator] = None):

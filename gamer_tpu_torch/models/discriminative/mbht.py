@@ -193,6 +193,21 @@ class MBHT(nn.Module):
     def mask_token(self) -> int:
         return self.n_items + 1
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the input's; a
+        multi-scale layer's six (linear attention's probabilities and
+        residual, the two pooled attentions' probabilities, the FFN's
+        activation and residual) or an encoder layer's four; the hypergraph
+        branch's two convolutions."""
+        cfg = self.cfg
+        return (1 + cfg.n_layers * (6 if cfg.enable_ms else 4)
+                + (2 if cfg.enable_hg else 0))
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws of `calculate_loss`: the masked positions."""
+        return [(B, L)]
+
     def hidden_states(self, item_seq, type_seq, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         L = self.max_his_len

@@ -42,7 +42,9 @@ def behavior_pair_matrix(type_seq: torch.Tensor, n_behaviors: int) -> torch.Tens
 def rel_pos_bucket(qlen: int, klen: int, num_buckets: int, max_distance: int,
                    device=None) -> torch.Tensor:
     """[qlen, klen] bucket of key - query; the log in float32, truncated to
-    int32, as JAX computes it."""
+    int32, as JAX computes it. The divisor's log is taken on `device` of a
+    float32 fill (no copy from the host, which a CUDA graph's capture
+    refuses): the value and the op of a tensor made from the Python float."""
     q = torch.arange(qlen, device=device)
     k = torch.arange(klen, device=device)
     n = -(k[None, :] - q[:, None])
@@ -51,7 +53,7 @@ def rel_pos_bucket(qlen: int, klen: int, num_buckets: int, max_distance: int,
     n = n.abs()
     max_exact = half // 2
     ratio = torch.log(torch.clamp(n, min=1).float() / max_exact) / torch.log(
-        torch.tensor(max_distance / max_exact, dtype=torch.float32, device=device))
+        torch.full((), max_distance / max_exact, dtype=torch.float32, device=device))
     large = max_exact + (ratio * (half - max_exact)).to(torch.int32)
     large = torch.clamp(large, max=half - 1)
     return ret + torch.where(n < max_exact, n.to(torch.int32), large)
@@ -202,6 +204,19 @@ class MBSTR(nn.Module):
     @property
     def mask_token(self) -> int:
         return self.n_items + 1
+
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the input's, then a
+        layer's attention probabilities and residual, its FFN activation
+        (one an expert of the behavior MoE) and its FFN residual."""
+        cfg = self.cfg
+        ffn = cfg.n_behaviors if cfg.behavior_moe and cfg.n_behaviors > 1 else 1
+        return 1 + cfg.n_layers * (3 + ffn)
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws of `calculate_loss`: the masked positions."""
+        return [(B, L)]
 
     def hidden_states(self, item_seq, type_seq, generator: Optional[torch.Generator] = None):
         drop = DropoutSeeds(generator, self.cfg.dropout_prob)

@@ -225,6 +225,20 @@ class PBAT(nn.Module):
     def mask_token(self) -> int:
         return self.n_items + 1
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the ten embedding
+        lookups' (item, type, user, the behavior table and the relation
+        table, mean and covariance each), then a layer's attention
+        probabilities and two residuals and, for each of its two FFN passes
+        (mean and covariance), an activation and a residual per behavior."""
+        cfg = self.cfg
+        return 10 + cfg.n_layers * (3 + 4 * cfg.n_behaviors)
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws of `calculate_loss`: the masked positions."""
+        return [(B, L)]
+
     def hidden_states(self, item_seq, type_seq, user_ids,
                       generator: Optional[torch.Generator] = None):
         cfg = self.cfg

@@ -35,6 +35,16 @@ class SASRec(nn.Module):
                                           cfg.hidden_act, cfg.layer_norm_eps, g)
         self.to(device)
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: the input's, then four a
+        layer (`TransformerEncoderLayer`)."""
+        return 1 + 4 * self.cfg.n_layers
+
+    def uniform_shapes(self, B: int, L: int) -> list:
+        """Masked-LM draws a training forward takes: none."""
+        return []
+
     def encode_with_table(self, item_seq: torch.Tensor, seq_len: torch.Tensor,
                           batch: dict | None = None,
                           generator: Optional[torch.Generator] = None):

@@ -25,6 +25,11 @@ diversity loss's positives come from Gumbel noise that the caller may hand
 over (`diversity_noise`), else drawn from a CPU `torch.Generator`, since torch
 cannot reproduce `jax.random.gumbel`; `dropout_prob` drops by the stateless
 hash (`modules/dropout.py`, one seed a layer), not flax's rng stream.
+
+A training forward draws its dropout seeds, then each level's Gumbel noise,
+from its CPU generator; `training_draws` makes the same draws on the host,
+for a step whose device part reads them from static buffers (the seed table
+as `ops/seeds.DeviceSeed`s, the noise as `diversity_noise`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch import nn
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.modules.dropout import hash_dropout
+from gamer_tpu_torch.ops.seeds import draw, site_seeds
 from gamer_tpu_torch.ops.sinkhorn import balanced_assign
 
 
@@ -154,6 +160,12 @@ class RQVAE(nn.Module):
     def device(self) -> torch.device:
         return self.codebooks.device
 
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout seeds a training forward takes: one a Dense layer of the
+        encoder and the decoder, none without dropout."""
+        return self.encoder.depth + self.decoder.depth if self.cfg.dropout_prob > 0 else 0
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.encoder.reset_parameters(generator)
@@ -178,7 +190,8 @@ class RQVAE(nn.Module):
         if use_sk and eps > 0:
             return balanced_assign(d, eps, c.sk_iters)
         if sample_last and level == c.num_levels - 1 and generator is not None:
-            # softmax sampling of the last level (ref vector_quantizer.py:148-153)
+            # softmax sampling of the last level (ref vector_quantizer.py:148-153); a CPU
+            # multinomial, on no captured path (the task's step and emit never sample)
             probs = torch.softmax(-d.double(), dim=-1).cpu()
             return torch.multinomial(probs, 1, generator=generator)[:, 0].to(d.device)
         return torch.argmin(d, dim=-1)
@@ -244,16 +257,18 @@ class RQVAE(nn.Module):
                 diversity_labels: Optional[torch.Tensor] = None,
                 diversity_noise: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                sample_last: bool = False) -> dict:
+                sample_last: bool = False,
+                seed_table: Optional[torch.Tensor] = None) -> dict:
         """dict(out, rq_loss, indices, x_e, x_q). `deterministic=False`
         trains: BatchNorm on batch statistics (moving its running ones) and
-        dropout at `dropout_prob`, seeds drawn from `generator`."""
+        dropout at `dropout_prob`, its seeds read from `seed_table` (int32
+        [dropout_sites] on the device) or else drawn from `generator`."""
         seeds = None
         if not deterministic and self.cfg.dropout_prob > 0:
-            if generator is None:
+            source = seed_table if seed_table is not None else generator
+            if source is None:
                 raise ValueError("training dropout needs a torch.Generator for its seeds")
-            n = self.encoder.depth + self.decoder.depth
-            seeds = torch.randint(0, 2 ** 31 - 1, (n,), generator=generator).tolist()
+            seeds = site_seeds(source, self.dropout_sites, self.device)
         train = not deterministic
         x_e = self.encoder(x, train, None if seeds is None else seeds[:self.encoder.depth])
         x_q, rq_loss, indices = self.quantize(
@@ -279,6 +294,22 @@ class RQVAE(nn.Module):
             idx = self._assign(residual, level, False, False, None)
             residual = residual - self.book(level)[idx]
         return _sq_dists(residual, self.book(c.num_levels - 1))
+
+
+def training_draws(model: RQVAE, B: int, generator: torch.Generator) -> dict:
+    """The host draws of one training forward of `model` on B rows with
+    the diversity loss on, from `generator` in the order the forward draws
+    them: the dropout seed table ("seeds", int32, with dropout), then each
+    level's Gumbel noise ("noise_<level>", [B, n_level] float32, when beta
+    > 0). CPU tensors, to be staged."""
+    c = model.cfg
+    out = {}
+    if model.dropout_sites:
+        out["seeds"] = draw(generator, model.dropout_sites).to(torch.int32)
+    if c.beta > 0:
+        for level, n in enumerate(c.num_emb_list):
+            out[f"noise_{level}"] = _gumbel((B, n), generator, "cpu")
+    return out
 
 
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:

@@ -11,7 +11,8 @@ Dropout (training) is the stateless hash of `modules/dropout.py` at every
 site where flax's `nn.Dropout` draws from its rng stream: the attention
 probabilities, the attention and FFN residual branches and the FFN
 activation, one int32 seed a site in call order (`DropoutSeeds`, passed to
-each module as `drop`). The additive mask is `ops/masks.NEG_INF`, as in JAX.
+each module as `drop`): drawn from a CPU generator, or read from the step's
+seed table in device memory. The additive mask is `ops/masks.NEG_INF`, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 from gamer_tpu_torch.modules.dropout import hash_dropout, hash_dropout_add
 from gamer_tpu_torch.modules.layers import Embedding
 from gamer_tpu_torch.ops.masks import NEG_INF
+from gamer_tpu_torch.ops.seeds import DeviceSeed
 
 
 def _act(name: str) -> Callable:
@@ -35,27 +37,36 @@ def _act(name: str) -> Callable:
 
 
 class DropoutSeeds:
-    """One int32 seed a dropout site, drawn in call order from a CPU
-    `torch.Generator`; `None` in place of the generator means no dropout
-    (`deterministic=True`)."""
+    """One int32 seed a dropout site, in call order, from `source`: a CPU
+    `torch.Generator` (each drawn into Python as the site runs) or the step's
+    seed table, an int32 tensor on the model's device whose entry i is site
+    i's seed (`ops/seeds.DeviceSeed`, read on the device: the form a captured
+    step needs). A table drawn by `ops/seeds.draw` from a generator gives the
+    seeds that generator gives here, bit for bit. `None` in place of a source
+    means no dropout (`deterministic=True`). Each model states its site count
+    (`dropout_sites`); `taken` counts the seeds handed out."""
 
-    def __init__(self, generator: Optional[torch.Generator], rate: float):
-        self.generator, self.rate = generator, rate
+    def __init__(self, source, rate: float):
+        self.source, self.rate = source, rate
+        self.taken = 0
 
-    def _seed(self) -> int:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
+    def _seed(self):
+        i, self.taken = self.taken, self.taken + 1
+        if isinstance(self.source, torch.Tensor):
+            return DeviceSeed(self.source, i)
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.source))
 
     def __call__(self, x: torch.Tensor, rate: Optional[float] = None) -> torch.Tensor:
         """Hash dropout of `x` at `rate` (default: the model's) under the
         next seed; `x` itself when deterministic."""
-        if self.generator is None:
+        if self.source is None:
             return x
         return hash_dropout(x, self._seed(), self.rate if rate is None else rate)
 
     def add(self, r: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """`r + self(y)` in one pass (a residual site; one K1 launch on the
         card); `r + y` when deterministic."""
-        if self.generator is None:
+        if self.source is None:
             return r + y
         return hash_dropout_add(r, y, self._seed(), self.rate)
 

@@ -53,7 +53,7 @@ def apply_mask(x: torch.Tensor, seed, threshold: int, keep_prob: float) -> torch
     """Plain version of K1 without a residual and of K2: where(keep, x *
     scale, 0), the scale rounded to x's dtype first."""
     keep = hash_keep_mask(seed, x.shape, threshold, x.device)
-    scale = torch.tensor(1.0 / keep_prob, dtype=x.dtype, device=x.device)
+    scale = torch.full((), 1.0 / keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -14,7 +14,13 @@ collision rate, and the k-means init's cluster sizes and time. Batches are
 row slices of one numpy permutation an epoch, wrapped around to whole batches; each step's
 diversity positives come from a CPU `torch.Generator` seeded by (seed,
 epoch, row offset), where the JAX package folds them into its rng key.
-Plain PyTorch on the task's device (`--device`); one process.
+Plain PyTorch on the task's device (`--device`); one process. The two
+functions JAX jits, the training step and the emit, are `RQVAEStep` and
+`RQVAEEmit`: the host stages row indices into the resident embeddings and
+the step's draws into static device buffers, and the device part is
+captured on the card as a CUDA graph and replayed; a step's losses stay
+on the card until the epoch's end. The k-means init and the reclustering
+run eagerly, once a level and once an epoch.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.contract import DataFiles
-from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig, rqvae_loss
+from gamer_tpu_torch.core.graphs import StagedGraphs
+from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig, rqvae_loss, training_draws
 from gamer_tpu_torch.ops.kmeans import balanced_kmeans, cluster_codebook
 from gamer_tpu_torch.tasks.base import (
     Task, add_dataset_args, add_global_args, add_ref_compat_args, task_device)
+from gamer_tpu_torch.train.staging import Staging
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
 logger = get_logger("tasks.rqvae")
@@ -89,28 +97,134 @@ def collision_rate(indices: np.ndarray) -> float:
     return (len(indices) - len(uniq)) / len(indices)
 
 
-def train_step(model: RQVAE, optimizer, x: torch.Tensor, cf: torch.Tensor | None,
-               diversity_labels: torch.Tensor | None, generator: torch.Generator,
-               diversity_noise=None) -> tuple[torch.Tensor, dict]:
-    """One optimizer step on batch `x` (BatchNorm's running statistics move
-    in the forward); `diversity_noise` hands over the Gumbel noise of the
-    diversity positives, else `generator` draws it. Returns (loss, aux)."""
+def _step(model: RQVAE, optimizer, x: torch.Tensor, cf: torch.Tensor | None,
+          diversity_labels: torch.Tensor | None, **forward) -> tuple[torch.Tensor, dict]:
+    """Forward, backward and the optimizer's device half on batch `x`
+    (BatchNorm's running statistics move in the forward); `forward` gives
+    the forward its draws. Returns (loss, aux), detached."""
     cfg = model.cfg
     model.zero_grad(set_to_none=True)
     out = model(x, use_sk=True, deterministic=False,
-                diversity_labels=diversity_labels if cfg.beta > 0 else None,
-                diversity_noise=diversity_noise, generator=generator)
+                diversity_labels=diversity_labels if cfg.beta > 0 else None, **forward)
     loss, aux = rqvae_loss(cfg, out, x, cf)
     loss.backward()
-    optimizer.step({n: p.grad if p.grad is not None else torch.zeros_like(p)
-                    for n, p in model.named_parameters()})
+    optimizer.apply({n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in model.named_parameters()})
     model.zero_grad(set_to_none=True)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def train_step(model: RQVAE, optimizer, x: torch.Tensor, cf: torch.Tensor | None,
+               diversity_labels: torch.Tensor | None, generator: torch.Generator,
+               diversity_noise=None) -> tuple[torch.Tensor, dict]:
+    """One optimizer step on batch `x`, its draws made from `generator`
+    inside the forward; `diversity_noise` hands over the Gumbel noise of
+    the diversity positives instead. Returns (loss, aux). The unstaged form
+    of `RQVAEStep`, which equals it."""
+    optimizer.prepare()
+    return _step(model, optimizer, x, cf, diversity_labels, generator=generator,
+                 diversity_noise=diversity_noise)
 
 
 def step_generator(seed: int, epoch: int, row: int) -> torch.Generator:
     """The diversity-noise generator of the step at `row` of `epoch`."""
     return torch.Generator().manual_seed((seed * 1_000_003 + epoch * 100_003 + row) % 2 ** 63)
+
+
+AUX = ("recon_loss", "quant_loss", "cf_loss")  # the parts of a step's loss, in `RQVAEStep`'s order
+
+
+class RQVAEStep:
+    """JAX's jitted `train_step` of the task in two parts. The host part
+    (`stage`) writes the batch's row indices into the resident embeddings
+    `x` (and CF embeddings `cf`), the forward's draws from the step's
+    generator (`models/tokenizer/rqvae.training_draws`: the dropout seed
+    table, then each level's Gumbel noise, as the unstaged forward draws
+    them) and the optimizer's scalars into static device buffers. The
+    device part (`device_part`) gathers the rows, then runs forward (BatchNorm's running
+    statistics move there), backward and the optimizer's device half
+    (kernel L on the card), and returns [loss, *AUX] on the device, read by
+    the caller once an epoch. It reads the diversity labels from their own
+    static buffer, rewritten at each recluster (`set_labels`). On the card
+    it is captured once per batch geometry and replayed
+    (`core/graphs.StagedGraphs`, "rq-vae training step"); `graphed=False`
+    runs it eagerly. Either way it equals `train_step` with the same
+    generator bit for bit."""
+
+    def __init__(self, model: RQVAE, optimizer, x: torch.Tensor, cf: torch.Tensor | None = None,
+                 graphed: bool = True):
+        self.model, self.optimizer, self.x, self.cf = model, optimizer, x, cf
+        c = model.cfg
+        self.labels = torch.zeros((c.num_levels, max(c.num_emb_list)), dtype=torch.int64,
+                                  device=x.device)
+        self._labels_in = Staging({"labels": self.labels})
+        self.calls = StagedGraphs(x.device, "rq-vae training step", graphed)
+
+    def set_labels(self, labels) -> None:
+        """The diversity clusters [levels, max codebook size], into their
+        static buffer."""
+        self._labels_in.write({"labels": labels})
+
+    def stage(self, rows: np.ndarray, generator: torch.Generator) -> tuple[tuple, dict]:
+        """The host part: (the key, {name: static device buffer})."""
+        key, static = self.calls.stage({"rows": np.asarray(rows, np.int64),
+                                        **training_draws(self.model, len(rows), generator)})
+        self.optimizer.prepare()
+        return key, static
+
+    def device_part(self, static: dict) -> torch.Tensor:
+        """One step on the staged rows and draws: [loss, *AUX]."""
+        rows = static["rows"]
+        noise = ([static[f"noise_{lvl}"] for lvl in range(self.model.cfg.num_levels)]
+                 if "noise_0" in static else None)
+        loss, aux = _step(self.model, self.optimizer, self.x[rows],
+                          self.cf[rows] if self.cf is not None else None, self.labels,
+                          diversity_noise=noise, seed_table=static.get("seeds"))
+        return torch.stack([loss, *(aux[k] for k in AUX)])
+
+    def __call__(self, rows: np.ndarray, generator: torch.Generator) -> torch.Tensor:
+        """One optimizer step on rows `rows` of `x`: [loss, *AUX] on the
+        device. A graph's update reads the optimizer's record table, kept
+        with it."""
+        key, static = self.stage(rows, generator)
+        return self.calls.run(key, self.device_part, static,
+                              hold=lambda: self.optimizer.last_table)
+
+
+def train_epoch(step: RQVAEStep, order: np.ndarray, batch_size: int, seed: int,
+                epoch: int) -> list:
+    """The steps of one epoch over `order` (row indices, a whole number of
+    batches): [[loss, *AUX] a step], read from the device once, at the end."""
+    outs = [step(order[s:s + batch_size], step_generator(seed, epoch, s))
+            for s in range(0, len(order), batch_size)]
+    return torch.stack(outs).tolist()
+
+
+class RQVAEEmit:
+    """JAX's jitted `emit_indices` over every item: the rows of `x` in
+    chunks of `batch_size`, the last padded by wrapping to the first rows
+    (JAX emits over the padded epoch order), each chunk's row indices
+    staged and its codes (`RQVAE.get_indices`: greedy, BatchNorm on its
+    running statistics) computed by one device part, captured on the card
+    once ("rq-vae emit") and replayed; `graphed=False` runs it eagerly."""
+
+    def __init__(self, model: RQVAE, x: torch.Tensor, batch_size: int, graphed: bool = True):
+        self.model, self.x, self.batch_size = model, x, batch_size
+        self.calls = StagedGraphs(x.device, "rq-vae emit", graphed)
+
+    def device_part(self, static: dict) -> torch.Tensor:
+        return self.model.get_indices(self.x[static["rows"]])
+
+    def __call__(self) -> np.ndarray:
+        """[n, levels] codes of the n rows of `x`, in row order."""
+        n = len(self.x)
+        pad_n = -(-n // self.batch_size) * self.batch_size
+        rows = np.arange(pad_n, dtype=np.int64) % n
+        out = []
+        for s in range(0, pad_n, self.batch_size):
+            key, static = self.calls.stage({"rows": rows[s:s + self.batch_size]})
+            out.append(self.calls.run(key, self.device_part, static))
+        return torch.cat(out).cpu().numpy()[:n]
 
 
 @TASKS.register("RQVAE")
@@ -223,7 +337,8 @@ class TrainRQVAE(Task):
         best_loss, best_collision = np.inf, np.inf
         np_rng = np.random.default_rng(seed)
         max_n = max(cfg.num_emb_list)
-        div_labels = torch.zeros((cfg.num_levels, max_n), dtype=torch.int64, device=dev)
+        step = RQVAEStep(model, optimizer, x, cf_all)
+        emit = RQVAEEmit(model, x, batch_size)
         pad_n = ((n + batch_size - 1) // batch_size) * batch_size
         history, epoch_s, epoch_means = [], [], []
 
@@ -231,25 +346,22 @@ class TrainRQVAE(Task):
             t0 = time.perf_counter()
             if cfg.beta > 0 and epoch % recluster_every == 0:
                 books = model.codebooks.detach()
-                div_labels = torch.as_tensor(np.stack([
+                step.set_labels(np.stack([
                     np.pad(cluster_codebook(books[lvl, :cfg.num_emb_list[lvl]],
                                             # small codebooks can't fill n_clusters
                                             min(cfg.n_clusters, cfg.num_emb_list[lvl]),
                                             seed + epoch + lvl),
                            (0, max_n - cfg.num_emb_list[lvl]))
-                    for lvl in range(cfg.num_levels)]), device=dev)
+                    for lvl in range(cfg.num_levels)]))
             order = np_rng.permutation(n)
             order = np.concatenate([order, order[:pad_n - n]])
-            ep_loss, n_steps, parts = 0.0, 0, {}
-            for s in range(0, pad_n, batch_size):
-                idx = torch.as_tensor(order[s:s + batch_size], device=dev)
-                loss, aux = train_step(model, optimizer, x[idx],
-                                       cf_all[idx] if cf_all is not None else None,
-                                       div_labels, step_generator(seed, epoch, s))
-                ep_loss += float(loss)
-                for k, v in aux.items():
-                    parts[k] = parts.get(k, 0.0) + float(v)
-                n_steps += 1
+            rows = train_epoch(step, order, batch_size, seed, epoch)
+            # summed in step order: the floats of a read a step
+            ep_loss, n_steps, parts = 0.0, len(rows), {k: 0.0 for k in AUX}
+            for loss, *aux in rows:
+                ep_loss += loss
+                for k, v in zip(AUX, aux):
+                    parts[k] += v
             ep_loss /= max(n_steps, 1)
             epoch_s.append(time.perf_counter() - t0)
             epoch_means.append({"loss": ep_loss, **{k: v / n_steps for k, v in parts.items()}})
@@ -257,9 +369,7 @@ class TrainRQVAE(Task):
                 raise ValueError("Training loss is nan")
 
             if (epoch + 1) % eval_step == 0 or epoch == epochs - 1:
-                emitted = np.concatenate([model.get_indices(x[s:s + batch_size]).cpu().numpy()
-                                          for s in range(0, n, batch_size)])
-                coll = collision_rate(emitted)
+                coll = collision_rate(emit())
                 history.append({"epoch": epoch, "collision_rate": coll, **epoch_means[-1]})
                 writer.log({"train/loss": ep_loss, "eval/collision_rate": coll}, step=epoch)
                 logger.info("epoch %d: loss %.4f collision %.4f", epoch, ep_loss, coll)

@@ -18,8 +18,13 @@ Each training step draws its masked-LM positions and its hash-dropout
 seeds from a CPU `torch.Generator` seeded by (seed, epoch * 10007 + batch
 offset) (`step_generator`), where the JAX task folds the same number into
 its rng key. Plain PyTorch on the task's device (`--device`), fp32, one
-process: the JAX task does not shard either. The result carries the JAX
-task's keys and the per-step losses.
+process: the JAX task does not shard either; the dropout runs on kernels
+K1/K2 and the update on kernel L on the card. The two functions JAX jits,
+the training step and the scorer, are `RecTrainStep` and `RecScorer`: a
+host part that stages the batch and the step's draws into static device
+buffers (no pageable copy in the loop), and a device part captured on the
+card as a CUDA graph once per batch geometry and replayed. The result
+carries the JAX task's keys and the per-step losses.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
+from gamer_tpu_torch.core.graphs import StagedGraphs
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.core.registry import TASKS
@@ -39,7 +45,9 @@ from gamer_tpu_torch.data.contract import DataFiles
 from gamer_tpu_torch.data.smb import SMBCorpus
 from gamer_tpu_torch.data.smb_dis import DisBatcher, SMBDisBuilder
 from gamer_tpu_torch.models.discriminative import DIS_MODELS, DisModelConfig, dis_calculate_loss
+from gamer_tpu_torch.models.discriminative.base import draw_uniforms, training_draws
 from gamer_tpu_torch.tasks.base import Task, add_dataset_args, add_global_args, task_device
+from gamer_tpu_torch.train.staging import as_array
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
 logger = get_logger("tasks.train_smb_rec")
@@ -82,8 +90,10 @@ def build_dis_model(backbone: str, cfg: DisModelConfig, n_items: int, max_his_le
 
 def make_dis_loss_fn(backbone: str, model, cfg: DisModelConfig) -> Callable:
     """loss_fn(batch, generator, uniforms=None) -> scalar training loss;
-    `batch` holds the collated tensors on the model's device, `uniforms`
-    optionally the masked-LM draws (the models' `calculate_loss`)."""
+    `batch` holds the collated tensors on the model's device, `generator`
+    the CPU generator of the forward's draws or its seed table on the
+    device, `uniforms` the masked-LM draws (the models' `calculate_loss`;
+    needed with a seed table)."""
 
     def loss_fn(batch, generator: Optional[torch.Generator], uniforms=None):
         rv = batch.get("row_valid")
@@ -184,13 +194,11 @@ def step_generator(seed: int, key: int) -> torch.Generator:
     return torch.Generator().manual_seed((seed * 1_000_003 + key) % 2 ** 63)
 
 
-def to_device(batch: dict, dev: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-
-
 def train_step(model, optimizer, loss_fn: Callable, batch: dict,
                generator: torch.Generator, uniforms=None) -> torch.Tensor:
-    """One optimizer step; returns the loss (a detached device tensor)."""
+    """One optimizer step on a batch of device tensors, its draws made from
+    `generator` inside the forward; returns the loss (a detached device
+    tensor). The unstaged form of `RecTrainStep`, which equals it."""
     model.zero_grad(set_to_none=True)
     loss = loss_fn(batch, generator, uniforms)
     loss.backward()
@@ -198,6 +206,82 @@ def train_step(model, optimizer, loss_fn: Callable, batch: dict,
                     for n, p in model.named_parameters()})
     model.zero_grad(set_to_none=True)
     return loss.detach()
+
+
+class RecTrainStep:
+    """JAX's jitted training step of the task (`train_step` in
+    `gamer_tpu/tasks/train_smb_rec.py`) in two parts, as `train/loop.Trainer`
+    splits its step. The host part (`stage`) writes the collated batch, the
+    forward's draws from the step's generator (`training_draws`: the
+    masked-LM uniforms, then the dropout seed table, in the order the
+    unstaged forward draws them) and the optimizer's scalars
+    (`Optimizer.prepare`) into static device buffers. The device part
+    (`device_part`) is the forward, the backward and the optimizer's device
+    half (kernel L on the card) on those buffers; it reads nothing into
+    Python and copies nothing from the host. On the card it is captured once
+    per batch geometry and replayed (`core/graphs.StagedGraphs`, "rec
+    training step"); `graphed=False` runs it eagerly. Either way it equals
+    `train_step` with the same generator bit for bit: the same draws, and
+    the same kernels in the same order."""
+
+    def __init__(self, backbone: str, model, cfg: DisModelConfig, optimizer,
+                 graphed: bool = True):
+        self.model, self.optimizer = model, optimizer
+        self.loss_fn = make_dis_loss_fn(backbone, model, cfg)
+        self.calls = StagedGraphs(optimizer.scalars.device, "rec training step", graphed)
+
+    def stage(self, batch: dict, generator: torch.Generator) -> tuple[tuple, dict]:
+        """The host part: (the key, {name: static device buffer})."""
+        B, L = np.shape(batch["inputs"])
+        key, static = self.calls.stage({**{n: as_array(v) for n, v in batch.items()},
+                                        **training_draws(self.model, B, L, generator)})
+        self.optimizer.prepare()
+        return key, static
+
+    def device_part(self, static: dict) -> torch.Tensor:
+        """Forward, backward and update on the staged buffers; the loss."""
+        self.model.zero_grad(set_to_none=True)
+        loss = self.loss_fn(static, static["seeds"], draw_uniforms(static))
+        loss.backward()
+        self.optimizer.apply({n: p.grad if p.grad is not None else torch.zeros_like(p)
+                              for n, p in self.model.named_parameters()})
+        self.model.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    def __call__(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
+        """One optimizer step; the loss, a detached device tensor. A graph's
+        update reads the optimizer's record table, kept with it."""
+        key, static = self.stage(batch, generator)
+        return self.calls.run(key, self.device_part, static,
+                              hold=lambda: self.optimizer.last_table)
+
+
+# the batch arrays each backbone's scorer reads
+SCORE_INPUTS = {"SASRec": ("inputs", "seq_len"), "GRU4Rec": ("inputs", "seq_len"),
+                "BERT4Rec": ("inputs", "seq_len"), "MBSTR": ("inputs", "behaviors", "seq_len"),
+                "MBHT": ("inputs", "behaviors", "seq_len"),
+                "PBAT": ("inputs", "behaviors", "uid", "seq_len")}
+
+
+class RecScorer:
+    """JAX's jitted full-sort scorer (`make_score_fn`) in two parts: the
+    host part stages the arrays of an eval batch that the backbone reads
+    (`SCORE_INPUTS`) and, for the sampled eval, its `all_item`, which JAX's
+    trace is keyed on too; the device part scores them (`make_score_fn`).
+    The task pads every eval chunk to the eval batch size, as JAX does, so
+    the card captures one graph per key ("rec scorer") and replays it;
+    `graphed=False` scores eagerly. The ranking stays on the host."""
+
+    def __init__(self, backbone: str, model, device, graphed: bool = True):
+        self.score_fn = make_score_fn(backbone, model)
+        self.names = SCORE_INPUTS[backbone]
+        self.calls = StagedGraphs(device, "rec scorer", graphed)
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        """[B, n_items + 1] scores, on the device."""
+        names = self.names + (("all_item",) if "all_item" in batch else ())
+        key, static = self.calls.stage({n: as_array(batch[n]) for n in names})
+        return self.calls.run(key, self.score_fn, static)
 
 
 @TASKS.register("train_SMB_rec")
@@ -286,8 +370,7 @@ class TrainSMBRec(Task):
         model = build_dis_model(backbone, cfg, builder.num_items, batch_len,
                                 len(corpus.behavior_names), len(corpus.users), dev, seed)
         batcher = DisBatcher.for_examples(train + valid + test, seq_len=batch_len)
-        loss_fn = make_dis_loss_fn(backbone, model, cfg)
-        score_fn = make_score_fn(backbone, model)
+        scorer = RecScorer(backbone, model, dev)
         n_params = sum(p.numel() for p in model.parameters())
         logger.info("%s parameters: %.2fM", backbone, n_params / 1e6)
 
@@ -295,6 +378,7 @@ class TrainSMBRec(Task):
             optim=optim, learning_rate=learning_rate, weight_decay=weight_decay,
             lr_scheduler_type="constant", warmup_ratio=0.0, max_grad_norm=0.0,
             total_steps=epochs * max(len(train) // batch_size, 1)), model)
+        step = RecTrainStep(backbone, model, cfg, optimizer)
 
         def evaluate(examples, behavior_filter=None):
             sums = {m: 0.0 for m in metric_list}
@@ -311,7 +395,7 @@ class TrainSMBRec(Task):
                 if n_real < eval_batch_size:
                     chunk = list(chunk) + [chunk[0]] * (eval_batch_size - n_real)
                 batch = eb.collate(chunk)
-                scores = score_fn(to_device(batch, dev))[:n_real].cpu().numpy()
+                scores = scorer(batch)[:n_real].cpu().numpy()
                 if not np.isfinite(scores).all() and not getattr(
                         self, "_warned_nonfinite", False):
                     self._warned_nonfinite = True
@@ -343,9 +427,8 @@ class TrainSMBRec(Task):
                 losses = []
                 for s in range(0, len(order) - batch_size + 1, batch_size):
                     idx = order[s:s + batch_size]
-                    batch = to_device(batcher.collate([train[j] for j in idx]), dev)
-                    losses.append(train_step(model, optimizer, loss_fn, batch,
-                                             step_generator(seed, epoch * 10007 + s)))
+                    losses.append(step(batcher.collate([train[j] for j in idx]),
+                                       step_generator(seed, epoch * 10007 + s)))
                     if logging_step and len(losses) % logging_step == 0:
                         logger.info("epoch %d step %d: loss %.4f", epoch, len(losses),
                                     float(torch.stack(losses[-logging_step:]).mean()))

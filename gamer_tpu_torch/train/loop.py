@@ -31,7 +31,7 @@ once per (input shapes and dtypes, accumulation phase) as a CUDA graph, as
 `jax.jit` traces once per shape: the first step of each runs eagerly on a
 side stream (PyTorch's whole-network capture recipe: the warm-up is the
 real step), then the capture records it, and every later step replays it
-(`core/graphs.GraphCache`). All training-step graphs of a `Trainer` share
+(`core/graphs.StagedGraphs`). All training-step graphs of a `Trainer` share
 one memory pool. `graphed=False` keeps the eager device part (the same
 code, launched op by op); a model without a seed table (`dropout_sites`)
 gets the generator itself and runs only eagerly. A capture that fails
@@ -76,10 +76,10 @@ import torch
 from gamer_tpu_torch.core import distributed
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
-from gamer_tpu_torch.core.graphs import GraphCache, capture_enabled
+from gamer_tpu_torch.core.graphs import StagedGraphs
 from gamer_tpu_torch.core.metrics import MetricWriter
 from gamer_tpu_torch.ops.seeds import draw
-from gamer_tpu_torch.train.staging import Staging, StaticInputs, as_array
+from gamer_tpu_torch.train.staging import Staging, as_array
 from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
 logger = logging.getLogger("gamer_tpu_torch.train")
@@ -148,8 +148,7 @@ class Trainer:
         self._div = torch.ones((), dtype=torch.float32, device=self.device)
         self._per_step = Staging({"div": self._div} if self._seeds is None
                                  else {"div": self._div, "seeds": self._seeds})
-        self._inputs = StaticInputs(self.device)
-        self._graphs = GraphCache(self.device, "training step")
+        self.calls = StagedGraphs(self.device, "training step", graphed)
         self._eval: EvalStep | None = None
 
     # ------------------------------------------------------------------ steps
@@ -176,12 +175,12 @@ class Trainer:
     def captures(self) -> bool:
         """Whether the device part is captured and replayed as CUDA graphs:
         on the card, `graphed`, and without a process group."""
-        return capture_enabled(self.graphed, self.device)
+        return self.calls.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per input geometry and accumulation phase."""
-        return len(self._graphs)
+        return self.calls.graphs
 
     def _prepare(self, batch: dict, mini: int, k: int) -> tuple[dict, Any]:
         """The host part of a micro-step: the batch into its static device
@@ -189,7 +188,7 @@ class Trainer:
         and on the update micro-step the optimizer's scalars. Returns (the
         device batch, the seed table or, for a model without one, the
         generator)."""
-        _, static = self._inputs.write({n: as_array(v) for n, v in batch.items()})
+        _, static = self.calls.stage({n: as_array(v) for n, v in batch.items()})
         per_step = {"div": np.float32(mini + 1)}
         seeds = self.generator(self.step)
         if self._seeds is not None:
@@ -247,7 +246,8 @@ class Trainer:
         key = (tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()), phase)
         # an update's graph reads the optimizer's record table: kept with it
         hold = (lambda: self.optimizer.last_table) if mini == k - 1 else None
-        return self._graphs.run(key, lambda: self._device_step(inputs, seeds, mini, k), hold)
+        return self.calls.run(key, lambda static: self._device_step(static, seeds, mini, k),
+                              inputs, hold)
 
     @property
     def updates(self) -> int:
@@ -442,7 +442,7 @@ class EvalStep:
 
     `add(batch)` is one batch in two parts. The host part stages the
     batch's arrays and its valid-row count (the sum of "row_valid", else 1)
-    into static device buffers (`train/staging.StaticInputs`). The device
+    into static device buffers (`core/graphs.StagedGraphs`). The device
     part runs the loss and adds loss * w and w into `sums` ([total,
     weight], of `dtype`), w being aux "denom" (the valid-target count) where
     the loss gives one and `by_rows` is off, else the valid rows; it reads
@@ -456,21 +456,19 @@ class EvalStep:
                  by_rows: bool = False):
         self.loss_fn = loss_fn
         self.device = torch.device(device)
-        self.graphed = graphed
         self.by_rows = by_rows
         self.sums = torch.zeros(2, dtype=dtype, device=self.device)
-        self._inputs = StaticInputs(self.device)
-        self._graphs = GraphCache(self.device, "eval step")
+        self.calls = StagedGraphs(self.device, "eval step", graphed)
 
     @property
     def captures(self) -> bool:
         """As `Trainer.captures`: on the card, `graphed`, without a group."""
-        return capture_enabled(self.graphed, self.device)
+        return self.calls.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per input key."""
-        return len(self._graphs)
+        return self.calls.graphs
 
     def reset(self) -> None:
         self.sums.zero_()
@@ -479,8 +477,8 @@ class EvalStep:
         """The host part: (the input key, the static device batch, whose
         "row_w" entry is the batch's valid-row count)."""
         rows = float(np.asarray(batch.get("row_valid", np.ones(1))).sum())
-        return self._inputs.write({**{n: as_array(v) for n, v in batch.items()},
-                                   "row_w": torch.tensor(rows, dtype=self.sums.dtype)})
+        return self.calls.stage({**{n: as_array(v) for n, v in batch.items()},
+                                 "row_w": torch.tensor(rows, dtype=self.sums.dtype)})
 
     def device_part(self, static: dict) -> None:
         """Adds the batch's loss * w and w into `sums`."""
@@ -493,10 +491,7 @@ class EvalStep:
     @torch.no_grad()
     def add(self, batch: dict) -> None:
         key, static = self.stage(batch)
-        if self.captures:
-            self._graphs.run(key, lambda: self.device_part(static))
-        else:
-            self.device_part(static)
+        self.calls.run(key, self.device_part, static)
 
 
 def _weight(batch: dict, aux: dict, device) -> torch.Tensor:

@@ -271,7 +271,8 @@ def zoo(card: str, lookups: dict, layers) -> None:
                                              lr_scheduler_type="constant", warmup_ratio=0.0,
                                              max_grad_norm=0.0), model)
         loss_fn = TR.make_dis_loss_fn(backbone, model, cfg)
-        batch = TR.to_device(cs.random_rec_batch(256, L, his, n_items, n_users, 0), "cuda")
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in cs.random_rec_batch(256, L, his, n_items, n_users, 0).items()}
         tables = [f"{n}.weight" for n, m in model.named_modules()
                   if isinstance(m, torch.nn.Embedding)]
         times, same = {k: [] for k in lookups}, {}

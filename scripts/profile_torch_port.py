@@ -2,6 +2,7 @@
 
     python3 scripts/profile_torch_port.py        # the flagship paths
     python3 scripts/profile_torch_port.py rec    # the discriminative zoo
+    python3 scripts/profile_torch_port.py rqvae  # the RQ-VAE tokenizer
 
 Traces, with torch.profiler (CPU + CUDA activities), three steady-state
 iterations of the flagship Qwen3Multi scoring forward (bf16, batch 64 x
@@ -26,11 +27,18 @@ kernel by name for all three and is counted in no group. Needs CUDA;
 builds the kernels first.
 
 With `rec` it traces instead three training steps (forward, backward, AdamW
-update; `tasks/train_smb_rec.train_step`) of each discriminative backbone
-at its shipped config and `chip_smoke.py` phase 13's geometry (batch 256 x
-20, 6000 items, 700 users, a random batch, dropout on), fp32, no kernel of
-a-k (the dropout runs on K1 and K2, the update on kernel L; the zoo's own
-loop is not captured as a CUDA graph).
+update; `tasks/train_smb_rec.RecTrainStep`, its host part staging a host
+batch and the step's draws) of each discriminative backbone at its shipped
+config and `chip_smoke.py` phase 13's geometry (batch 256 x 20, 6000
+items, 700 users, a random batch, dropout on), fp32, no kernel of a-k (the
+dropout runs on K1 and K2, the update on kernel L), each compiled (a CUDA
+graph replayed) and eager (`graphed=False`). With `rqvae` it traces three
+RQ-VAE training steps (`tasks/rqvae.RQVAEStep`: `chip_smoke.py` phase 12's
+shipped widths, batch 1024 of 6000 random 768-d items, CF and diversity
+losses on), three emits over the 6000 items (`RQVAEEmit`) and two of the
+task's epochs (the reclustering of every codebook, then 6 steps), each
+compiled and eager, and the reclustering alone (k-means, eager in both:
+host round trips).
 """
 
 from __future__ import annotations
@@ -93,30 +101,97 @@ def _profile(fn, iters: int, label: str, top: int = 14, width: int = 80) -> None
 
 def profile_rec(n_items: int = 6000, n_users: int = 700, batch_size: int = 256,
                 his: int = 20) -> None:
-    """Three training steps of each zoo backbone (see the module docstring)."""
-    import torch
-
+    """Three training steps of each zoo backbone, compiled and eager (see
+    the module docstring)."""
     import chip_smoke as cs
     from gamer_tpu_torch.models.discriminative import DisModelConfig
     from gamer_tpu_torch.tasks import train_smb_rec as TR
-    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
 
     for backbone in cs.PHASE13_BACKBONES:
         cfg = DisModelConfig.from_file(os.path.join(REPO, "config", "dis-models", backbone))
         L = his + 1 if backbone == "MBHT" else his
         if backbone == "MBHT":
             cfg = cfg.replace(scales=[5, 3, 7])  # train_SMB_rec's adjustment at length 21
-        model = TR.build_dis_model(backbone, cfg, n_items, L, 3, n_users, "cuda")
-        opt = make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3, weight_decay=0.0,
-                                             lr_scheduler_type="constant", warmup_ratio=0.0,
-                                             max_grad_norm=0.0), model)
-        loss_fn = TR.make_dis_loss_fn(backbone, model, cfg)
-        batch = TR.to_device(cs.random_rec_batch(batch_size, L, his, n_items, n_users, 0), "cuda")
+        batch = cs.random_rec_batch(batch_size, L, his, n_items, n_users, 0)
+        for graphed in (True, False):
+            model = TR.build_dis_model(backbone, cfg, n_items, L, 3, n_users, "cuda")
+            step = TR.RecTrainStep(backbone, model, cfg, _adamw(model), graphed)
+            gens = iter(range(1 << 30))
+            _profile(lambda: step(batch, TR.step_generator(0, next(gens))), 3,
+                     f"train step {backbone} fp32 B={batch_size} L={L} items={n_items}, "
+                     f"{'compiled' if graphed else 'eager'}", top=8)
+            del model, step
+
+
+def profile_rqvae(n_items: int = 6000, batch_size: int = 1024) -> None:
+    """The RQ-VAE's training step and emit at the shipped widths, compiled
+    and eager, and an epoch's reclustering (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig, training_draws
+    from gamer_tpu_torch.ops.kmeans import cluster_codebook
+    from gamer_tpu_torch.tasks import rqvae as TR
+
+    args = dict(zip(cs.PHASE12_RQ[::2], cs.PHASE12_RQ[1::2]))
+    levels, size = int(args["--num_levels"]), int(args["--num_emb"])
+    cfg = RQVAEConfig(in_dim=768, num_emb_list=[size] * levels, e_dim=int(args["--e_dim"]),
+                      layers=[int(v) for v in args["--layers"].split(",")],
+                      sk_epsilons=[float(v) for v in args["--sk_epsilons"].split(",")],
+                      alpha=float(args["--alpha"]), beta=float(args["--beta"]))
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((n_items, 768)), dtype=torch.float32, device="cuda")
+    cf = torch.as_tensor(rng.standard_normal((n_items, cfg.e_dim)), dtype=torch.float32,
+                         device="cuda")
+    labels = rng.integers(0, cfg.n_clusters, (levels, size))
+    rows = rng.permutation(n_items)[:batch_size]
+    pad_n = -(-n_items // batch_size) * batch_size
+    order = rng.permutation(n_items)
+    order = np.concatenate([order, order[:pad_n - n_items]])
+    model = RQVAE(cfg, device="cuda", seed=0)
+    times = []
+    for i in range(5):  # the host part's draws alone (the step's generator, as the task's)
+        t = time.perf_counter()
+        training_draws(model, batch_size, TR.step_generator(0, 0, i))
+        times.append(time.perf_counter() - t)
+    print(f"RQ-VAE host draws of a step B={batch_size} (Gumbel noise of {levels} levels): "
+          f"{1e3 * float(np.median(times)):.3f} ms median of 5 (host time)")
+    for graphed in (True, False):
+        form = "compiled" if graphed else "eager"
+        model = RQVAE(cfg, device="cuda", seed=0)
+        step = TR.RQVAEStep(model, _adamw(model), x, cf, graphed)
+        step.set_labels(labels)
         gens = iter(range(1 << 30))
-        _profile(lambda: TR.train_step(model, opt, loss_fn, batch,
-                                       TR.step_generator(0, next(gens))), 3,
-                 f"train step {backbone} fp32 B={batch_size} L={L} items={n_items}", top=8)
-        del model, opt
+        _profile(lambda: step(rows, TR.step_generator(0, 0, next(gens))), 3,
+                 f"RQ-VAE train step B={batch_size} {cfg.in_dim}->{cfg.layers}->{cfg.e_dim}, "
+                 f"{levels}x{size} codes, {form}", top=8)
+        emit = TR.RQVAEEmit(model, x, batch_size, graphed)
+        _profile(emit, 3, f"RQ-VAE emit of {n_items} items in chunks of {batch_size}, {form}",
+                 top=6)
+
+        def epoch():  # the task's epoch: recluster every codebook, then the steps
+            books = model.codebooks.detach()
+            step.set_labels(np.stack([cluster_codebook(books[lvl], cfg.n_clusters, lvl)
+                                      for lvl in range(levels)]))
+            TR.train_epoch(step, order, batch_size, 0, next(gens))
+
+        _profile(epoch, 2, f"RQ-VAE epoch ({levels} reclusterings, {pad_n // batch_size} "
+                 f"steps), {form}", top=6)
+        books = model.codebooks.detach()
+        _profile(lambda: [cluster_codebook(books[lvl], cfg.n_clusters, lvl)
+                          for lvl in range(levels)], 2,
+                 f"an epoch's reclustering alone ({levels} levels of {size} codes), {form} run",
+                 top=6)
+        del model, step, emit
+
+
+def _adamw(model):
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    return make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-3, weight_decay=0.0,
+                                          lr_scheduler_type="constant", warmup_ratio=0.0,
+                                          max_grad_norm=0.0), model)
 
 
 def main() -> int:
@@ -133,9 +208,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}")
-    if sys.argv[1:] == ["rec"]:
+    if sys.argv[1:] in (["rec"], ["rqvae"]):
         torch.backends.cuda.matmul.allow_tf32 = False
-        profile_rec()
+        profile_rec() if sys.argv[1] == "rec" else profile_rqvae()
         return 0
     _build.build()
     cfg = cs.flagship_config()

@@ -1230,3 +1230,119 @@ def test_compiled_encdec_search_matches_eager(dev, tmp_path):
     assert (g_graphs, g_new, e_graphs, e_new) == (1, 1, 0, 0)
     for (gc, gs), (ec, es) in zip(g_outs, e_outs):
         assert torch.equal(gc, ec) and torch.equal(gs, es)
+
+
+# ---- the zoo's and the RQ-VAE's compiled steps, scorer and emit
+
+def _zoo_adamw(model):
+    from gamer_tpu_torch.train.state import OptimizerConfig, make_optimizer
+
+    return make_optimizer(OptimizerConfig(optim="adamw", learning_rate=1e-2, weight_decay=1e-4,
+                                          lr_scheduler_type="constant", warmup_ratio=0.0,
+                                          max_grad_norm=0.0), model)
+
+
+@pytest.mark.parametrize("backbone", ["SASRec", "GRU4Rec", "BERT4Rec", "MBSTR", "MBHT", "PBAT"])
+def test_compiled_rec_step_matches_eager(dev, backbone):
+    """Four `RecTrainStep` steps (2 layers, width 32, 40 items, batch 8,
+    dropout 0.3) compiled and eager from the same weights and generators:
+    losses and every parameter bit-identical; one graph, its warm-up and
+    capture launching K1 and K2 once a dropout site and L1 and L2 once
+    each, the replays nothing from Python; `RecScorer` compiled (capture,
+    replay) and eager bit-identical; a replay of the step under
+    `set_sync_debug_mode("error")` does not raise."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.models.discriminative import DisModelConfig
+    from gamer_tpu_torch.tasks import train_smb_rec as TR
+
+    cfg = DisModelConfig(n_layers=2, n_heads=2, hidden_size=32, inner_size=64,
+                         embedding_size=32, dropout_prob=0.3, scales=[3, 3, 3], hyper_len=3,
+                         num_buckets=8, max_distance=10)
+    L = 9 if backbone == "MBHT" else 8
+    batches = [cs.random_rec_batch(8, L, 8, 40, 12, seed=s) for s in range(4)]
+    counters = _all_counters()
+
+    def run(graphed):
+        model = TR.build_dis_model(backbone, cfg, 40, L, 3, 12, dev, seed=0)
+        step = TR.RecTrainStep(backbone, model, cfg, _zoo_adamw(model), graphed)
+        _reset(counters)
+        captured = GraphCache.captured.get("rec training step", 0)
+        losses = [step(batches[0], TR.step_generator(0, 0))]
+        first = {k: f.launches for k, f in counters.items()}
+        losses += [step(b, TR.step_generator(0, i)) for i, b in enumerate(batches[1:], 1)]
+        again = {k: f.launches - first[k] for k, f in counters.items()}
+        scorer = TR.RecScorer(backbone, model, dev, graphed)
+        scores = [scorer(batches[0]) for _ in range(2)]
+        torch.cuda.synchronize()
+        new = GraphCache.captured.get("rec training step", 0) - captured
+        return ([float(x) for x in losses], model, step, first, again, new, scores)
+
+    g_losses, g_model, g_step, first, again, new, g_scores = run(True)
+    e_losses, e_model, e_step, e_first, _, e_new, e_scores = run(False)
+    assert g_losses == e_losses and np.isfinite(g_losses).all()
+    for (n, p), q in zip(g_model.named_parameters(), e_model.parameters()):
+        assert torch.equal(p, q), n
+    assert all(torch.equal(s, e_scores[0]) for s in g_scores + e_scores[1:])
+    assert (g_step.calls.graphs, new, e_step.calls.graphs, e_new) == (1, 1, 0, 0)
+    per_step = cs.staged_step_launches(g_model, True, counters)
+    assert per_step["hash_dropout_fwd"] == g_model.dropout_sites > 0
+    assert first == {k: 2 * n for k, n in per_step.items()}, first  # warm-up and capture
+    assert not any(again.values()), again
+    assert e_first == per_step, e_first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_step(batches[1], TR.step_generator(0, 9))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("bn", [False, True])
+def test_compiled_rqvae_step_and_emit_match_eager(dev, bn):
+    """Four `RQVAEStep` steps (Sinkhorn on the last level, the CF and
+    diversity losses on, dropout 0.2, BatchNorm off and on) compiled and
+    eager from the same weights: each step's [loss, recon, quant, cf] and
+    every parameter and running statistic bit-identical, one graph, the
+    capture launching K1 and K2 once a layer and L1 and L2 once; then
+    `RQVAEEmit` over 300 rows (a padded last chunk) compiled and eager on
+    each model: the codes equal, one graph."""
+    import chip_smoke as cs
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
+    from gamer_tpu_torch.tasks import rqvae as TR
+
+    cfg = RQVAEConfig(in_dim=96, num_emb_list=[32, 32, 16], e_dim=16, layers=[128, 64], bn=bn,
+                      dropout_prob=0.2, alpha=0.02, beta=0.01, sk_epsilons=[0.0, 0.0, 0.003])
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((300, 96)), dtype=torch.float32, device=dev)
+    cf = torch.as_tensor(rng.standard_normal((300, 16)), dtype=torch.float32, device=dev)
+    labels = rng.integers(0, 4, (3, 32))
+    rows = [rng.permutation(300)[:64] for _ in range(4)]
+    counters = _all_counters()
+
+    def run(graphed):
+        model = RQVAE(cfg, device=dev, seed=1)
+        step = TR.RQVAEStep(model, _zoo_adamw(model), x, cf, graphed)
+        step.set_labels(labels)
+        _reset(counters)
+        before = dict(GraphCache.captured)
+        outs = [step(r, TR.step_generator(0, 0, i)) for i, r in enumerate(rows)]
+        launches = {k: f.launches for k, f in counters.items()}
+        emit = TR.RQVAEEmit(model, x, 64, graphed)
+        codes = [emit() for _ in range(2)]
+        new = {k: n - before.get(k, 0) for k, n in GraphCache.captured.items()
+               if n > before.get(k, 0)}
+        return torch.stack(outs).tolist(), model, launches, new, codes
+
+    g_outs, g_model, g_launches, g_new, g_codes = run(True)
+    e_outs, e_model, e_launches, e_new, e_codes = run(False)
+    assert g_outs == e_outs and np.isfinite(g_outs).all()
+    for (n, t), u in zip(g_model.state_dict().items(), e_model.state_dict().values()):
+        assert torch.equal(t, u), n
+    assert all((c == e_codes[0]).all() for c in g_codes + e_codes[1:])
+    assert g_new == {"rq-vae training step": 1, "rq-vae emit": 1} and e_new == {}
+    per_step = cs.staged_step_launches(g_model, True, counters)
+    assert per_step["hash_dropout_fwd"] == 6
+    assert g_launches == {k: 2 * n for k, n in per_step.items()}, g_launches
+    assert e_launches == {k: 4 * n for k, n in per_step.items()}, e_launches
