@@ -134,25 +134,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    graph a search object).
 11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
    train_SMB_decoder in a one-process NCCL group against the same run
-   ungrouped (launches as phase 5, one gradient
-   all-reduce a step, losses within 1e-6); two processes sharing the card
-   over gloo, 4 fp32 steps at a global batch of 16 x S 505 with dropout 0.2
-   against one process (losses 1e-5, parameters 1e-4, the processes'
-   parameters bit-identical; the all-reduce's time a step); test_SMB_decoder
-   striped over two processes against one (counts equal, metrics 1e-2);
-   under a process group every step, eval and search runs eagerly: the
-   grouped run, the worker processes and the striped eval capture no
-   graph;
+   ungrouped (the step's all-reduces captured with it: one graph a key as
+   phase 7, launches at the capture those of phase 5, one gradient
+   all-reduce a step, replays counted, losses within 1e-6), then phase 5's
+   10 steps in that group compiled against `graphed=False` (bit-identical;
+   step times, busy share and the NCCL kernels of a profiled step); two
+   processes sharing the card over gloo, 4 fp32 steps at a global batch of
+   16 x S 505 with dropout 0.2 against one process (losses 1e-5,
+   parameters 1e-4, the processes' parameters bit-identical; the
+   all-reduce's time a step; gloo stages through the host, so their steps
+   stay eager); test_SMB_decoder striped over two processes against one
+   (counts equal, metrics 1e-2; each process captures its search, and
+   prints its peak memory);
 12. the item-tokenizer chain (`tokenizer_phase`) at the shipped RQ-VAE
    widths on phase 7's 6000 items: SemEmb (hash, 768-d), RQVAE 20 epochs
    with --kmeans_init and CF embeddings, tokenize --mode rq_vae (collision
    rate 0 after repair), an fp32 RQ-VAE step on the card against the CPU
    (1e-4), and one epoch of train_SMB_decoder on the emitted semantic IDs
-   through the kernels; the RQ-VAE's training step and emit compiled (one
-   CUDA graph each, L1/L2 once at the capture), and one epoch of the
+   through the kernels; the RQ-VAE's training step, emit and reclustering
+   compiled (one CUDA graph each, L1/L2 once at the step's capture, the
+   reclustering's graph replayed every later epoch), and one epoch of the
    compiled step and the compiled emit from best_collision against their
-   eager forms: bit-identical, the replay's kernels those of the eager
-   step; each form's step time and busy share;
+   eager forms, then the compiled reclustering and the epoch after it:
+   bit-identical, the replay's kernels those of the eager step; each form's
+   step time and busy share, the reclustering's wall and device time;
 13. the discriminative zoo (`rec_phase`): one epoch of train_SMB_rec for
    each of SASRec, GRU4Rec, BERT4Rec, MBSTR, MBHT and PBAT from their
    shipped configs at scripts/train_SMB_rec.sh's geometry (smb_dis,
@@ -178,16 +183,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    12, b 12, h 8, i 8, j 1, k 1, K1 20, K2 20, 20 model-group collectives,
    their time);
    the 20-beam search of phase 4's geometry in fp32 (codes equal, scores
-   1e-4, no graph captured under the group); then h/i at P 2 and 3 and j/k
+   1e-4; no graph captured: a live model axis puts collectives in every
+   forward, so its owners stay eager); then h/i at P 2 and 3 and j/k
    at V 576 and 465 timed, with their plain versions and j/k's library
    call (`matmul` + `logsumexp`).
 
 Prints the times and the total wall time, then `{"kernels": [...]}`, then the
 card's name and power limit, and last `{"ok": true, "device": {...}}`. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
-`python3 chip_smoke.py --mp-steps <dir> <device> <spec>` is one worker
-process of phase 11 and `--model-axis <dir> <device> <spec>` one of phase
-14 (started by the script itself).
+`python3 chip_smoke.py --mp-steps <dir> <device> <spec>` and `--mp-eval
+<dir> <argv>` are worker processes of phase 11 and `--model-axis <dir>
+<device> <spec>` one of phase 14 (started by the script itself).
 """
 
 from __future__ import annotations
@@ -1315,32 +1321,50 @@ def _port_kernel_names() -> list:
     return sorted(names, key=len, reverse=True)  # the longest first: a name may contain another
 
 
-def _profiled_step(step) -> dict:
+PRIMERS = 64  # `_profiled_step`'s spin kernels ahead of each profiled call
+
+
+def _profiled_step(step, tries: int = 2) -> dict:
     """One call of `step` under torch.profiler (CPU and CUDA activities):
     the device kernels' summed time (ms), their count, the kernels of the
     port's sources by name and count (inside a replayed CUDA graph as well:
     CUPTI reports a graph's kernels), and every kernel by name and count
-    (copies and fills from the host, which a graph does not hold, left out)."""
+    (copies and fills from the host, which a graph does not hold, left out).
+    The profiler can drop records of a window, never add them (phase 13's
+    SASRec step showed 17 or 18 of its 18 K1/K2 launches from one run of
+    the script to the next, in either form), so each window opens on
+    `PRIMERS` spin kernels (`torch.cuda._sleep`, left out) and a
+    synchronize, and the most complete of `tries` profiled calls counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
     dev = lambda e: (getattr(e, "self_device_time_total", 0.0)
                      or getattr(e, "self_cuda_time_total", 0.0))
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0]
-    names, ours = _port_kernel_names(), {}
-    for e in kernels:
-        name = next((n for n in names if re.search(rf"\b{n}\b", e.key)), None)
-        if name is not None:
-            ours[name] = ours.get(name, 0) + e.count
-    return dict(device_ms=sum(dev(e) for e in kernels) / 1e3,
-                launches=sum(e.count for e in kernels), ours=ours,
-                kernels={e.key: e.count for e in kernels
-                         if not e.key.startswith(("Memcpy", "Memset"))})
+    names, best = _port_kernel_names(), None
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIMERS):
+                torch.cuda._sleep(20000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            step()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and dev(e) > 0 and "spin_kernel" not in e.key]
+        ours = {}
+        for e in kernels:
+            name = next((n for n in names if re.search(rf"\b{n}\b", e.key)), None)
+            if name is not None:
+                ours[name] = ours.get(name, 0) + e.count
+        got = dict(device_ms=sum(dev(e) for e in kernels) / 1e3,
+                   launches=sum(e.count for e in kernels), ours=ours,
+                   kernels={e.key: e.count for e in kernels
+                            if not e.key.startswith(("Memcpy", "Memset"))})
+        if best is None or got["launches"] > best["launches"]:
+            best = got
+    return best
 
 
 def _scoring_launches(cfg, cuda: bool, names) -> dict:
@@ -2590,22 +2614,146 @@ def _mp_steps_worker(out: str, device: str, spec_json: str) -> None:
         distributed.shutdown()
 
 
+def _mp_eval_worker(out: str, argv_json: str) -> None:
+    """A process of phase 11c: runs the CLI task `argv_json` in its group
+    (the GAMER_* variables), then saves the beam-search graphs it captured
+    and its peak device memory as out/eval_rank<r>.json."""
+    import torch
+
+    from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core.graphs import GraphCache
+
+    try:
+        main(json.loads(argv_json))
+        peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+        with open(os.path.join(out, f"eval_rank{distributed.process_index()}.json"), "w") as f:
+            json.dump({"graphs": GraphCache.captured.get("beam search", 0),
+                       "peak_gib": peak / 2 ** 30}, f)
+    finally:
+        distributed.shutdown()
+
+
+def grouped_steps_agree(dev, counters: dict, card: str, spec: dict) -> None:
+    """Phase 11a's in-process part, in this process's group: phase 5's
+    `Trainer` steps (`spec`: the config's overrides, (B, blocks), steps)
+    compiled (on the card under NCCL: the (loss·w, w) and the gradient
+    all-reduce inside the graph) against `graphed=False`: every run of the
+    device part launching phase 5's kernels, one graph replayed by every
+    step after the first, one gradient all-reduce a step (replays counted),
+    the capture issuing the step's two all-reduces on the capturing stream
+    (a one-rank NCCL all-reduce launches no kernel, so no profile shows
+    them), losses and every parameter bit-identical. Prints each form's
+    step time and busy share."""
+    import torch
+
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = flagship_config(**spec["cfg"])
+    (B, blocks), n = spec["geometry"], spec["steps"]
+    batch = make_batch(cfg, B, blocks)
+    expected = _train_step_launches(cfg) if cuda else {k: 0 for k in counters}
+    runs = {}
+    for graphed in (True, False):
+        form = "compiled" if graphed else "eager"
+        model = QwenFamilyModel(cfg, device=dev, seed=0)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                          OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
+                                          total_steps=n), TrainLoopConfig(seed=0), graphed=graphed)
+        calls = distributed.all_reduce_flat.calls
+        losses, times = [], []
+        with _recording(counters) as rec, _issued_all_reduces() as issued:
+            for _ in range(n):
+                t = time.perf_counter()
+                losses.append(trainer.train_step(batch))
+                sync()
+                times.append(time.perf_counter() - t)
+        replayed, captured = check_step_launches(f"phase 11a grouped {form}", rec, expected)
+        want = (n - 1, 1) if graphed and cuda else (0, 0)
+        assert (replayed, captured, trainer.graphs) == (*want, want[1]), (
+            f"phase 11a grouped {form}: replayed {replayed}, captured {captured}, graphs "
+            f"{trainer.graphs}, expected {want}")
+        reductions = distributed.all_reduce_flat.calls - calls
+        assert reductions == n, f"phase 11a grouped {form}: {reductions} all-reduces, {n} steps"
+        # (loss·w, w) and the gradients: at the warm-up and the capture, or at every eager step
+        want_issued = [False, False, True, True] if graphed and cuda else [False, False] * n
+        assert issued == want_issued, f"phase 11a grouped {form}: all-reduces issued {issued}"
+        losses = [float(x) for x in losses]
+        assert np.isfinite(losses).all(), f"phase 11a grouped {form}: non-finite losses"
+        params = {name: p.detach().clone() for name, p in model.named_parameters()}
+        ms = float(np.median(times[1:])) * 1e3
+        prof = _profiled_step(lambda: trainer.train_step(batch)) if cuda else None
+        runs[form] = dict(losses=losses, params=params)
+        busy = (f"; a profiled step {prof['device_ms']:.3f} ms of device kernels, "
+                f"{100 * prof['device_ms'] / ms:.1f}% busy, {prof['launches']} kernels"
+                if prof else "")
+        print(f"phase 11a grouped Trainer {cfg.dtype} B={B} S={blocks * cfg.num_positions} "
+              f"dropout {cfg.dropout_rate}, {form}: {n} steps, {ms:.3f} ms a step (median of "
+              f"steps 2-{n}, host time to a synchronize; the first {times[0] * 1e3:.1f} ms), "
+              f"graphs {trainer.graphs}, {reductions} gradient all-reduces, all-reduces issued "
+              f"while capturing {sum(issued)} of {len(issued)}{busy} (card {card})", flush=True)
+        del trainer, model
+        if cuda:
+            torch.cuda.empty_cache()
+    c, e = runs["compiled"], runs["eager"]
+    same = [k for k, p in c["params"].items() if torch.equal(p, e["params"][k])]
+    print(f"phase 11a grouped Trainer compiled vs eager: "
+          f"{sum(a == b for a, b in zip(c['losses'], e['losses']))} of {n} losses and "
+          f"{len(same)} of {len(c['params'])} parameters bit-identical; losses "
+          f"{[round(x, 5) for x in c['losses']]}", flush=True)
+    assert c["losses"] == e["losses"], "the compiled grouped step's losses differ from eager"
+    assert len(same) == len(c["params"]), "the compiled grouped step's parameters differ"
+
+
+@contextlib.contextmanager
+def _issued_all_reduces():
+    """While the block runs, each `torch.distributed.all_reduce` call, as
+    whether the current stream was capturing a CUDA graph when it was
+    issued."""
+    import torch
+    import torch.distributed as dist
+
+    issued, all_reduce = [], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        issued.append(torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
+        return all_reduce(*args, **kwargs)
+    dist.all_reduce = counted
+    try:
+        yield issued
+    finally:
+        dist.all_reduce = all_reduce
+
+
 # phase 11b: 4 fp32 steps at a global batch of 16 x 101 blocks, dropout 0.2
 PHASE11_STEPS = dict(cfg=dict(dtype="float32", dropout_rate=0.2), geometry=(4, 16, 101))
+# phase 11a's in-process part: phase 5's steps (bf16, B 64 x 101 blocks, dropout 0.2)
+PHASE11_INPROC = dict(cfg=dict(dropout_rate=DROP_RATE), geometry=(64, 101), steps=10)
 
 
 def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
-                       train_args=PHASE7_TRAIN, steps_spec: dict = PHASE11_STEPS, extra_args=(),
+                       train_args=PHASE7_TRAIN, steps_spec: dict = PHASE11_STEPS,
+                       inproc_spec: dict = PHASE11_INPROC, extra_args=(),
                        min_steps: int = 40, num_beams: int = 20) -> None:
     """Phase 11: the data-parallel path (`core/distributed.py`) at the
     flagship widths.
 
     a. train_SMB_decoder (phase 7's run) in a one-process group (NCCL on the
-       card) against the same run ungrouped: each step's launches those of
-       phase 5, one gradient
-       all-reduce a step, every step's loss within 1e-6 relative.
+       card) against the same run ungrouped: the grouped step captured as
+       phase 7's is (its all-reduces inside the graph: one graph a key, the
+       graphs and the eval step's as ungrouped), each run of its device part
+       launching phase 5's kernels, one gradient all-reduce a step (replays
+       counted), every step's loss within 1e-6 relative; then
+       `grouped_steps_agree` in the same group.
     b. Two processes on the one card over gloo (NCCL refuses two ranks on
-       one device; gloo stages the card's tensors through the host): 4 fp32
+       one device; gloo stages the card's tensors through the host, so the
+       step, whose device part reduces over it, stays eager): 4 fp32
        `Trainer` steps (`mp_steps`) at a global batch of 16 x S 505, dropout
        0.2, the second process's rows with fewer valid targets, against this
        process fed the whole global batches: losses within 1e-5 relative,
@@ -2614,9 +2762,11 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     c. test_SMB_decoder striped over two processes (gloo) from a's
        checkpoint against one process: per-behavior row counts equal, the
        merged metrics within 1e-2 absolute (bf16 beams may flip with the
-       batch's composition); prints both.
-    `spec`, the argument tuples, `extra_args` (e.g. --device cpu) and the
-    counts let a test run it tiny."""
+       batch's composition), each process's search captured as one
+       process's is (it holds no collective); prints both and each
+       process's peak memory.
+    `spec`, the argument tuples, the specs, `extra_args` (e.g. --device cpu)
+    and the counts let a test run it tiny."""
     import shutil
     import tempfile
 
@@ -2648,26 +2798,34 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         with contextlib.ExitStack() as stack:
             if grouped:
                 stack.enter_context(_group_env(1, 0, _free_port()))
-            rec = stack.enter_context(_recording(counters))
-            cap = stack.enter_context(_captures())
-            cli([*train, "--output_dir", out])
-            sync()
+            with _recording(counters) as rec, _captures() as cap:
+                res = cli([*train, "--output_dir", out])
+                sync()
             assert distributed.is_initialized() == grouped, "the task did not join its group"
-        runs[grouped] = (rec, distributed.all_reduce_flat.calls - calls, out)
-        if grouped:  # under a process group every step and eval runs eagerly
-            assert cap == {}, f"phase 11a: the grouped run captured {cap}"
-    (plain, _, _), (rec, reductions, out) = runs[False], runs[True]
-    expected = (_train_step_launches(QwenFamilyConfig.from_file(out)) if cuda
-                else {k: 0 for k in counters})
-    assert len(rec["steps"]) >= min_steps, f"only {len(rec['steps'])} grouped steps"
-    assert check_step_launches("phase 11a grouped", rec, expected) == (0, 0), (
-        "a grouped step was captured")
-    assert reductions == len(rec["steps"]), f"{reductions} all-reduces for {len(rec['steps'])} steps"
+            runs[grouped] = (rec, cap, res, distributed.all_reduce_flat.calls - calls, out)
+            if grouped:
+                assert distributed.backend() == ("nccl" if cuda else "gloo")
+                grouped_steps_agree(dev, counters, card, inproc_spec)
+    (plain, plain_cap, _, _, _), (rec, cap, res, reductions, out) = runs[False], runs[True]
+    cfg = QwenFamilyConfig.from_file(out)
+    expected = _train_step_launches(cfg) if cuda else {k: 0 for k in counters}
+    steps = len(rec["steps"])
+    assert steps >= min_steps, f"only {steps} grouped steps"
+    # the grouped step is captured as phase 7's ungrouped one: one graph a key
+    replayed, captured = check_step_launches("phase 11a grouped", rec, expected)
+    assert captured == res["graphs"] and replayed == (steps - captured) * cuda, (
+        replayed, captured)
+    assert captured >= cuda, "the grouped step was not captured"
+    _check_fit_evals("phase 11a grouped", rec, cap, _scoring_launches(cfg, cuda, counters), dev)
+    assert cap == plain_cap, f"phase 11a: grouped graphs {cap}, ungrouped {plain_cap}"
+    assert reductions == steps, f"{reductions} all-reduces for {steps} steps"
     a, b = np.array([float(x) for x in rec["losses"]]), np.array([float(x) for x in plain["losses"]])
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
     step_ms = [float(np.median(np.diff(r["stamps"][1:]))) * 1e3 for r in (plain, rec)]
     print(f"phase 11a train_SMB_decoder in a one-process {'NCCL' if cuda else 'gloo'} group: "
-          f"{len(a)} steps, {reductions} gradient all-reduces, launches each step {rec['steps'][0]}; "
+          f"{len(a)} steps, {reductions} gradient all-reduces, graphs {cap} (ungrouped "
+          f"{plain_cap}), {replayed} steps replayed; launches at each capture and warm-up "
+          f"{expected}; "
           f"losses vs ungrouped: worst rel diff {rel:.3e} (tol 1e-6), first {a[0]:.7f} / "
           f"{b[0]:.7f}, last {a[-1]:.7f} / {b[-1]:.7f}; step {step_ms[1]:.3f} ms grouped, "
           f"{step_ms[0]:.3f} ms ungrouped (median, host collation; "
@@ -2684,7 +2842,9 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     one = mp_steps(cfg, _mp_batches(cfg, *steps_spec["geometry"]), dev)
     res = [torch.load(os.path.join(mp_dir, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
     assert torch.equal(res[0]["params"], res[1]["params"]), "the processes' parameters differ"
-    assert [r["graphs"] for r in res] == [0, 0], "a grouped process captured its step"
+    # gloo stages the card's tensors through the host: a step that reduces over it stays eager
+    assert [r["graphs"] for r in res] == [0, 0], (
+        "a process of a gloo group captured its step, whose device part holds gloo all-reduces")
     loss_rel = float(np.max(np.abs(np.subtract(res[0]["losses"], one["losses"]))
                             / np.abs(one["losses"])))
     par_rel = float((res[0]["params"] - one["params"]).abs().max() / one["params"].abs().max())
@@ -2710,12 +2870,17 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         one_s = time.perf_counter() - t
     _check_search_graphs("phase 11c one process", cap, dev, 1)
     t = time.perf_counter()
-    cmd = ["-m", "gamer_tpu_torch", *evaluate, "--results_file", os.path.join(root, "two.json"),
-           *extra_args]
+    argv = [*evaluate, "--results_file", os.path.join(root, "two.json"), *extra_args]
+    cmd = [os.path.abspath(__file__), "--mp-eval", root, json.dumps(argv)]
     logs = distributed.spawn_local([cmd, cmd], backend="gloo", timeout_s=MP_TIMEOUT_S)
     two_s = time.perf_counter() - t
-    # process 0 logs its search's graphs: none under the group
-    assert "the search captured 0 CUDA graphs" in logs[0], logs[0][-2000:]
+    # the search holds no collective: each process captures it as one process does
+    assert f"the search captured {int(cuda)} CUDA graphs" in logs[0], logs[0][-2000:]
+    procs = []
+    for r in (0, 1):
+        with open(os.path.join(root, f"eval_rank{r}.json")) as f:
+            procs.append(json.load(f))
+    assert [p["graphs"] for p in procs] == [int(cuda)] * 2, f"phase 11c: graphs {procs}"
     with open(os.path.join(root, "two.json")) as f:
         merged = json.load(f)
     worst = max(abs(merged["merged"][k] - v) for k, v in single["merged"].items())
@@ -2723,8 +2888,9 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
           f"{merged['counts']} over 2 processes (one process {single['counts']}); merged "
           f"{ {k: round(v, 5) for k, v in merged['merged'].items()} } vs one process "
           f"{ {k: round(v, 5) for k, v in single['merged'].items()} }, worst diff {worst:.2e} "
-          f"(tol 1e-2); {two_s:.1f} s wall with the processes' start, one process {one_s:.1f} s "
-          f"(card {card})", flush=True)
+          f"(tol 1e-2); {two_s:.1f} s wall with the processes' start, one process {one_s:.1f} s; "
+          f"each process's search graphs {[p['graphs'] for p in procs]}, peak memory "
+          f"{[round(p['peak_gib'], 3) for p in procs]} GiB (card {card})", flush=True)
     assert merged["counts"] == single["counts"], "row counts differ"
     assert worst <= 1e-2, "two-process metrics differ from one process's"
     shutil.rmtree(root, ignore_errors=True)
@@ -2759,12 +2925,15 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     after the repair, each training step's launches those of phase 5, and
     one fp32 RQ-VAE training step on the card against the same step on the
     CPU (same parameters, batch and diversity noise, TF32 off) within 1e-4
-    relative. The task's training step and emit are compiled: one graph
-    each, the step's warm-up and capture launching L1/L2 once and nothing
-    else, every later step replayed; then one epoch of the compiled step
-    against the eager one from best_collision, and the compiled emit
-    against the eager one (`rqvae_forms_agree`: bit-identical; the step time
-    and busy share of both forms printed). Prints the k-means init's
+    relative. The task's training step, emit and reclustering are
+    compiled: one graph each, the step's warm-up and capture launching
+    L1/L2 once and nothing else, every later step replayed, the
+    reclustering's graph replayed at every epoch after the first; then one
+    epoch of the compiled step against the eager one from best_collision,
+    the compiled emit against the eager one, and the compiled reclustering
+    and the epoch after it against their eager forms (`rqvae_forms_agree`:
+    bit-identical; the step time and busy share of both forms, and the
+    reclustering's wall and device time, printed). Prints the k-means init's
     cluster sizes and time, the epoch time, tokenize's wall time and the
     decoder's step time. `spec`, the
     argument tuples, the sizes, `extra_args` and the counts let a test run
@@ -2807,7 +2976,8 @@ def tokenizer_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     rq_s = time.perf_counter() - t
     rq_expected = staged_step_launches(rq_rec["owner"].model, cuda, counters)
     rq_replayed, rq_captured = check_step_launches("phase 12 RQVAE", rq_rec, rq_expected)
-    want = {"rq-vae training step": 1, "rq-vae emit": 1} if cuda else {}
+    want = ({"rq-vae training step": 1, "rq-vae emit": 1, "rq-vae recluster": 1} if cuda
+            else {})
     assert rq_cap == want and rq_captured == int(cuda), f"phase 12 RQVAE graphs {rq_cap}"
     print(f"phase 12 RQVAE compiled: graphs {rq_cap}, {rq_replayed} of {len(rq_rec['steps'])} "
           f"steps replayed, launches at the warm-up and capture {rq_expected}", flush=True)
@@ -2936,6 +3106,80 @@ def rqvae_forms_agree(cfg, state: dict, x: np.ndarray, cf: np.ndarray, labels: n
     assert codes["compiled"].shape == (n, cfg.num_levels)
     assert (codes["compiled"] == codes["eager"]).all(), "the compiled emit differs from eager"
     assert cap == ({"rq-vae emit": 1} if dev.type == "cuda" else {}), cap
+    recluster_forms_agree(cfg, runs, [lambda st, s=s: st(order[s:s + batch_size],
+                                                         TR.step_generator(0, 1, s))
+                                      for s in range(0, pad_n, batch_size)], dev, card)
+
+
+RECLUSTERS = 4  # phase 12's reclusterings of each form (epochs 1-4)
+
+
+def recluster_forms_agree(cfg, runs: dict, calls: list, dev, card: str) -> None:
+    """Phase 12's compiled reclustering against its eager form, on the
+    models and steps `rqvae_forms_agree` left (equal, bit for bit):
+    `tasks/rqvae.RQVAERecluster` into each step's label buffer at epochs
+    1-4 (the compiled form captured at the first and replayed after), the
+    labels bit-identical to each other and to `ops/kmeans.cluster_codebook`
+    a level at every epoch; then one more epoch of `calls` (the steps,
+    reading the last labels) on each form: every step's output and every
+    parameter and buffer bit-identical. Prints the reclustering's wall time
+    (a replay, or an eager run, ending in a synchronize; median of epochs
+    2-4) and, on the card, the device time and kernels of a profiled one."""
+    import torch
+
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.ops.kmeans import cluster_codebook
+    from gamer_tpu_torch.tasks import rqvae as TR
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    labels, info = {}, {}
+    for form, (step, model, _) in runs.items():
+        recluster = TR.RQVAERecluster(model, step.labels, form == "compiled")
+        before = GraphCache.captured.get("rq-vae recluster", 0)
+        labels[form], times = [], []
+        for epoch in range(1, RECLUSTERS + 1):
+            sync()
+            t = time.perf_counter()
+            recluster(0, epoch)
+            sync()
+            times.append(time.perf_counter() - t)
+            labels[form].append(step.labels.clone())
+        new = GraphCache.captured.get("rq-vae recluster", 0) - before
+        want = int(cuda and form == "compiled")
+        assert recluster.calls.graphs == new == want, (
+            f"phase 12 reclustering {form}: {recluster.calls.graphs} graphs, {new} captured")
+        prof = _profiled_step(lambda: recluster(0, RECLUSTERS)) if cuda else None
+        info[form] = dict(ms=float(np.median(times[1:])) * 1e3, first_ms=times[0] * 1e3,
+                          prof=prof)
+        busy = (f"; a profiled one {prof['device_ms']:.3f} ms of device kernels in "
+                f"{prof['launches']} kernels" if prof else "")
+        print(f"phase 12 RQ-VAE reclustering ({cfg.num_levels} levels of "
+              f"{cfg.num_emb_list} codes, {cfg.n_clusters} clusters) {form}: "
+              f"{info[form]['ms']:.3f} ms wall (median of epochs 2-{RECLUSTERS}, to a "
+              f"synchronize; the first {info[form]['first_ms']:.1f} ms), graphs "
+              f"{recluster.calls.graphs}{busy} (card {card})", flush=True)
+    same = sum(torch.equal(a, b) for a, b in zip(labels["compiled"], labels["eager"]))
+    model = runs["eager"][1]
+    books = model.codebooks.detach()
+    host = np.stack([np.pad(cluster_codebook(books[lvl, :n], min(cfg.n_clusters, n),
+                                             RECLUSTERS + lvl), (0, max(cfg.num_emb_list) - n))
+                     for lvl, n in enumerate(cfg.num_emb_list)])
+    print(f"phase 12 RQ-VAE reclustering compiled vs eager: labels bit-identical at {same} of "
+          f"{RECLUSTERS} epochs; the last equal to cluster_codebook's a level "
+          f"{bool((labels['eager'][-1].cpu().numpy() == host).all())}", flush=True)
+    assert same == RECLUSTERS, "the compiled reclustering's labels differ from eager"
+    assert (labels["eager"][-1].cpu().numpy() == host).all(), (
+        "the reclustering's labels differ from cluster_codebook's")
+    outs = {form: [call(step) for call in calls] for form, (step, _, _) in runs.items()}
+    same_out = sum(torch.equal(a, b) for a, b in zip(outs["compiled"], outs["eager"]))
+    c_state, e_state = (runs[f][1].state_dict() for f in ("compiled", "eager"))
+    same_state = [k for k in c_state if torch.equal(c_state[k], e_state[k])]
+    print(f"phase 12 RQ-VAE epoch after the reclustering, compiled vs eager: {same_out} of "
+          f"{len(calls)} step outputs and {len(same_state)} of {len(c_state)} parameters and "
+          f"buffers bit-identical", flush=True)
+    assert same_out == len(calls) and len(same_state) == len(c_state), (
+        "the epoch after the compiled reclustering differs from eager")
 
 
 # --------------------------------------------------------------------------- phase 13
@@ -3691,7 +3935,9 @@ def model_axis_phase(dev, counters: dict, card: str, spec: dict = PHASE14) -> No
           f"to one process's on every rank: {same}; worst score diff {worst:.3e} (tol 1e-4); "
           f"{c['s']:.3f} s on rank 0, {ref['s']:.3f} s one process (card {card})", flush=True)
     assert same and worst <= 1e-4, "the sharded search differs from one process's"
-    assert [r["search"]["graphs"] for r in res] == [0] * n, "a grouped search was captured"
+    assert [r["search"]["graphs"] for r in res] == [0] * n, (
+        "a search under a live model axis was captured: its forward holds the model group's "
+        "collectives, which time themselves on the host, so it stays eager")
     if cuda:
         _local_kernel_times(dev, card)
     shutil.rmtree(root, ignore_errors=True)
@@ -3813,6 +4059,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-steps"]:  # one process of phase 11b
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _mp_steps_worker(*sys.argv[2:5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mp-eval"]:  # one process of phase 11c
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _mp_eval_worker(*sys.argv[2:4])
         sys.exit(0)
     if sys.argv[1:2] == ["--model-axis"]:  # one process of phase 14
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -30,6 +30,7 @@ returns False without creating a group or touching CUDA.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import socket
 import subprocess
@@ -101,8 +102,13 @@ def maybe_initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Destroy the process group, if any."""
+    """Destroy the process group, if any. Unreachable objects go first: a
+    CUDA graph that holds the group's collectives (a `Trainer`'s step
+    captured under NCCL) must be freed before the group's communicators."""
     if dist.is_initialized():
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -120,6 +126,11 @@ def process_count() -> int:
 
 def is_main_process() -> bool:
     return process_index() == 0
+
+
+def backend(group=None) -> str | None:
+    """The backend ("nccl", "gloo") of `group` (the world by default); None without a group."""
+    return dist.get_backend(group) if is_initialized() else None
 
 
 def group_rank(group=None) -> int:
@@ -162,10 +173,12 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def all_reduce_flat(tensors: list[torch.Tensor], group=None) -> None:
     """Sum same-dtype tensors over `group` in place, as one flat all-reduce
-    in the list's order; counts its calls in `.calls`."""
+    in the list's order. `.calls` counts the training step's all-reduces
+    that ran: the step's host part adds one for each update it runs
+    (`train/loop.Trainer.train_step`), since a captured step replays the
+    all-reduce without calling this."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    all_reduce_flat.calls += 1
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))

@@ -21,7 +21,20 @@ as the kernel wrappers count their launches.
 `train/staging.StaticInputs`: the host part of a call stages its arrays into
 the buffers of their key, and the device part, a function of those buffers,
 runs through the graph of that key. The zoo's training step and scorer and
-the RQ-VAE's training step and emit are each one.
+the RQ-VAE's training step, emit and reclustering are each one.
+
+Which owners capture (`capture_enabled`): on the card, `graphed`, unless the
+device part holds a collective that a graph cannot hold. An owner states the
+group its device part reduces over, if any: a `Trainer`'s step reduces over
+its data group; the eval step, the searches, the zoo's and the RQ-VAE's
+device parts reduce over nothing (their sums over a group, where they have
+any, run on the host side of the call). An NCCL collective is launched on
+the capturing stream and is captured with the rest; a gloo collective stages
+the card's tensors through the host, so a device part that reduces over a
+gloo group runs eagerly. Under a live model axis (`core/mesh.py`) every
+forward holds the model group's collectives, which synchronize and time
+themselves on the host (`distributed.model_all_reduce`): the owners of such
+a model run eagerly.
 """
 
 from __future__ import annotations
@@ -37,10 +50,23 @@ from gamer_tpu_torch.train.staging import StaticInputs
 logger = logging.getLogger("gamer_tpu_torch.graphs")
 
 
-def capture_enabled(graphed: bool, device) -> bool:
+def capture_enabled(graphed: bool, device, reduces: bool = False, group=None,
+                    model_axis=None) -> bool:
     """Whether an owner's device parts are captured: `graphed`, on the card,
-    and without a process group (whose collectives run eagerly)."""
-    return graphed and torch.device(device).type == "cuda" and not distributed.is_initialized()
+    without a live `model_axis` (`distributed.ModelAxis`), and, where the
+    device part reduces over `group` (`reduces`; None is the world) under a
+    process group, only if that group's backend is NCCL."""
+    if not graphed or torch.device(device).type != "cuda":
+        return False
+    if model_axis is not None and model_axis.live:
+        return False
+    return not (reduces and distributed.is_initialized()) or distributed.backend(group) == "nccl"
+
+
+def model_axis_of(model):
+    """The `distributed.ModelAxis` of a model sharded by a `core/mesh.MeshContext`, else None."""
+    ctx = getattr(model, "mesh_ctx", None)
+    return ctx.model_axis if ctx is not None else None
 
 
 class GraphCache:
@@ -95,18 +121,23 @@ class StagedGraphs:
     waiting for the card. `run(key, fn, static)` is the device part: `fn`
     of those buffers, which reads no device value into Python and makes no
     tensor from host data, through the CUDA graph of `key` where
-    `capture_enabled(graphed, device)`, else eagerly (`graphed=False`, the
-    CPU, a process group)."""
+    `capture_enabled` (of `graphed`, the device, the group the device part
+    reduces over if `reduces`, and the model's `model_axis`), else eagerly
+    (`graphed=False`, the CPU, a gloo group it reduces over, a live model
+    axis)."""
 
-    def __init__(self, device, name: str, graphed: bool = True):
+    def __init__(self, device, name: str, graphed: bool = True, reduces: bool = False,
+                 group=None, model_axis=None):
         self.device = torch.device(device)
         self.graphed = graphed
+        self.reduces, self.group, self.model_axis = reduces, group, model_axis
         self._inputs = StaticInputs(self.device)
         self._graphs = GraphCache(self.device, name)
 
     @property
     def captures(self) -> bool:
-        return capture_enabled(self.graphed, self.device)
+        return capture_enabled(self.graphed, self.device, self.reduces, self.group,
+                               self.model_axis)
 
     @property
     def graphs(self) -> int:

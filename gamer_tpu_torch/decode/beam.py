@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gamer_tpu_torch.core.graphs import StagedGraphs
+from gamer_tpu_torch.core.graphs import StagedGraphs, model_axis_of
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.models.generative.encdec import EncDecModel
 from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
@@ -260,12 +260,14 @@ class _CompiledSearch:
     `make_beam_search_fn`). The trie's tables move to the device once, here.
     The host part (`stage`) writes a call's arrays into static device buffers;
     the device part (`device_part`) runs the search on them, reading nothing
-    into Python. On CUDA without a process group, and `graphed`, the device
+    into Python and holds no collective. On CUDA, and `graphed`, the device
     part is captured as a CUDA graph once per key (the staged arrays' names,
     shapes and dtypes) and replayed (`core/graphs.StagedGraphs`, a memory
     pool a search object: the prefill's peak stays reserved while the object
     lives), its codes and scores cloned out of the graph's memory; else it
-    runs eagerly."""
+    runs eagerly. It is captured under any process group (each process
+    searches its own rows), but not for a model with a live model axis,
+    whose forward holds the model group's collectives."""
 
     name = "beam search"
 
@@ -273,12 +275,12 @@ class _CompiledSearch:
         self.model, self.trie, self.search_cfg = model, trie, search_cfg
         self.device = torch.device(model.device)
         self.tables = _trie_tables(trie, self.device)
-        self.calls = StagedGraphs(self.device, self.name, graphed)
+        self.calls = StagedGraphs(self.device, self.name, graphed, model_axis=model_axis_of(model))
 
     @property
     def captures(self) -> bool:
-        """On the card, `graphed`, and without a process group (as
-        `train/loop.Trainer.captures`)."""
+        """On the card and `graphed`, unless the model has a live model axis
+        (`core/graphs.capture_enabled`)."""
         return self.calls.captures
 
     @property

@@ -295,6 +295,22 @@ class RQVAE(nn.Module):
             residual = residual - self.book(level)[idx]
         return _sq_dists(residual, self.book(c.num_levels - 1))
 
+    @torch.no_grad()
+    def prefix_distances(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """([B, n_{L-2}] squared distances of the second-to-last residual to
+        its codebook, [B, n_{L-2}, n_{L-1}] those of the last residual to the
+        last codebook after each of its codes), earlier levels assigned
+        greedily (collision repair across prefixes; at least two levels)."""
+        c = self.cfg
+        residual = self.encoder(x)
+        for level in range(c.num_levels - 2):
+            idx = self._assign(residual, level, False, False, None)
+            residual = residual - self.book(level)[idx]
+        mid, last = self.book(c.num_levels - 2), self.book(c.num_levels - 1)
+        after = residual[:, None, :] - mid[None]  # [B, n_{L-2}, D]
+        d_last = _sq_dists(after.reshape(-1, after.shape[-1]), last)
+        return _sq_dists(residual, mid), d_last.reshape(len(x), len(mid), len(last))
+
 
 def training_draws(model: RQVAE, B: int, generator: torch.Generator) -> dict:
     """The host draws of one training forward of `model` on B rows with

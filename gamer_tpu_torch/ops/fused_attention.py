@@ -72,12 +72,18 @@ def keep_fraction(rate: float) -> float:
     return (4294967296 - drop_threshold(rate)) / 4294967296.0
 
 
+def hash_bits(seed, bh, rows, cols) -> torch.Tensor:
+    """The uint32 hash (in int64) of (seed, bh, row, col), broadcasting int
+    tensors (`rows` a tensor); `seed` an int or an `ops/seeds.DeviceSeed`."""
+    x = (_mul32(rows, _M3) + _mul32(cols, _M1) + _mul32(bh, _M2)
+         + seeds.hash_term(seed, rows.device)) & _U32
+    return fmix32(x)
+
+
 def hash_keep(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     """Keep mask of the hash of (seed, bh, row, col), broadcasting int tensors;
     `seed` an int or an `ops/seeds.DeviceSeed`."""
-    x = (_mul32(rows, _M3) + _mul32(cols, _M1) + _mul32(bh, _M2)
-         + seeds.hash_term(seed, rows.device)) & _U32
-    return fmix32(x) >= drop_threshold(rate)
+    return hash_bits(seed, bh, rows, cols) >= drop_threshold(rate)
 
 
 def dropout_keep_tile(seed: int, bh: int, r0: int, c0: int, shape, rate: float,

@@ -14,13 +14,16 @@ collision rate, and the k-means init's cluster sizes and time. Batches are
 row slices of one numpy permutation an epoch, wrapped around to whole batches; each step's
 diversity positives come from a CPU `torch.Generator` seeded by (seed,
 epoch, row offset), where the JAX package folds them into its rng key.
-Plain PyTorch on the task's device (`--device`); one process. The two
-functions JAX jits, the training step and the emit, are `RQVAEStep` and
-`RQVAEEmit`: the host stages row indices into the resident embeddings and
-the step's draws into static device buffers, and the device part is
-captured on the card as a CUDA graph and replayed; a step's losses stay
-on the card until the epoch's end. The k-means init and the reclustering
-run eagerly, once a level and once an epoch.
+Plain PyTorch on the task's device (`--device`); one process. The
+functions JAX jits, the training step, the emit and the reclustering
+(`_balanced_impl` a level), are `RQVAEStep`, `RQVAEEmit` and
+`RQVAERecluster`: the host stages row indices into the resident embeddings,
+the step's draws and the reclustering's seeds into static device buffers,
+and the device part is captured on the card as a CUDA graph and replayed;
+a step's losses stay on the card until the epoch's end, and the
+reclustering writes its labels straight into the step's diversity-label
+buffer. The k-means init runs eagerly, once a level (its seeding drawn on
+the device, `ops/kmeans.py`).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.contract import DataFiles
 from gamer_tpu_torch.core.graphs import StagedGraphs
 from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig, rqvae_loss, training_draws
-from gamer_tpu_torch.ops.kmeans import balanced_kmeans, cluster_codebook
+from gamer_tpu_torch.ops.kmeans import balanced_kmeans, codebook_labels
+from gamer_tpu_torch.ops.seeds import U32, DeviceSeed
 from gamer_tpu_torch.tasks.base import (
     Task, add_dataset_args, add_global_args, add_ref_compat_args, task_device)
 from gamer_tpu_torch.train.staging import Staging
@@ -200,6 +204,49 @@ def train_epoch(step: RQVAEStep, order: np.ndarray, batch_size: int, seed: int,
     return torch.stack(outs).tolist()
 
 
+class RQVAERecluster:
+    """The per-epoch diversity reclustering (ref trainers/RQVAE.py:163-177):
+    JAX's jitted `_balanced_impl` on each level's codebook, as one device
+    function of every level. The host part (`stage`) writes each level's
+    seed (seed + epoch + level, as the JAX task seeds `cluster_codebook`)
+    into a static int32 buffer. The device part (`device_part`) runs, for
+    each level, `ops/kmeans.codebook_labels` (balanced k-means) on the
+    codebook's live rows with `min(n_clusters, codes)` clusters, seeded from
+    that buffer (`ops/seeds.DeviceSeed`), and writes the labels into
+    `labels` ([levels, max codebook size] int64, `RQVAEStep.labels`; the
+    rows past a level's codes 0, as the task's padding), reading nothing
+    into Python. On the card it is captured once per key (the codebook's
+    shape and the clusters a level: one graph for all levels, replayed at
+    every later reclustering; "rq-vae recluster"); `graphed=False` runs it
+    eagerly. Either way the labels equal `cluster_codebook`'s a level."""
+
+    def __init__(self, model: RQVAE, labels: torch.Tensor, graphed: bool = True):
+        self.model, self.labels = model, labels
+        c = model.cfg
+        self.clusters = tuple(min(c.n_clusters, n) for n in c.num_emb_list)
+        self.calls = StagedGraphs(labels.device, "rq-vae recluster", graphed)
+
+    def stage(self, seed: int, epoch: int) -> tuple[tuple, dict]:
+        """The host part: (the key, {"seeds": [levels] int32 buffer})."""
+        seeds = np.array([(seed + epoch + lvl) & U32 for lvl in range(len(self.clusters))],
+                         np.uint32).view(np.int32)
+        key, static = self.calls.stage({"seeds": seeds})
+        return key + (tuple(self.model.codebooks.shape), self.clusters), static
+
+    @torch.no_grad()
+    def device_part(self, static: dict) -> None:
+        books = self.model.codebooks.detach()
+        for lvl, (n, k) in enumerate(zip(self.model.cfg.num_emb_list, self.clusters)):
+            self.labels[lvl, :n].copy_(codebook_labels(books[lvl, :n], k,
+                                                       DeviceSeed(static["seeds"], lvl)))
+            self.labels[lvl, n:].zero_()
+
+    def __call__(self, seed: int, epoch: int) -> None:
+        """Recluster every level's codebook for `epoch` into `labels`."""
+        key, static = self.stage(seed, epoch)
+        self.calls.run(key, self.device_part, static)
+
+
 class RQVAEEmit:
     """JAX's jitted `emit_indices` over every item: the rows of `x` in
     chunks of `batch_size`, the last padded by wrapping to the first rows
@@ -336,8 +383,8 @@ class TrainRQVAE(Task):
                               config=getattr(self, "param_dict", {}))
         best_loss, best_collision = np.inf, np.inf
         np_rng = np.random.default_rng(seed)
-        max_n = max(cfg.num_emb_list)
         step = RQVAEStep(model, optimizer, x, cf_all)
+        recluster = RQVAERecluster(model, step.labels)
         emit = RQVAEEmit(model, x, batch_size)
         pad_n = ((n + batch_size - 1) // batch_size) * batch_size
         history, epoch_s, epoch_means = [], [], []
@@ -345,14 +392,7 @@ class TrainRQVAE(Task):
         for epoch in range(epochs):
             t0 = time.perf_counter()
             if cfg.beta > 0 and epoch % recluster_every == 0:
-                books = model.codebooks.detach()
-                step.set_labels(np.stack([
-                    np.pad(cluster_codebook(books[lvl, :cfg.num_emb_list[lvl]],
-                                            # small codebooks can't fill n_clusters
-                                            min(cfg.n_clusters, cfg.num_emb_list[lvl]),
-                                            seed + epoch + lvl),
-                           (0, max_n - cfg.num_emb_list[lvl]))
-                    for lvl in range(cfg.num_levels)]))
+                recluster(seed, epoch)
             order = np_rng.permutation(n)
             order = np.concatenate([order, order[:pad_n - n]])
             rows = train_epoch(step, order, batch_size, seed, epoch)

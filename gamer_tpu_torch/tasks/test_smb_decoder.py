@@ -12,9 +12,9 @@ per chunk of `--test_batch_size` rows, the last chunk padded to the batch
 with its first row (ref :168-170), so the compiled search (`decode/beam.py`,
 a CUDA graph on the card) captures once. Under a
 process group (`core/distributed.py`) each process searches every
-process_count-th row, the fixed-shape metric sums are added up with one
-all-reduce (ref :232-255 gathers pickled lists), and process 0 writes the
-results.
+process_count-th row through its own captured search (the search holds no
+collective), the fixed-shape metric sums are added up with one all-reduce
+(ref :232-255 gathers pickled lists), and process 0 writes the results.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core.graphs import model_axis_of
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
 from gamer_tpu_torch.data.batching import (
@@ -219,7 +220,8 @@ class TestSMBDecoder(Task):
                 out = model(**prepare_train_inputs(cfg, batch), route_mode="onehot")
                 return causal_lm_loss(out["logits"], batch["labels"], cfg.temperature,
                                       batch.get("row_valid")), {}
-        step = EvalStep(loss_of, model.device, dtype=torch.float64, by_rows=True)
+        step = EvalStep(loss_of, model.device, dtype=torch.float64, by_rows=True,
+                        model_axis=model_axis_of(model))
         for batch in iterate_batches(tdata.valid, 32, batcher.collate):
             step.add(batch)
         total, n = step.sums.tolist()

@@ -15,7 +15,10 @@ Collision repair (ref reduce_collision :102-150): up to 10 rounds, each
 re-assigning every group of items that share a full code by the
 Sinkhorn-balanced assignment of the last level (earlier levels' sk_epsilon
 forced to 0, the last forced on, ref :286-290), then, beyond the reference,
-a unique nearest last-level code for each member of a group that remains.
+a unique nearest last-level code for each member of a group that remains,
+and for `rq_vae`, where a prefix holds more items than the last level has
+codes, the surplus members moved to the nearest second-to-last-level code
+whose prefix has a free last-level code.
 The models run on the task's device (`--device`); cid and rid are numpy.
 """
 
@@ -140,7 +143,11 @@ class Tokenize(Task):
         def last_scores(idx):
             return model.last_level_distances(xt[idx]).cpu().numpy()
 
-        codes = self._reduce_collision(codes, regroup_repair, last_scores)
+        def prefix_scores(idx):
+            return tuple(d.cpu().numpy() for d in model.prefix_distances(xt[idx]))
+
+        codes = self._reduce_collision(codes, regroup_repair, last_scores,
+                                       prefix_scores if cfg.num_levels > 1 else None)
         out_file = files.path(f".index.epoch{epoch}.alpha{alpha}-beta{beta}.json")
         return self._write(codes, out_file)
 
@@ -205,11 +212,13 @@ class Tokenize(Task):
 
     # ---- shared ------------------------------------------------------------
 
-    def _reduce_collision(self, codes, reassign_fn, scores_fn=None, max_rounds: int = 10):
+    def _reduce_collision(self, codes, reassign_fn, scores_fn=None, prefix_scores_fn=None,
+                          max_rounds: int = 10):
         """Sinkhorn repair rounds (ref :102-150), then — beyond the reference,
         which can stall on tied distances — a deterministic unique-assignment
         pass over the last level that guarantees zero collisions whenever the
-        last-level capacity allows."""
+        last-level capacity allows, and with `prefix_scores_fn` a pass that
+        moves what is left of an over-full prefix to another prefix."""
         for round_i in range(max_rounds):
             groups = collision_groups(codes)
             if not groups:
@@ -219,6 +228,35 @@ class Tokenize(Task):
                 codes[idx] = reassign_fn(idx)
         if scores_fn is not None:
             codes = self._force_unique_last_level(codes, scores_fn)
+        if prefix_scores_fn is not None and collision_groups(codes):
+            codes = self._reroute_full_prefixes(codes, prefix_scores_fn)
+        return codes
+
+    @staticmethod
+    def _reroute_full_prefixes(codes, prefix_scores_fn):
+        """Each member of a colliding group but its first (whose prefix has no
+        free last-level code left) moves to the second-to-last-level code
+        nearest to it whose prefix has a free last-level code, and takes the
+        nearest free code there (`prefix_scores_fn(idx)`: the members'
+        distances at the second-to-last level [g, n], and at the last level
+        after each of those codes [g, n, m])."""
+        used = defaultdict(set)
+        for row in codes:
+            used[row[:-1].tobytes()].add(int(row[-1]))
+        for idx in collision_groups(codes):
+            movers = idx[1:]
+            d_mid, d_last = prefix_scores_fn(movers)
+            for i, item in enumerate(movers):
+                for mid in np.argsort(d_mid[i], kind="stable"):
+                    prefix = codes[item, :-1].copy()
+                    prefix[-1] = mid
+                    taken = used[prefix.tobytes()]
+                    free = [m for m in np.argsort(d_last[i, mid], kind="stable")
+                            if int(m) not in taken]
+                    if free:
+                        codes[item, :-1], codes[item, -1] = prefix, free[0]
+                        taken.add(int(free[0]))
+                        break
         return codes
 
     @staticmethod

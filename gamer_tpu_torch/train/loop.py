@@ -26,7 +26,7 @@ through pinned memory without waiting for the card (`train/staging.py`).
 The device part, `_device_step`, is forward, backward, the running-mean
 accumulation into static accumulators, and on the update micro-step the
 optimizer's device half (kernel L on the card); it reads no device value
-into Python. On CUDA without a process group the device part is captured
+into Python. On CUDA the device part is captured
 once per (input shapes and dtypes, accumulation phase) as a CUDA graph, as
 `jax.jit` traces once per shape: the first step of each runs eagerly on a
 side stream (PyTorch's whole-network capture recipe: the warm-up is the
@@ -49,16 +49,24 @@ denom), whose ratio is the returned loss, and weighs its local grads by
 denom / global denom; an update all-reduces the accumulated grads once, as
 one flat buffer in parameter order, before the optimizer clips them. Every
 process then applies the same sum, so parameters stay bit-identical.
-`evaluate` sums its totals and weights over the group the same way. Under a
-process group the device parts of both steps run eagerly (no capture).
+`evaluate` sums its totals and weights over the group the same way. The
+training step's two all-reduces are in its device part: under an NCCL group
+they are captured with it and every replay runs them; under a gloo group,
+which stages the card's tensors through the host, the step runs eagerly
+(`core/graphs.capture_enabled`). A batch's weight w comes from the loss
+("denom") or, without one, from its valid rows, staged with the step's
+scalars. The eval step's device part holds no collective (its sums are
+reduced after the batches), so it is captured under any group.
 
 On a (data, model) mesh (the `core/mesh.MeshContext` whose `shard_params`
 the model went through) these sums run over the data
 group, and the model ranks of a data index compute the same loss on the same
-rows. Checkpoints and `best_params` hold whole tensors: each split parameter
-(and its optimizer moments and accumulated grad) gathered over the model
-group, written by process 0, so a sharded run's checkpoint loads in one
-process; `load_train_state` takes this rank's blocks of whole tensors.
+rows. A live model axis puts collectives in every forward, which time
+themselves on the host, so both steps of a sharded model run eagerly.
+Checkpoints and `best_params` hold whole tensors: each split parameter (and
+its optimizer moments and accumulated grad) gathered over the model group,
+written by process 0, so a sharded run's checkpoint loads in one process;
+`load_train_state` takes this rank's blocks of whole tensors.
 """
 
 from __future__ import annotations
@@ -146,9 +154,14 @@ class Trainer:
         self._seeds = (torch.zeros(n_seeds, dtype=torch.int32, device=self.device)
                        if n_seeds is not None else None)
         self._div = torch.ones((), dtype=torch.float32, device=self.device)
-        self._per_step = Staging({"div": self._div} if self._seeds is None
-                                 else {"div": self._div, "seeds": self._seeds})
-        self.calls = StagedGraphs(self.device, "training step", graphed)
+        # a batch's valid rows: its weight in the global mean of a loss without "denom"
+        self._row_w = torch.ones((), dtype=torch.float64, device=self.device)
+        per_step = {"div": self._div, "row_w": self._row_w}
+        self._per_step = Staging(per_step if self._seeds is None
+                                 else {**per_step, "seeds": self._seeds})
+        model_axis = self.ctx.model_axis if self.ctx is not None else None
+        self.calls = StagedGraphs(self.device, "training step", graphed, reduces=True,
+                                  group=self.data_group, model_axis=model_axis)
         self._eval: EvalStep | None = None
 
     # ------------------------------------------------------------------ steps
@@ -167,14 +180,18 @@ class Trainer:
         if self.captures:
             loss = self._graph_step(inputs, seeds, mini, k)
         else:
-            loss = self._device_step(inputs, seeds, mini, k, batch)
+            loss = self._device_step(inputs, seeds, mini, k)
+        if mini == k - 1 and distributed.is_initialized():
+            distributed.all_reduce_flat.calls += 1  # the update's all-reduce ran, replays too
         self.step += 1
         return loss
 
     @property
     def captures(self) -> bool:
         """Whether the device part is captured and replayed as CUDA graphs:
-        on the card, `graphed`, and without a process group."""
+        on the card, `graphed`, and, under a process group, only if its data
+        group is NCCL and the model has no live model axis
+        (`core/graphs.capture_enabled`)."""
         return self.calls.captures
 
     @property
@@ -184,12 +201,14 @@ class Trainer:
 
     def _prepare(self, batch: dict, mini: int, k: int) -> tuple[dict, Any]:
         """The host part of a micro-step: the batch into its static device
-        buffers, the dropout seeds and the accumulation divisor into theirs,
-        and on the update micro-step the optimizer's scalars. Returns (the
-        device batch, the seed table or, for a model without one, the
-        generator)."""
+        buffers, the dropout seeds and the accumulation divisor into theirs
+        (under a process group also the batch's valid rows), and on the
+        update micro-step the optimizer's scalars. Returns (the device batch,
+        the seed table or, for a model without one, the generator)."""
         _, static = self.calls.stage({n: as_array(v) for n, v in batch.items()})
         per_step = {"div": np.float32(mini + 1)}
+        if distributed.is_initialized():
+            per_step["row_w"] = np.float64(valid_rows(batch))
         seeds = self.generator(self.step)
         if self._seeds is not None:
             per_step["seeds"] = draw(seeds, self._seeds.numel()).to(torch.int32)
@@ -199,17 +218,16 @@ class Trainer:
             self.optimizer.prepare()
         return static, seeds
 
-    def _device_step(self, inputs: dict, seeds, mini: int, k: int,
-                     batch: dict | None = None) -> torch.Tensor:
+    def _device_step(self, inputs: dict, seeds, mini: int, k: int) -> torch.Tensor:
         """The device part of a micro-step on the staged inputs; changes no
-        host state, so it can run inside a capture. `batch` (the host
-        arrays) weighs the loss under a process group."""
+        host state, so it can run inside a capture (its all-reduces too,
+        under an NCCL group)."""
         grouped = distributed.is_initialized()
         for p in self.params.values():
             p.grad = None
         loss, aux = self.loss_fn(inputs, seeds)
         if grouped:  # the global token mean and this process's share of it
-            w = _weight(batch, aux, loss.device)
+            w = aux["denom"].double() if "denom" in aux else self._row_w
             stats = distributed.all_reduce_sum(torch.stack([loss.detach().double() * w, w]),
                                                self.data_group)
             share = (w / stats[1]).float()
@@ -314,7 +332,8 @@ class Trainer:
                 if self._seeds is not None:
                     seeds = draw(seeds, self._seeds.numel()).to(torch.int32).to(self.device)
                 loss_fn = lambda b: self.loss_fn(b, seeds)  # noqa: E731
-            self._eval = EvalStep(loss_fn, self.device, self.graphed)
+            self._eval = EvalStep(loss_fn, self.device, self.graphed,
+                                  model_axis=self.calls.model_axis)
         return self._eval
 
     def fit(self, train_batches: Callable[[int], Iterator[dict]],
@@ -446,23 +465,27 @@ class EvalStep:
     part runs the loss and adds loss * w and w into `sums` ([total,
     weight], of `dtype`), w being aux "denom" (the valid-target count) where
     the loss gives one and `by_rows` is off, else the valid rows; it reads
-    nothing into Python. On CUDA without a process group, and `graphed`, the
-    device part is captured once per input key (a short last batch is a
-    second key, as `jax.jit` compiles again for it) and replayed; the eval
-    graphs have a memory pool of their own. The caller reads `sums` once."""
+    nothing into Python and holds no collective (a caller under a process
+    group reduces `sums` afterwards). On CUDA, and `graphed`, the device
+    part is captured once per input key (a short last batch is a second
+    key, as `jax.jit` compiles again for it) and replayed, under any process
+    group; only a live `model_axis` (whose forward holds collectives) keeps
+    it eager. The eval graphs have a memory pool of their own. The caller
+    reads `sums` once."""
 
     def __init__(self, loss_fn: Callable[[dict], tuple[torch.Tensor, dict]], device,
                  graphed: bool = True, dtype: torch.dtype = torch.float32,
-                 by_rows: bool = False):
+                 by_rows: bool = False, model_axis=None):
         self.loss_fn = loss_fn
         self.device = torch.device(device)
         self.by_rows = by_rows
         self.sums = torch.zeros(2, dtype=dtype, device=self.device)
-        self.calls = StagedGraphs(self.device, "eval step", graphed)
+        self.calls = StagedGraphs(self.device, "eval step", graphed, model_axis=model_axis)
 
     @property
     def captures(self) -> bool:
-        """As `Trainer.captures`: on the card, `graphed`, without a group."""
+        """On the card and `graphed`, under any process group, unless the
+        model has a live model axis (`core/graphs.capture_enabled`)."""
         return self.calls.captures
 
     @property
@@ -476,9 +499,8 @@ class EvalStep:
     def stage(self, batch: dict) -> tuple[tuple, dict]:
         """The host part: (the input key, the static device batch, whose
         "row_w" entry is the batch's valid-row count)."""
-        rows = float(np.asarray(batch.get("row_valid", np.ones(1))).sum())
         return self.calls.stage({**{n: as_array(v) for n, v in batch.items()},
-                                 "row_w": torch.tensor(rows, dtype=self.sums.dtype)})
+                                 "row_w": torch.tensor(valid_rows(batch), dtype=self.sums.dtype)})
 
     def device_part(self, static: dict) -> None:
         """Adds the batch's loss * w and w into `sums`."""
@@ -494,9 +516,7 @@ class EvalStep:
         self.calls.run(key, self.device_part, static)
 
 
-def _weight(batch: dict, aux: dict, device) -> torch.Tensor:
-    """A batch's weight in a global mean: the loss's valid-target count (aux
-    "denom"), else its valid rows, as a float64 scalar."""
-    w = aux["denom"] if "denom" in aux else float(
-        np.asarray(batch.get("row_valid", np.ones(1))).sum())
-    return torch.as_tensor(w, device=device).double()
+def valid_rows(batch: dict) -> float:
+    """A batch's valid rows (the sum of "row_valid", else 1): its weight in a
+    global mean where the loss gives no valid-target count."""
+    return float(np.asarray(batch.get("row_valid", np.ones(1))).sum())

@@ -35,10 +35,10 @@ dropout runs on K1 and K2, the update on kernel L), each compiled (a CUDA
 graph replayed) and eager (`graphed=False`). With `rqvae` it traces three
 RQ-VAE training steps (`tasks/rqvae.RQVAEStep`: `chip_smoke.py` phase 12's
 shipped widths, batch 1024 of 6000 random 768-d items, CF and diversity
-losses on), three emits over the 6000 items (`RQVAEEmit`) and two of the
-task's epochs (the reclustering of every codebook, then 6 steps), each
-compiled and eager, and the reclustering alone (k-means, eager in both:
-host round trips).
+losses on), three emits over the 6000 items (`RQVAEEmit`), two of the
+task's epochs (the reclustering of every codebook, `RQVAERecluster`, then 6
+steps) and the reclustering alone, each compiled (its graphs replayed) and
+eager.
 """
 
 from __future__ import annotations
@@ -131,7 +131,6 @@ def profile_rqvae(n_items: int = 6000, batch_size: int = 1024) -> None:
 
     import chip_smoke as cs
     from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig, training_draws
-    from gamer_tpu_torch.ops.kmeans import cluster_codebook
     from gamer_tpu_torch.tasks import rqvae as TR
 
     args = dict(zip(cs.PHASE12_RQ[::2], cs.PHASE12_RQ[1::2]))
@@ -170,20 +169,19 @@ def profile_rqvae(n_items: int = 6000, batch_size: int = 1024) -> None:
         _profile(emit, 3, f"RQ-VAE emit of {n_items} items in chunks of {batch_size}, {form}",
                  top=6)
 
+        recluster = TR.RQVAERecluster(model, step.labels, graphed)
+
         def epoch():  # the task's epoch: recluster every codebook, then the steps
-            books = model.codebooks.detach()
-            step.set_labels(np.stack([cluster_codebook(books[lvl], cfg.n_clusters, lvl)
-                                      for lvl in range(levels)]))
-            TR.train_epoch(step, order, batch_size, 0, next(gens))
+            e = next(gens)
+            recluster(0, e)
+            TR.train_epoch(step, order, batch_size, 0, e)
 
         _profile(epoch, 2, f"RQ-VAE epoch ({levels} reclusterings, {pad_n // batch_size} "
                  f"steps), {form}", top=6)
-        books = model.codebooks.detach()
-        _profile(lambda: [cluster_codebook(books[lvl], cfg.n_clusters, lvl)
-                          for lvl in range(levels)], 2,
-                 f"an epoch's reclustering alone ({levels} levels of {size} codes), {form} run",
+        _profile(lambda: recluster(0, next(gens)), 2,
+                 f"an epoch's reclustering alone ({levels} levels of {size} codes), {form}",
                  top=6)
-        del model, step, emit
+        del model, step, emit, recluster
 
 
 def _adamw(model):

@@ -298,9 +298,10 @@ def test_chip_smoke_encdec_phase_on_cpu():
 
 def test_chip_smoke_multiprocess_phase_on_cpu():
     """Phase 11 of chip_smoke.py (train_SMB_decoder in a one-process group
-    against ungrouped, two worker processes of the script against one, the
-    striped test_SMB_decoder, with their gates) at a tiny size on the CPU,
-    on gloo."""
+    against ungrouped, the grouped `Trainer` steps compiled against eager,
+    two worker processes of the script against one, the striped
+    test_SMB_decoder, with their gates) at a tiny size on the CPU, on
+    gloo."""
     import chip_smoke as cs
 
     spec = dict(n_users=24, n_items=60, n_clusters=4, num_levels=2, level_sizes=(8, 10),
@@ -311,6 +312,8 @@ def test_chip_smoke_multiprocess_phase_on_cpu():
                     "--n_layers", "2", "--hidden_size", "16"),
         steps_spec=dict(cfg=dict(tiny=True, dtype="float32", dropout_rate=0.2),
                         geometry=(2, 4, 4)),
+        inproc_spec=dict(cfg=dict(tiny=True, dtype="float32", dropout_rate=0.2),
+                         geometry=(4, 4), steps=3),
         extra_args=("--device", "cpu"), min_steps=2, num_beams=4)
     assert not any(name.startswith("phase11_") for name in os.listdir(REPO))
 

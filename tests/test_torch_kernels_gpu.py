@@ -738,7 +738,7 @@ def test_sinkhorn_and_kmeans_on_card_match_cpu(dev):
     centers = torch.as_tensor(rng.standard_normal((16, 8)) * 5, dtype=torch.float32)
     x = centers[rng.integers(0, 16, 2000)] + torch.as_tensor(rng.standard_normal((2000, 8)),
                                                              dtype=torch.float32)
-    init = K.init_centers(x, 16, torch.Generator().manual_seed(0))
+    init = K.init_centers(x, 16, 0)
     for fn in (K.kmeans, K.balanced_kmeans):
         c_card, l_card = fn(x.to(dev), 16, iters=10, centers=init)
         c_cpu, l_cpu = fn(x, 16, iters=10, centers=init)
@@ -1346,3 +1346,131 @@ def test_compiled_rqvae_step_and_emit_match_eager(dev, bn):
     assert per_step["hash_dropout_fwd"] == 6
     assert g_launches == {k: 2 * n for k, n in per_step.items()}, g_launches
     assert e_launches == {k: 4 * n for k, n in per_step.items()}, e_launches
+
+
+# ---- capture under a process group; the RQ-VAE's reclustering as one graph
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_one_process_nccl_graphed_trainer_matches_eager(dev, k):
+    """Four updates of a small Qwen3Multi (bf16, dropout 0.2, kernels on) in
+    a one-process NCCL group, captured (one graph a key) and replayed,
+    against the same steps with `graphed=False` in the same group: every
+    loss and parameter bit for bit; `all_reduce_flat.calls` one an update in
+    both forms, replays counted; the captures issue the step's all-reduces
+    on the capturing stream (the (loss·w, w) one a micro-step and the
+    gradient one an update: a one-rank NCCL all-reduce launches no kernel,
+    so a profile cannot show them), the eager steps the same ones each."""
+    import socket
+
+    import chip_smoke as cs
+    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.entry import flagship_config, make_batch
+    from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
+    from gamer_tpu_torch.train.loop import Trainer, TrainLoopConfig
+    from gamer_tpu_torch.train.state import OptimizerConfig
+
+    cfg = flagship_config(num_hidden_layers=2, dtype="bfloat16", dropout_rate=0.2)
+    batches = [make_batch(cfg, 4, 20, np.random.default_rng(i)) for i in range(2 * k)]
+
+    def run(graphed):
+        model = QwenFamilyModel(cfg, device=dev, seed=0)
+        trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
+                          OptimizerConfig(total_steps=6, warmup_steps=1),
+                          TrainLoopConfig(gradient_accumulation_steps=k), graphed=graphed)
+        calls = distributed.all_reduce_flat.calls
+        with cs._issued_all_reduces() as issued:
+            losses = [trainer.train_step(batches[i % len(batches)]) for i in range(4 * k)]
+            torch.cuda.synchronize()
+        reduces = distributed.all_reduce_flat.calls - calls
+        params = [p.detach().clone() for p in model.parameters()]
+        return losses, params, trainer.graphs, trainer.captures, reduces, issued
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert distributed.maybe_initialize(f"localhost:{port}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        assert distributed.backend() == "nccl"
+        graphed, eager = run(True), run(False)
+    finally:
+        distributed.shutdown()
+    assert graphed[2:4] == (k, True) and eager[2:4] == (0, False)
+    assert graphed[4] == eager[4] == 4  # one gradient all-reduce an update, replays counted
+    # each key's first micro-step runs eagerly (the warm-up), then is captured; replays
+    # issue nothing from Python
+    assert (graphed[5].count(False), graphed[5].count(True)) == (k + 1, k + 1), graphed[5]
+    assert eager[5] == [False] * 4 * (k + 1), eager[5]
+    assert all(torch.equal(a, b) for a, b in zip(graphed[0], eager[0]))
+    assert all(torch.equal(a, b) for a, b in zip(graphed[1], eager[1]))
+
+
+def test_compiled_recluster_matches_eager(dev):
+    """`RQVAERecluster` on levels of 64, 32 and 48 codes (16-d, 10
+    clusters) compiled and eager at epochs 0-3, the codebooks moving between
+    epochs: labels bit-identical at every epoch; one graph ("rq-vae
+    recluster"), captured at the first call and replayed at the others,
+    each replay drawing from the seeds staged for its epoch (its labels
+    differ from the first epoch's)."""
+    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
+    from gamer_tpu_torch.tasks import rqvae as TR
+
+    cfg = RQVAEConfig(in_dim=32, num_emb_list=[64, 32, 48], e_dim=16, layers=[64], beta=0.01,
+                      sk_epsilons=[0.0, 0.0, 0.003])
+    runs = {}
+    for graphed in (True, False):
+        model = RQVAE(cfg, device=dev, seed=2)
+        labels = torch.zeros((3, 64), dtype=torch.int64, device=dev)
+        recluster = TR.RQVAERecluster(model, labels, graphed)
+        before = GraphCache.captured.get("rq-vae recluster", 0)
+        out = []
+        for epoch in range(4):
+            recluster(7, epoch)
+            out.append(labels.clone())
+            with torch.no_grad():
+                model.codebooks.mul_(1.01).add_(0.01)
+        torch.cuda.synchronize()
+        runs[graphed] = (out, recluster.calls.graphs,
+                         GraphCache.captured.get("rq-vae recluster", 0) - before)
+    (g, g_graphs, g_new), (e, e_graphs, e_new) = runs[True], runs[False]
+    assert (g_graphs, g_new, e_graphs, e_new) == (1, 1, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(g, e))
+    assert not torch.equal(g[0], g[1])
+
+
+@pytest.mark.parametrize("n,d,k", [(256, 32, 10), (512, 16, 64)])
+def test_kmeans_seeding_card_matches_cpu(dev, n, d, k):
+    """The device seeding (`ops/kmeans.init_centers`) of the same points on
+    the card and on the CPU, seeds 0-5: equal centers are expected. Where a
+    center differs, the first one that does is shown to come from the two
+    devices' rounding: on the shared prefix of centers, one of its
+    candidates' uniform lies within 1e-4 of the total of a boundary of the
+    float64 cumulative sum of the running distances, or the two best
+    candidates' potentials lie within 1e-5 of each other."""
+    from gamer_tpu_torch.ops import kmeans as K
+
+    rng = np.random.default_rng(n + k)
+    x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32)
+    trials = K.seeding_trials(k)
+    equal = 0
+    for seed in range(6):
+        cpu = K.init_centers(x, k, seed)
+        card = K.init_centers(x.to(dev), k, seed).cpu()
+        if torch.equal(cpu, card):
+            equal += 1
+            continue
+        i0 = int((cpu != card).any(dim=1).nonzero()[0])
+        x64, shared = x.double(), cpu[:i0].double()
+        dmin = ((x64[:, None] - shared[None]) ** 2).sum(-1).min(1).values
+        cum = dmin.clamp(min=1e-12).cumsum(0)
+        target = K.seeding_uniforms(seed, k, trials, "cpu")[i0] * cum[-1]
+        boundary = float(((cum[None] - target[:, None]).abs().min(1).values / cum[-1]).min())
+        cand = torch.searchsorted(cum, target, right=True).clamp(max=n - 1)
+        cx = x64[cand]
+        pot = torch.minimum(dmin[None], ((x64[None] - cx[:, None]) ** 2).sum(-1)).sum(1)
+        top = pot.sort().values
+        tie = float((top[1] - top[0]) / top[0]) if len(set(cand.tolist())) > 1 else 1.0
+        assert boundary <= 1e-4 or tie <= 1e-5, (seed, i0, boundary, tie)
+    assert equal >= 1, "no seed gave the same centers on the card and the CPU"
+
