@@ -1744,15 +1744,15 @@ def _recording(counters: dict):
 @contextlib.contextmanager
 def _captures():
     """While the block runs, count the CUDA graphs captured, by cache name
-    (`core/graphs.GraphCache.captured`): "training step", "eval step",
-    "beam search", "enc-dec beam search"."""
-    from gamer_tpu_torch.core.graphs import GraphCache
+    (the counters `graph.capture.<name>` of `core/trace.py`): "training
+    step", "eval step", "beam search", "enc-dec beam search"."""
+    from gamer_tpu_torch.core import trace
 
-    before, got = dict(GraphCache.captured), {}
+    before, got = trace.counters("graph.capture."), {}
     try:
         yield got
     finally:
-        got.update({k: n - before.get(k, 0) for k, n in GraphCache.captured.items()
+        got.update({k: n - before.get(k, 0) for k, n in trace.counters("graph.capture.").items()
                     if n > before.get(k, 0)})
 
 
@@ -2621,14 +2621,13 @@ def _mp_eval_worker(out: str, argv_json: str) -> None:
     import torch
 
     from gamer_tpu_torch.__main__ import main
-    from gamer_tpu_torch.core import distributed
-    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.core import distributed, trace
 
     try:
         main(json.loads(argv_json))
         peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
         with open(os.path.join(out, f"eval_rank{distributed.process_index()}.json"), "w") as f:
-            json.dump({"graphs": GraphCache.captured.get("beam search", 0),
+            json.dump({"graphs": trace.counter("graph.capture.beam search"),
                        "peak_gib": peak / 2 ** 30}, f)
     finally:
         distributed.shutdown()
@@ -2647,7 +2646,7 @@ def grouped_steps_agree(dev, counters: dict, card: str, spec: dict) -> None:
     step time and busy share."""
     import torch
 
-    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core import distributed, trace
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
     from gamer_tpu_torch.train.loop import TrainLoopConfig, Trainer
@@ -2666,7 +2665,7 @@ def grouped_steps_agree(dev, counters: dict, card: str, spec: dict) -> None:
         trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
                           OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
                                           total_steps=n), TrainLoopConfig(seed=0), graphed=graphed)
-        calls = distributed.all_reduce_flat.calls
+        calls = trace.counter("all_reduce.flat")
         losses, times = [], []
         with _recording(counters) as rec, _issued_all_reduces() as issued:
             for _ in range(n):
@@ -2679,7 +2678,7 @@ def grouped_steps_agree(dev, counters: dict, card: str, spec: dict) -> None:
         assert (replayed, captured, trainer.graphs) == (*want, want[1]), (
             f"phase 11a grouped {form}: replayed {replayed}, captured {captured}, graphs "
             f"{trainer.graphs}, expected {want}")
-        reductions = distributed.all_reduce_flat.calls - calls
+        reductions = trace.counter("all_reduce.flat") - calls
         assert reductions == n, f"phase 11a grouped {form}: {reductions} all-reduces, {n} steps"
         # (loss·w, w) and the gradients: at the warm-up and the capture, or at every eager step
         want_issued = [False, False, True, True] if graphed and cuda else [False, False] * n
@@ -2773,7 +2772,7 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     import torch
 
     from gamer_tpu_torch.__main__ import main
-    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core import distributed, trace
     from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
 
@@ -2794,7 +2793,7 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     runs = {}
     for grouped in (False, True):
         out = os.path.join(root, "grouped" if grouped else "plain")
-        calls = distributed.all_reduce_flat.calls
+        calls = trace.counter("all_reduce.flat")
         with contextlib.ExitStack() as stack:
             if grouped:
                 stack.enter_context(_group_env(1, 0, _free_port()))
@@ -2802,7 +2801,7 @@ def multiprocess_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
                 res = cli([*train, "--output_dir", out])
                 sync()
             assert distributed.is_initialized() == grouped, "the task did not join its group"
-            runs[grouped] = (rec, cap, res, distributed.all_reduce_flat.calls - calls, out)
+            runs[grouped] = (rec, cap, res, trace.counter("all_reduce.flat") - calls, out)
             if grouped:
                 assert distributed.backend() == ("nccl" if cuda else "gloo")
                 grouped_steps_agree(dev, counters, card, inproc_spec)
@@ -3127,7 +3126,7 @@ def recluster_forms_agree(cfg, runs: dict, calls: list, dev, card: str) -> None:
     2-4) and, on the card, the device time and kernels of a profiled one."""
     import torch
 
-    from gamer_tpu_torch.core.graphs import GraphCache
+    from gamer_tpu_torch.core import trace
     from gamer_tpu_torch.ops.kmeans import cluster_codebook
     from gamer_tpu_torch.tasks import rqvae as TR
 
@@ -3136,7 +3135,7 @@ def recluster_forms_agree(cfg, runs: dict, calls: list, dev, card: str) -> None:
     labels, info = {}, {}
     for form, (step, model, _) in runs.items():
         recluster = TR.RQVAERecluster(model, step.labels, form == "compiled")
-        before = GraphCache.captured.get("rq-vae recluster", 0)
+        before = trace.counter("graph.capture.rq-vae recluster")
         labels[form], times = [], []
         for epoch in range(1, RECLUSTERS + 1):
             sync()
@@ -3145,10 +3144,10 @@ def recluster_forms_agree(cfg, runs: dict, calls: list, dev, card: str) -> None:
             sync()
             times.append(time.perf_counter() - t)
             labels[form].append(step.labels.clone())
-        new = GraphCache.captured.get("rq-vae recluster", 0) - before
+        new = trace.counter("graph.capture.rq-vae recluster") - before
         want = int(cuda and form == "compiled")
-        assert recluster.calls.graphs == new == want, (
-            f"phase 12 reclustering {form}: {recluster.calls.graphs} graphs, {new} captured")
+        assert recluster.staged.graphs == new == want, (
+            f"phase 12 reclustering {form}: {recluster.staged.graphs} graphs, {new} captured")
         prof = _profiled_step(lambda: recluster(0, RECLUSTERS)) if cuda else None
         info[form] = dict(ms=float(np.median(times[1:])) * 1e3, first_ms=times[0] * 1e3,
                           prof=prof)
@@ -3158,7 +3157,7 @@ def recluster_forms_agree(cfg, runs: dict, calls: list, dev, card: str) -> None:
               f"{cfg.num_emb_list} codes, {cfg.n_clusters} clusters) {form}: "
               f"{info[form]['ms']:.3f} ms wall (median of epochs 2-{RECLUSTERS}, to a "
               f"synchronize; the first {info[form]['first_ms']:.1f} ms), graphs "
-              f"{recluster.calls.graphs}{busy} (card {card})", flush=True)
+              f"{recluster.staged.graphs}{busy} (card {card})", flush=True)
     same = sum(torch.equal(a, b) for a, b in zip(labels["compiled"], labels["eager"]))
     model = runs["eager"][1]
     books = model.codebooks.detach()
@@ -3389,9 +3388,9 @@ def staged_forms_agree(label: str, make, calls: list, cls, counters: dict, dev,
                 times.append(time.perf_counter() - t)
         replayed, captured = check_step_launches(f"{label} {form}", rec, expected)
         want = (len(calls) - 1, 1) if graphed and cuda else (0, 0)
-        assert (replayed, captured, step.calls.graphs) == (*want, want[1]), (
+        assert (replayed, captured, step.staged.graphs) == (*want, want[1]), (
             f"{label} {form}: replayed {replayed}, captured {captured}, graphs "
-            f"{step.calls.graphs}, expected {want}")
+            f"{step.staged.graphs}, expected {want}")
         state = {n: t.detach().clone() for n, t in model.state_dict().items()}
         ms = float(np.median(times[1:])) * 1e3
         prof = _profiled_step(lambda: calls[-1](step)) if cuda else None
@@ -3665,21 +3664,35 @@ PHASE14 = dict(steps=PHASE11_STEPS, step16=dict(cfg=dict(dropout_rate=DROP_RATE)
                model=2)
 
 
-def kernel_counters() -> dict:
-    """The kernel wrappers whose `.launches` count the launches of a-k, of
-    the hash dropout's K1 and K2 and of the optimizer update's L1 and L2."""
-    from gamer_tpu_torch.ops import fused_attention as FA
-    from gamer_tpu_torch.ops import fused_ce as FC
-    from gamer_tpu_torch.ops import fused_moe as FM
-    from gamer_tpu_torch.ops import fused_optimizer as FO
-    from gamer_tpu_torch.ops import hash_dropout as HD
+class LaunchCounter:
+    """A kernel's launches since `.launches` was last set, read from the
+    port's counter `name` (`core/trace.py`, `launch.<kernel>`)."""
 
-    return {"fused_mask_attention": FA.fused_mask_attention,
-            "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
-            "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd,
-            "hash_dropout_fwd": HD.hash_dropout_fwd, "hash_dropout_bwd": HD.hash_dropout_bwd,
-            "global_norm_sq": FO.global_norm_sq, "apply_update": FO.apply_update}
+    def __init__(self, name: str):
+        self.name, self.base = name, 0
+
+    @property
+    def launches(self) -> int:
+        from gamer_tpu_torch.core import trace
+
+        return trace.counter(self.name) - self.base
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from gamer_tpu_torch.core import trace
+
+        self.base = trace.counter(self.name) - n
+
+
+def kernel_counters() -> dict:
+    """The launches of a-k, of the hash dropout's K1 and K2 and of the
+    optimizer update's L1 and L2, by the name of the wrapper that launches
+    each (`LaunchCounter`s)."""
+    kernels = {"fused_mask_attention": "a", "fused_mask_attention_bwd": "b",
+               "fused_moe_ffn": "h", "fused_moe_ffn_bwd": "i", "fused_ce_rows": "j",
+               "fused_ce_rows_bwd": "k", "hash_dropout_fwd": "K1", "hash_dropout_bwd": "K2",
+               "global_norm_sq": "L1", "apply_update": "L2"}
+    return {name: LaunchCounter("launch." + k) for name, k in kernels.items()}
 
 
 def model_collectives(cfg, n_model: int) -> int:
@@ -3712,7 +3725,7 @@ def model_axis_run(dev, spec: dict, ctx=None) -> dict:
     collectives and their time; c. the search: codes and scores."""
     import torch
 
-    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core import trace
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -3738,15 +3751,20 @@ def model_axis_run(dev, spec: dict, ctx=None) -> dict:
         counters = kernel_counters()
         for w in counters.values():
             w.launches = 0
-        calls, seconds = distributed.model_all_reduce.calls, distributed.model_all_reduce.seconds
+        # traced: each model-axis collective is a span timed between two synchronizes
+        trace.enable()
+        trace.reset()
+        calls = trace.counter("all_reduce.model")
         t = time.perf_counter()
         loss = float(trainer.train_step(batch))
         sync()
+        ms = (time.perf_counter() - t) * 1e3
+        held = trace.snapshot()["spans"].get("all_reduce.model", {"n": 0, "mean_ms": 0.0})
+        trace.disable()
         out["step16"] = dict(
-            loss=loss, ms=(time.perf_counter() - t) * 1e3,
-            launches={k: w.launches for k, w in counters.items()},
-            collectives=distributed.model_all_reduce.calls - calls,
-            collective_ms=(distributed.model_all_reduce.seconds - seconds) * 1e3,
+            loss=loss, ms=ms, launches={k: w.launches for k, w in counters.items()},
+            collectives=trace.counter("all_reduce.model") - calls,
+            collective_ms=held["n"] * held["mean_ms"],
             expected=model_collectives(cfg, n_model), expected_launches=_train_step_launches(cfg),
             block=(tuple(model.embed_tokens.weight.shape), tuple(model.lm_table().shape),
                    tuple(model.layers[0].mlp.experts_gate.shape)))

@@ -35,11 +35,11 @@ import os
 import socket
 import subprocess
 import sys
-import time
 
 import torch
 import torch.distributed as dist
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.core.logging import get_logger
 
 logger = get_logger("distributed")
@@ -173,10 +173,10 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def all_reduce_flat(tensors: list[torch.Tensor], group=None) -> None:
     """Sum same-dtype tensors over `group` in place, as one flat all-reduce
-    in the list's order. `.calls` counts the training step's all-reduces
-    that ran: the step's host part adds one for each update it runs
-    (`train/loop.Trainer.train_step`), since a captured step replays the
-    all-reduce without calling this."""
+    in the list's order. The counter `all_reduce.flat` (`core/trace.py`)
+    counts the training step's all-reduces that ran: the step's host part
+    adds one for each update it runs (`train/loop.Trainer.train_step`), since
+    a captured step replays the all-reduce without calling this."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     offset = 0
@@ -185,30 +185,24 @@ def all_reduce_flat(tensors: list[torch.Tensor], group=None) -> None:
         offset += t.numel()
 
 
-all_reduce_flat.calls = 0
-
-
 def model_all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `t` over a model group in place: one collective, counted in
-    `.calls` and timed in `.seconds` (host time from the card's last queued
-    work done to the sum back, so it holds the collective alone)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    start = time.perf_counter()
-    # 16-bit values travel as fp32: the sums of partial results stay exact
-    buf = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    if buf is not t:
-        t.copy_(buf)
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    model_all_reduce.seconds += time.perf_counter() - start
-    model_all_reduce.calls += 1
+    """Sum `t` over a model group in place: one collective, counted in the
+    counter `all_reduce.model`. While tracing is on it is the span
+    `all_reduce.model`, which synchronizes the card before and after, so
+    the span's host time holds the collective alone."""
+    timed = trace.enabled() and t.is_cuda
+    with trace.span("all_reduce.model"):
+        if timed:
+            torch.cuda.synchronize(t.device)
+        # 16-bit values travel as fp32: the sums of partial results stay exact
+        buf = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        if buf is not t:
+            t.copy_(buf)
+        if timed:
+            torch.cuda.synchronize(t.device)
+    trace.count("all_reduce.model")
     return t
-
-
-model_all_reduce.calls = 0
-model_all_reduce.seconds = 0.0
 
 
 class ModelAxis:

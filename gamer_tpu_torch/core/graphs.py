@@ -14,8 +14,13 @@ they are cloned out before they are returned. The graphs of one
 step, its eval step, a search object) has its own cache and so its own
 pool. A capture that fails raises.
 
-`GraphCache.captured` counts captures by cache name across the process,
-as the kernel wrappers count their launches.
+Each owner's captures, replays and eager runs are counted by its cache
+name in the counters of `core/trace.py` (`graph.capture.<name>`,
+`graph.replay.<name>`, `graph.eager.<name>`), beside the kernel wrappers'
+launches. Every key also holds `trace.marking()`: a graph with device marks
+is a capture of its own, and a graph without them is the same graph a run
+without tracing captures; a marked graph's marks are read at its replays
+(`trace.replay`).
 
 `StagedGraphs` pairs a cache with the static input buffers of
 `train/staging.StaticInputs`: the host part of a call stages its arrays into
@@ -32,9 +37,9 @@ any, run on the host side of the call). An NCCL collective is launched on
 the capturing stream and is captured with the rest; a gloo collective stages
 the card's tensors through the host, so a device part that reduces over a
 gloo group runs eagerly. Under a live model axis (`core/mesh.py`) every
-forward holds the model group's collectives, which synchronize and time
-themselves on the host (`distributed.model_all_reduce`): the owners of such
-a model run eagerly.
+forward holds the model group's collectives (`distributed.model_all_reduce`,
+which gloo stages through the host): the owners of such a model run
+eagerly.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import Any, Callable, Hashable
 
 import torch
 
-from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core import distributed, trace
 from gamer_tpu_torch.train.staging import StaticInputs
 
 logger = logging.getLogger("gamer_tpu_torch.graphs")
@@ -72,8 +77,6 @@ def model_axis_of(model):
 class GraphCache:
     """CUDA graphs of one owner's device functions, by key, in one pool."""
 
-    captured: dict[str, int] = {}  # captures made in this process, by cache name
-
     def __init__(self, device, name: str):
         self.device = torch.device(device)
         self.name = name
@@ -89,10 +92,13 @@ class GraphCache:
         """`fn()` through the CUDA graph of `key`: replayed when captured
         (its outputs cloned out of the graph's memory), else run eagerly on a
         side stream and then captured. `hold()`, called after the capture,
-        gives what the graph reads and must outlive it (kept with it)."""
+        gives what the graph reads and must outlive it (kept with it). The
+        key is taken with `trace.marking()`."""
+        key = (key, trace.marking())
         entry = self._graphs.get(key)
         if entry is not None:
-            entry[0].replay()
+            trace.count("graph.replay." + self.name)
+            trace.replay(entry[0], entry[3])
             return _clone(entry[1])
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
@@ -102,12 +108,16 @@ class GraphCache:
             out = fn()
         current.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            graph_out = fn()
+        trace.begin_capture()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                graph_out = fn()
+        finally:
+            marks = trace.end_capture()
         if self._pool is None:
             self._pool = graph.pool()
-        self._graphs[key] = (graph, graph_out, hold() if hold is not None else None)
-        GraphCache.captured[self.name] = GraphCache.captured.get(self.name, 0) + 1
+        self._graphs[key] = (graph, graph_out, hold() if hold is not None else None, marks)
+        trace.count("graph.capture." + self.name)
         logger.info("captured the %s's CUDA graph %d (%s)", self.name, len(self._graphs), key)
         return out
 
@@ -141,7 +151,7 @@ class StagedGraphs:
 
     @property
     def graphs(self) -> int:
-        """CUDA graphs captured: one per key."""
+        """CUDA graphs captured: one per key (a marked one is a key of its own)."""
         return len(self._graphs)
 
     def stage(self, arrays) -> tuple[tuple, dict]:
@@ -154,6 +164,7 @@ class StagedGraphs:
         whose `hold` it takes) when captures are on, else run eagerly."""
         if self.captures:
             return self._graphs.run(key, lambda: fn(static), hold)
+        trace.count("graph.eager." + self._graphs.name)
         return fn(static)
 
 

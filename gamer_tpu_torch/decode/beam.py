@@ -27,7 +27,10 @@ P0 + L positions, of which each step moves only the generated slice.
 searches, the counterparts of the JAX package's jitted ones: on the card the
 search (prefill and every step) is one CUDA graph a key, replayed
 (`_CompiledSearch`); `constrained_beam_search` and
-`constrained_beam_search_encdec` run the same device part eagerly.
+`constrained_beam_search_encdec` run the same device part eagerly. A call is
+the trace step `search.call`; its device part marks the sections `prefill`
+(the prompt's, or the encoder's, forward) and `decode` (level 0 and the
+L - 1 steps) while `core/trace.marking()` is on.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.core.graphs import StagedGraphs, model_axis_of
 from gamer_tpu_torch.decode.trie import LeveledTrie
 from gamer_tpu_torch.models.generative.encdec import EncDecModel
@@ -159,11 +163,13 @@ def _search(model: QwenFamilyModel, batch: dict, trie: LeveledTrie, tables, beh,
     cache_dtype = resolve_cache_dtype(search_cfg.cache_dtype, device)
     allowed_tables, child_tables = tables
 
+    trace.mark("prefill", device)
     inputs, consts = prepare_prefill(cfg, batch)
     out = model(**inputs, caches=init_caches(cfg, B, S, cache_dtype, device), cache_index=0,
                 logits_last_only=True, route_mode="onehot")
     caches = out["caches"]
     logits0 = out["logits"][:, 0, :]  # [B, V]
+    trace.mark("decode", device)
 
     # step 0: level-0 codes from the trie root
     scores, gen_codes, nodes = _first_level(logits0, trie, allowed_tables, child_tables, K)
@@ -241,6 +247,7 @@ def _search(model: QwenFamilyModel, batch: dict, trie: LeveledTrie, tables, beh,
             "cross": caches["cross"],
         }
 
+    trace.mark(trace.UNMARKED, device)
     return gen_codes, scores
 
 
@@ -275,23 +282,24 @@ class _CompiledSearch:
         self.model, self.trie, self.search_cfg = model, trie, search_cfg
         self.device = torch.device(model.device)
         self.tables = _trie_tables(trie, self.device)
-        self.calls = StagedGraphs(self.device, self.name, graphed, model_axis=model_axis_of(model))
+        self.staged = StagedGraphs(self.device, self.name, graphed, model_axis=model_axis_of(model))
 
     @property
     def captures(self) -> bool:
         """On the card and `graphed`, unless the model has a live model axis
         (`core/graphs.capture_enabled`)."""
-        return self.calls.captures
+        return self.staged.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per key."""
-        return self.calls.graphs
+        return self.staged.graphs
 
     @torch.no_grad()
     def __call__(self, batch: dict, arg) -> tuple[torch.Tensor, torch.Tensor]:
-        key, static = self.stage(batch, arg)
-        return self.calls.run(key, self.device_part, static)
+        with trace.step("search.call", self.device):
+            key, static = self.stage(batch, arg)
+            return self.staged.run(key, self.device_part, static)
 
 
 class BeamSearch(_CompiledSearch):
@@ -307,7 +315,7 @@ class BeamSearch(_CompiledSearch):
             rows = arrays["input_ids"].shape[0]
             arrays["behavior_emb_id"] = np.array(np.broadcast_to(
                 np.asarray(behavior_emb_id, np.int32), (rows,)))
-        return self.calls.stage(arrays)
+        return self.staged.stage(arrays)
 
     @torch.no_grad()
     def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -375,6 +383,7 @@ def _search_encdec(model: EncDecModel, batch: dict, trie: LeveledTrie, tables, p
     routing = lambda pos, rows: ((pos % cfg.num_positions) + 1)[None].expand(rows, -1)
 
     # prefill: the encoder, the decoder prefix, the encoder's cross k/v
+    trace.mark("prefill", device)
     shape = (B, P0 + L, cfg.num_heads, cfg.d_kv)
     caches = [{"self": {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
                         "v": torch.zeros(shape, dtype=cache_dtype, device=device)}}
@@ -395,6 +404,7 @@ def _search_encdec(model: EncDecModel, batch: dict, trie: LeveledTrie, tables, p
     cross_kv = [c["cross"] for c in out["caches"]]
     caches = [{"self": {k: v.repeat_interleave(K, dim=0) for k, v in c["self"].items()}}
               for c in out["caches"]]
+    trace.mark("decode", device)
     scores, gen_codes, nodes = _first_level(out["logits"][:, 0, :], trie, allowed_tables,
                                             child_tables, K)
 
@@ -434,6 +444,7 @@ def _search_encdec(model: EncDecModel, batch: dict, trie: LeveledTrie, tables, p
 
         caches = [{"self": {k: move(v) for k, v in c["self"].items()}} for c in caches]
 
+    trace.mark(trace.UNMARKED, device)
     return gen_codes, scores
 
 
@@ -450,7 +461,7 @@ class EncDecBeamSearch(_CompiledSearch):
         if prefix.ndim == 1:
             prefix = np.array(np.broadcast_to(prefix, (arrays["input_ids"].shape[0],
                                                        prefix.shape[0])))
-        return self.calls.stage({**arrays, "decoder_prefix": prefix})
+        return self.staged.stage({**arrays, "decoder_prefix": prefix})
 
     @torch.no_grad()
     def device_part(self, static: dict) -> tuple[torch.Tensor, torch.Tensor]:

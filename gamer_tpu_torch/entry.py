@@ -104,7 +104,7 @@ def _dryrun(device, model_axis: int = 1) -> dict:
     index's blocks of the table and experts; then a 4-beam search with the
     trained parameters. Returns losses, codes and scores as lists (one
     process runs the whole model on the whole batches)."""
-    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core import distributed, trace
     from gamer_tpu_torch.core.mesh import MeshContext, default_mesh, local_batch_size
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.decode.trie import LeveledTrie
@@ -129,13 +129,13 @@ def _dryrun(device, model_axis: int = 1) -> dict:
                                       gradient_accumulation_steps=2))
     rng = np.random.default_rng(0)
     losses = []
-    calls = distributed.model_all_reduce.calls
+    calls = trace.counter("all_reduce.model")
     for _ in range(2):  # two micro-steps = one accumulation cycle
         batch = make_batch(cfg, rows, blocks, rng)
         local = {k: v[r0:r0 + lb] for k, v in batch.items()}
         losses.append(float(trainer.train_step(ctx.shard_batch(local))))
     assert trainer.updates == 1 and np.isfinite(losses).all(), losses
-    train_collectives = distributed.model_all_reduce.calls - calls
+    train_collectives = trace.counter("all_reduce.model") - calls
 
     P = cfg.num_positions
     L, size = P - 1, 16

@@ -27,6 +27,13 @@ level (`modules/moe.py`).
 Parameters are stored in fp32, as the JAX package stores them; the modules
 cast them to `cfg.dtype` at use, so a bf16 run updates fp32 master weights.
 
+While `core/trace.marking()` is on, a forward with grad marks its device
+sections on the residual stream (`trace.boundary`): `embed` (the token
+table), then in each layer `self_attn`, `cross_attn` and `mlp` (each
+residual sub-block, its dropout-add included), then `head` (the final norm
+onward); their backwards are marked where the gradient crosses the same
+boundaries.
+
 On a model axis (`core/mesh.MeshContext.shard_params`) the padded token
 table is split by rows and the experts by expert (`modules/moe.py`). A rank
 looks up the ids in its rows (0 for the others) and the ranks' rows sum; its
@@ -51,6 +58,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout_add
@@ -258,11 +266,13 @@ class DecoderLayer(nn.Module):
         o, new_self = self.self_attn.core(*qkv, self_allowed, caches.get("self"), cache_index,
                                           self.self_mask_kind, streams, det, attn_seed(s[0]))
         if not self.is_cross:
-            x = stage(lambda x, o: mlp(drop_add(x, self.self_attn.output(x, o), s[1])), x, o)
+            x = stage(lambda x, o: mlp(trace.boundary(
+                drop_add(x, self.self_attn.output(x, o), s[1]), "self_attn", "mlp")), x, o)
             return x, new_self, None
 
         def after_self(x, o):
-            x = drop_add(x, self.self_attn.output(x, o), s[1])
+            x = trace.boundary(drop_add(x, self.self_attn.output(x, o), s[1]),
+                               "self_attn", "cross_attn")
             h = self.post_self_attention_layernorm(x)  # also the gate's input
             return (x, h, *self.cross_attn.qkv(h, rope_positions, action_index))
 
@@ -270,7 +280,8 @@ class DecoderLayer(nn.Module):
         o, new_cross = self.cross_attn.core(*qkv, cross_allowed, caches.get("cross"),
                                             cache_index, self.cross_mask_kind, streams, det,
                                             attn_seed(s[2]))
-        x = stage(lambda x, h, o: mlp(drop_add(x, self.cross_attn.output(h, o), s[3])), x, h, o)
+        x = stage(lambda x, h, o: mlp(trace.boundary(
+            drop_add(x, self.cross_attn.output(h, o), s[3]), "cross_attn", "mlp")), x, h, o)
         return x, new_self, new_cross
 
 
@@ -400,6 +411,7 @@ class QwenFamilyModel(nn.Module):
         seeds = None
         if not deterministic:
             seeds = iter(site_seeds(generator, self.dropout_sites, self.device))
+        trace.mark("embed", self.device, grad_only=True)
         x = self._embed_tokens(input_ids)
         new_caches = {"self": [], "cross": []} if caches is not None else None
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -412,6 +424,7 @@ class QwenFamilyModel(nn.Module):
             layer_seeds = None
             if seeds is not None:
                 layer_seeds = [next(seeds) for _ in range(layer.dropout_sites)]
+            x = trace.boundary(x, "mlp" if i else "embed", "self_attn")
             args = (x, rope_positions, self_allowed, cross_allowed, position_index,
                     behavior_index, action_index, expert_index, streams, layer_caches,
                     cache_index, route_mode, layer_seeds)
@@ -426,7 +439,7 @@ class QwenFamilyModel(nn.Module):
             if new_caches is not None:
                 new_caches["self"].append(new_self)
                 new_caches["cross"].append(new_cross)
-        x = self.norm(x)
+        x = self.norm(trace.boundary(x, "mlp", "head"))
         if return_hidden:
             return {"hidden": x, "caches": new_caches}
         if logits_last_only:

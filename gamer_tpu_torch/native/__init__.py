@@ -20,6 +20,7 @@ import subprocess
 
 import numpy as np
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.core.logging import get_logger
 
 logger = get_logger("native")
@@ -245,6 +246,10 @@ class ExampleStore:
         return out
 
     def collate(self, indices, seq_len: int, ignore_label: int = -100):
+        with trace.span("data.collate"):
+            return self._collate(indices, seq_len, ignore_label)
+
+    def _collate(self, indices, seq_len: int, ignore_label: int):
         from gamer_tpu_torch.data.vocab import PAD_ID
 
         indices = np.asarray(indices, dtype=np.int64)

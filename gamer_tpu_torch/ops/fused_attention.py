@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import _build, seeds
 from gamer_tpu_torch.ops.masks import streams_allowed
 
@@ -205,7 +206,7 @@ def _launch_fwd(q, k, v, streams, seed, num_heads, kind, rate, with_lse: bool):
                       lse.data_ptr() if with_lse else None, B, S, num_heads, Hkv, Dp,
                       KINDS[kind], D ** -0.5, *_dropout_args(seed, rate, q.device),
                       _build.dtype_code(q), _build.stream_of(q))
-    fused_mask_attention.launches += 1
+    trace.count("launch.a")
     return (out if Dp == D else _unpad_heads(out, D, Dp)), lse
 
 
@@ -244,7 +245,7 @@ def fused_mask_attention_bwd(q, k, v, out, dout, lse, attention_mask, session_id
                       B, S, num_heads, Hkv, D, KINDS[kind], D_real ** -0.5,
                       *_dropout_args(dropout_seed, dropout_rate, q.device), nsplit,
                       _build.dtype_code(q), _build.stream_of(q))
-    fused_mask_attention_bwd.launches += 1
+    trace.count("launch.b")
     if D != D_real:
         dq, dk, dv = (_unpad_heads(t, D_real, D) for t in (dq, dk, dv))
     return dq, dk, dv
@@ -300,7 +301,3 @@ def fused_mask_attention(q, k, v, attention_mask, session_ids, actions, block_id
                                      dropout_seed, num_heads, kind, dropout_rate)
     return _launch_fwd(q, k, v, (attention_mask, session_ids, actions, block_ids), dropout_seed,
                        num_heads, kind, dropout_rate, with_lse=False)[0]
-
-
-fused_mask_attention.launches = 0  # kernel a launches, for run reports
-fused_mask_attention_bwd.launches = 0  # kernel b launches

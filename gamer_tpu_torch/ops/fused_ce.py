@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import _build
 
 TM, VC = 64, 64  # row tile and vocab tile of the kernels
@@ -91,7 +92,7 @@ def _launch_fwd(h, table, targets, valid, inv_t):
         _build.launch("fused_ce_fwd", _FWD_ARGTYPES, h.data_ptr(), table.data_ptr(),
                       targets.data_ptr(), valid.data_ptr(), nll.data_ptr(), lse.data_ptr(),
                       N, D, V, float(inv_t), _build.dtype_code(h), _build.stream_of(h))
-    fused_ce_rows.launches += 1
+    trace.count("launch.j")
     return nll, lse
 
 
@@ -114,7 +115,7 @@ def fused_ce_rows_bwd(h, table, targets, valid, lse, g, inv_t: float):
                       targets.data_ptr(), valid.data_ptr(), lse.data_ptr(), g.data_ptr(),
                       dh.data_ptr(), de.data_ptr(), ws.data_ptr(), N, D, V, float(inv_t),
                       nsplit, per_split, _build.dtype_code(h), _build.stream_of(h))
-    fused_ce_rows_bwd.launches += 1
+    trace.count("launch.k")
     if D != D_real:
         dh, de = dh[:, :D_real], de[:, :D_real]
     return dh, de
@@ -185,7 +186,3 @@ def fused_ce_rows(h, table, targets, valid, inv_t: float):
     if torch.is_grad_enabled() and (h.requires_grad or table.requires_grad):
         return _FusedCE.apply(h, table, targets, valid, inv_t)
     return _launch_fwd(h, table, targets, valid, inv_t)
-
-
-fused_ce_rows.launches = 0  # kernel j launches, for run reports
-fused_ce_rows_bwd.launches = 0  # kernel k launches

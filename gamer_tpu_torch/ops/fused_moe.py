@@ -36,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import _build
 from gamer_tpu_torch.ops.fused_attention import (
     _DROPOUT_ARGTYPES, _dropout_args, hash_keep, keep_fraction)
@@ -159,7 +160,7 @@ def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name="silu"
                       P, T, Dp, Fp, Doutp, NB, int(use_bias), act,
                       *_dropout_args(seed, rate, xp.device),
                       _build.dtype_code(xp), _build.stream_of(xp))
-    fused_moe_ffn.launches += 1
+    trace.count("launch.h")
     return out if Doutp == Dout else out[..., :Dout]
 
 
@@ -200,7 +201,7 @@ def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: floa
                       dgu.data_ptr(), hdrop.data_ptr(), ws.data_ptr(), P, T, D, Fd, Dout, NB,
                       int(use_bias), act, *_dropout_args(seed, rate, xp.device), n_gu, kc_gu,
                       n_d, kc_d, n_b, kc_b, _build.dtype_code(xp), _build.stream_of(xp))
-    fused_moe_ffn_bwd.launches += 1
+    trace.count("launch.i")
     if (D, Fd, Dout) != real:
         dx, dwd = dx[..., :real[0]], dwd[:, :real[1], :real[2]]
         dwgu, dbtab = _unpad_gu(dwgu, real[0], real[1]), _unpad_gu(dbtab, NB, real[1])
@@ -244,7 +245,3 @@ def fused_moe_ffn(xp, wgu, wdown, btab, beh, seed: int = 0, act_name: str = "sil
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xp, wgu, wdown, btab)):
         return _FusedMoE.apply(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name)
     return _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name)
-
-
-fused_moe_ffn.launches = 0  # kernel h launches, for run reports
-fused_moe_ffn_bwd.launches = 0  # kernel i launches

@@ -24,6 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import _build
 
 CHUNK = 16384  # elements a CTA (csrc/fused_optimizer.cu kChunk)
@@ -91,7 +92,7 @@ def global_norm_sq(table: RecordTable) -> torch.Tensor:
     """L1: `table.totals` = (sum of g^2 over the replicated tensors, over
     the tensors split on a model axis), fp64 on the card."""
     _call(table, None, 0, (0.0,) * 7, 0, 0)
-    global_norm_sq.launches += 1
+    trace.count("launch.L1")
     return table.totals
 
 
@@ -106,8 +107,4 @@ def apply_update(table: RecordTable, scalars: torch.Tensor, optim: str, b1: floa
     # c1, c2 as the plain version's alpha: 1 - b in double, rounded to fp32
     hyper = (b1, b2, 1.0 - b1, 1.0 - b2, eps, weight_decay, max_norm if clip else 0.0)
     _call(table, scalars, FAMILIES[optim], hyper, clip, 1)
-    apply_update.launches += 1
-
-
-global_norm_sq.launches = 0  # L1 launches, for run reports
-apply_update.launches = 0  # L2 launches
+    trace.count("launch.L2")

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import _build, seeds
 from gamer_tpu_torch.ops.fused_attention import _M3, _U32, _mul32, fmix32
 
@@ -113,7 +114,8 @@ def hash_dropout_fwd(y: torch.Tensor, seed, threshold: int, keep_prob: float,
     if y.device.type == "cpu":
         return hash_dropout_add_plain(y, seed, threshold, keep_prob, residual)
     out = _launch(y, seed, threshold, keep_prob, residual)
-    hash_dropout_fwd.launches += bool(y.numel())  # an empty tensor launches nothing
+    if y.numel():  # an empty tensor launches nothing
+        trace.count("launch.K1")
     return out
 
 
@@ -124,7 +126,8 @@ def hash_dropout_bwd(g: torch.Tensor, seed, threshold: int, keep_prob: float) ->
     if g.device.type == "cpu":
         return apply_mask(g, seed, threshold, keep_prob)
     out = _launch(g, seed, threshold, keep_prob)
-    hash_dropout_bwd.launches += bool(g.numel())
+    if g.numel():
+        trace.count("launch.K2")
     return out
 
 
@@ -154,7 +157,3 @@ def hash_dropout(y: torch.Tensor, seed, threshold: int, keep_prob: float,
                                     (residual is not None and residual.requires_grad)):
         return _HashDropout.apply(y, residual, seed, threshold, keep_prob)
     return hash_dropout_fwd(y, seed, threshold, keep_prob, residual)
-
-
-hash_dropout_fwd.launches = 0  # K1 launches, for run reports
-hash_dropout_bwd.launches = 0  # K2 launches

@@ -162,7 +162,7 @@ class RQVAEStep:
         self.labels = torch.zeros((c.num_levels, max(c.num_emb_list)), dtype=torch.int64,
                                   device=x.device)
         self._labels_in = Staging({"labels": self.labels})
-        self.calls = StagedGraphs(x.device, "rq-vae training step", graphed)
+        self.staged = StagedGraphs(x.device, "rq-vae training step", graphed)
 
     def set_labels(self, labels) -> None:
         """The diversity clusters [levels, max codebook size], into their
@@ -171,8 +171,8 @@ class RQVAEStep:
 
     def stage(self, rows: np.ndarray, generator: torch.Generator) -> tuple[tuple, dict]:
         """The host part: (the key, {name: static device buffer})."""
-        key, static = self.calls.stage({"rows": np.asarray(rows, np.int64),
-                                        **training_draws(self.model, len(rows), generator)})
+        key, static = self.staged.stage({"rows": np.asarray(rows, np.int64),
+                                         **training_draws(self.model, len(rows), generator)})
         self.optimizer.prepare()
         return key, static
 
@@ -191,8 +191,8 @@ class RQVAEStep:
         device. A graph's update reads the optimizer's record table, kept
         with it."""
         key, static = self.stage(rows, generator)
-        return self.calls.run(key, self.device_part, static,
-                              hold=lambda: self.optimizer.last_table)
+        return self.staged.run(key, self.device_part, static,
+                               hold=lambda: self.optimizer.last_table)
 
 
 def train_epoch(step: RQVAEStep, order: np.ndarray, batch_size: int, seed: int,
@@ -224,13 +224,13 @@ class RQVAERecluster:
         self.model, self.labels = model, labels
         c = model.cfg
         self.clusters = tuple(min(c.n_clusters, n) for n in c.num_emb_list)
-        self.calls = StagedGraphs(labels.device, "rq-vae recluster", graphed)
+        self.staged = StagedGraphs(labels.device, "rq-vae recluster", graphed)
 
     def stage(self, seed: int, epoch: int) -> tuple[tuple, dict]:
         """The host part: (the key, {"seeds": [levels] int32 buffer})."""
         seeds = np.array([(seed + epoch + lvl) & U32 for lvl in range(len(self.clusters))],
                          np.uint32).view(np.int32)
-        key, static = self.calls.stage({"seeds": seeds})
+        key, static = self.staged.stage({"seeds": seeds})
         return key + (tuple(self.model.codebooks.shape), self.clusters), static
 
     @torch.no_grad()
@@ -244,7 +244,7 @@ class RQVAERecluster:
     def __call__(self, seed: int, epoch: int) -> None:
         """Recluster every level's codebook for `epoch` into `labels`."""
         key, static = self.stage(seed, epoch)
-        self.calls.run(key, self.device_part, static)
+        self.staged.run(key, self.device_part, static)
 
 
 class RQVAEEmit:
@@ -257,7 +257,7 @@ class RQVAEEmit:
 
     def __init__(self, model: RQVAE, x: torch.Tensor, batch_size: int, graphed: bool = True):
         self.model, self.x, self.batch_size = model, x, batch_size
-        self.calls = StagedGraphs(x.device, "rq-vae emit", graphed)
+        self.staged = StagedGraphs(x.device, "rq-vae emit", graphed)
 
     def device_part(self, static: dict) -> torch.Tensor:
         return self.model.get_indices(self.x[static["rows"]])
@@ -269,8 +269,8 @@ class RQVAEEmit:
         rows = np.arange(pad_n, dtype=np.int64) % n
         out = []
         for s in range(0, pad_n, self.batch_size):
-            key, static = self.calls.stage({"rows": rows[s:s + self.batch_size]})
-            out.append(self.calls.run(key, self.device_part, static))
+            key, static = self.staged.stage({"rows": rows[s:s + self.batch_size]})
+            out.append(self.staged.run(key, self.device_part, static))
         return torch.cat(out).cpu().numpy()[:n]
 
 

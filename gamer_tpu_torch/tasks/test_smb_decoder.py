@@ -25,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core import distributed, trace
 from gamer_tpu_torch.core.graphs import model_axis_of
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.registry import TASKS
@@ -111,7 +111,8 @@ class TestSMBDecoder(Task):
                 rows.append((behavior, b_idx, ex))
         acc = self._eval_mixed(corpus, vocab, trie, rows, behaviors, test_batch_size,
                                metric_list)
-        logger.info("the search captured %d CUDA graphs", self._search.graphs)
+        logger.info("the search captured %d CUDA graphs; graphs by owner: %s",
+                    self._search.graphs, trace.graph_summary() or "none")
         per_behavior: dict[str, dict] = {}
         counts: dict[str, int] = {}
         dup_ratios: dict[str, float] = {}

@@ -35,7 +35,8 @@ each rank on its own experts: the same function. Differences: `--device`
 picks the card (default) or the CPU; `--dtype auto` is bfloat16 on CUDA and
 float32 on the CPU;
 `--attention_impl auto` is the kernels and `jnp` the plain path;
-`--profile_dir` writes a `torch.profiler` trace of five steps.
+`--profile_dir` writes a `torch.profiler` trace of five steps, with the
+port's spans (`core/trace.py`) on for them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import re
 
 import torch
 
-from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core import distributed, trace
 from gamer_tpu_torch.core.device import to_device
 from gamer_tpu_torch.core.logging import get_logger
 from gamer_tpu_torch.core.mesh import MeshContext, local_batch_size, pad_to_multiple
@@ -153,6 +154,7 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
             return _loss(batch, generator)
 
     def _loss(batch: dict, generator):
+        trace.mark("inputs", model.device)
         batch = {k: to_device(v, model.device) for k, v in batch.items()}
         inputs = prepare_train_inputs(cfg, batch)
         # under a process group the dropout masks are the global batch's
@@ -171,7 +173,7 @@ def make_loss_fn(model: QwenFamilyModel, cfg: QwenFamilyConfig | None = None,
         else:
             loss, denom = causal_lm_loss_with_denom(
                 out["logits"], batch["labels"], cfg.temperature, batch.get("row_valid"))
-        return loss, {"denom": denom}
+        return trace.boundary(loss, "head", None), {"denom": denom}
 
     return loss_fn
 
@@ -419,17 +421,25 @@ def _fit(task: Task, model, cfg, vocab, n_train: int, hf: dict, loss_fn, eval_lo
 
 
 def _profile(trainer: Trainer, batches, profile_dir: str, dev: torch.device) -> None:
-    """A torch.profiler trace of five training steps (they train)."""
+    """A torch.profiler trace of five training steps (they train), with the
+    port's spans (`core/trace.py`) on for them: `data.collate`,
+    `train.step`, `stage.wait` appear on the profiler's timeline."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        for i, batch in enumerate(batches):
-            trainer.train_step(batch)
-            if i >= 4:
-                break
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+    was_on = trace.enabled()
+    trace.enable()
+    try:
+        with profile(activities=acts) as prof:
+            for i, batch in enumerate(batches):
+                trainer.train_step(batch)
+                if i >= 4:
+                    break
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            trace.disable()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     logger.info("profiler trace written to %s", profile_dir)

@@ -228,13 +228,13 @@ class RecTrainStep:
                  graphed: bool = True):
         self.model, self.optimizer = model, optimizer
         self.loss_fn = make_dis_loss_fn(backbone, model, cfg)
-        self.calls = StagedGraphs(optimizer.scalars.device, "rec training step", graphed)
+        self.staged = StagedGraphs(optimizer.scalars.device, "rec training step", graphed)
 
     def stage(self, batch: dict, generator: torch.Generator) -> tuple[tuple, dict]:
         """The host part: (the key, {name: static device buffer})."""
         B, L = np.shape(batch["inputs"])
-        key, static = self.calls.stage({**{n: as_array(v) for n, v in batch.items()},
-                                        **training_draws(self.model, B, L, generator)})
+        key, static = self.staged.stage({**{n: as_array(v) for n, v in batch.items()},
+                                         **training_draws(self.model, B, L, generator)})
         self.optimizer.prepare()
         return key, static
 
@@ -252,8 +252,8 @@ class RecTrainStep:
         """One optimizer step; the loss, a detached device tensor. A graph's
         update reads the optimizer's record table, kept with it."""
         key, static = self.stage(batch, generator)
-        return self.calls.run(key, self.device_part, static,
-                              hold=lambda: self.optimizer.last_table)
+        return self.staged.run(key, self.device_part, static,
+                               hold=lambda: self.optimizer.last_table)
 
 
 # the batch arrays each backbone's scorer reads
@@ -275,13 +275,13 @@ class RecScorer:
     def __init__(self, backbone: str, model, device, graphed: bool = True):
         self.score_fn = make_score_fn(backbone, model)
         self.names = SCORE_INPUTS[backbone]
-        self.calls = StagedGraphs(device, "rec scorer", graphed)
+        self.staged = StagedGraphs(device, "rec scorer", graphed)
 
     def __call__(self, batch: dict) -> torch.Tensor:
         """[B, n_items + 1] scores, on the device."""
         names = self.names + (("all_item",) if "all_item" in batch else ())
-        key, static = self.calls.stage({n: as_array(batch[n]) for n in names})
-        return self.calls.run(key, self.score_fn, static)
+        key, static = self.staged.stage({n: as_array(batch[n]) for n in names})
+        return self.staged.run(key, self.score_fn, static)
 
 
 @TASKS.register("train_SMB_rec")

@@ -81,7 +81,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core import distributed, trace
 from gamer_tpu_torch.core.checkpoint import CheckpointManager
 from gamer_tpu_torch.core.config import Config
 from gamer_tpu_torch.core.graphs import StagedGraphs
@@ -160,7 +160,7 @@ class Trainer:
         self._per_step = Staging(per_step if self._seeds is None
                                  else {**per_step, "seeds": self._seeds})
         model_axis = self.ctx.model_axis if self.ctx is not None else None
-        self.calls = StagedGraphs(self.device, "training step", graphed, reduces=True,
+        self.staged = StagedGraphs(self.device, "training step", graphed, reduces=True,
                                   group=self.data_group, model_axis=model_axis)
         self._eval: EvalStep | None = None
 
@@ -176,13 +176,15 @@ class Trainer:
         (detached) loss."""
         k = max(self.cfg.gradient_accumulation_steps, 1)
         mini = self.step % k
-        inputs, seeds = self._prepare(batch, mini, k)
-        if self.captures:
-            loss = self._graph_step(inputs, seeds, mini, k)
-        else:
-            loss = self._device_step(inputs, seeds, mini, k)
+        with trace.step("train.step", self.device):
+            inputs, seeds = self._prepare(batch, mini, k)
+            if self.captures:
+                loss = self._graph_step(inputs, seeds, mini, k)
+            else:
+                trace.count("graph.eager.training step")
+                loss = self._device_step(inputs, seeds, mini, k)
         if mini == k - 1 and distributed.is_initialized():
-            distributed.all_reduce_flat.calls += 1  # the update's all-reduce ran, replays too
+            trace.count("all_reduce.flat")  # the update's all-reduce ran, replays too
         self.step += 1
         return loss
 
@@ -192,12 +194,12 @@ class Trainer:
         on the card, `graphed`, and, under a process group, only if its data
         group is NCCL and the model has no live model axis
         (`core/graphs.capture_enabled`)."""
-        return self.calls.captures
+        return self.staged.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per input geometry and accumulation phase."""
-        return self.calls.graphs
+        return self.staged.graphs
 
     def _prepare(self, batch: dict, mini: int, k: int) -> tuple[dict, Any]:
         """The host part of a micro-step: the batch into its static device
@@ -205,7 +207,7 @@ class Trainer:
         (under a process group also the batch's valid rows), and on the
         update micro-step the optimizer's scalars. Returns (the device batch,
         the seed table or, for a model without one, the generator)."""
-        _, static = self.calls.stage({n: as_array(v) for n, v in batch.items()})
+        _, static = self.staged.stage({n: as_array(v) for n, v in batch.items()})
         per_step = {"div": np.float32(mini + 1)}
         if distributed.is_initialized():
             per_step["row_w"] = np.float64(valid_rows(batch))
@@ -232,6 +234,7 @@ class Trainer:
                                                self.data_group)
             share = (w / stats[1]).float()
         loss.backward()
+        trace.mark("update", self.device)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in self.params.items()}
         if grouped:
@@ -250,6 +253,7 @@ class Trainer:
             if grouped:
                 distributed.all_reduce_flat(list(grads.values()), self.data_group)
             self.optimizer.apply(grads)
+        trace.mark(trace.UNMARKED, self.device)
         return loss.detach()
 
     def _graph_step(self, inputs: dict, seeds, mini: int, k: int) -> torch.Tensor:
@@ -264,8 +268,8 @@ class Trainer:
         key = (tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()), phase)
         # an update's graph reads the optimizer's record table: kept with it
         hold = (lambda: self.optimizer.last_table) if mini == k - 1 else None
-        return self.calls.run(key, lambda static: self._device_step(static, seeds, mini, k),
-                              inputs, hold)
+        return self.staged.run(key, lambda static: self._device_step(static, seeds, mini, k),
+                               inputs, hold)
 
     @property
     def updates(self) -> int:
@@ -333,7 +337,7 @@ class Trainer:
                     seeds = draw(seeds, self._seeds.numel()).to(torch.int32).to(self.device)
                 loss_fn = lambda b: self.loss_fn(b, seeds)  # noqa: E731
             self._eval = EvalStep(loss_fn, self.device, self.graphed,
-                                  model_axis=self.calls.model_axis)
+                                  model_axis=self.staged.model_axis)
         return self._eval
 
     def fit(self, train_batches: Callable[[int], Iterator[dict]],
@@ -426,8 +430,8 @@ class Trainer:
                                {"epoch": epoch, "best": float(best), "step": self.step})
         if self.ckpt:
             self.ckpt.save("last", self.model_state(), {"step": self.step})
-        if self.captures:
-            logger.info("the fit captured %d CUDA graphs of the training step", self.graphs)
+        logger.info("the fit captured %d CUDA graphs of the training step; graphs by owner: %s",
+                    self.graphs, trace.graph_summary() or "none")
         return {"best_metric": float(best), "history": history, "steps": self.step,
                 "graphs": self.graphs}
 
@@ -480,18 +484,18 @@ class EvalStep:
         self.device = torch.device(device)
         self.by_rows = by_rows
         self.sums = torch.zeros(2, dtype=dtype, device=self.device)
-        self.calls = StagedGraphs(self.device, "eval step", graphed, model_axis=model_axis)
+        self.staged = StagedGraphs(self.device, "eval step", graphed, model_axis=model_axis)
 
     @property
     def captures(self) -> bool:
         """On the card and `graphed`, under any process group, unless the
         model has a live model axis (`core/graphs.capture_enabled`)."""
-        return self.calls.captures
+        return self.staged.captures
 
     @property
     def graphs(self) -> int:
         """CUDA graphs captured: one per input key."""
-        return self.calls.graphs
+        return self.staged.graphs
 
     def reset(self) -> None:
         self.sums.zero_()
@@ -499,8 +503,8 @@ class EvalStep:
     def stage(self, batch: dict) -> tuple[tuple, dict]:
         """The host part: (the input key, the static device batch, whose
         "row_w" entry is the batch's valid-row count)."""
-        return self.calls.stage({**{n: as_array(v) for n, v in batch.items()},
-                                 "row_w": torch.tensor(valid_rows(batch), dtype=self.sums.dtype)})
+        return self.staged.stage({**{n: as_array(v) for n, v in batch.items()},
+                                  "row_w": torch.tensor(valid_rows(batch), dtype=self.sums.dtype)})
 
     def device_part(self, static: dict) -> None:
         """Adds the batch's loss * w and w into `sums`."""
@@ -513,7 +517,7 @@ class EvalStep:
     @torch.no_grad()
     def add(self, batch: dict) -> None:
         key, static = self.stage(batch)
-        self.calls.run(key, self.device_part, static)
+        self.staged.run(key, self.device_part, static)
 
 
 def valid_rows(batch: dict) -> float:

@@ -20,6 +20,8 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from gamer_tpu_torch.core import trace
+
 
 class Staging:
     """Writes values into the device tensors `dst` ({name: tensor})."""
@@ -45,7 +47,8 @@ class Staging:
             return
         slot, self._turn = self._turn, self._turn ^ 1
         if self._events[slot] is not None:
-            self._events[slot].synchronize()  # the copy that last read this slot has run
+            with trace.span("stage.wait"):
+                self._events[slot].synchronize()  # the copy that last read this slot has run
         pinned = self._pinned[slot]
         for k, src in srcs.items():
             if src.is_cuda:

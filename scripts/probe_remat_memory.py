@@ -51,10 +51,11 @@ def config(backbone: str, policy):
         "model_max_length", "dtype", "remat", "remat_policy")})
 
 
-def step(B: int, blocks: int, policy, counters: dict, census: bool,
+def step(B: int, blocks: int, policy, kernels: tuple, census: bool,
          backbone: str = "Qwen3Multi") -> dict:
     import torch
 
+    from gamer_tpu_torch.core import trace
     from gamer_tpu_torch.entry import make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -75,14 +76,14 @@ def step(B: int, blocks: int, policy, counters: dict, census: bool,
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
-    for w in counters.values():
-        w.launches = 0
+    before = {k: trace.counter("launch." + k) for k in kernels}
     t = time.perf_counter()
     loss = float(trainer.train_step(batch))
     ms = (time.perf_counter() - t) * 1e3
     rec = dict(backbone=backbone, B=B, S=blocks * cfg.num_positions, policy=policy or "off",
                ms=ms, loss=loss, peak=torch.cuda.max_memory_allocated() - base,
-               resident=resident, launches={k: w.launches for k, w in counters.items()})
+               resident=resident,
+               launches={k: trace.counter("launch." + k) - before[k] for k in kernels})
     if policy is None:
         rec["estimate"] = estimate_train_hbm_bytes(cfg, B, rec["S"])["total"]
     if census:
@@ -116,22 +117,16 @@ def main(argv=None) -> int:
         print("probe_remat_memory: needs a CUDA device", file=sys.stderr)
         return 2
     from gamer_tpu_torch.ops import _build
-    from gamer_tpu_torch.ops import fused_attention as FA
-    from gamer_tpu_torch.ops import fused_ce as FC
-    from gamer_tpu_torch.ops import fused_moe as FM
-    from gamer_tpu_torch.ops import hash_dropout as HD
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     _build.build()
-    counters = {"a": FA.fused_mask_attention, "b": FA.fused_mask_attention_bwd,
-                "h": FM.fused_moe_ffn, "i": FM.fused_moe_ffn_bwd, "j": FC.fused_ce_rows,
-                "k": FC.fused_ce_rows_bwd, "K1": HD.hash_dropout_fwd, "K2": HD.hash_dropout_bwd}
+    kernels = ("a", "b", "h", "i", "j", "k", "K1", "K2")  # the counters launch.<kernel>
     records = []
     runs = [("Qwen3Multi", B, blocks, policy) for B, blocks, policy in GEOMETRIES]
     runs += [("Qwen3MoeAction", B, blocks, None) for B, blocks in MOE_ACTION_GEOMETRIES]
     for backbone, B, blocks, policy in runs:
-        rec = step(B, blocks, policy, counters, policy is None and B in (64, 16), backbone)
+        rec = step(B, blocks, policy, kernels, policy is None and B in (64, 16), backbone)
         records.append(rec)
         extra = (f", saved {rec['saved_bytes_per_token']:.1f} B a token; largest "
                  f"{[(sig, round(b, 1)) for sig, b in rec['saved_by_shape'][:10]]}"

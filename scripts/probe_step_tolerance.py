@@ -47,8 +47,7 @@ def planted(kind: str):
 
     class AttentionOps:
         """`ops.fused_attention` as `modules.layers` sees it, with the
-        attention wrapper replaced (the wrapper counts its launches on its
-        own module's name, so that module stays as it is)."""
+        attention wrapper replaced (that module itself stays as it is)."""
 
         def __getattr__(self, name):
             return getattr(FA, name)

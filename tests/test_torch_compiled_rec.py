@@ -115,7 +115,7 @@ def test_staged_rec_step_equals_unstaged(case, monkeypatch):
     got = [float(step(b, TR.step_generator(7, i))) for i, b in enumerate(batches)]
     assert got == want
     assert _same_state(model, staged_model) == []
-    assert step.calls.graphs == 0  # on the CPU the device part runs eagerly
+    assert step.staged.graphs == 0  # on the CPU the device part runs eagerly
 
 
 @pytest.mark.parametrize("backbone", BACKBONES)
@@ -128,9 +128,9 @@ def test_rec_device_parts_read_nothing_and_copy_nothing(backbone, no_host_io):
     staged = [step.stage(b, TR.step_generator(0, i)) for i, b in enumerate(batches[:2])]
     scorer = TR.RecScorer(backbone, model, "cpu")
     sampled = {**batches[2], "all_item": np.ones((B, 5), np.int32)}
-    keys = [scorer.calls.stage(b)[0] for b in (batches[2], sampled)]
+    keys = [scorer.staged.stage(b)[0] for b in (batches[2], sampled)]
     assert keys[0] != keys[1]
-    score_key, score_in = scorer.calls.stage({n: batches[2][n] for n in TR.SCORE_INPUTS[backbone]})
+    score_key, score_in = scorer.staged.stage({n: batches[2][n] for n in TR.SCORE_INPUTS[backbone]})
     with torch.no_grad():
         want = TR.make_score_fn(backbone, model)({k: torch.as_tensor(v)
                                                   for k, v in batches[2].items()})
@@ -192,7 +192,7 @@ def test_rqvae_device_parts_read_nothing_and_copy_nothing(bn, beta, dropout, no_
     step.set_labels(LABELS)
     staged = [step.stage(rows, RQ.step_generator(0, 0, i)) for i, rows in enumerate(ROWS[:2])]
     emit = RQ.RQVAEEmit(model, X, 16)
-    _, emit_in = emit.calls.stage({"rows": np.arange(16, dtype=np.int64)})
+    _, emit_in = emit.staged.stage({"rows": np.arange(16, dtype=np.int64)})
     no_host_io()
     for _, static in staged:
         out = step.device_part(static)

@@ -9,6 +9,7 @@ import torch
 
 from gamer_tpu.modules import dropout as JD
 from gamer_tpu.ops import pallas_attention as JA
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.modules import dropout as TD
 from gamer_tpu_torch.ops import fused_attention as FA
 from gamer_tpu_torch.ops import hash_dropout as HD
@@ -141,12 +142,12 @@ def test_residual_hash_dropout_cpu_dispatch_counts_no_launch():
     """CPU tensors take the plain versions and no launch is counted; the
     rate 0 and 1 shortcuts stay; non-contiguous inputs are made contiguous
     by `modules/dropout` (the mask is on the logical index)."""
-    before = (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches)
+    before = (trace.counter("launch.K1"), trace.counter("launch.K2"))
     y = torch.randn(4, 6, 8, requires_grad=True)
     r = torch.randn(4, 6, 8, requires_grad=True)
     out = TD.hash_dropout_add(r, y, 5, 0.2)
     out.sum().backward()
-    assert (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches) == before
+    assert (trace.counter("launch.K1"), trace.counter("launch.K2")) == before
     thresh, keep_p = TD.keep_threshold(0.2)
     want = r + HD.apply_mask(y, 5, thresh, keep_p)
     np.testing.assert_array_equal(_bits(out), _bits(want))

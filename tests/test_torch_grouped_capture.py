@@ -11,7 +11,7 @@
   batch's valid rows staged with the step's scalars) run with reading a
   tensor into Python and making a tensor from host data patched to raise,
   as a CUDA graph's capture needs; its losses equal the ungrouped step's,
-  and `all_reduce_flat.calls` counts the updates that ran.
+  and the counter `all_reduce.flat` counts the updates that ran.
 
 The capture itself runs only on the card (`tests/test_torch_kernels_gpu.py
 -k nccl`, `chip_smoke.py` phase 11a).
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from gamer_tpu_torch.core import distributed
+from gamer_tpu_torch.core import distributed, trace
 from gamer_tpu_torch.core import graphs as G
 from gamer_tpu_torch.core.distributed import ModelAxis
 from gamer_tpu_torch.models.generative import qwen_family as TQ
@@ -156,19 +156,19 @@ def test_grouped_device_step_reads_nothing_and_copies_nothing(k, denom):
 
 @pytest.mark.parametrize("k", [1, 2])
 def test_flat_all_reduce_calls_count_the_updates_that_ran(k):
-    """`all_reduce_flat.calls` grows by one for each update the grouped
+    """The counter `all_reduce.flat` grows by one for each update the grouped
     `Trainer` ran (the host part counts it: a captured step replays the
     all-reduce without calling the function), by none for a micro-step
     without an update, and by none without a group."""
     cfg, _, trainer = _trainer(k, True)
     batches = _batches(cfg, k) * 2
-    before = distributed.all_reduce_flat.calls
+    before = trace.counter("all_reduce.flat")
     with one_process_gloo_group():
         for i, b in enumerate(batches):
             trainer.train_step(b)
-            assert distributed.all_reduce_flat.calls - before == (i + 1) // k
+            assert trace.counter("all_reduce.flat") - before == (i + 1) // k
         distributed.all_reduce_flat([torch.ones(3)])  # a direct call is not an update
-    assert distributed.all_reduce_flat.calls - before == trainer.updates == 2
+    assert trace.counter("all_reduce.flat") - before == trainer.updates == 2
     assert not trainer.captures and trainer.graphs == 0  # the CPU never captures
     trainer.train_step(batches[0])  # no group: no all-reduce
-    assert distributed.all_reduce_flat.calls - before == 2
+    assert trace.counter("all_reduce.flat") - before == 2

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from gamer_tpu_torch.core import trace
 from gamer_tpu_torch.ops import fused_attention as FA
 from gamer_tpu_torch.ops import fused_ce as FC
 from gamer_tpu_torch.ops import fused_moe as FM
@@ -113,11 +114,11 @@ def test_attention_backward_kernel_matches_plain(dev, dtype, rate, kind, S, D):
     q, k, v, streams, H = _attn_inputs(dev, dtype, S, D, 7 * S + D)
     seed = 1234
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    before = FA.fused_mask_attention_bwd.launches
+    before = trace.counter("launch.b")
     out = fused_mask_attention(*leaves, *streams, seed, H, kind, rate)
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(S)).to(dev, dtype)
     grads = torch.autograd.grad(out, leaves, dout)
-    assert FA.fused_mask_attention_bwd.launches == before + 1
+    assert trace.counter("launch.b") == before + 1
     ref_out = fused_mask_attention_plain(q.float(), k.float(), v.float(), *streams, seed, H, kind,
                                          rate)
     ref = FA.fused_mask_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(),
@@ -144,11 +145,11 @@ def test_moe_backward_kernel_matches_plain(dev, dtype, rate, use_bias):
     xp, wgu, wd, btab = rnd(P, T, D), rnd(P, D, 2 * F) * D ** -0.5, rnd(P, F, Dout), rnd(P, NB, 2 * F)
     beh = torch.randint(-1, NB + 1, (P, T), generator=g).to(dev, torch.int32)
     leaves = [t.detach().requires_grad_(True) for t in (xp, wgu, wd, btab)]
-    before = FM.fused_moe_ffn_bwd.launches
+    before = trace.counter("launch.i")
     out = fused_moe_ffn(*leaves, beh, 77, rate=rate, use_bias=use_bias)
     gout = rnd(P, T, Dout)
     grads = torch.autograd.grad(out, leaves, gout)
-    assert FM.fused_moe_ffn_bwd.launches == before + 1
+    assert trace.counter("launch.i") == before + 1
     ref_out = fused_moe_ffn_plain(*(t.float() for t in (xp, wgu, wd, btab)), beh, use_bias, 77, rate)
     ref = FM.fused_moe_ffn_bwd_plain(*(t.float() for t in (xp, wgu, wd, btab)), beh,
                                      gout.float(), 77, rate, use_bias)
@@ -173,10 +174,10 @@ def test_ce_backward_kernel_matches_plain(dev, dtype):
     val = (torch.rand(N, generator=g) > 0.3).to(dev, torch.int32)
     gnll = torch.rand(N, generator=g).to(dev)
     leaves = [t.detach().requires_grad_(True) for t in (h, table)]
-    before = FC.fused_ce_rows_bwd.launches
+    before = trace.counter("launch.k")
     nll, _ = fused_ce_rows(*leaves, tgt, val, 1 / 0.7)
     dh, de = torch.autograd.grad(nll, leaves, gnll)
-    assert FC.fused_ce_rows_bwd.launches == before + 1
+    assert trace.counter("launch.k") == before + 1
     rdh, rde = FC.fused_ce_rows_bwd_plain(h.float(), table.float(), tgt, val, gnll, 1 / 0.7)
     torch.cuda.synchronize()
     _close(dh, rdh, dtype)
@@ -574,8 +575,7 @@ def test_qwen3multi_hidden_512_training_step(dev):
     model = QwenFamilyModel(cfg, device=dev, seed=0)
     batch = make_batch(cfg, 8, 101)
     loss_fn = make_loss_fn(model, cfg, deterministic=False)
-    kernels = (FA.fused_mask_attention, FA.fused_mask_attention_bwd, FM.fused_moe_ffn,
-               FM.fused_moe_ffn_bwd, FC.fused_ce_rows, FC.fused_ce_rows_bwd)
+    kernels = tuple(_step_counters().values())[:6]  # a, b, h, i, j, k
     for f in kernels:
         f.launches = 0
     loss, _ = loss_fn(batch, torch.Generator().manual_seed(0))
@@ -599,11 +599,13 @@ def _moe_action_config(**kw):
 
 
 def _step_counters():
-    return {"fused_mask_attention": FA.fused_mask_attention,
-            "fused_mask_attention_bwd": FA.fused_mask_attention_bwd,
-            "fused_moe_ffn": FM.fused_moe_ffn, "fused_moe_ffn_bwd": FM.fused_moe_ffn_bwd,
-            "fused_ce_rows": FC.fused_ce_rows, "fused_ce_rows_bwd": FC.fused_ce_rows_bwd,
-            "hash_dropout_fwd": HD.hash_dropout_fwd, "hash_dropout_bwd": HD.hash_dropout_bwd}
+    """chip_smoke's launch counters of a-k, K1 and K2 (no optimizer update)."""
+    import chip_smoke as cs
+
+    counters = cs.kernel_counters()
+    return {k: counters[k] for k in (
+        "fused_mask_attention", "fused_mask_attention_bwd", "fused_moe_ffn", "fused_moe_ffn_bwd",
+        "fused_ce_rows", "fused_ce_rows_bwd", "hash_dropout_fwd", "hash_dropout_bwd")}
 
 
 def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
@@ -773,13 +775,13 @@ def test_one_process_nccl_trainer_matches_ungrouped(dev):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    calls = distributed.all_reduce_flat.calls
+    calls = trace.counter("all_reduce.flat")
     assert distributed.maybe_initialize(f"localhost:{port}", 1, 0, device="cuda", timeout_s=60)
     try:
         grouped = run()
     finally:
         distributed.shutdown()
-    assert distributed.all_reduce_flat.calls - calls == 3
+    assert trace.counter("all_reduce.flat") - calls == 3
     np.testing.assert_allclose(grouped[0], plain[0], rtol=1e-6)
     _close(grouped[1], plain[1], torch.float32)
 
@@ -934,12 +936,12 @@ def test_hash_dropout_kernels_match_plain_bitwise(dev, rate, dtype, n, offset):
     from gamer_tpu_torch.modules.dropout import keep_threshold
 
     thr, kp = keep_threshold(rate)
-    before = (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches)
+    before = (trace.counter("launch.K1"), trace.counter("launch.K2"))
     _hd_same(HD.hash_dropout_fwd(y, 977, thr, kp, r), HD.hash_dropout_add_plain(y, 977, thr, kp, r))
     _hd_same(HD.hash_dropout_fwd(y, 977, thr, kp), HD.hash_dropout_add_plain(y, 977, thr, kp))
     _hd_same(HD.hash_dropout_bwd(y, 977, thr, kp), HD.apply_mask(y, 977, thr, kp))
-    assert (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches) == (before[0] + 2,
-                                                                            before[1] + 1)
+    assert (trace.counter("launch.K1"), trace.counter("launch.K2")) == (before[0] + 2,
+                                                                        before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -954,10 +956,10 @@ def test_hash_dropout_add_autograd_and_row0_on_card(dev, dtype):
     outs = {}
     for where in ("cpu", "cuda"):
         yy, rr = (t.to(where).requires_grad_(True) for t in (y, r))
-        before = (HD.hash_dropout_fwd.launches, HD.hash_dropout_bwd.launches)
+        before = (trace.counter("launch.K1"), trace.counter("launch.K2"))
         out = hash_dropout_add(rr, yy, 41, 0.1, row0=2)
         dy, dr = torch.autograd.grad(out, (yy, rr), go.to(where))
-        moved = (HD.hash_dropout_fwd.launches - before[0], HD.hash_dropout_bwd.launches - before[1])
+        moved = (trace.counter("launch.K1") - before[0], trace.counter("launch.K2") - before[1])
         assert moved == ((1, 1) if where == "cuda" else (0, 0))
         outs[where] = [t.detach().cpu() for t in (out, dy, dr)]
     for got, want in zip(outs["cuda"], outs["cpu"]):
@@ -1096,7 +1098,6 @@ def test_compiled_eval_matches_eager(dev):
     kernel of the port, later evaluations launching nothing from Python; a
     replay under `set_sync_debug_mode("error")` does not raise."""
     import chip_smoke as cs
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.entry import flagship_config, make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -1115,12 +1116,12 @@ def test_compiled_eval_matches_eager(dev):
         trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model, OptimizerConfig(),
                           TrainLoopConfig(), eval_loss_fn=make_loss_fn(model, cfg), graphed=graphed)
         _reset(counters)
-        captured = dict(GraphCache.captured)
+        captured = trace.counters("graph.capture.")
         losses = [trainer.evaluate(batches)]
         first = {k: f.launches for k, f in counters.items()}
         losses += [trainer.evaluate(batches) for _ in range(2)]
         again = {k: f.launches - first[k] for k, f in counters.items()}
-        new = GraphCache.captured.get("eval step", 0) - captured.get("eval step", 0)
+        new = trace.counter("graph.capture.eval step") - captured.get("eval step", 0)
         return losses, trainer, first, again, new
 
     g_losses, trainer, first, again, new = run(True)
@@ -1149,7 +1150,6 @@ def test_compiled_search_matches_eager(dev, backbone):
     launched in the captures or anywhere; a replay under
     `set_sync_debug_mode("error")` does not raise."""
     import chip_smoke as cs
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.entry import flagship_config
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
@@ -1165,14 +1165,14 @@ def test_compiled_search_matches_eager(dev, backbone):
         item, beh = (make_beam_search_fn(model, t, BeamSearchConfig(num_beams=6),
                                          graphed=graphed) for t in (trie, btrie))
         _reset(counters)
-        captured = GraphCache.captured.get("beam search", 0)
+        captured = trace.counter("graph.capture.beam search")
         outs = [fn(*args) for fn, args in ((item, (prompts, behaviors)), (item, (prompts, 2)),
                                            (beh, (bprompts, None))) for _ in range(2)]
         torch.cuda.synchronize()
         assert not any(f.launches for f in counters.values()), {
             k: f.launches for k, f in counters.items()}
         return outs, (item.graphs, beh.graphs,
-                      GraphCache.captured.get("beam search", 0) - captured), item
+                      trace.counter("graph.capture.beam search") - captured), item
 
     g_outs, g_graphs, item = run(True)
     e_outs, e_graphs, _ = run(False)
@@ -1194,7 +1194,6 @@ def test_compiled_encdec_search_matches_eager(dev, tmp_path):
     compiled and eager, a shared and a per-row prefix of the same tokens
     (one key), each twice: codes and scores bit-identical, one graph, no
     kernel of the port launched."""
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.data.vocab import SemanticVocab
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_encdec_fn
     from gamer_tpu_torch.decode.trie import LeveledTrie
@@ -1219,11 +1218,11 @@ def test_compiled_encdec_search_matches_eager(dev, tmp_path):
         search = make_beam_search_encdec_fn(model, trie, BeamSearchConfig(num_beams=6),
                                             graphed=graphed)
         _reset(counters)
-        captured = GraphCache.captured.get("enc-dec beam search", 0)
+        captured = trace.counter("graph.capture.enc-dec beam search")
         outs = [search(batch, p) for p in (shared, shared, np.tile(shared, (4, 1)))]
         torch.cuda.synchronize()
         assert not any(f.launches for f in counters.values())
-        return outs, search.graphs, GraphCache.captured.get("enc-dec beam search", 0) - captured
+        return outs, search.graphs, trace.counter("graph.capture.enc-dec beam search") - captured
 
     g_outs, g_graphs, g_new = run(True)
     e_outs, e_graphs, e_new = run(False)
@@ -1252,7 +1251,6 @@ def test_compiled_rec_step_matches_eager(dev, backbone):
     replay) and eager bit-identical; a replay of the step under
     `set_sync_debug_mode("error")` does not raise."""
     import chip_smoke as cs
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.models.discriminative import DisModelConfig
     from gamer_tpu_torch.tasks import train_smb_rec as TR
 
@@ -1267,7 +1265,7 @@ def test_compiled_rec_step_matches_eager(dev, backbone):
         model = TR.build_dis_model(backbone, cfg, 40, L, 3, 12, dev, seed=0)
         step = TR.RecTrainStep(backbone, model, cfg, _zoo_adamw(model), graphed)
         _reset(counters)
-        captured = GraphCache.captured.get("rec training step", 0)
+        captured = trace.counter("graph.capture.rec training step")
         losses = [step(batches[0], TR.step_generator(0, 0))]
         first = {k: f.launches for k, f in counters.items()}
         losses += [step(b, TR.step_generator(0, i)) for i, b in enumerate(batches[1:], 1)]
@@ -1275,7 +1273,7 @@ def test_compiled_rec_step_matches_eager(dev, backbone):
         scorer = TR.RecScorer(backbone, model, dev, graphed)
         scores = [scorer(batches[0]) for _ in range(2)]
         torch.cuda.synchronize()
-        new = GraphCache.captured.get("rec training step", 0) - captured
+        new = trace.counter("graph.capture.rec training step") - captured
         return ([float(x) for x in losses], model, step, first, again, new, scores)
 
     g_losses, g_model, g_step, first, again, new, g_scores = run(True)
@@ -1284,7 +1282,7 @@ def test_compiled_rec_step_matches_eager(dev, backbone):
     for (n, p), q in zip(g_model.named_parameters(), e_model.parameters()):
         assert torch.equal(p, q), n
     assert all(torch.equal(s, e_scores[0]) for s in g_scores + e_scores[1:])
-    assert (g_step.calls.graphs, new, e_step.calls.graphs, e_new) == (1, 1, 0, 0)
+    assert (g_step.staged.graphs, new, e_step.staged.graphs, e_new) == (1, 1, 0, 0)
     per_step = cs.staged_step_launches(g_model, True, counters)
     assert per_step["hash_dropout_fwd"] == g_model.dropout_sites > 0
     assert first == {k: 2 * n for k, n in per_step.items()}, first  # warm-up and capture
@@ -1308,7 +1306,6 @@ def test_compiled_rqvae_step_and_emit_match_eager(dev, bn):
     `RQVAEEmit` over 300 rows (a padded last chunk) compiled and eager on
     each model: the codes equal, one graph."""
     import chip_smoke as cs
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
     from gamer_tpu_torch.tasks import rqvae as TR
 
@@ -1326,12 +1323,12 @@ def test_compiled_rqvae_step_and_emit_match_eager(dev, bn):
         step = TR.RQVAEStep(model, _zoo_adamw(model), x, cf, graphed)
         step.set_labels(labels)
         _reset(counters)
-        before = dict(GraphCache.captured)
+        before = trace.counters("graph.capture.")
         outs = [step(r, TR.step_generator(0, 0, i)) for i, r in enumerate(rows)]
         launches = {k: f.launches for k, f in counters.items()}
         emit = TR.RQVAEEmit(model, x, 64, graphed)
         codes = [emit() for _ in range(2)]
-        new = {k: n - before.get(k, 0) for k, n in GraphCache.captured.items()
+        new = {k: n - before.get(k, 0) for k, n in trace.counters("graph.capture.").items()
                if n > before.get(k, 0)}
         return torch.stack(outs).tolist(), model, launches, new, codes
 
@@ -1355,7 +1352,7 @@ def test_one_process_nccl_graphed_trainer_matches_eager(dev, k):
     """Four updates of a small Qwen3Multi (bf16, dropout 0.2, kernels on) in
     a one-process NCCL group, captured (one graph a key) and replayed,
     against the same steps with `graphed=False` in the same group: every
-    loss and parameter bit for bit; `all_reduce_flat.calls` one an update in
+    loss and parameter bit for bit; the counter `all_reduce.flat` one an update in
     both forms, replays counted; the captures issue the step's all-reduces
     on the capturing stream (the (loss·w, w) one a micro-step and the
     gradient one an update: a one-rank NCCL all-reduce launches no kernel,
@@ -1378,11 +1375,11 @@ def test_one_process_nccl_graphed_trainer_matches_eager(dev, k):
         trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
                           OptimizerConfig(total_steps=6, warmup_steps=1),
                           TrainLoopConfig(gradient_accumulation_steps=k), graphed=graphed)
-        calls = distributed.all_reduce_flat.calls
+        calls = trace.counter("all_reduce.flat")
         with cs._issued_all_reduces() as issued:
             losses = [trainer.train_step(batches[i % len(batches)]) for i in range(4 * k)]
             torch.cuda.synchronize()
-        reduces = distributed.all_reduce_flat.calls - calls
+        reduces = trace.counter("all_reduce.flat") - calls
         params = [p.detach().clone() for p in model.parameters()]
         return losses, params, trainer.graphs, trainer.captures, reduces, issued
 
@@ -1412,7 +1409,6 @@ def test_compiled_recluster_matches_eager(dev):
     recluster"), captured at the first call and replayed at the others,
     each replay drawing from the seeds staged for its epoch (its labels
     differ from the first epoch's)."""
-    from gamer_tpu_torch.core.graphs import GraphCache
     from gamer_tpu_torch.models.tokenizer.rqvae import RQVAE, RQVAEConfig
     from gamer_tpu_torch.tasks import rqvae as TR
 
@@ -1423,7 +1419,7 @@ def test_compiled_recluster_matches_eager(dev):
         model = RQVAE(cfg, device=dev, seed=2)
         labels = torch.zeros((3, 64), dtype=torch.int64, device=dev)
         recluster = TR.RQVAERecluster(model, labels, graphed)
-        before = GraphCache.captured.get("rq-vae recluster", 0)
+        before = trace.counter("graph.capture.rq-vae recluster")
         out = []
         for epoch in range(4):
             recluster(7, epoch)
@@ -1431,8 +1427,8 @@ def test_compiled_recluster_matches_eager(dev):
             with torch.no_grad():
                 model.codebooks.mul_(1.01).add_(0.01)
         torch.cuda.synchronize()
-        runs[graphed] = (out, recluster.calls.graphs,
-                         GraphCache.captured.get("rq-vae recluster", 0) - before)
+        runs[graphed] = (out, recluster.staged.graphs,
+                         trace.counter("graph.capture.rq-vae recluster") - before)
     (g, g_graphs, g_new), (e, e_graphs, e_new) = runs[True], runs[False]
     assert (g_graphs, g_new, e_graphs, e_new) == (1, 1, 0, 0)
     assert all(torch.equal(a, b) for a, b in zip(g, e))

@@ -247,7 +247,7 @@ def _port_step(out_dir: str) -> None:
     """A worker of the sharded step (1 x 2 on gloo): the converted weights of
     `inputs.pt`, sharded; one `Trainer` step on the whole batch; the eval
     loss; "best" (whole tensors) saved in out_dir/ckpt."""
-    from gamer_tpu_torch.core import distributed
+    from gamer_tpu_torch.core import distributed, trace
     from gamer_tpu_torch.core.mesh import MeshContext, default_mesh
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig, QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -269,9 +269,9 @@ def _port_step(out_dir: str) -> None:
                           output_dir=os.path.join(out_dir, "ckpt"),
                           eval_loss_fn=make_loss_fn(model, cfg, deterministic=True))
         batch = ctx.shard_batch(inputs["batch"])
-        calls = distributed.model_all_reduce.calls
+        calls = trace.counter("all_reduce.model")
         loss = float(trainer.train_step(batch))
-        collectives = distributed.model_all_reduce.calls - calls
+        collectives = trace.counter("all_reduce.model") - calls
         eval_loss = trainer.evaluate([batch])
         trainer.ckpt.save("best", trainer.model_state(), {"eval": eval_loss})
         # the whole-tensor train state loads into a fresh sharded model

@@ -106,7 +106,7 @@ def test_recluster_labels_equal_cluster_codebook(graphed):
     for epoch in (0, 3):
         key, static = recluster.stage(5, epoch)
         with host_io_forbidden():
-            recluster.calls.run(key, recluster.device_part, static)
+            recluster.staged.run(key, recluster.device_part, static)
         for lvl, (n, k) in enumerate(zip(model.cfg.num_emb_list, recluster.clusters)):
             want = K.cluster_codebook(books[lvl, :n], k, 5 + epoch + lvl)
             assert np.array_equal(step.labels[lvl, :n].numpy(), want), (epoch, lvl)
@@ -115,7 +115,7 @@ def test_recluster_labels_equal_cluster_codebook(graphed):
         with torch.no_grad():
             model.codebooks.add_(0.1)  # the next epoch's codebooks moved
             books = model.codebooks.detach()
-    assert recluster.calls.graphs == 0  # the CPU runs it eagerly
+    assert recluster.staged.graphs == 0  # the CPU runs it eagerly
 
 
 def test_reroute_full_prefixes_leaves_no_collision():
