@@ -4,12 +4,13 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the eight hand-written CUDA kernel libraries from
+1. build the nine hand-written CUDA kernel libraries from
    `gamer_tpu_torch/ops/csrc` with nvcc for sm_90a (one nvcc per source,
    started together), and count each library's tensor-core instructions
    (HMMA for mma.sync, HGMMA for wgmma) in its SASS with `cuobjdump`: every
    library of a-k (attention a, b; MoE h, i; CE j, k) must have some (the
-   elementwise hash dropout and optimizer update have none by design);
+   elementwise hash dropout, optimizer update and q/k norm and RoPE have
+   none by design);
 2. hold each forward kernel (a, h, j) against its plain PyTorch version at
    the flagship shapes: fp32 inputs at 1e-4 and bf16 inputs (plain version
    run in fp32 on the same bf16 values) at 2e-2, both as
@@ -51,13 +52,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    timed (CUDA events) beside their bounds, the plain version and the
    library calls (`clip_grad_norm_(foreach=True)`,
    `torch.optim.AdamW(fused=True)`);
+2f. the attention prologue's q/k RMSNorm and RoPE (`ops/qk_norm_rope.py`):
+   N1 against its plain version bit for bit (bf16 at the flagship's
+   [256, 520] tokens, 6 q and 3 k heads of 64; fp32 and bf16 at head dims
+   48, 64, 128, 258 (the wide kernels) and 320, B 8 x S 505, jumping
+   positions), N2's grads no further from the fp32 plain grads than
+   autograd through the bf16 plain version, two N2 runs bit-identical (at
+   B 8 x S 505, on the timed flagship inputs and at B 256 x S 120); N1 and
+   N2 timed at the flagship shapes in a CUDA graph beside their bounds
+   (bytes) and the plain chain's forward and backward (their launches on
+   the main path: phases 3, 4 and 5);
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator, through `Trainer.evaluate` (`eval_phase`), compiled
    (its eval step captured as a CUDA graph and replayed) and eager
    (`graphed=False`): every eval loss bit-identical between the two, each
    run of the eval step's device part (the eager runs, the capture)
-   launching exactly a 12, h 8, j 1, a profiled replay running the eager
+   launching exactly a 12, N1 12, h 8, j 1, a profiled replay running the eager
    eval's kernels of the port by name and count, each mode's median host
    time, busy share and peak memory; then the plain path on the same
    weights, the losses finite and within 1e-2 relative;
@@ -67,7 +78,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    scalar and `None` behavior ids (the last the behavior-token decode over
    the behavior + item trie): codes equal and scores bit-identical between
    the two in each mode, two graphs captured, no launch of the port's
-   kernels, a profiled replay running the eager search's kernels by name
+   kernels but N1 (12 in the prefill and in each decode step of every run
+   of a search's device part), a profiled replay running the eager search's kernels by name
    and count; shapes, finite sorted scores, every returned code path in the
    trie; each mode's median host time, beams/s, busy share, peak memory and
    the memory the graphs keep reserved;
@@ -121,15 +133,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    compiled steps, the eager peak printed beside the compiled one), peak
    memory full < attn, dots < off, and `train/memory.py`'s estimate within
    [1, 1.3] x the compiled remat-off peak; then
-   the automatic choice at B 64 x S 8190 takes one step within 70% of the
+   the automatic choice at B 96 x S 8190 (which remat off would not fit
+   in 70% of the card) takes policy attn and one step within 70% of the
    card's memory;
 10. the enc-dec pipelines through the CLI at the shipped configs' widths
    (`encdec_phase`): one epoch of train_decoder --backbone TIGER (batch
    256) and test_decoder, one of train_SMB_decoder --backbone
    PBATransformer (batch 64 x 100 blocks) and test_SMB_decoder, 20 beams
    at batch 128; losses fall, the reloaded `best`, beams in the trie,
-   metrics in [0, 1], no launch of kernels a-k (the enc-dec family runs
-   none, as in JAX; it runs the hash dropout's K1 and K2 and kernel L,
+   metrics in [0, 1], no launch of kernels a-k, N1 or N2 (the enc-dec family
+   runs none, as in JAX; it runs the hash dropout's K1 and K2 and kernel L,
    whose counts are printed), the eval step and each search compiled (one
    graph a search object).
 11. data parallelism (`multiprocess_phase`, `core/distributed.py`):
@@ -166,7 +179,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    fp32 step of `best` on the card twice (embedding table grads
    bit-identical) and against the CPU (loss 1e-5, grads 1e-4;
    ill-conditioned grads against float64), SASRec's sampled eval and a BPR
-   epoch; losses fall, metrics in [0, 1], no launch of a-k (the zoo runs
+   epoch; losses fall, metrics in [0, 1], no launch of a-k, N1 or N2 (the zoo runs
    none, as in JAX; its dropout runs on K1 and K2 and its update on kernel
    L, whose counts are printed). The training step and the scorer are
    compiled (one CUDA graph each a fit, K1/K2 once a dropout site and L1/L2
@@ -213,10 +226,12 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores, NVIDIA data sheet
 F64_FLOPS = 34e12  # H100 SXM fp64 peak outside the tensor cores, NVIDIA data sheet
 # libraries with no tensor-core work by design (elementwise, bound by bytes)
-NO_TENSOR_CORES = ("hash_dropout", "fused_optimizer")
-# the launch counters of the tensor-core kernels a-k (phases 10 and 13 launch none)
-A_TO_K = ("fused_mask_attention", "fused_mask_attention_bwd", "fused_moe_ffn",
-          "fused_moe_ffn_bwd", "fused_ce_rows", "fused_ce_rows_bwd")
+NO_TENSOR_CORES = ("hash_dropout", "fused_optimizer", "qk_norm_rope")
+# the launch counters of the Qwen family's kernels: the tensor-core kernels a-k
+# and the q/k norm and RoPE's N1 and N2 (phases 10 and 13 launch none)
+QWEN_KERNELS = ("fused_mask_attention", "fused_mask_attention_bwd", "fused_moe_ffn",
+                "fused_moe_ffn_bwd", "fused_ce_rows", "fused_ce_rows_bwd", "qk_norm_rope_fwd",
+                "qk_norm_rope_bwd")
 F32_TOL, BF16_TOL, LOSS_TOL = 1e-4, 2e-2, 1e-2
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-3  # fp32 train step, kernel path vs plain path
 # bf16 train step, kernel path vs plain path, set from the readings of
@@ -1079,6 +1094,127 @@ def dropout_phase(dev, card: str) -> dict:
     return entries
 
 
+def qk_norm_rope_phase(dev, card: str) -> dict:
+    """Phase 2f: the attention prologue's q/k RMSNorm and RoPE, N1 and N2
+    (`ops/qk_norm_rope.py`), against their plain version: N1 bit for bit
+    (bf16 at the flagship's B 256 x S 520 tokens, 6 q and 3 k heads of 64,
+    the train path's positions; fp32 and bf16 at head dims 48, 64, 128, 258
+    (the wide kernels) and 320, B 8 x S 505, jumping positions); N2's four
+    grads no further from the fp32 plain grads than autograd through the
+    bf16 plain version is, and two N2 runs bit-identical, at B 8 x S 505
+    (head dims 64 and 128), on the timed flagship inputs and at the
+    MoeAction cell's B 256 x S 120 (whose warps walk several token groups).
+    Times N1 and N2 at the flagship shapes in a CUDA graph (inputs cycled
+    through two sets, 150 MB each, so they come from device memory) beside
+    their bounds (each byte read or written once: q, k, their outputs or
+    grads, the fp32 rstd and the int32 positions), and the plain chain's
+    forward and its backward through autograd. Their launches on the main
+    path are phase 5's."""
+    import torch
+
+    from gamer_tpu_torch.ops import qk_norm_rope as QN
+
+    theta, eps = 1e6, 1e-6
+    g = torch.Generator().manual_seed(6)
+
+    def inputs(B, S, H, Hkv, D, dtype, jumps):
+        q = (2 * torch.randn(B, S, H, D, generator=g) + 0.3).to(dev, dtype)
+        k = torch.randn(B, S, Hkv, D, generator=g).to(dev, dtype)
+        w = [(1 + 0.5 * torch.randn(D, generator=g)).to(dev) for _ in range(2)]
+        pos = (torch.cumsum(torch.randint(0, 3, (B, S), generator=g), 1).to(torch.int32)
+               if jumps else torch.arange(S, dtype=torch.int32)[None].expand(B, S)).to(dev)
+        return q, k, *w, pos
+
+    def cotangents(args):
+        return [torch.randn(t.shape, generator=g).to(dev, torch.bfloat16) for t in args[:2]]
+
+    def n1_same(label, args):
+        got = QN.qk_norm_rope(*args, theta, eps)
+        want = QN.qk_norm_rope_plain(*args, theta, eps, fixed_order=True)
+        ok = all(a.dtype == b.dtype and bool((_bits(a) == _bits(b)).all())
+                 for a, b in zip(got, want))
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        print(f"check qk_norm_rope_fwd {label}: {'bit-identical' if ok else 'DIFFERS'} "
+              f"(max abs err {err:.3e})", flush=True)
+        assert ok, f"N1 {label} differs from its plain version"
+        return err
+
+    def grads(args, cot, fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+        torch.autograd.backward(fn(*leaves, args[4], theta, eps), cot)
+        return [t.grad for t in leaves]
+
+    def n2_close(label, args, cot):
+        """N2's max abs err from the fp32 plain grads, checked as the
+        docstring says."""
+        up = lambda ts: [t.float() for t in ts]
+        want = grads(up(args[:2]) + list(args[2:]), up(cot), QN.qk_norm_rope_plain)
+        rel = lambda got: [((a.float() - b).abs().max() / b.abs().max()).item()
+                           for a, b in zip(got, want)]
+        kernel, again = grads(args, cot, QN.qk_norm_rope), grads(args, cot, QN.qk_norm_rope)
+        same = all(bool((_bits(a) == _bits(b)).all()) for a, b in zip(kernel, again))
+        k_err, p_err = rel(kernel), rel(grads(args, cot, QN.qk_norm_rope_plain))
+        err = max((a.float() - b).abs().max().item() for a, b in zip(kernel, want))
+        print(f"check qk_norm_rope_bwd {label} bf16: grads (q, k, wq, wk) from the fp32 plain "
+              f"grads {['%.3e' % e for e in k_err]} of the largest (max abs err {err:.3e}), "
+              f"bf16 plain path's {['%.3e' % e for e in p_err]}; two runs bit-identical: "
+              f"{same}", flush=True)
+        assert same and all(a <= b for a, b in zip(k_err, p_err)), f"N2 check {label} failed"
+        del want, kernel, again
+        return err
+
+    flagship = (256, 520, 6, 3, 64)
+    err = n1_same(f"{list(flagship)} bf16", inputs(*flagship, torch.bfloat16, False))
+    for D in (48, 64, 128, 258, 320):
+        for dtype in (torch.float32, torch.bfloat16):
+            err = max(err, n1_same(f"[8, 505, 6, 3, {D}] {dtype}",
+                                   inputs(8, 505, 6, 3, D, dtype, True)))
+    n2_err = 0.0
+    for D in (64, 128):
+        args = inputs(8, 505, 6, 3, D, torch.bfloat16, True)
+        n2_err = max(n2_err, n2_close(f"[8, 505, 6, 3, {D}]", args, cotangents(args)))
+    args = inputs(256, 120, 6, 3, 64, torch.bfloat16, True)
+    n2_err = max(n2_err, n2_close("[256, 120, 6, 3, 64]", args, cotangents(args)))
+    del args
+
+    # times at the flagship shapes, bf16
+    sets = [inputs(*flagship, torch.bfloat16, False) for _ in range(2)]
+    cots = [cotangents(s) for s in sets]
+    n2_err = max(n2_err, n2_close(f"{list(flagship)} (the timed inputs)", sets[0], cots[0]))
+    torch.cuda.empty_cache()
+    prep = [(s[4].contiguous(), QN.rope_inv_freq(64, theta, dev)) for s in sets]
+    saved = [QN.qk_norm_rope_fwd(*s[:4], *p, eps, True) for s, p in zip(sets, prep)]
+    turn = iter(range(1 << 30))
+    pick = lambda: next(turn) % 2
+    B, S, H, Hkv, D = flagship
+    tokens, heads = B * S, H + Hkv
+    elems = tokens * heads * D
+    n_bytes = {"qk_norm_rope_fwd": 2 * elems * 2 + 4 * tokens * heads + 4 * tokens,
+               "qk_norm_rope_bwd": 3 * elems * 2 + 4 * tokens * heads + 4 * tokens}
+    kern = {"qk_norm_rope_fwd": lambda: (lambda i: QN.qk_norm_rope_fwd(
+                *sets[i][:4], *prep[i], eps, True))(pick()),
+            "qk_norm_rope_bwd": lambda: (lambda i: QN.qk_norm_rope_bwd(
+                *cots[i], *sets[i][:4], *saved[i][2:], *prep[i], eps))(pick())}
+    leaves = [t.detach().clone().requires_grad_(True) for t in sets[0][:4]]
+    outs = QN.qk_norm_rope_plain(*leaves, sets[0][4], theta, eps)
+    plain = {"qk_norm_rope_fwd": lambda: QN.qk_norm_rope_plain(*sets[0], theta, eps),
+             "qk_norm_rope_bwd": lambda: torch.autograd.grad(outs, leaves, cots[0],
+                                                             retain_graph=True)}
+    errs = {"qk_norm_rope_fwd": err, "qk_norm_rope_bwd": n2_err}
+    entries = {}
+    for name in ("qk_norm_rope_fwd", "qk_norm_rope_bwd"):
+        bound = n_bytes[name] / HBM_BYTES_PER_S * 1e3
+        ms = _graph_ms(kern[name])
+        plain_ms = _cuda_ms(plain[name], iters=3)
+        entries[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                             bound_by="bytes", max_abs_err=errs[name])
+        print(f"time {name} [{B}, {S}] x {H}/{Hkv} heads of {D} bf16: kernel {ms:.4f} ms in a "
+              f"CUDA graph ({n_bytes[name] / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of "
+              f"bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); library: none "
+              f"(card {card})", flush=True)
+    return entries
+
+
 def optimizer_phase(dev, card: str) -> dict:
     """Phase 2e: kernel L (`ops/fused_optimizer.py`) against its plain
     version (`train/state.plain_update`) at the flagship's parameters (138
@@ -1207,17 +1343,18 @@ UPDATE_LAUNCHES = {"global_norm_sq": 1, "apply_update": 1}  # kernel L of one op
 
 def _step_launches(cfg) -> dict:
     """Wrapper calls of one training forward and backward: an attention
-    forward and backward per self- and cross-attention, an MoE forward and
-    backward per sparse layer (MoeAction: one per behavior level), one CE
-    forward and backward, and K1 and K2 at each hash-dropout site
-    (`_dropout_sites`)."""
+    forward and backward, and an N1 and N2 (the q/k norm and RoPE), per
+    self- and cross-attention, an MoE forward and backward per sparse layer
+    (MoeAction: one per behavior level), one CE forward and backward, and
+    K1 and K2 at each hash-dropout site (`_dropout_sites`)."""
     attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
     moe = len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action else 1)
     drop = sum(_dropout_sites(cfg))
     return {"fused_mask_attention": attn, "fused_mask_attention_bwd": attn,
             "fused_moe_ffn": moe, "fused_moe_ffn_bwd": moe,
             "fused_ce_rows": 1, "fused_ce_rows_bwd": 1,
-            "hash_dropout_fwd": drop, "hash_dropout_bwd": drop}
+            "hash_dropout_fwd": drop, "hash_dropout_bwd": drop,
+            "qk_norm_rope_fwd": attn, "qk_norm_rope_bwd": attn}
 
 
 def _train_step_launches(cfg) -> dict:
@@ -1369,12 +1506,13 @@ def _profiled_step(step, tries: int = 2) -> dict:
 
 def _scoring_launches(cfg, cuda: bool, names) -> dict:
     """Wrapper calls of one scoring forward, for each counter of `names`: an
-    attention forward per self- and cross-attention, an MoE forward per
-    sparse layer (MoeAction: one per behavior level), one CE forward; none
-    on the CPU."""
+    attention forward and an N1 per self- and cross-attention, an MoE
+    forward per sparse layer (MoeAction: one per behavior level), one CE
+    forward; none on the CPU."""
     launches = {k: 0 for k in names}
     if cuda:
-        launches.update(fused_mask_attention=cfg.num_hidden_layers + len(cfg.cross_attention_layers),
+        attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
+        launches.update(fused_mask_attention=attn, qk_norm_rope_fwd=attn,
                         fused_moe_ffn=len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action
                                                                 else 1),
                         fused_ce_rows=1)
@@ -1390,7 +1528,7 @@ def eval_phase(dev, counters: dict, card: str, cfg=None, geometry=(64, 101),
     (`graphed=False`), `calls` evaluations of one batch each, from the same
     weights. Gates: every result bit-identical between the two; each run of
     the eval step's device part (eager, or the capture) launching exactly
-    a 12, h 8, j 1 and nothing else, with the counts zeroed just before each
+    a 12, N1 12, h 8, j 1 and nothing else, with the counts zeroed just before each
     mode's run and read just after; the compiled eval one graph, replayed
     by every call after the first; a profiled replay running the eager
     eval's kernels of the port by name and count. Prints each mode's median
@@ -1491,8 +1629,11 @@ def search_phase(dev, counters: dict, card: str, cfg=None,
     behavior ids, a scalar id (the per-example key's graph) and `None` (the
     behavior-token decode over the behavior + item trie: a second object and
     key). Gates: codes equal and scores bit-identical between the two in
-    every mode; no launch of a kernel of `kernel_counters` (the search runs
-    none, as in JAX); two graphs captured by the compiled searches, none by
+    every mode; of the kernels of `kernel_counters` only N1 launched (the
+    search runs none of the others, as in JAX), once an attention block in
+    the prefill and in each of the L - 1 decode steps of every run of a
+    search's device part: each eager call, the warm-up and the capture of
+    each compiled key; two graphs captured by the compiled searches, none by
     the eager; a profiled replay running the same kernels by name and count
     as a profiled eager search; shapes, finite sorted scores, every code
     path in the trie. Prints each mode's median host time of `timed` calls
@@ -1512,6 +1653,7 @@ def search_phase(dev, counters: dict, card: str, cfg=None,
     btrie, bbatch, _ = make_trie_and_prompts(cfg, B, n_items, levels, size, blocks,
                                              behavior_level=True)
     model = QwenFamilyModel(cfg, device=dev, seed=0)
+    attn_blocks = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
     modes = {"per-example": ("item", pbatch, beh_ids), "scalar": ("item", pbatch, 2),
              "None": ("behavior", bbatch, None)}
     runs = {}
@@ -1540,9 +1682,17 @@ def search_phase(dev, counters: dict, card: str, cfg=None,
                 ms[mode], first[mode] = float(np.median(times[1:])) * 1e3, times[0] * 1e3
                 check_beams(btrie if name == "behavior" else trie, codes, scores, B, K)
         launches = {k: w.launches for k, w in counters.items()}
-        assert not any(launches.values()), f"phase 4 {label}: the search launched {launches}"
-        graphs = sum(s.graphs for s in searches.values())
         captured = graphed and cuda
+        want = {k: 0 for k in counters}
+        if cuda:  # device-part runs a mode: scalar ids share the per-example key's graph
+            part_runs = ({"per-example": 2, "scalar": 0, "None": 2} if captured
+                         else {mode: timed + 1 for mode in modes})
+            levels_of = {mode: (btrie if name == "behavior" else trie).num_levels
+                         for mode, (name, _, _) in modes.items()}
+            want["qk_norm_rope_fwd"] = attn_blocks * sum(n * levels_of[m]
+                                                         for m, n in part_runs.items())
+        assert launches == want, f"phase 4 {label}: the search launched {launches}, not {want}"
+        graphs = sum(s.graphs for s in searches.values())
         assert graphs == 2 * captured and cap == ({"beam search": 2} if captured else {}), (
             graphs, cap)
         peak = reserved = 0
@@ -1573,9 +1723,12 @@ def search_phase(dev, counters: dict, card: str, cfg=None,
               f"scores bit-identical {torch.equal(s, s2)}", flush=True)
         assert torch.equal(c, c2) and torch.equal(s, s2), f"phase 4 {mode}: compiled != eager"
     if cuda:
-        same = compiled["prof"]["kernels"] == eager["prof"]["kernels"]
-        print(f"phase 4 a profiled replay runs the eager search's {len(eager['prof']['kernels'])} "
-              f"kernels by name and count: {same}", flush=True)
+        ck, ek = compiled["prof"]["kernels"], eager["prof"]["kernels"]
+        same = ck == ek
+        differ = {k: (ck.get(k, 0), ek.get(k, 0)) for k in set(ck) | set(ek)
+                  if ck.get(k, 0) != ek.get(k, 0)}
+        print(f"phase 4 a profiled replay runs the eager search's {len(ek)} kernels by name "
+              f"and count: {same}{'' if same else f' (replay, eager: {differ})'}", flush=True)
         assert same and compiled["prof"]["kernels"], "a replay does not run the eager kernels"
     del model
     if cuda:
@@ -2109,8 +2262,9 @@ PHASE9_POLICIES = (None, "full", "attn", "dots")  # None = remat off
 def _remat_launches(cfg, policy) -> dict:
     """`_step_launches` of a step under remat `policy`: "full" and "dots" run
     every attention forward (a) and MoE forward (h) again in the backward,
-    "attn" only the MoE forwards (the attention cores keep their outputs).
-    Every policy runs each layer's dropout sites again but its last: the
+    "attn" only the MoE forwards (the attention cores keep their outputs);
+    every policy runs each attention block's N1 again (the prologue of the
+    core). Every policy runs each layer's dropout sites again but its last: the
     recompute stops once it has rebuilt the last tensor the backward saved
     (`torch.utils.checkpoint`'s early stop), and the last residual's K1
     saves none. A forward and backward: no optimizer update."""
@@ -2119,6 +2273,7 @@ def _remat_launches(cfg, policy) -> dict:
         launches["fused_mask_attention"] *= 2
     if policy is not None:
         launches["fused_moe_ffn"] *= 2
+        launches["qk_norm_rope_fwd"] *= 2
         launches["hash_dropout_fwd"] += sum(max(n - 1, 0) for n in _dropout_sites(cfg))
     return launches
 
@@ -2194,7 +2349,7 @@ def _two_passes_agree(cfg, batch, dev) -> None:
 
 
 def remat_phase(dev, counters: dict, card: str, cfg=None,
-                geometries=((64, 101), (16, 1638)), auto=(64, 1638)) -> dict:
+                geometries=((64, 101), (16, 1638)), auto=(96, 1638)) -> dict:
     """Phase 9: the remat policies and the memory estimate on flagship
     Qwen3Multi (bf16, dropout 0.2) through `Trainer`. At each calibration
     geometry (B 64 x S 505 and B 16 x S 8190, 1638 blocks) each policy (off,
@@ -2204,8 +2359,9 @@ def remat_phase(dev, counters: dict, card: str, cfg=None,
     at B 16 x S 505), two remat-off passes bit-identical,
     peak memory full < attn, dots < off, and `train/memory.py`'s estimate at
     least the remat-off peak and at most 1.3x it. Then the automatic choice
-    at B 64 x S 8190 (`auto_remat_overrides`) takes one step within
-    BUDGET_FRACTION of the card's memory. `cfg`, the geometries and `auto`
+    at B 96 x S 8190 (`auto_remat_overrides`: remat off's estimate exceeds
+    BUDGET_FRACTION of an 80 GB card there) takes policy attn and one step
+    within BUDGET_FRACTION of the card's memory. `cfg`, the geometries and `auto`
     let a test run it tiny; on the CPU nothing launches and no memory is
     measured."""
     import torch
@@ -2339,8 +2495,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     first 3's, family "encdec" saved, the reloaded "best" giving the best
     eval loss within 1e-6, parameters on the card, every code path of a
     direct search over the first 128 test rows in the trie with finite
-    sorted scores, metrics in [0, 1], and no launch of kernels a-k in the
-    whole phase (the enc-dec family runs none, as in JAX). Prints each fit's
+    sorted scores, metrics in [0, 1], and no launch of kernels a-k, N1 or N2
+    in the whole phase (the enc-dec family runs none, as in JAX). Prints each fit's
     step time (median of the step-to-step times, host collation included),
     the encoder and decoder lengths, peak memory, and each eval's wall time
     and beams/s. `spec`, the argument tuples, `extra_args` (e.g. --device
@@ -2375,7 +2531,7 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     before = {k: w.launches for k, w in counters.items()}
-    none = {k: 0 for k in counters if k in A_TO_K}
+    none = {k: 0 for k in counters if k in QWEN_KERNELS}
 
     def pipeline(label, train_task, args, his, n_min, train, valid, test, prefix_of, corpus,
                  eval_argv):
@@ -2393,8 +2549,8 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
         assert len(losses) >= n_min, f"{label}: only {len(losses)} training steps"
         assert np.isfinite(losses).all() and np.isfinite(res["best_metric"]), losses
         assert np.mean(losses[-3:]) < np.mean(losses[:3]), f"{label}: the loss did not fall"
-        a_to_k = [{k: n for k, n in st.items() if k in A_TO_K} for st in rec["steps"]]
-        assert all(st == none for st in a_to_k), f"{label}: a kernel of a-k ran {a_to_k[0]}"
+        qwen = [{k: n for k, n in st.items() if k in QWEN_KERNELS} for st in rec["steps"]]
+        assert all(st == none for st in qwen), f"{label}: a Qwen kernel ran {qwen[0]}"
         with open(os.path.join(out, "config.json")) as f:
             assert json.load(f)["family"] == "encdec"
         batch = int(args[args.index("--batch_size") + 1])
@@ -2492,7 +2648,7 @@ def encdec_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC,
           f"card {card})", flush=True)
     moved = {k: w.launches - before[k] for k, w in counters.items()}
     print(f"phase 10 launches in the whole phase: {moved}", flush=True)
-    moved = {k: n for k, n in moved.items() if k in A_TO_K}
+    moved = {k: n for k, n in moved.items() if k in QWEN_KERNELS}
     assert moved == none, f"phase 10 launched kernels {moved}: a model other than the enc-dec ran"
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3498,8 +3654,8 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     SASRec on smb_dis_neg with loss_type BPR (a config copy). Gates: finite
     losses at every step, the mean of the last `window` step losses below
     the mean of the first `window`, metrics in [0, 1], per-behavior test
-    counts equal to the eval builder's rows, and no launch of kernels a-k
-    in the phase (the zoo runs none, as in JAX). Prints per backbone the
+    counts equal to the eval builder's rows, and no launch of kernels a-k,
+    N1 or N2 in the phase (the zoo runs none, as in JAX). Prints per backbone the
     median step time (host collation included) and sequences/s, the fit's
     and the `--only_test` run's wall times and the peak device memory.
     `spec`, the arguments, `cfg_overrides` (applied to every config copy),
@@ -3527,7 +3683,7 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     before = {k: w.launches for k, w in counters.items()}
-    none = {k: 0 for k in counters if k in A_TO_K}
+    none = {k: 0 for k in counters if k in QWEN_KERNELS}
     his = int(train_args[train_args.index("--max_his_len") + 1])
     batch_size = int(train_args[train_args.index("--batch_size") + 1])
     corpus = SMBCorpus(DataFiles(data, "Synth"))
@@ -3644,8 +3800,8 @@ def rec_phase(dev, counters: dict, card: str, spec: dict = PHASE13_SPEC,
         fit("SASRec-BPR", "SASRec", config("SASRec", loss_type="BPR"), tuple(neg))
         moved = {k: w.launches - before[k] for k, w in counters.items()}
         print(f"phase 13 launches in the whole phase: {moved}", flush=True)
-        moved = {k: n for k, n in moved.items() if k in A_TO_K}
-        assert moved == none, f"phase 13 launched kernels {moved}: the zoo runs none of a-k"
+        moved = {k: n for k, n in moved.items() if k in QWEN_KERNELS}
+        assert moved == none, f"phase 13 launched kernels {moved}: the zoo runs no Qwen kernel"
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3685,13 +3841,14 @@ class LaunchCounter:
 
 
 def kernel_counters() -> dict:
-    """The launches of a-k, of the hash dropout's K1 and K2 and of the
-    optimizer update's L1 and L2, by the name of the wrapper that launches
-    each (`LaunchCounter`s)."""
+    """The launches of a-k, of the hash dropout's K1 and K2, of the
+    optimizer update's L1 and L2 and of the q/k norm and RoPE's N1 and N2,
+    by the name of the wrapper that launches each (`LaunchCounter`s)."""
     kernels = {"fused_mask_attention": "a", "fused_mask_attention_bwd": "b",
                "fused_moe_ffn": "h", "fused_moe_ffn_bwd": "i", "fused_ce_rows": "j",
                "fused_ce_rows_bwd": "k", "hash_dropout_fwd": "K1", "hash_dropout_bwd": "K2",
-               "global_norm_sq": "L1", "apply_update": "L2"}
+               "global_norm_sq": "L1", "apply_update": "L2", "qk_norm_rope_fwd": "N1",
+               "qk_norm_rope_bwd": "N2"}
     return {name: LaunchCounter("launch." + k) for name, k in kernels.items()}
 
 
@@ -4002,6 +4159,8 @@ def main() -> int:
     entries.update(dropout_phase(dev, card))
     # 2e. the optimizer update, kernel L, against its plain version
     entries.update(optimizer_phase(dev, card))
+    # 2f. the q/k RMSNorm and RoPE's N1 and N2 against their plain version
+    entries.update(qk_norm_rope_phase(dev, card))
 
     # 3. the scoring forward through the compiled and the eager eval step
     counters = kernel_counters()
@@ -4044,7 +4203,12 @@ def main() -> int:
                                     "gamer_tpu/modules/dropout.py:119-146"),
                # XLA's fusion of the optax chain in the jitted step (no pallas_call)
                "global_norm_sq": (csrc + "fused_optimizer.cu", "gamer_tpu/train/state.py:90-95"),
-               "apply_update": (csrc + "fused_optimizer.cu", "gamer_tpu/train/state.py:90-95")}
+               "apply_update": (csrc + "fused_optimizer.cu", "gamer_tpu/train/state.py:90-95"),
+               # XLA's fusion of GQAAttention's q/k norm and RoPE (no pallas_call)
+               "qk_norm_rope_fwd": (csrc + "qk_norm_rope.cu",
+                                    "gamer_tpu/modules/layers.py:215-219"),
+               "qk_norm_rope_bwd": (csrc + "qk_norm_rope.cu",
+                                    "gamer_tpu/modules/layers.py:215-219")}
     row = lambda name, src, rep, n, e: dict(
         name=name, route="cuda", source=src, replaces=rep, launches=n,
         max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -31,7 +31,7 @@ object (no generator, no allocation, no clock read), and `mark` and
   stage is recomputed inside the backward.
 - `count(name, n)`: counters, always on and never reset (`counter`,
   `counters` read their totals): `launch.<kernel>` (a, b, h, i, j, k, K1,
-  K2, L1, L2), `graph.<capture|replay|eager>.<owner>` and
+  K2, L1, L2, N1, N2), `graph.<capture|replay|eager>.<owner>` and
   `all_reduce.<flat|model>`.
 
 One clock: `enable()` and `reset()` synchronize the card, record an anchor

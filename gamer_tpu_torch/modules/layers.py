@@ -20,6 +20,7 @@ from torch import nn
 
 from gamer_tpu_torch.ops import fused_attention as fa
 from gamer_tpu_torch.ops.masks import NEG_INF
+from gamer_tpu_torch.ops.qk_norm_rope import qk_norm_rope
 
 
 class RMSNorm(nn.Module):
@@ -92,31 +93,6 @@ class Embedding(nn.Embedding):
 def embed(mod: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Rows of `mod`'s fp32 table, cast to `dtype` (flax `nn.Embed(dtype=...)`)."""
     return lookup(ids, mod.weight).to(dtype)
-
-
-def rope_cos_sin(positions: torch.Tensor, head_dim: int,
-                 theta: float = 1e6) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions [B, S] -> (cos, sin) each [B, S, head_dim] fp32 (NeoX
-    half-rotation layout)."""
-    half = head_dim // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    # theta filled on the device (no copy from the host, which a CUDA graph capture refuses)
-    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
-    freqs = 1.0 / torch.pow(base, exps)
-    angles = positions.float()[..., None] * freqs  # [B, S, half]
-    cos = torch.cat([torch.cos(angles), torch.cos(angles)], dim=-1)
-    sin = torch.cat([torch.sin(angles), torch.sin(angles)], dim=-1)
-    return cos, sin
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, S, H, D]; cos/sin [B, S, D] (angles fp32, applied in x.dtype)."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    rotated = torch.cat([-x2, x1], dim=-1)
-    cos = cos.to(x.dtype)[:, :, None, :]
-    sin = sin.to(x.dtype)[:, :, None, :]
-    return x * cos + rotated * sin
 
 
 def attend(
@@ -257,11 +233,10 @@ class GQAAttention(nn.Module):
             q = q + embed(self.q_behavior_embedding, action_index, q.dtype)
             k = k + embed(self.k_behavior_embedding, action_index, k.dtype)
             v = v + embed(self.v_behavior_embedding, action_index, v.dtype)
-        q = self.q_norm(q.reshape(b, s, H, D))
-        k = self.k_norm(k.reshape(b, s, Hkv, D))
-        v = v.reshape(b, s, Hkv, D)
-        cos, sin = rope_cos_sin(positions, D, self.rope_theta)
-        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+        # q_norm, k_norm and RoPE: N1/N2 on the card, their plain version on the CPU
+        q, k = qk_norm_rope(q.reshape(b, s, H, D), k.reshape(b, s, Hkv, D), self.q_norm.weight,
+                            self.k_norm.weight, positions, self.rope_theta, self.q_norm.eps)
+        return q, k, v.reshape(b, s, Hkv, D)
 
     def core(
         self,

@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNEL_SOURCES = ("fused_attention_fwd", "fused_attention_bwd", "fused_moe_fwd", "fused_moe_bwd",
-                  "fused_ce_fwd", "fused_ce_bwd", "hash_dropout", "fused_optimizer")
+                  "fused_ce_fwd", "fused_ce_bwd", "hash_dropout", "fused_optimizer",
+                  "qk_norm_rope")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

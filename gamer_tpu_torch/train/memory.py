@@ -9,10 +9,10 @@ SeqRec/tasks/train_SMB_decoder.py:412).
 The estimate keeps JAX's structure (parameters and optimizer state, saved
 activations per token and layer, CE buffers) but counts what the port's
 remat-off step keeps, which the JAX formula (written for XLA's saved
-activations) under-counts by about 2x: the fp32 copies that the RMSNorms and
-q/k norms save, the act-dtype copies of q, k and v along projection, norm,
-RoPE and the attention core, the RoPE tables, and in the backward the int64
-temporaries of the residual hash dropout (`modules/dropout.py`). The counts
+activations) under-counts: the fp32 copies that the RMSNorms save, the
+act-dtype copies of q, k and v around the attention core and the q/k norm
+and RoPE (N1 keeps the pre-norm q and k and an fp32 rstd a head), and in
+the backward the residual hash dropout's output (`modules/dropout.py`). The counts
 below come from a census of the tensors a flagship step saves for its
 backward (`scripts/probe_remat_memory.py`) on the kernel path;
 the plain paths' extra terms (`attention_impl`, `moe_impl`, `ce_impl` =
@@ -41,8 +41,9 @@ BUDGET_FRACTION = 0.7
 HIDDEN_SAVES = 8  # [token, H] act-dtype tensors of a layer: norm in/outputs, residual, MoE in/out
 HIDDEN_SAVES_F32 = 2  # fp32 copies the layer's two RMSNorms save
 CROSS_HIDDEN_SAVES, CROSS_HIDDEN_SAVES_F32 = 2, 1  # a cross-attention layer's third norm
-QKV_SAVES = 4  # act-dtype copies of q (projection, norm, RoPE, core output) and k/v widths
-ROPE_SAVES = 4  # cos and sin [token, head_dim], for q and for k
+# act-dtype copies of q (projection, RoPE output, core output), and of the k/v
+# width (k's projection and RoPE output, v)
+QKV_SAVES = 3
 # [token, H] act-dtype tensors the hash dropout keeps live in the backward: K2's
 # output (ops/hash_dropout.py; the kernels draw the mask in registers)
 DROPOUT_TEMP_SAVES = 1
@@ -93,7 +94,8 @@ def estimate_train_hbm_bytes(cfg, micro: int, seq_len: int) -> dict:
     params = count_params(cfg)
     params_bytes = params * PARAM_BYTES
 
-    attention = ab * (QKV_SAVES * (wq + wk) + ROPE_SAVES * dh) + 4 * (wq + wk + nh)
+    # and N1's fp32 rstd a head and int32 position (ops/qk_norm_rope.py)
+    attention = ab * QKV_SAVES * (wq + wk) + 4 * (nh + nkv) + 4
     if cfg.attention_impl == "jnp":  # scores, probs and mask [H, S] a query row
         attention += 3 * 4 * nh * seq_len
     layer = ab * HIDDEN_SAVES * H + 4 * HIDDEN_SAVES_F32 * H + attention

@@ -2,12 +2,13 @@
 
     python3 scripts/probe_remat_memory.py [--out results/remat_memory.json]
 
-On one CUDA card, flagship Qwen3Multi (bf16, dropout 0.2) through `Trainer`:
-for each geometry (B x S) and remat policy it prints a timed step's time,
-its peak memory over what was allocated before the model
+On one CUDA card, flagship Qwen3Multi (bf16, dropout 0.2) through `Trainer`
+(eager steps): for each geometry (B x S) and remat policy it prints a timed
+step's time, its peak memory over what was allocated before the model
 (`torch.cuda.max_memory_allocated` after a warm-up step) and the launches
-of the port's kernels (a-k and the hash dropout's K1/K2); at the remat-off
-geometries it also sums the tensors the step saves for its backward
+of the port's kernels (a-k, the hash dropout's K1/K2, the q/k norm and
+RoPE's N1/N2); at the remat-off geometries it also sums the tensors the
+step saves for its backward
 (`torch.autograd.graph.saved_tensors_hooks`, each storage once) by dtype
 and shape, the census from which `train/memory.py` counts its per-token
 terms, and prints `estimate_train_hbm_bytes` beside the peak. The same for
@@ -71,7 +72,8 @@ def step(B: int, blocks: int, policy, kernels: tuple, census: bool,
     batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, B, blocks).items()}
     trainer = Trainer(make_loss_fn(model, cfg, deterministic=False), model,
                       OptimizerConfig(learning_rate=5e-4, lr_scheduler_type="constant",
-                                      total_steps=10), TrainLoopConfig(seed=0))
+                                      total_steps=10), TrainLoopConfig(seed=0),
+                      graphed=False)  # a replayed graph allocates nothing
     trainer.train_step(batch)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() - base
@@ -121,7 +123,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     _build.build()
-    kernels = ("a", "b", "h", "i", "j", "k", "K1", "K2")  # the counters launch.<kernel>
+    kernels = ("a", "b", "h", "i", "j", "k", "K1", "K2", "N1", "N2")  # counters launch.<kernel>
     records = []
     runs = [("Qwen3Multi", B, blocks, policy) for B, blocks, policy in GEOMETRIES]
     runs += [("Qwen3MoeAction", B, blocks, None) for B, blocks in MOE_ACTION_GEOMETRIES]

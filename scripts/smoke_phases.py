@@ -6,7 +6,7 @@ Imports `chip_smoke.py` and `gamer_tpu_torch` from `<tree>` (a checkout,
 e.g. a `git archive` of another commit unpacked into a git-ignored
 directory), builds its kernel libraries and runs the named phases with the
 launch counters and TF32 off as the script does: 2d (`dropout_phase`), 2e
-(`optimizer_phase`), 3 (`eval_phase`), 4 (`search_phase`), 5
+(`optimizer_phase`), 2f (`qk_norm_rope_phase`), 3 (`eval_phase`), 4 (`search_phase`), 5
 (`train_phase`), 7 (`task_phase`), 8 (`seq_phase`), 9 (`remat_phase`), 10
 (`encdec_phase`), 11
 (`multiprocess_phase`), 12 (`tokenizer_phase`), 13 (`rec_phase`), 14
@@ -52,6 +52,8 @@ def main(argv: list[str]) -> int:
             cs.dropout_phase(dev, card)
         elif phase == "2e":
             cs.optimizer_phase(dev, card)
+        elif phase == "2f":
+            cs.qk_norm_rope_phase(dev, card)
         elif phase == "3":
             cs.eval_phase(dev, counters, card)
         elif phase == "4":
@@ -75,7 +77,7 @@ def main(argv: list[str]) -> int:
         elif phase == "14":
             cs.model_axis_phase(dev, counters, card)
         else:
-            raise ValueError(f"unknown phase {phase!r}; one of 2d, 2e, 3, 4, 5, 7, 8, 9, 10, "
+            raise ValueError(f"unknown phase {phase!r}; one of 2d, 2e, 2f, 3, 4, 5, 7, 8, 9, 10, "
                              "11, 12, 13, 14")
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     return 0

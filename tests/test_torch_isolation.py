@@ -116,7 +116,7 @@ def test_chip_smoke_eval_phase_on_cpu():
     assert set(res) == {"ms", "eager_ms", "launches"} and not any(res["launches"].values())
     assert cs._scoring_launches(cs.flagship_config(), True, cs.kernel_counters()) == {
         **{k: 0 for k in cs.kernel_counters()}, "fused_mask_attention": 12,
-        "fused_moe_ffn": 8, "fused_ce_rows": 1}
+        "qk_norm_rope_fwd": 12, "fused_moe_ffn": 8, "fused_ce_rows": 1}
 
 
 def test_chip_smoke_search_phase_on_cpu():
@@ -271,7 +271,8 @@ def test_chip_smoke_remat_phase_on_cpu():
     assert cs._remat_launches(cs.flagship_config(), "dots") == {
         "fused_mask_attention": 24, "fused_mask_attention_bwd": 12, "fused_moe_ffn": 16,
         "fused_moe_ffn_bwd": 8, "fused_ce_rows": 1, "fused_ce_rows_bwd": 1,
-        "hash_dropout_fwd": 0, "hash_dropout_bwd": 0}
+        "hash_dropout_fwd": 0, "hash_dropout_bwd": 0, "qk_norm_rope_fwd": 24,
+        "qk_norm_rope_bwd": 12}
     # flagship at dropout 0.2: 20 residual sites, all but each layer's last run again
     dropped = cs.flagship_config(dropout_rate=cs.DROP_RATE)
     for policy, k1 in ((None, 20), ("full", 32), ("attn", 32), ("dots", 32)):

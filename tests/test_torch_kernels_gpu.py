@@ -599,20 +599,23 @@ def _moe_action_config(**kw):
 
 
 def _step_counters():
-    """chip_smoke's launch counters of a-k, K1 and K2 (no optimizer update)."""
+    """chip_smoke's launch counters of a-k, K1, K2, N1 and N2 (no optimizer
+    update)."""
     import chip_smoke as cs
 
     counters = cs.kernel_counters()
     return {k: counters[k] for k in (
         "fused_mask_attention", "fused_mask_attention_bwd", "fused_moe_ffn", "fused_moe_ffn_bwd",
-        "fused_ce_rows", "fused_ce_rows_bwd", "hash_dropout_fwd", "hash_dropout_bwd")}
+        "fused_ce_rows", "fused_ce_rows_bwd", "hash_dropout_fwd", "hash_dropout_bwd",
+        "qk_norm_rope_fwd", "qk_norm_rope_bwd")}
 
 
 def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
     """A bf16 training step on CUDA with moe_impl "auto" launches kernels h
     and i num_behavior (3) times on each of the 8 sparse layers: a 8, b 8,
-    h 24, i 24, j 1, k 1, and the hash dropout's K1 and K2 at the 16
-    residual sites; loss and grads finite."""
+    h 24, i 24, j 1, k 1, the hash dropout's K1 and K2 at the 16
+    residual sites, and N1 and N2 once an attention block (8); loss and
+    grads finite."""
     from gamer_tpu_torch.entry import make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -627,7 +630,7 @@ def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
                                                              torch.Generator().manual_seed(0))
     loss.backward()
     torch.cuda.synchronize()
-    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1, 16, 16]
+    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1, 16, 16, 8, 8]
     assert torch.isfinite(loss)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
@@ -658,7 +661,7 @@ def test_remat_policy_launches_and_matches_remat_off(dev, policy, dtype):
     under each remat policy: per-step launches of chip_smoke's
     `_remat_launches` (full and dots run kernels a and h again in the
     backward, attn only h: a 12/24/12/24, h 16; every policy K1 32, each
-    layer's dropout sites but its last; the rest as remat off), and
+    layer's dropout sites but its last, and N1 24; the rest as remat off), and
     the loss and every grad bit-identical to remat off's on the same weights
     and dropout seeds (PyTorch's default algorithms: the port's table
     lookups sum their grads in a fixed order, `modules/layers.lookup`)."""
@@ -1146,13 +1149,16 @@ def test_compiled_search_matches_eager(dev, backbone):
     beams, 4 levels of 16 codes) compiled and eager, per-example, scalar and
     `None` behavior ids (the last over the behavior + item trie), each twice:
     codes and scores bit-identical; one graph per key (the scalar id
-    replays the per-example graph), no kernel of the port (a-k, K1, K2, L)
-    launched in the captures or anywhere; a replay under
+    replays the per-example graph), no kernel of the port (a-k, K1, K2, L,
+    N2) launched in the captures or anywhere, and N1 once an attention
+    block in the prefill and each decode step of every run of a device
+    part (the eager calls; the warm-up and capture of each key); a replay under
     `set_sync_debug_mode("error")` does not raise."""
     import chip_smoke as cs
     from gamer_tpu_torch.decode.beam import BeamSearchConfig, make_beam_search_fn
     from gamer_tpu_torch.entry import flagship_config
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
+    from gamer_tpu_torch.modules.layers import GQAAttention
 
     cfg = (flagship_config(num_hidden_layers=2, dtype="bfloat16") if backbone == "Qwen3Multi"
            else _moe_action_config(num_hidden_layers=2, dtype="bfloat16"))
@@ -1160,6 +1166,11 @@ def test_compiled_search_matches_eager(dev, backbone):
     trie, prompts, behaviors = cs.make_trie_and_prompts(cfg, 4, 200, 4, 16, 4)
     btrie, bprompts, _ = cs.make_trie_and_prompts(cfg, 4, 200, 4, 16, 4, behavior_level=True)
     counters = _all_counters()
+    blocks = sum(isinstance(m, GQAAttention) for m in model.modules())
+    # forwards of the device part: the calls' levels (item 4 x 4, behavior 2 x 5) when eager;
+    # the warm-up and the capture of each key's first call when compiled
+    forwards = {False: 4 * trie.num_levels + 2 * btrie.num_levels,
+                True: 2 * trie.num_levels + 2 * btrie.num_levels}
 
     def run(graphed):
         item, beh = (make_beam_search_fn(model, t, BeamSearchConfig(num_beams=6),
@@ -1169,8 +1180,9 @@ def test_compiled_search_matches_eager(dev, backbone):
         outs = [fn(*args) for fn, args in ((item, (prompts, behaviors)), (item, (prompts, 2)),
                                            (beh, (bprompts, None))) for _ in range(2)]
         torch.cuda.synchronize()
-        assert not any(f.launches for f in counters.values()), {
-            k: f.launches for k, f in counters.items()}
+        launches = {k: f.launches for k, f in counters.items()}
+        assert launches == {**{k: 0 for k in counters},
+                            "qk_norm_rope_fwd": blocks * forwards[graphed]}, launches
         return outs, (item.graphs, beh.graphs,
                       trace.counter("graph.capture.beam search") - captured), item
 

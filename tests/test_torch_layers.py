@@ -10,6 +10,7 @@ import torch
 from gamer_tpu.modules import layers as JL
 from gamer_tpu_torch.convert import state_dict_from_jax
 from gamer_tpu_torch.modules import layers as TL
+from gamer_tpu_torch.ops import qk_norm_rope as QN
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -33,10 +34,10 @@ def test_rope_matches_jax():
     pos = rng.integers(0, 60, (2, 7)).astype(np.int32)
     x = rng.standard_normal((2, 7, 3, 32)).astype(np.float32)
     jcos, jsin = JL.rope_cos_sin(jnp.asarray(pos), 32)
-    tcos, tsin = TL.rope_cos_sin(torch.as_tensor(pos), 32)
+    tcos, tsin = QN.rope_cos_sin(torch.as_tensor(pos), 32)
     _close(tcos, jcos)
     _close(tsin, jsin)
-    _close(TL.apply_rope(torch.as_tensor(x), tcos, tsin),
+    _close(QN.apply_rope(torch.as_tensor(x), tcos, tsin),
            JL.apply_rope(jnp.asarray(x), jcos, jsin))
 
 

@@ -46,7 +46,8 @@ def test_count_params_matches_jax(backbone):
 def test_selector():
     """Never on the CPU; at the flagship widths on an 80 GB card: off for the
     flagship step, attn at B 64 x S 8190; the port's estimate counts more
-    than JAX's (its fp32 norm copies and dropout temporaries)."""
+    than JAX's (its RMSNorms' fp32 copies and dropout temporaries; the q/k
+    norm and RoPE keep only the pre-norm q and k and an fp32 rstd a head)."""
     cfg = flagship_config(dtype="bfloat16", dropout_rate=0.2)
     assert TM.device_hbm_bytes("cpu") == float("inf")
     assert TM.auto_remat_overrides(cfg, 1024, 8192, device="cpu") == {}
@@ -54,7 +55,7 @@ def test_selector():
     assert not remat and policy == "attn"
     assert est["total"] == est["params"] + est["acts"] + est["logits"]
     jcfg = JQ.QwenFamilyConfig.from_dict(cfg.to_dict())
-    assert est["total"] > JM.estimate_train_hbm_bytes(jcfg, 64, 505)["total"] * 1.5
+    assert est["total"] > JM.estimate_train_hbm_bytes(jcfg, 64, 505)["total"] * 1.4
     remat, policy, _ = TM.select_remat(cfg, 64, 8190, hbm_bytes=80e9)
     assert remat and policy == "attn"
     # the plain paths keep more: [tokens, V] logits, S^2 attention rows

@@ -19,6 +19,7 @@ from gamer_tpu_torch.ops import fused_ce as FC
 from gamer_tpu_torch.ops import fused_moe as FM
 from gamer_tpu_torch.ops import fused_optimizer as FO
 from gamer_tpu_torch.ops import hash_dropout as HD
+from gamer_tpu_torch.ops import qk_norm_rope as QN
 from gamer_tpu_torch.ops._build import CSRC, KERNEL_SOURCES
 
 WRAPPERS = {
@@ -30,6 +31,7 @@ WRAPPERS = {
     "gamer_fused_moe_bwd": FM._BWD_ARGTYPES,
     "gamer_hash_dropout": HD._ARGTYPES,
     "gamer_fused_optimizer": FO._ARGTYPES,
+    "gamer_qk_norm_rope": QN._ARGTYPES,
 }
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(gamer_\w+)\s*\(([^)]*)\)', re.S)
