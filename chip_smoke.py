@@ -62,6 +62,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    N2 timed at the flagship shapes in a CUDA graph beside their bounds
    (bytes) and the plain chain's forward and backward (their launches on
    the main path: phases 3, 4 and 5);
+2g. MoeAction's grouped h and i (`ops/fused_moe.fused_moe_ffn_grouped`) at
+   the h20 cell's MoE shapes (T 6144 block rows of 5 positions, D 256, F
+   512, 3 levels and 19% pad blocks, bias, dropout 0.1, bf16): the output
+   and dx bit-identical to one ungrouped launch a level with the masked
+   sum; the grouped launches, the row table's build and the per-level
+   launches timed beside the bound of the real rows' work;
 3. the scoring forward (`make_loss_fn`, deterministic) of flagship
    Qwen3Multi in bf16 at batch 64 x 101 blocks (S = 505), random weights from
    a seeded generator, through `Trainer.evaluate` (`eval_phase`), compiled
@@ -115,8 +121,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 8. the multi- and single-behavior pipelines through the CLI at the
    presets' full widths (`seq_phase`): on phase 7's dataset, one bf16 epoch
    of train_MB_decoder (Qwen3MoeAction, mb_explicit_decoder_4, batch 256:
-   per step a 8, b 8, h 24, i 24, j 1, k 1, kernels h and i once per
-   behavior level), the reloaded "best", test_MB_decoder's three modes
+   per step a 8, b 8, h 8, i 8, j 1, k 1, kernels h and i once a layer,
+   grouped over the behavior levels; the share of the grouped launch's
+   tiles that held rows, read from the row tables after the fit), the reloaded "best", test_MB_decoder's three modes
    (the behavior-token decode included) with 20 beams; one bf16 epoch of
    train_decoder (Qwen3Moe, batch 256: a 8, b 8, h 8, i 8, j 1, k 1) and
    test_decoder (one search graph each mode and eval, one or two eval-step
@@ -1094,6 +1101,60 @@ def dropout_phase(dev, card: str) -> dict:
     return entries
 
 
+def grouped_moe_phase(dev, card: str) -> None:
+    """Phase 2g (the module docstring): MoeAction's grouped h and i against
+    one ungrouped launch per level, at the h20 cell's MoE shapes."""
+    import torch
+
+    from gamer_tpu_torch.ops import fused_moe as FM
+
+    P, T, D, Fd, NB, rate = 5, 256 * 24, 256, 512, 3, 0.1
+    E = P * NB + 1
+    g = torch.Generator().manual_seed(23)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev, torch.bfloat16)
+    xp, gout = rnd(P, T, D), rnd(P, T, D)
+    wgu, wd = rnd(E, D, 2 * Fd, scale=D ** -0.5), rnd(E, Fd, D, scale=Fd ** -0.5)
+    btab = rnd(E, NB + 1, 2 * Fd, scale=0.3)
+    beh = torch.randint(0, NB + 1, (P, T), generator=g, dtype=torch.int32).to(dev)
+    lv = torch.randint(1, NB + 1, (T,), generator=g)
+    lv[torch.rand(T, generator=g) < 0.19] = 0
+    lv = lv.to(dev)
+    groups = FM.level_rows(lv, NB)
+    args = (xp, wgu, wd, btab, beh)
+    h = lambda: FM._launch_fwd(*args, DROP_SEED, rate, True, "silu", groups, 1)
+    i = lambda: FM.fused_moe_ffn_bwd(*args, gout, DROP_SEED, rate, True, "silu", groups, 1)
+    levels = [slice(P * (a - 1) + 1, P * a + 1) for a in range(1, NB + 1)]
+    h_levels = lambda: [FM._launch_fwd(xp, wgu[w], wd[w], btab[w], beh, DROP_SEED, rate, True)
+                        for w in levels]
+    i_levels = lambda gs: [FM.fused_moe_ffn_bwd(xp, wgu[w], wd[w], btab[w], beh, gm, DROP_SEED,
+                                                rate, True) for w, gm in zip(levels, gs)]
+    masks = [(lv == a).to(torch.bfloat16)[None, :, None] for a in range(1, NB + 1)]
+    out, dx = h(), i()[0]
+    want_out = sum(y * m for y, m in zip(h_levels(), masks))
+    want_dx = sum(d[0] for d in i_levels([gout * m for m in masks]))
+    torch.cuda.synchronize()
+    same = torch.equal(out, want_out) and torch.equal(dx, want_dx)
+    real = int((lv > 0).sum())
+    held, tiles = int(groups.level_tile[-1]), groups.tile_level.numel()
+    flops_h, flops_i = (2 * real * P * (k * D * 2 * Fd + j * Fd * D) for k, j in ((1, 1), (3, 2)))
+    weights = E * (D * 2 * Fd + Fd * D)
+    bound_h, by_h = _bound_ms(2 * (real * P * 2 * D + weights), flops_h)
+    bound_i, by_i = _bound_ms(2 * (real * P * 3 * D + 2 * weights), flops_i)
+    ms_h, ms_i = _cuda_ms(h), _cuda_ms(i)
+    ms_h3, ms_i3 = _cuda_ms(h_levels), _cuda_ms(lambda: i_levels([gout] * NB))
+    ms_table = _graph_ms(lambda: FM.level_rows(lv, NB))
+    print(f"phase 2g grouped h and i, P={P} T={T} ({real} rows of a level) D={D} F={Fd} "
+          f"{NB} levels bf16 bias rate {rate}: output and dx "
+          f"{'bit-identical' if same else 'DIFFER'} to {NB} launches a level with the masked "
+          f"sum; row tiles holding rows {held} of {tiles}; h {ms_h:.4f} ms "
+          f"({_rate(flops_h, ms_h, bound_h)}; bound {bound_h:.4f} ms by {by_h}) against "
+          f"{ms_h3:.4f} ms per level; i {ms_i:.4f} ms ({_rate(flops_i, ms_i, bound_i)}; bound "
+          f"{bound_i:.4f} ms by {by_i}) against {ms_i3:.4f} ms per level; the row table "
+          f"{ms_table:.4f} ms (card {card})", flush=True)
+    if not same:
+        raise AssertionError("the grouped MoE launch differs from one launch per level")
+
+
 def qk_norm_rope_phase(dev, card: str) -> dict:
     """Phase 2f: the attention prologue's q/k RMSNorm and RoPE, N1 and N2
     (`ops/qk_norm_rope.py`), against their plain version: N1 bit for bit
@@ -1345,10 +1406,11 @@ def _step_launches(cfg) -> dict:
     """Wrapper calls of one training forward and backward: an attention
     forward and backward, and an N1 and N2 (the q/k norm and RoPE), per
     self- and cross-attention, an MoE forward and backward per sparse layer
-    (MoeAction: one per behavior level), one CE forward and backward, and
-    K1 and K2 at each hash-dropout site (`_dropout_sites`)."""
+    (MoeAction too: one grouped launch over the behavior levels), one CE
+    forward and backward, and K1 and K2 at each hash-dropout site
+    (`_dropout_sites`)."""
     attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
-    moe = len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action else 1)
+    moe = len(cfg.sparse_layers)
     drop = sum(_dropout_sites(cfg))
     return {"fused_mask_attention": attn, "fused_mask_attention_bwd": attn,
             "fused_moe_ffn": moe, "fused_moe_ffn_bwd": moe,
@@ -1507,15 +1569,13 @@ def _profiled_step(step, tries: int = 2) -> dict:
 def _scoring_launches(cfg, cuda: bool, names) -> dict:
     """Wrapper calls of one scoring forward, for each counter of `names`: an
     attention forward and an N1 per self- and cross-attention, an MoE
-    forward per sparse layer (MoeAction: one per behavior level), one CE
+    forward per sparse layer (MoeAction too: one grouped launch), one CE
     forward; none on the CPU."""
     launches = {k: 0 for k in names}
     if cuda:
         attn = cfg.num_hidden_layers + len(cfg.cross_attention_layers)
         launches.update(fused_mask_attention=attn, qk_norm_rope_fwd=attn,
-                        fused_moe_ffn=len(cfg.sparse_layers) * (cfg.num_behavior if cfg.moe_action
-                                                                else 1),
-                        fused_ce_rows=1)
+                        fused_moe_ffn=len(cfg.sparse_layers), fused_ce_rows=1)
     return launches
 
 
@@ -2110,19 +2170,23 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     """Phase 8: the multi- and single-behavior pipelines of `python -m
     gamer_tpu_torch` in process, on phase 7's synthetic dataset with
     --max_his_len 20: one epoch of train_MB_decoder (Qwen3MoeAction on
-    mb_explicit_decoder_4, whose MoE runs kernels h and i once per behavior
-    level), then test_MB_decoder's three modes with 20 beams at batch 128;
-    one epoch of train_decoder (Qwen3Moe on the single-behavior
-    interactions), then test_decoder. Gates: finite losses, each training
-    step's launches exactly `_step_launches` (MoeAction a 8, b 8, h 24, i 24,
-    j 1, k 1; Qwen3Moe a 8, b 8, h 8, i 8, j 1, k 1; none on the CPU), the
+    mb_explicit_decoder_4, whose MoE runs kernels h and i once a layer,
+    grouped over the behavior levels), then test_MB_decoder's three modes
+    with 20 beams at batch 128; one epoch of train_decoder (Qwen3Moe on the
+    single-behavior interactions), then test_decoder. Gates: finite losses,
+    each training step's launches exactly `_step_launches` (MoeAction and
+    Qwen3Moe a 8, b 8, h 8, i 8, j 1, k 1; none on the CPU), the counter
+    `moe.grouped` moving on the card in the MoeAction fit alone, the
     reloaded MB "best" giving its best eval loss within 1e-6, after each
     fit one step of the kernel path against the plain path on the task's
     saved config and first batch, in bf16 and fp32 (`_task_paths_agree`), the three
     modes in the JAX task's order and names, every metric in [0, 1],
     `collision_info` present. Prints each fit's step time (median of the
     step-to-step times, host collation included), sequences/s, S and peak
-    memory, and each eval mode's wall time and beams/s. `spec`, the
+    memory, the grouped launch's counters and the share of its launched
+    row tiles that held rows (read from the fit's row tables after the fit,
+    a captured table as its last replay left it), and each eval mode's wall
+    time and beams/s. `spec`, the
     argument tuples, `extra_args` (e.g. --device cpu) and the counts let a
     test run it tiny."""
     import math
@@ -2132,10 +2196,12 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     import torch
 
     from gamer_tpu_torch.__main__ import main
+    from gamer_tpu_torch.core import trace
     from gamer_tpu_torch.data.contract import DataFiles
     from gamer_tpu_torch.data.seq import SeqCorpus, SeqExampleBuilder
     from gamer_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_dataset
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyConfig
+    from gamer_tpu_torch.modules import moe as MOE
     from gamer_tpu_torch.tasks import test_mb_decoder as TMB
     from gamer_tpu_torch.tasks.test_decoder import seq_inter_type
     from gamer_tpu_torch.tasks.train_mb_decoder import load_mb_train
@@ -2152,11 +2218,23 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
     def fit(task, args, out, n_min):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        with _recording(counters) as rec, _captures() as cap:
-            t = time.perf_counter()
-            res = cli([task, *common, *args, "--epochs", "1", "--output_dir", out])
-            sync()
-            fit_s = time.perf_counter() - t
+        tables, level_rows = [], MOE.level_rows  # the grouped launch's row tables
+        MOE.level_rows = lambda *a: tables.append(level_rows(*a)) or tables[-1]
+        grouped = trace.counter("moe.grouped"), trace.counter("moe.grouped_tiles")
+        try:
+            with _recording(counters) as rec, _captures() as cap:
+                t = time.perf_counter()
+                res = cli([task, *common, *args, "--epochs", "1", "--output_dir", out])
+                sync()
+                fit_s = time.perf_counter() - t
+        finally:
+            MOE.level_rows = level_rows
+        grouped = (trace.counter("moe.grouped") - grouped[0],
+                   trace.counter("moe.grouped_tiles") - grouped[1])
+        held = sum(int(g.level_tile[-1]) for g in tables)
+        launched = sum(g.tile_level.numel() for g in tables)
+        assert (grouped[0] > 0) == (cuda and "Qwen3MoeAction" in args), (
+            f"{task}: grouped launches {grouped}")
         steps = rec["steps"]
         losses = [h["train_loss"] for h in res["history"]] + [res["best_metric"]]
         assert np.isfinite(losses).all(), f"{task}: non-finite losses {losses}"
@@ -2175,8 +2253,10 @@ def seq_phase(dev, counters: dict, card: str, spec: dict = PHASE7_SPEC, mb_args=
               f"warm-up {expected}, eval {rec['evals']}, eval step graphs "
               f"{cap.get('eval step', 0)}; S {rec['S']}; step "
               f"{step_ms:.3f} ms median with host collation ({batch / (step_ms / 1e3):.1f} "
-              f"sequences/s); peak memory {peak:.3f} GiB; fit {fit_s:.1f} s (card {card})",
-              flush=True)
+              f"sequences/s); peak memory {peak:.3f} GiB; fit {fit_s:.1f} s; grouped MoE "
+              f"launches {grouped[0]} of {grouped[1]} row tiles, {len(tables)} row tables "
+              f"holding rows in {held} of their {launched} tiles "
+              f"({100 * held / max(launched, 1):.1f}%) (card {card})", flush=True)
         return res, cfg, batch
 
     # 1. multi-behavior: train_MB_decoder, the reload check, test_MB_decoder
@@ -4161,6 +4241,8 @@ def main() -> int:
     entries.update(optimizer_phase(dev, card))
     # 2f. the q/k RMSNorm and RoPE's N1 and N2 against their plain version
     entries.update(qk_norm_rope_phase(dev, card))
+    # 2g. MoeAction's grouped h and i against one launch per level
+    grouped_moe_phase(dev, card)
 
     # 3. the scoring forward through the compiled and the eager eval step
     counters = kernel_counters()

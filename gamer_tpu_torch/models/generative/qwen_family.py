@@ -21,8 +21,9 @@ backward (`torch.utils.checkpoint`), which the hash masks make exact, keeping
 what `cfg.remat_policy` says: nothing ("full"), the attention cores' outputs
 and saved tensors ("attn": the attention kernel never runs again), or the
 dense products' results ("dots", by selective checkpointing). MoeAction passes
-`expert_index` to the MLPs, whose periodic paths run one pass per behavior
-level (`modules/moe.py`).
+`expert_index` to the MLPs; for their fused periodic path the forward builds
+the row table of the blocks' levels once (`modules/moe.moe_action_rows`) and
+every layer's one grouped launch reads it (`modules/moe.py`).
 
 Parameters are stored in fp32, as the JAX package stores them; the modules
 cast them to `cfg.dtype` at use, so a bf16 run updates fp32 master weights.
@@ -63,7 +64,7 @@ from gamer_tpu_torch.core.config import Config, config_field
 from gamer_tpu_torch.core.device import resolve_device
 from gamer_tpu_torch.modules.dropout import attention_row_seed, hash_dropout_add
 from gamer_tpu_torch.modules.layers import GQAAttention, RMSNorm, dense, embed, lookup
-from gamer_tpu_torch.modules.moe import PositionRoutedMLP
+from gamer_tpu_torch.modules.moe import PositionRoutedMLP, moe_action_rows
 from gamer_tpu_torch.ops import masks as mask_ops
 from gamer_tpu_torch.ops import router as router_ops
 from gamer_tpu_torch.ops.seeds import site_seeds
@@ -234,9 +235,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, rope_positions, self_allowed, cross_allowed, position_index,
                 behavior_index, action_index, expert_index, streams, caches, cache_index,
-                route_mode, seeds=None, keep_attention=False, row0=0):
+                route_mode, seeds=None, keep_attention=False, row0=0, level_rows=None):
         """`seeds`: this layer's `dropout_sites` dropout seeds, or None for
-        the deterministic forward. `keep_attention` (remat policy "attn"):
+        the deterministic forward. `level_rows`: the MoeAction row table of
+        the grouped MoE launch (`modules/moe.moe_action_rows`), or None.
+        `keep_attention` (remat policy "attn"):
         the stages between the attention cores run under
         `torch.utils.checkpoint`, so the backward recomputes the norms,
         projections, dropout and MLP and keeps what each attention core
@@ -259,7 +262,8 @@ class DecoderLayer(nn.Module):
             h = self.mlp(self.post_cross_attention_layernorm(x), position_index, behavior_index,
                          expert_index=expert_index if self.moe_action else None,
                          route_mode=route_mode, num_positions=self.num_positions,
-                         deterministic=det, dropout_seed=s[-2], row0=row0)
+                         deterministic=det, dropout_seed=s[-2], row0=row0,
+                         level_rows=level_rows)
             return drop_add(x, h, s[-1])
 
         qkv = stage(lambda x: self.self_attn.qkv(self.input_layernorm(x), rope_positions), x)
@@ -414,6 +418,10 @@ class QwenFamilyModel(nn.Module):
         trace.mark("embed", self.device, grad_only=True)
         x = self._embed_tokens(input_ids)
         new_caches = {"self": [], "cross": []} if caches is not None else None
+        level_rows = None
+        if (cfg.moe_action and route_mode == "periodic" and expert_index is not None
+                and cfg.moe_impl != "jnp"):  # the fused MLPs' one grouped launch a layer
+            level_rows = moe_action_rows(expert_index, cfg.num_positions, cfg.num_behavior)
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
         if remat and cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
@@ -429,12 +437,13 @@ class QwenFamilyModel(nn.Module):
                     behavior_index, action_index, expert_index, streams, layer_caches,
                     cache_index, route_mode, layer_seeds)
             if not remat:
-                x, new_self, new_cross = layer(*args, False, row0)
+                x, new_self, new_cross = layer(*args, False, row0, level_rows)
             elif cfg.remat_policy == "attn":
-                x, new_self, new_cross = layer(*args, True, row0)
+                x, new_self, new_cross = layer(*args, True, row0, level_rows)
             else:
                 x, new_self, new_cross = torch.utils.checkpoint.checkpoint(
-                    layer, *args, False, row0, use_reentrant=False, preserve_rng_state=False,
+                    layer, *args, False, row0, level_rows, use_reentrant=False,
+                    preserve_rng_state=False,
                     **_REMAT_CONTEXT[cfg.remat_policy])
             if new_caches is not None:
                 new_caches["self"].append(new_self)

@@ -10,10 +10,14 @@ the output.
 Paths: periodic (plain torch, `use_kernel=False`), fused periodic (the CUDA
 kernels of `ops/fused_moe.py`, with behavior injection as a per-behavior bias
 table), and onehot. MoeAction (`expert_index` given) routes a token to expert
-P*(a-1) + p for its block's action level a: the periodic paths run one pass
-over every token per level a, with that level's P experts, and keep each
-block's own level (pad/eos blocks, a = 0, output zero, as in JAX); the
-onehot path routes by `expert_index`. The enc-dec models' options:
+P*(a-1) + p for its block's action level a (pad/eos blocks, a = 0, output
+zero, as in JAX). The fused periodic path runs one grouped launch
+(`fused_moe_ffn_grouped`) over the blocks ordered by level, each block
+through its own level's P experts, from a row table built on the device
+(`moe_action_rows`; the model builds it once a forward and passes it to
+every layer as `level_rows`). The plain periodic path runs one pass over
+every token per level a, with that level's P experts, and keeps each
+block's own level. The onehot path routes by `expert_index`. The enc-dec models' options:
 `mlp_type="t5"` is wo(drop(act(wi(x)))) with stacked `experts_wi` [E, d_in,
 d_ff] and `experts_wo` [E, d_ff, d_out]; with `shared_expert` a sparse
 layer's routed experts emit d_model // 2 and a shared expert (`shared_wi`,
@@ -24,8 +28,9 @@ they run on the plain periodic, dense and one-hot paths.
 Dropout on the SwiGLU activation (`deterministic=False`): the fused path
 passes its seed and rate to the kernel; the plain periodic path draws the
 kernel's own hash mask (`ops/fused_moe.moe_keep_mask`), so both paths drop
-the same elements for the same seed (every MoeAction pass draws the same
-mask, and each token keeps one pass); the dense and one-hot paths use the
+the same elements for the same seed (every MoeAction pass of the plain path
+draws the same mask, and each token keeps one pass; the grouped launch
+hashes each row's own coordinates, so it draws that mask too); the dense and one-hot paths use the
 residual hash dropout (`modules/dropout.py`), seed + e for expert e and
 seed + E for the shared expert. The JAX package draws "bits" dropout from
 its rng stream on its plain paths. `row0` (the first global batch row of
@@ -40,8 +45,9 @@ Expert parallelism (`model_axis`, set by `core/mesh.MeshContext.shard_params`
 when the rules split the experts): rank m keeps experts [m E/n, (m+1) E/n).
 Each periodic pass lo..lo+P-1 runs only the positions whose experts the rank
 holds (the fused kernels and the plain path alike, on the slices of the
-input, weights, bias table and behavior ids), the one-hot path only its
-experts; the rank's output is zero elsewhere, and the ranks' outputs sum
+input, weights, bias table and behavior ids), the grouped launch only the
+(level, position) pairs whose expert it holds (the others write zero), the
+one-hot path only its experts; the rank's output is zero elsewhere, and the ranks' outputs sum
 over the model group (`ModelAxis.reduce`). The input and the replicated
 behavior table enter through `ModelAxis.copy`, whose backward sums the
 ranks' partial grads. A slice that starts at position p0 hashes its local
@@ -61,7 +67,22 @@ from gamer_tpu_torch.modules.dropout import hash_dropout, row_seed
 from gamer_tpu_torch.modules.layers import lookup
 from gamer_tpu_torch.ops.fused_attention import _M2, keep_fraction
 from gamer_tpu_torch.ops.fused_moe import ACTS as _ACTS
-from gamer_tpu_torch.ops.fused_moe import fused_moe_ffn, moe_keep_mask
+from gamer_tpu_torch.ops.fused_moe import (
+    LevelRows, fused_moe_ffn, fused_moe_ffn_grouped, level_rows, moe_keep_mask)
+
+
+def moe_action_levels(expert_index: torch.Tensor, P: int) -> torch.Tensor:
+    """[b, n] the action level of each item block of a [b, n * P] MoeAction
+    routing, from its first expert id (0, a pad/eos block: level 0)."""
+    b, s = expert_index.shape
+    e0 = expert_index.reshape(b, s // P, P)[:, :, 0]
+    return torch.where(e0 > 0, torch.div(e0 - 1, P, rounding_mode="floor") + 1, 0)
+
+
+def moe_action_rows(expert_index: torch.Tensor, P: int, num_behavior: int) -> LevelRows:
+    """The grouped launch's row table of a MoeAction routing: its blocks, row
+    t = b * n + block, by level (`ops/fused_moe.level_rows`)."""
+    return level_rows(moe_action_levels(expert_index, P).reshape(-1), num_behavior)
 
 
 class PositionRoutedMLP(nn.Module):
@@ -143,14 +164,11 @@ class PositionRoutedMLP(nn.Module):
             return out
         return F.pad(out, (0, 0) * (out.dim() - 1) + (p0, P - p0 - out.shape[0]))
 
-    def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
-                        P: int, rate: float, seed: int, los: list[int],
-                        table: Optional[torch.Tensor]) -> list[torch.Tensor]:
-        """Periodic passes through the fused FFN kernel, one with experts
-        lo..lo+P-1 for each lo of `los` (this rank's of them), sharing the
-        permuted input and the cast weights: behavior injection becomes the
-        exactly-equivalent per-behavior bias table (concat(x, e_b) @ [Wx; Wb]
-        == x @ Wx + e_b @ Wb)."""
+    def _fused_operands(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor], P: int,
+                        table: Optional[torch.Tensor]):
+        """(xp [P, T, d], wgu, down, btab, beh) of the fused kernels, the
+        weights this rank's: behavior injection becomes the exactly-equivalent
+        per-behavior bias table (concat(x, e_b) @ [Wx; Wb] == x @ Wx + e_b @ Wb)."""
         b, s, d = x.shape
         n = s // P
         T = b * n
@@ -167,19 +185,40 @@ class PositionRoutedMLP(nn.Module):
             btab = torch.zeros((wgu.shape[0], 1, wgu.shape[-1]), dtype=wgu.dtype,
                                device=x.device)
             beh = torch.zeros((P, T), dtype=torch.int32, device=x.device)
-        outs = []
-        for p0, p1, w0 in self._windows(P, los):
-            w = slice(w0, w0 + p1 - p0)
-            if p1 > p0:
-                out = fused_moe_ffn(xp[p0:p1], wgu[w], down[w], btab[w], beh[p0:p1],
-                                    row_seed(seed, p0, 1, _M2) if p0 else seed,
-                                    self.hidden_act, rate, use_bias=self.behavior_injection)
-                out = self._place(out, p0, P)
-            else:
-                out = xp.new_zeros((P, T, down.shape[-1]))
-            outs.append(out.reshape(P, b, n, -1).permute(1, 2, 0, 3).reshape(b, s, -1)
-                        .to(x.dtype))
-        return outs
+        return xp, wgu, down, btab, beh
+
+    @staticmethod
+    def _unpermute(out: torch.Tensor, x: torch.Tensor, P: int) -> torch.Tensor:
+        """[P, T, d_out] of the fused kernels in x's [b, s] layout and dtype."""
+        b, s, _ = x.shape
+        return out.reshape(P, b, s // P, -1).permute(1, 2, 0, 3).reshape(b, s, -1).to(x.dtype)
+
+    def _fused_periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
+                        P: int, rate: float, seed: int,
+                        table: Optional[torch.Tensor]) -> torch.Tensor:
+        """One periodic pass through the fused FFN kernel with experts 1..P
+        (this rank's of them; the others' positions output zero)."""
+        xp, wgu, down, btab, beh = self._fused_operands(x, behavior_index, P, table)
+        (p0, p1, w0), = self._windows(P, [1])
+        if p1 == p0:
+            return x.new_zeros((*x.shape[:2], down.shape[-1]))
+        w = slice(w0, w0 + p1 - p0)
+        out = fused_moe_ffn(xp[p0:p1], wgu[w], down[w], btab[w], beh[p0:p1],
+                            row_seed(seed, p0, 1, _M2) if p0 else seed, self.hidden_act, rate,
+                            use_bias=self.behavior_injection)
+        return self._unpermute(self._place(out, p0, P), x, P)
+
+    def _fused_grouped(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor], P: int,
+                       rate: float, seed: int, rows: LevelRows,
+                       table: Optional[torch.Tensor]) -> torch.Tensor:
+        """MoeAction through one grouped launch of the fused kernels: a block
+        of level a takes experts P*(a-1)+1.. (this rank's of them; global
+        expert 1 is local expert 1 - e0)."""
+        xp, wgu, down, btab, beh = self._fused_operands(x, behavior_index, P, table)
+        out = fused_moe_ffn_grouped(xp, wgu, down, btab, beh, rows, 1 - self._expert_range()[0],
+                                    seed, self.hidden_act, rate,
+                                    use_bias=self.behavior_injection)
+        return self._unpermute(out, x, P)
 
     def _inputs(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor],
                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -193,12 +232,11 @@ class PositionRoutedMLP(nn.Module):
     def _periodic(self, x: torch.Tensor, behavior_index: Optional[torch.Tensor], P: int,
                   rate: float, seed: int, los: list[int],
                   table: Optional[torch.Tensor] = None) -> list[torch.Tensor]:
-        """Periodic passes over every token, one for each lo of `los`: token t
-        routes to expert lo + t % P (the positions of this rank's experts).
-        Pad/eos rows of a right-padded batch compute with the "wrong" expert,
-        but they are masked from every real query's keys and from the loss."""
-        if self.use_kernel:
-            return self._fused_periodic(x, behavior_index, P, rate, seed, los, table)
+        """Plain periodic passes over every token, one for each lo of `los`:
+        token t routes to expert lo + t % P (the positions of this rank's
+        experts). Pad/eos rows of a right-padded batch compute with the
+        "wrong" expert, but they are masked from every real query's keys and
+        from the loss."""
         x_in = self._inputs(x, behavior_index, table)
         w = self._weights(x.dtype)
         w_in = torch.cat(w[:2], dim=-1) if self.mlp_type == "qwen3" else w[0]
@@ -236,6 +274,7 @@ class PositionRoutedMLP(nn.Module):
         deterministic: bool = True,
         dropout_seed: int = 0,
         row0: int = 0,  # first global batch row of x's rows (process groups)
+        level_rows: Optional[LevelRows] = None,  # moe_action_rows of expert_index, if built
     ) -> torch.Tensor:
         if self.behavior_injection and behavior_index is None:
             raise ValueError("behavior injection needs behavior_index")
@@ -258,7 +297,7 @@ class PositionRoutedMLP(nn.Module):
             x, *rest = self.model_axis.copy(*((x, table) if table is not None else (x,)))
             table = rest[0] if rest else None
         out = self._routed(x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                           dropout_seed, row0, table)
+                           dropout_seed, row0, table, level_rows)
         if sharded:  # the ranks' experts' outputs
             out = self.model_axis.reduce(out)
         if shared is not None:
@@ -266,21 +305,26 @@ class PositionRoutedMLP(nn.Module):
         return out
 
     def _routed(self, x, position_index, behavior_index, expert_index, route_mode, P, rate,
-                dropout_seed, row0=0, table=None):
+                dropout_seed, row0=0, table=None, rows=None):
         """This rank's routed experts' output [B, S, d_out] of a sparse layer."""
         if route_mode == "periodic":
             # the periodic hash's row is t = b * n + block: n blocks a batch row
             dropout_seed = row_seed(dropout_seed, row0, x.shape[1] // P) if row0 else dropout_seed
             if expert_index is None:
+                if self.use_kernel:
+                    return self._fused_periodic(x, behavior_index, P, rate, dropout_seed, table)
                 return self._periodic(x, behavior_index, P, rate, dropout_seed, [1], table)[0]
-            # MoeAction: the action level a is constant within an item block,
-            # so each level is one pass with its own P experts, gated by the
-            # block's level (from its first expert id; 0 = pad/eos block)
+            # MoeAction: the action level a is constant within an item block
+            # (from its first expert id; 0 = pad/eos block)
             if self.num_behavior <= 0:
                 raise ValueError("MoeAction routing needs num_behavior > 0")
-            b, s, _ = x.shape
-            e0 = expert_index.reshape(b, s // P, P)[:, :, 0]
-            a_blk = torch.where(e0 > 0, torch.div(e0 - 1, P, rounding_mode="floor") + 1, 0)
+            if self.use_kernel:  # one grouped launch over the blocks ordered by level
+                if rows is None:
+                    rows = moe_action_rows(expert_index, P, self.num_behavior)
+                return self._fused_grouped(x, behavior_index, P, rate, dropout_seed, rows, table)
+            # the plain path: each level one pass with its own P experts,
+            # gated by the block's level
+            a_blk = moe_action_levels(expert_index, P)
             a_tok = a_blk.repeat_interleave(P, dim=1)[..., None]  # [b, s, 1]
             passes = self._periodic(x, behavior_index, P, rate, dropout_seed,
                                     [P * (a - 1) + 1 for a in range(1, self.num_behavior + 1)],

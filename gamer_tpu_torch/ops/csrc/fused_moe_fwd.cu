@@ -47,6 +47,14 @@
 //    get full fp32. Up to D 512 the x tile stays in shared memory; wider, it
 //    is streamed with each 32-deep weight slice.
 //
+// Grouped (G = true; `gamer_fused_moe_fwd_grouped`, MoeAction's launch,
+// ops/fused_moe.py): the grid's row tiles are those of the level table
+// (moe_tc.cuh `Groups`), not of T. A CTA takes its tile's expert at its
+// position, or exits (no level, or an expert held elsewhere: the caller
+// zeroes the output); it loads its x rows through the table, writes each
+// row's y at the row's own place, and hashes the row's own t. Pad places
+// take row T, which every kernel already treats as a row past T.
+//
 // What bounds the bf16 design, and what it does about it:
 //  - registers: a warp's 16 x 256 fp32 y is 128 registers a thread, so the
 //    chunk is narrow (16 gate + 16 up columns, 16 registers) and x is read
@@ -70,6 +78,7 @@ namespace {
 using namespace gamer::tc;
 using gamer::from_f;
 using gamer::to_f;
+using gamer::moe::Groups;
 
 constexpr int TM = 64;   // rows a CTA
 constexpr int FC = 32;   // F columns a chunk (gate and up each)
@@ -78,6 +87,7 @@ constexpr int DT = 256;  // output columns a CTA
 constexpr int NT = 256;  // threads: 16 row groups x 16 column lanes
 constexpr int TC_NT = 128;  // bf16 kernel threads: 4 warps x 16 rows
 constexpr int TC_FC = 16;   // bf16 chunk: F columns (gate and up each), one k16 step of y
+static_assert(TM == gamer::moe::kTileRows, "a grouped tile is a CTA's rows");
 
 // XRES: the x tile [TM][D+1] stays in shared memory (D <= 512), else a
 // [TM][KT+1] slice of it is loaded with each weight slice
@@ -87,12 +97,12 @@ size_t smem_bytes(int D) {
   return sizeof(float) * (xs + KT * (2 * FC + 1) + TM * (FC + 1) + FC * DT) + sizeof(int) * TM;
 }
 
-template <typename T, bool XRES>
+template <typename T, bool XRES, bool G>
 __global__ void __launch_bounds__(NT) moe_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wgu, const T* __restrict__ wd,
     const T* __restrict__ btab, const int* __restrict__ beh, T* __restrict__ out, int T_rows,
     int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in, uint32_t thresh,
-    float inv_keep) {
+    float inv_keep, Groups grp) {
   const uint32_t seed = seed_in.get();
   extern __shared__ float smem[];
   const int LX = (XRES ? D : KT) + 1;
@@ -108,19 +118,30 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
+  int e = p;  // the expert
+  if constexpr (G) {
+    e = grp.expert_of_tile(blockIdx.x, p);
+    if (e < 0) return;
+  }
+  auto row_of = [&](int r) {  // the row t of the tile's row r (T: none)
+    if constexpr (G)
+      return grp.row(t0 + r, T_rows);
+    else
+      return t0 + r;
+  };
   const size_t F2 = 2 * static_cast<size_t>(F);
   const T* xp = x + static_cast<size_t>(p) * T_rows * D;
-  const T* wgup = wgu + static_cast<size_t>(p) * D * F2;
-  const T* wdp = wd + static_cast<size_t>(p) * F * Dout;
-  const T* btp = btab + static_cast<size_t>(p) * NB * F2;
+  const T* wgup = wgu + static_cast<size_t>(e) * D * F2;
+  const T* wdp = wd + static_cast<size_t>(e) * F * Dout;
+  const T* btp = btab + static_cast<size_t>(e) * NB * F2;
 
   if (XRES)
     for (int idx = tid; idx < TM * D; idx += NT) {
-      const int r = idx / D, c = idx % D, t = t0 + r;
+      const int r = idx / D, c = idx % D, t = row_of(r);
       Xs[r * LX + c] = t < T_rows ? to_f(xp[static_cast<size_t>(t) * D + c]) : 0.f;
     }
   for (int r = tid; r < TM; r += NT) {
-    const int t = t0 + r;
+    const int t = row_of(r);
     const int id = t < T_rows ? beh[static_cast<size_t>(p) * T_rows + t] : -1;
     bid[r] = (use_bias && id >= 0 && id < NB) ? id : -1;
   }
@@ -151,7 +172,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
       }
       if (!XRES)
         for (int idx = tid; idx < TM * KT; idx += NT) {
-          const int r = idx / KT, kk = idx % KT, t = t0 + r;
+          const int r = idx / KT, kk = idx % KT, t = row_of(r);
           Xs[r * LX + kk] = (t < T_rows && k0 + kk < D)
                                 ? to_f(xp[static_cast<size_t>(t) * D + k0 + kk])
                                 : 0.f;
@@ -189,7 +210,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
         }
         float hv = f < F ? gamer::moe::act_value<false>(act, gv) * uv : 0.f;
         if (thresh > 0u)
-          hv = gamer::hash_keep(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(t0 + r),
+          hv = gamer::hash_keep(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row_of(r)),
                                 static_cast<uint32_t>(f), thresh)
                    ? hv * inv_keep
                    : 0.f;
@@ -218,7 +239,7 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+    const int t = row_of(ty + 16 * i);
     if (t >= T_rows) continue;
     T* orow = out + (static_cast<size_t>(p) * T_rows + t) * Dout;
 #pragma unroll
@@ -229,20 +250,26 @@ __global__ void __launch_bounds__(NT) moe_fwd_kernel(
   }
 }
 
-template <typename T, bool XRES>
+// the row tiles of a launch: of T, or of the grouped table
+template <bool G>
+int row_tiles(int T_rows, const Groups& grp) {
+  return G ? grp.tiles : (T_rows + TM - 1) / TM;
+}
+
+template <typename T, bool XRES, bool G>
 int launch(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
            void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias, int act,
-           gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+           gamer::Seed seed, uint32_t thresh, float inv_keep, Groups grp, cudaStream_t stream) {
   const size_t smem = smem_bytes<XRES>(D);
-  cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T, XRES>,
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_kernel<T, XRES, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T_rows + TM - 1) / TM, P, (Dout + DT - 1) / DT);
-  moe_fwd_kernel<T, XRES><<<grid, NT, smem, stream>>>(
+  dim3 grid(row_tiles<G>(T_rows, grp), P, (Dout + DT - 1) / DT);
+  moe_fwd_kernel<T, XRES, G><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wgu), static_cast<const T*>(wd),
       static_cast<const T*>(btab), beh, static_cast<T*>(out), T_rows, D, F, Dout, NB, use_bias,
-      act, seed, thresh, inv_keep);
+      act, seed, thresh, inv_keep, grp);
   return cudaGetLastError();
 }
 
@@ -254,12 +281,12 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * (TM * (DP + 8) + 2 * (DP * (2 * TC_FC + 8) + TC_FC * (NO + 8)));
 }
 
-template <int DP, int NO>
+template <int DP, int NO, bool G>
 __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
     int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in,
-    uint32_t thresh, float inv_keep) {
+    uint32_t thresh, float inv_keep, Groups grp) {
   const uint32_t seed = seed_in.get();
   constexpr int LX = DP + 8;           // x tile row stride
   constexpr int LW = 2 * TC_FC + 8;    // gate|up tile row stride
@@ -273,20 +300,27 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
 
   const int t0 = blockIdx.x * TM, p = blockIdx.y, c0 = blockIdx.z * NO;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int e = p;  // the expert
+  if constexpr (G) {
+    e = grp.expert_of_tile(blockIdx.x, p);
+    if (e < 0) return;
+  }
   const size_t F2 = 2 * static_cast<size_t>(F);
-  const bf16* wgup = wgu + static_cast<size_t>(p) * D * F2;
-  const bf16* wdp = wd + static_cast<size_t>(p) * F * Dout + c0;
+  const bf16* wgup = wgu + static_cast<size_t>(e) * D * F2;
+  const bf16* wdp = wd + static_cast<size_t>(e) * F * Dout + c0;
   const int ncols = min(NO, Dout - c0);
   const int nc = F / TC_FC;
 
-  // this thread's two rows, t0 + warp*16 + lane/4 and + 8: bias row, hash row part
+  // this thread's two rows, t0 + warp*16 + lane/4 and + 8 (grouped: their
+  // rows t): bias row, hash row part
   int row[2];
   const bf16* brow[2];
   uint32_t hrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     row[i] = t0 + warp * 16 + lane / 4 + 8 * i;
-    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(p) * NB * F2,
+    if constexpr (G) row[i] = grp.row(row[i], T_rows);
+    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(e) * NB * F2,
                                    beh + static_cast<size_t>(p) * T_rows, row[i], T_rows, NB,
                                    use_bias, F2);
     hrow[i] = gamer::hash_row(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row[i]));
@@ -300,8 +334,12 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_tc_kernel(
     load_block_async<TC_FC, NO, TC_NT>(Vs + st * TC_FC * LV, LV,
                                        wdp + static_cast<size_t>(f0) * Dout, Dout, TC_FC, ncols);
   };
-  load_block_async<TM, DP, TC_NT>(Xs, LX, x + (static_cast<size_t>(p) * T_rows + t0) * D, D,
-                                  T_rows - t0, D);
+  if constexpr (G)
+    load_rows_async<TM, DP, TC_NT>(Xs, LX, x + static_cast<size_t>(p) * T_rows * D, D,
+                                   grp.rows + t0, TM, D);
+  else
+    load_block_async<TM, DP, TC_NT>(Xs, LX, x + (static_cast<size_t>(p) * T_rows + t0) * D, D,
+                                    T_rows - t0, D);
   load_chunk(0);
   cp_async_commit();
 
@@ -397,11 +435,12 @@ constexpr size_t wide_smem_bytes() {
   return WideGU::smem_bytes + sizeof(bf16) * W_FC * W_LV;  // stream stages, Wd rows
 }
 
+template <bool G>
 __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wgu, const bf16* __restrict__ wd,
     const bf16* __restrict__ btab, const int* __restrict__ beh, bf16* __restrict__ out,
     int T_rows, int D, int F, int Dout, int NB, int use_bias, int act, gamer::Seed seed_in,
-    uint32_t thresh, float inv_keep) {
+    uint32_t thresh, float inv_keep, Groups grp) {
   const uint32_t seed = seed_in.get();
   constexpr int NH = W_FC / 8;   // 8-wide gate (and up) tiles of a chunk
   constexpr int NJO = W_NO / 8;  // 8-wide y column tiles
@@ -411,10 +450,16 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
 
   const int t0 = blockIdx.x * TM, p = blockIdx.y, c0 = blockIdx.z * W_NO;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int e = p;  // the expert
+  if constexpr (G) {
+    e = grp.expert_of_tile(blockIdx.x, p);
+    if (e < 0) return;
+  }
   const size_t F2 = 2 * static_cast<size_t>(F);
-  const bf16* xp = x + (static_cast<size_t>(p) * T_rows + t0) * D;
-  const bf16* wgup = wgu + static_cast<size_t>(p) * D * F2;
-  const bf16* wdp = wd + static_cast<size_t>(p) * F * Dout + c0;
+  // x's rows: from t0, or (grouped) through the table from row 0
+  const bf16* xp = x + (static_cast<size_t>(p) * T_rows + (G ? 0 : t0)) * D;
+  const bf16* wgup = wgu + static_cast<size_t>(e) * D * F2;
+  const bf16* wdp = wd + static_cast<size_t>(e) * F * Dout + c0;
   const int ncols = min(W_NO, Dout - c0);
   const int nc = (F + W_FC - 1) / W_FC;
 
@@ -424,7 +469,8 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     row[i] = t0 + warp * 16 + lane / 4 + 8 * i;
-    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(p) * NB * F2,
+    if constexpr (G) row[i] = grp.row(row[i], T_rows);
+    brow[i] = gamer::moe::bias_row(btab + static_cast<size_t>(e) * NB * F2,
                                    beh + static_cast<size_t>(p) * T_rows, row[i], T_rows, NB,
                                    use_bias, F2);
     hrow[i] = gamer::hash_row(seed, static_cast<uint32_t>(p), static_cast<uint32_t>(row[i]));
@@ -448,8 +494,9 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
     for (int j = 0; j < 2 * NH; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) gu[j][e] = 0.f;
-    stream_mma<2 * NH, true, TC_NT>(gu, buf, xp, D, T_rows - t0, wgup + f0, wgup + F + f0, F2,
-                                    fcols, D, warp, lane);
+    stream_mma<2 * NH, true, TC_NT, G>(gu, buf, xp, D, G ? TM : T_rows - t0, wgup + f0,
+                                       wgup + F + f0, F2, fcols, D, warp, lane,
+                                       G ? grp.rows + t0 : nullptr);
 
     // h = dropout(act(g + bias) * (u + bias)) in fp32, rounded to bf16 into
     // the A fragments of y += h . Wd[chunk] (tile j is half of k16 step j / 2)
@@ -503,52 +550,82 @@ __global__ void __launch_bounds__(TC_NT, 2) moe_fwd_wide_kernel(
   }
 }
 
+template <bool G>
 int launch_wide(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                 void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, Groups grp,
+                cudaStream_t stream) {
   constexpr size_t smem = wide_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(moe_fwd_wide_kernel,
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_wide_kernel<G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T_rows + TM - 1) / TM, P, (Dout + W_NO - 1) / W_NO);
-  moe_fwd_wide_kernel<<<grid, TC_NT, smem, stream>>>(
+  dim3 grid(row_tiles<G>(T_rows, grp), P, (Dout + W_NO - 1) / W_NO);
+  moe_fwd_wide_kernel<G><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wgu), static_cast<const bf16*>(wd),
       static_cast<const bf16*>(btab), beh, static_cast<bf16*>(out), T_rows, D, F, Dout, NB,
-      use_bias, act, seed, thresh, inv_keep);
+      use_bias, act, seed, thresh, inv_keep, grp);
   return cudaGetLastError();
 }
 
-template <int DP, int NO>
+template <int DP, int NO, bool G>
 int launch_bf16(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                 void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+                int act, gamer::Seed seed, uint32_t thresh, float inv_keep, Groups grp,
+                cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<DP, NO>();
-  cudaError_t err = cudaFuncSetAttribute(moe_fwd_tc_kernel<DP, NO>,
+  cudaError_t err = cudaFuncSetAttribute(moe_fwd_tc_kernel<DP, NO, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T_rows + TM - 1) / TM, P, (Dout + NO - 1) / NO);
-  moe_fwd_tc_kernel<DP, NO><<<grid, TC_NT, smem, stream>>>(
+  dim3 grid(row_tiles<G>(T_rows, grp), P, (Dout + NO - 1) / NO);
+  moe_fwd_tc_kernel<DP, NO, G><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wgu), static_cast<const bf16*>(wd),
       static_cast<const bf16*>(btab), beh, static_cast<bf16*>(out), T_rows, D, F, Dout, NB,
-      use_bias, act, seed, thresh, inv_keep);
+      use_bias, act, seed, thresh, inv_keep, grp);
   return cudaGetLastError();
 }
 
 #define GAMER_FWD_ARGS                                                                     \
   x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, act, seed, thresh, inv_keep, \
-      st
+      grp, st
 
 // the output-column tile for Dout
-template <int DP>
+template <int DP, bool G>
 int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
                   void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias,
-                  int act, gamer::Seed seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
-  if (Dout <= 64) return launch_bf16<DP, 64>(GAMER_FWD_ARGS);
-  if (Dout <= 128) return launch_bf16<DP, 128>(GAMER_FWD_ARGS);
-  return launch_bf16<DP, 256>(GAMER_FWD_ARGS);
+                  int act, gamer::Seed seed, uint32_t thresh, float inv_keep, Groups grp,
+                  cudaStream_t st) {
+  if (Dout <= 64) return launch_bf16<DP, 64, G>(GAMER_FWD_ARGS);
+  if (Dout <= 128) return launch_bf16<DP, 128, G>(GAMER_FWD_ARGS);
+  return launch_bf16<DP, 256, G>(GAMER_FWD_ARGS);
 }
+
+// the route by dtype and width (the entry point's comment)
+template <bool G>
+int dispatch(const void* x, const void* wgu, const void* wd, const void* btab, const int* beh,
+             void* out, int P, int T_rows, int D, int F, int Dout, int NB, int use_bias, int act,
+             gamer::Seed seed, uint32_t thresh, float inv_keep, int dtype, Groups grp,
+             cudaStream_t st) {
+  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || act < 0 || act > 2)
+    return cudaErrorInvalidValue;
+  if (dtype == gamer::kFloat32) {
+    if (D <= 512) return launch<float, true, G>(GAMER_FWD_ARGS);
+    return launch<float, false, G>(GAMER_FWD_ARGS);
+  }
+  if (dtype == gamer::kBFloat16) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wgu) |
+                           reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(btab) |
+                           reinterpret_cast<uintptr_t>(out);
+    if (D % 16 || F % 16 || Dout % 16 || addr % 16) return cudaErrorInvalidValue;
+    if (D <= 64) return launch_bf16_d<64, G>(GAMER_FWD_ARGS);
+    if (D <= 128) return launch_bf16_d<128, G>(GAMER_FWD_ARGS);
+    if (D <= 256) return launch_bf16_d<256, G>(GAMER_FWD_ARGS);
+    return launch_wide<G>(GAMER_FWD_ARGS);
+  }
+  return cudaErrorInvalidValue;
+}
+#undef GAMER_FWD_ARGS
 
 }  // namespace
 
@@ -559,30 +636,28 @@ int launch_bf16_d(const void* x, const void* wgu, const void* wd, const void* bt
 // tensors 16-byte aligned (16-byte copies); D <= 256 takes the resident-x
 // kernel (any Dout: columns past 256 take more CTAs), wider D the streamed
 // one. thresh = 0 turns dropout off; inv_keep = 1 / keep fraction.
+// rows = null: the ungrouped launch (P experts, P positions). Otherwise the
+// grouped one (G) on the row table `rows` [tiles * 64], `tile_level`
+// [tiles], `level_tile` [levels + 1] (moe_tc.cuh `Groups`): wgu, wd and btab
+// hold `experts` experts, a row of level l at position p takes expert
+// first + l * P + p; rows the table does not hold, and the tiles of experts
+// outside [0, experts), are not written, so `out` comes zeroed.
 extern "C" int gamer_fused_moe_fwd(const void* x, const void* wgu, const void* wd,
                                    const void* btab, const int* beh, void* out, int P,
                                    int T_rows, int D, int F, int Dout, int NB, int use_bias,
                                    int act, const unsigned int* seed_ptr, unsigned int seed_add,
                                    unsigned int thresh, float inv_keep, int dtype,
-                                   void* stream) {
+                                   const int* rows, const int* tile_level,
+                                   const int* level_tile, int tiles, int levels, int first,
+                                   int experts, void* stream) {
   const gamer::Seed seed{seed_ptr, seed_add};
-  if (P <= 0 || T_rows <= 0 || D <= 0 || F <= 0 || Dout <= 0 || NB <= 0 || act < 0 || act > 2)
-    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gamer::kFloat32) {
-    if (D <= 512) return launch<float, true>(GAMER_FWD_ARGS);
-    return launch<float, false>(GAMER_FWD_ARGS);
-  }
-  if (dtype == gamer::kBFloat16) {
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wgu) |
-                           reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(btab) |
-                           reinterpret_cast<uintptr_t>(out);
-    if (D % 16 || F % 16 || Dout % 16 || addr % 16) return cudaErrorInvalidValue;
-    if (D <= 64) return launch_bf16_d<64>(GAMER_FWD_ARGS);
-    if (D <= 128) return launch_bf16_d<128>(GAMER_FWD_ARGS);
-    if (D <= 256) return launch_bf16_d<256>(GAMER_FWD_ARGS);
-    return launch_wide(GAMER_FWD_ARGS);
-  }
-  return cudaErrorInvalidValue;
+  if (rows == nullptr)
+    return dispatch<false>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, act,
+                           seed, thresh, inv_keep, dtype, Groups{}, st);
+  if (tiles <= 0 || levels <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  return dispatch<true>(x, wgu, wd, btab, beh, out, P, T_rows, D, F, Dout, NB, use_bias, act,
+                        seed, thresh, inv_keep, dtype,
+                        Groups{rows, tile_level, level_tile, tiles, levels, first, experts, P},
+                        st);
 }
-#undef GAMER_FWD_ARGS

@@ -123,6 +123,22 @@ __device__ __forceinline__ void load_block_async(bf16* tile, int ld, const bf16*
   }
 }
 
+// load_block_async with the block's rows gathered: tile row r is row
+// rmap[r] of the matrix at `g`; tile rows >= `rows`, rows whose rmap entry
+// is negative and columns >= `cols` are zero-filled.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_rows_async(bf16* tile, int ld, const bf16* g, size_t stride,
+                                                const int* rmap, int rows, int cols) {
+  constexpr int CPR = COLS / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const int src = r < rows ? rmap[r] : -1;
+    const bool in = src >= 0 && c < cols;
+    cp_async_16(tile + r * ld + c, in ? g + static_cast<size_t>(src) * stride + c : g, in);
+  }
+}
+
 // Copy rows [r0, r0 + ROWS) of a bf16 matrix (row stride `stride`
 // elements, `g` at column 0 of this head) into a [ROWS][D + 8] shared tile;
 // rows >= S are zero-filled, and so are columns >= width where the matrix

@@ -1,6 +1,6 @@
 // Pieces shared by the MoE kernels, the forward h (fused_moe_fwd.cu) and
-// pass 1 of the backward i (fused_moe_bwd.cu): the activation of every
-// route, and the bf16 tensor-core helpers.
+// the backward i (fused_moe_bwd.cu): the activation of every route, the
+// bf16 tensor-core helpers, and the row table of the grouped launch.
 //
 // A gate|up weight tile holds a chunk's gate columns and its up columns side
 // by side, [k = d][gate | up], and is read with ldmatrix.trans. The gate
@@ -19,6 +19,53 @@ namespace gamer {
 namespace moe {
 
 using tc::bf16;
+
+constexpr int kTileRows = 64;  // a row tile of the grouped table (the kernels' TM)
+
+// The row table of a grouped launch (ops/fused_moe.py `level_rows`): the
+// rows of every level, each level's run padded to 128 rows (two row tiles,
+// so no tile, and no 128-row tile of the dx product, holds two levels).
+// A row of level l (0-based) at position p takes expert first + l * P + p
+// of the weights, which hold `experts` of them (another rank's otherwise).
+struct Groups {
+  const int* rows;        // [tiles * 64]: the row t at each place, -1 a pad place
+  const int* tile_level;  // [tiles]: each row tile's level, -1 past the runs
+  const int* level_tile;  // [levels + 1]: the first tile of each level's run
+  int tiles, levels, first, experts, positions;
+
+  // the expert of row tile `tile` at position p, or -1: no level, or an
+  // expert held elsewhere
+  __device__ __forceinline__ int expert_of_tile(int tile, int p) const {
+    const int l = tile_level[tile];
+    const int w = first + l * positions + p;
+    return (l >= 0 && w >= 0 && w < experts) ? w : -1;
+  }
+  // expert w's position p and the places [lo, hi) of its level's run;
+  // false when w takes no level
+  __device__ __forceinline__ bool run_of_expert(int w, int& p, int& lo, int& hi) const {
+    const int j = w - first;
+    if (j < 0 || j >= levels * positions) return false;
+    p = j % positions;
+    lo = level_tile[j / positions] * kTileRows;
+    hi = level_tile[j / positions + 1] * kTileRows;
+    return true;
+  }
+  // the row of place `i`, with pad places at T (past every row, as the
+  // ungrouped kernels see rows past T)
+  __device__ __forceinline__ int row(int i, int T) const {
+    const int t = rows[i];
+    return t < 0 ? T : t;
+  }
+};
+
+// The places [kb, ke) of range `split` of `nsplit` over [lo, hi), whole
+// 32-row slices each: the static split of a level's run of a weight grad.
+__device__ __forceinline__ void split_range(int lo, int hi, int split, int nsplit, int& kb,
+                                            int& ke) {
+  const int kc = ((hi - lo + nsplit - 1) / nsplit + 31) / 32 * 32;
+  kb = min(hi, lo + split * kc);
+  ke = min(hi, kb + kc);
+}
 
 // g, u += x . W over one k16 step: xa is the A fragment of the warp's 16
 // rows, w a [k][n] tile (row stride ldw) with the gate columns from n 0 and

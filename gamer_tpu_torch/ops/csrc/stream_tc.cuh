@@ -9,8 +9,9 @@
 // and b1, as the MoE gate and up columns). K is walked in 64-deep slices
 // double-buffered in `buf` by 16-byte cp.async; rows past `ma` or `nb`
 // (columns past `nb` in each half when BT) and depths past K are zero-filled,
-// so ragged edges add nothing. K and the stored widths must be multiples of
-// 8. The call starts with a __syncthreads (buf is free) and ends with one
+// so ragged edges add nothing. With AROWS, A's rows are gathered: row r of
+// the block is row arows[r] of the matrix at `a` (negative: zeros). K and
+// the stored widths must be multiples of 8. The call starts with a __syncthreads (buf is free) and ends with one
 // (buf may be reused), and leaves no cp.async group in flight; groups the
 // caller committed before the call have landed by its first product.
 #pragma once
@@ -32,10 +33,11 @@ struct StreamTiles {
   static constexpr size_t smem_bytes = sizeof(bf16) * 2 * STAGE;  // two stages
 };
 
-template <int NJ, bool BT, int NT>
+template <int NJ, bool BT, int NT, bool AROWS = false>
 __device__ __forceinline__ void stream_mma(float (&acc)[NJ][4], bf16* buf, const bf16* a,
                                            size_t lda, int ma, const bf16* b0, const bf16* b1,
-                                           size_t ldb, int nb, int K, int warp, int lane) {
+                                           size_t ldb, int nb, int K, int warp, int lane,
+                                           const int* arows = nullptr) {
   using L = StreamTiles<NJ, BT>;
   static_assert(NJ % 2 == 0, "an ldmatrix x4 reads two n8 tiles");
   const int ns = (K + STREAM_KS - 1) / STREAM_KS;
@@ -43,7 +45,10 @@ __device__ __forceinline__ void stream_mma(float (&acc)[NJ][4], bf16* buf, const
     bf16* sa = buf + (s & 1) * L::STAGE;
     bf16* sb = sa + L::A_ELEMS;
     const int k0 = s * STREAM_KS;
-    load_block_async<64, STREAM_KS, NT>(sa, L::LA, a + k0, lda, ma, K - k0);
+    if constexpr (AROWS)
+      load_rows_async<64, STREAM_KS, NT>(sa, L::LA, a + k0, lda, arows, ma, K - k0);
+    else
+      load_block_async<64, STREAM_KS, NT>(sa, L::LA, a + k0, lda, ma, K - k0);
     if constexpr (BT) {
       const size_t off = static_cast<size_t>(k0) * ldb;
       load_block_async<STREAM_KS, L::NC / 2, NT>(sb, L::LB, b0 + off, ldb, K - k0, nb);

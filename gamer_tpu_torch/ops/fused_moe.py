@@ -18,6 +18,25 @@ them, dbtab summed from the fp32 dgu, as the TPU kernel does), fp32 on the
 CUDA cores (full fp32). For CPU tensors it runs `fused_moe_ffn_plain`, whose
 backward is autograd.
 
+`fused_moe_ffn_grouped` is MoeAction's launch (`modules/moe.py`): a row of
+level l (1..levels) at position p takes expert `first + (l - 1) * P + p` of
+the stacked weights [E, ...], so one launch of h and one of i serve every
+level. The rows are ordered by level on the device (`level_rows`): each
+level's run padded to GROUP_ROWS with -1, a table of each TM-row tile's
+level, and a static grid of `row_tiles(T, levels)` tiles a position, the
+tiles past the runs exiting at once. A CTA takes its tile's expert (zero
+where the weights hold none: another rank's), reads its rows through the
+table and writes each row's output, dx, dgu and h_drop at the row's own
+place; rows of no level get zero. The dropout hash keys on the row's own t,
+so the masks are those of the ungrouped launch. i sums dWgu, dWd and dbtab
+of an expert over its level's rows only: the products split each level's
+run into a static number of row ranges, one CTA a range, and
+`reduce_splits_kernel` adds the ranges; bf16's per-tile dbtab sums are
+added over the level's tiles by `moe_bwd_dbtab_sum_kernel`. A template
+flag of each kernel selects the grouped code, so the ungrouped kernels
+compile as before. For CPU tensors it runs `fused_moe_ffn_grouped_plain`
+(a gather, the plain version per level, a scatter).
+
 Widths: every D, F and Dout runs through the kernels. The one rule, in
 `_padded`: in bf16 the wrapper zero-pads D, F and Dout to multiples of 16 and
 slices the outputs and grads back, which is exact (padded x columns meet zero
@@ -32,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +62,9 @@ from gamer_tpu_torch.ops.fused_attention import (
     _DROPOUT_ARGTYPES, _dropout_args, hash_keep, keep_fraction)
 
 TM = 64  # row tile of the kernels; the bf16 backward sums dbtab per row tile
+# a level's run of rows in the grouped table: two of h's row tiles, one
+# 128-row tile of i's dx product, so that no tile of either holds two levels
+GROUP_ROWS = 2 * TM
 
 ACTS = {"silu": F.silu, "relu": F.relu,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -63,10 +86,59 @@ def moe_keep_mask(seed: int, P: int, T: int, F: int, rate: float, device=None) -
     return hash_keep(seed, p, t, f, rate)
 
 
+class LevelRows(NamedTuple):
+    """The grouped launch's row table (`level_rows`), int32 on the rows'
+    device: `rows` [R], the row t at each place of the level-sorted order
+    (-1: a pad place); `tile_level` [R / TM], each TM-row tile's level
+    (0-based; -1 past the last run); `level_tile` [levels + 1], the first
+    tile of each level's run and, last, the tiles in use."""
+
+    rows: torch.Tensor
+    tile_level: torch.Tensor
+    level_tile: torch.Tensor
+
+
+def row_tiles(T: int, levels: int) -> int:
+    """The static TM-row tiles of the table of T rows in `levels` levels:
+    runs padded to GROUP_ROWS fill at most ceil(T / GROUP_ROWS) + levels - 1
+    of them (ceil(a) + ceil(b) <= ceil(a + b) + 1)."""
+    return (-(-T // GROUP_ROWS) + levels - 1) * (GROUP_ROWS // TM)
+
+
+def level_rows(level: torch.Tensor, levels: int) -> LevelRows:
+    """The row table of `level` [T] (each row's level in 1..levels; any other
+    value is a row of no level), rows in their order within a level, built
+    by static-shape ops on level's device: nothing is read on the host, so a
+    captured step builds it anew at each replay."""
+    T, dev = level.numel(), level.device
+    R = row_tiles(T, levels) * TM
+    onehot = (level.reshape(1, T).long() == torch.arange(1, levels + 1, device=dev)[:, None])
+    onehot = onehot.long()  # [levels, T]
+    # rows of each level up to t: one flat scan in level-major order (a
+    # scan along T per level runs serially on the card), less the levels
+    # before it
+    seen = torch.cumsum(onehot.reshape(-1), 0).reshape(levels, T)
+    before = torch.cat([seen.new_zeros(1), seen[:-1, -1]])
+    rank = seen - before[:, None]
+    runs = torch.div(rank[:, -1] + GROUP_ROWS - 1, GROUP_ROWS, rounding_mode="floor") * GROUP_ROWS
+    ends = torch.cumsum(runs, 0)
+    t = torch.arange(T, device=dev)
+    dest = ((rank - 1 + (ends - runs)[:, None]) * onehot).sum(0)
+    dest = torch.where(onehot.sum(0) > 0, dest, R + t)  # a row of no level: a slot past R
+    rows = torch.full((R + T,), -1, dtype=torch.int32, device=dev)
+    rows = rows.scatter(0, dest, t.to(torch.int32))[:R]
+    tile_level = (torch.arange(0, R, TM, device=dev)[:, None] >= ends).sum(1)
+    tile_level = torch.where(tile_level < levels, tile_level, -1).to(torch.int32)
+    level_tile = torch.div(torch.cat([ends.new_zeros(1), ends]), TM, rounding_mode="floor")
+    return LevelRows(rows, tile_level, level_tile.to(torch.int32))
+
+
 def fused_moe_ffn_plain(xp, wgu, wdown, btab, beh, use_bias: bool = False, seed: int = 0,
-                        rate: float = 0.0, act_name: str = "silu") -> torch.Tensor:
+                        rate: float = 0.0, act_name: str = "silu",
+                        keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: fp32 products, bias rows selected by id (ids
-    outside [0, NB) add nothing), the same hash dropout, output in xp's
+    outside [0, NB) add nothing), the same hash dropout (or the keep mask
+    `keep` [P, T, F], the grouped version's rows of it), output in xp's
     dtype; differentiable by autograd."""
     act_code(act_name)
     act = ACTS[act_name]
@@ -77,16 +149,49 @@ def fused_moe_ffn_plain(xp, wgu, wdown, btab, beh, use_bias: bool = False, seed:
         gu = gu + torch.bmm(onehot.float(), btab.float())
     h = act(gu[..., :Fd]) * gu[..., Fd:]
     if rate > 0.0:
-        keep = moe_keep_mask(seed, xp.shape[0], xp.shape[1], Fd, rate, xp.device)
+        if keep is None:
+            keep = moe_keep_mask(seed, xp.shape[0], xp.shape[1], Fd, rate, xp.device)
         h = torch.where(keep, h * (1.0 / keep_fraction(rate)), 0.0)
     return torch.bmm(h, wdown.float()).to(xp.dtype)
 
 
-def _check(xp, wgu, wdown, btab, beh):
+def fused_moe_ffn_grouped_plain(xp, wgu, wdown, btab, beh, groups: LevelRows, first: int,
+                                use_bias: bool = False, seed: int = 0, rate: float = 0.0,
+                                act_name: str = "silu") -> torch.Tensor:
+    """Plain version of the grouped launch: per level, the table's rows
+    gathered (a pad place reads row 0), `fused_moe_ffn_plain` with the
+    level's experts at the positions whose expert the weights hold, and the
+    outputs of the level's own places added at their rows; zero elsewhere.
+    Static shapes, as on the card: nothing is read on the host."""
+    act_code(act_name)
+    P, T, _ = xp.shape
+    E, Fd = wgu.shape[0], wdown.shape[1]
+    keep = moe_keep_mask(seed, P, T, Fd, rate, xp.device) if rate > 0.0 else None
+    rows = groups.rows.long().clamp(min=0)
+    place_level = torch.where(groups.rows >= 0, groups.tile_level.repeat_interleave(TM), -1)
+    out = xp.new_zeros((P, T, wdown.shape[2]))
+    for lvl in range(groups.level_tile.shape[0] - 1):
+        e0 = first + lvl * P  # the expert of position 0
+        p0, p1 = max(0, -e0), min(P, E - e0)
+        if p1 <= p0:
+            continue
+        w = slice(e0 + p0, e0 + p1)
+        y = fused_moe_ffn_plain(xp[p0:p1, rows], wgu[w], wdown[w], btab[w], beh[p0:p1, rows],
+                                use_bias, rate=rate, act_name=act_name,
+                                keep=None if keep is None else keep[p0:p1, rows])
+        mine = (place_level == lvl).to(y.dtype)[None, :, None]  # each row once, at its place
+        out = out.index_put((torch.arange(p0, p1, device=xp.device)[:, None], rows[None]),
+                            y * mine, accumulate=True)
+    return out
+
+
+def _check(xp, wgu, wdown, btab, beh, grouped: bool = False):
+    """The shapes; the weights hold P experts, or any number when grouped."""
     P, T, D = xp.shape
     Fd, Dout = wdown.shape[1], wdown.shape[2]
     NB = btab.shape[1]
-    if (wgu.shape != (P, D, 2 * Fd) or wdown.shape[0] != P or btab.shape != (P, NB, 2 * Fd)
+    E = wgu.shape[0] if grouped else P
+    if (wgu.shape != (E, D, 2 * Fd) or wdown.shape[0] != E or btab.shape != (E, NB, 2 * Fd)
             or beh.shape != (P, T)):
         raise ValueError(f"bad MoE shapes xp {tuple(xp.shape)} wgu {tuple(wgu.shape)} "
                          f"wdown {tuple(wdown.shape)} btab {tuple(btab.shape)} beh {tuple(beh.shape)}")
@@ -139,40 +244,66 @@ def weight_grad_splits(T: int, P: int, D: int, F: int, Dout: int, sms: int,
     return n_gu, kc_gu, n_d, kc_d, n_b, kc_b
 
 
+# the row table's arguments, before the stream: rows, tile_level,
+# level_tile, then tiles, levels, first, experts (`_groups_args`)
+_GROUPS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [
-    ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int] + _GROUPS_ARGTYPES + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [
-    ctypes.c_int] * 7 + [ctypes.c_void_p]
+    ctypes.c_int] * 7 + _GROUPS_ARGTYPES + [ctypes.c_void_p]
 
 
-def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name="silu"):
+def _groups_args(groups: Optional[LevelRows], first: int, E: int) -> tuple:
+    """The entry points' table arguments: null pointers (the ungrouped
+    launch) without `groups`."""
+    if groups is None:
+        return None, None, None, 0, 0, 0, 0
+    if any(t.dtype != torch.int32 or not t.is_contiguous() for t in groups):
+        raise TypeError("the row table's tensors are contiguous int32 (`level_rows`)")
+    rows, tile_level, level_tile = groups
+    return (rows.data_ptr(), tile_level.data_ptr(), level_tile.data_ptr(), tile_level.numel(),
+            level_tile.numel() - 1, first, E)
+
+
+def _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name="silu",
+                groups: Optional[LevelRows] = None, first: int = 0):
     act = act_code(act_name)
-    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh)
+    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh,
+                                                              groups is not None)
     Dp, Fp, Doutp = _padded(xp, wdown)
     if (Dp, Fp, Doutp) != (D, Fd, Dout):
         xp = F.pad(xp, (0, Dp - D))
         wgu, btab = _pad_gu(wgu, Dp, Fp), _pad_gu(btab, NB, Fp)
         wdown = F.pad(wdown, (0, Doutp - Dout, 0, Fp - Fd))
-    out = torch.empty((P, T, Doutp), dtype=xp.dtype, device=xp.device)
+    # grouped: the rows of no level, and the positions of experts held
+    # elsewhere, are never written
+    out = (torch.empty if groups is None else torch.zeros)((P, T, Doutp), dtype=xp.dtype,
+                                                          device=xp.device)
     with torch.cuda.device(xp.device):
         _build.launch("fused_moe_fwd", _FWD_ARGTYPES, xp.data_ptr(), wgu.data_ptr(),
                       wdown.data_ptr(), btab.data_ptr(), beh.data_ptr(), out.data_ptr(),
                       P, T, Dp, Fp, Doutp, NB, int(use_bias), act,
-                      *_dropout_args(seed, rate, xp.device),
-                      _build.dtype_code(xp), _build.stream_of(xp))
+                      *_dropout_args(seed, rate, xp.device), _build.dtype_code(xp),
+                      *_groups_args(groups, first, wgu.shape[0]), _build.stream_of(xp))
     trace.count("launch.h")
+    if groups is not None:
+        trace.count("moe.grouped")
+        trace.count("moe.grouped_tiles", groups.tile_level.numel())
     return out if Doutp == Dout else out[..., :Dout]
 
 
 def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: float = 0.0,
-                      use_bias: bool = False, act_name: str = "silu"):
-    """Kernel i: (dx, dwgu, dwdown, dbtab) of `fused_moe_ffn` for the
-    incoming gradient gout [P, T, Dout] (CUDA tensors only). The weight
-    gradients are summed in fp32 and come out in the weights' dtype."""
+                      use_bias: bool = False, act_name: str = "silu",
+                      groups: Optional[LevelRows] = None, first: int = 0):
+    """Kernel i: (dx, dwgu, dwdown, dbtab) of `fused_moe_ffn` (of
+    `fused_moe_ffn_grouped` when `groups`) for the incoming gradient gout
+    [P, T, Dout] (CUDA tensors only). The weight gradients are summed in
+    fp32 and come out in the weights' dtype."""
     if xp.device.type != "cuda":
         raise ValueError(f"fused_moe_ffn_bwd launches a CUDA kernel; got {xp.device}")
     act = act_code(act_name)
-    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh)
+    P, T, D, Fd, Dout, NB, xp, wgu, wdown, btab, beh = _check(xp, wgu, wdown, btab, beh,
+                                                              groups is not None)
     if gout.shape != (P, T, Dout):
         raise ValueError(f"gout must be [P, T, Dout], got {tuple(gout.shape)}")
     gout = gout.to(xp.dtype)
@@ -185,13 +316,25 @@ def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: floa
         gout = F.pad(gout, (0, Dout - real[2]))
     gout = _build.aligned(gout)
     sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
-    n_gu, kc_gu, n_d, kc_d, n_b, kc_b = weight_grad_splits(T, P, D, Fd, Dout, sms,
-                                                           xp.dtype == torch.bfloat16)
-    ws_size = max(n_gu * P * D * 2 * Fd, n_d * P * Fd * Dout, n_b * P * NB * 2 * Fd)
+    bf16 = xp.dtype == torch.bfloat16
+    E = wgu.shape[0]
+    if groups is None:
+        n_gu, kc_gu, n_d, kc_d, n_b, kc_b = weight_grad_splits(T, P, D, Fd, Dout, sms, bf16)
+        ws_size = max(n_gu * P * D * 2 * Fd, n_d * P * Fd * Dout, n_b * P * NB * 2 * Fd)
+    else:
+        # the ranges of a level's run, set for a run of the mean length (the
+        # kernels size each level's ranges to its own run); bf16 sums dbtab
+        # per row tile of the table
+        tiles, levels = groups.tile_level.numel(), groups.level_tile.numel() - 1
+        n_gu, kc_gu, n_d, kc_d, n_b, kc_b = weight_grad_splits(
+            -(-tiles * TM // levels), E, D, Fd, Dout, sms, bf16)
+        n_b = tiles if bf16 else n_b
+        ws_size = max(n_gu * E * D * 2 * Fd, n_d * E * Fd * Dout,
+                      n_b * (P if bf16 else E) * NB * 2 * Fd)
     ws = torch.empty(ws_size, dtype=torch.float32, device=xp.device)
     dgu = torch.empty((P, T, 2 * Fd), dtype=xp.dtype, device=xp.device)
     hdrop = torch.empty((P, T, Fd), dtype=xp.dtype, device=xp.device)
-    dx = torch.empty_like(xp)
+    dx = torch.empty_like(xp) if groups is None else torch.zeros_like(xp)
     dwgu, dwd = torch.empty_like(wgu), torch.empty_like(wdown)
     dbtab = torch.empty_like(btab) if use_bias else torch.zeros_like(btab)
     with torch.cuda.device(xp.device):
@@ -200,7 +343,8 @@ def fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate: floa
                       dx.data_ptr(), dwgu.data_ptr(), dwd.data_ptr(), dbtab.data_ptr(),
                       dgu.data_ptr(), hdrop.data_ptr(), ws.data_ptr(), P, T, D, Fd, Dout, NB,
                       int(use_bias), act, *_dropout_args(seed, rate, xp.device), n_gu, kc_gu,
-                      n_d, kc_d, n_b, kc_b, _build.dtype_code(xp), _build.stream_of(xp))
+                      n_d, kc_d, n_b, kc_b, _build.dtype_code(xp),
+                      *_groups_args(groups, first, E), _build.stream_of(xp))
     trace.count("launch.i")
     if (D, Fd, Dout) != real:
         dx, dwd = dx[..., :real[0]], dwd[:, :real[1], :real[2]]
@@ -217,31 +361,67 @@ def fused_moe_ffn_bwd_plain(xp, wgu, wdown, btab, beh, gout, seed: int = 0, rate
         return torch.autograd.grad(out, leaves, gout, allow_unused=True, materialize_grads=True)
 
 
+def fused_moe_ffn_grouped_bwd_plain(xp, wgu, wdown, btab, beh, groups: LevelRows, first: int,
+                                    gout, seed: int = 0, rate: float = 0.0,
+                                    use_bias: bool = False, act_name: str = "silu"):
+    """Plain version of the grouped i: autograd through the grouped plain
+    forward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (xp, wgu, wdown, btab)]
+        out = fused_moe_ffn_grouped_plain(*leaves, beh, groups, first, use_bias, seed, rate,
+                                          act_name)
+        return torch.autograd.grad(out, leaves, gout, allow_unused=True, materialize_grads=True)
+
+
 class _FusedMoE(torch.autograd.Function):
-    """Kernel h forward, kernel i backward."""
+    """Kernel h forward, kernel i backward (grouped when `groups`)."""
 
     @staticmethod
-    def forward(ctx, xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name):
-        ctx.save_for_backward(xp, wgu, wdown, btab, beh)
+    def forward(ctx, xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name, groups, first):
+        ctx.save_for_backward(xp, wgu, wdown, btab, beh, *(groups or ()))
         ctx.args = (seed, rate, use_bias, act_name)
-        return _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name)
+        ctx.first = first
+        return _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name, groups,
+                           first)
 
     @staticmethod
     def backward(ctx, gout):
-        xp, wgu, wdown, btab, beh = ctx.saved_tensors
-        grads = fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, *ctx.args)
-        return (*grads, None, None, None, None, None)
+        xp, wgu, wdown, btab, beh, *tabs = ctx.saved_tensors
+        groups = LevelRows(*tabs) if tabs else None
+        grads = fused_moe_ffn_bwd(xp, wgu, wdown, btab, beh, gout, *ctx.args, groups, ctx.first)
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def _fused(xp, wgu, wdown, btab, beh, seed, act_name, rate, use_bias, groups, first):
+    """The kernels (h forward, i backward) on the card, the plain versions
+    on the CPU; grouped when `groups`."""
+    act_code(act_name)
+    if xp.device.type == "cpu":
+        if groups is None:
+            return fused_moe_ffn_plain(xp, wgu, wdown, btab, beh, use_bias, seed, rate, act_name)
+        return fused_moe_ffn_grouped_plain(xp, wgu, wdown, btab, beh, groups, first, use_bias,
+                                           seed, rate, act_name)
+    if xp.device.type != "cuda":
+        raise ValueError(f"the fused MoE FFN runs on cuda or cpu, not {xp.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xp, wgu, wdown, btab)):
+        return _FusedMoE.apply(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name, groups,
+                               first)
+    return _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name, groups, first)
 
 
 def fused_moe_ffn(xp, wgu, wdown, btab, beh, seed: int = 0, act_name: str = "silu",
                   rate: float = 0.0, use_bias: bool = False) -> torch.Tensor:
     """xp [P, T, D], wgu [P, D, 2F], wdown [P, F, Dout], btab [P, NB, 2F],
     beh [P, T] int -> [P, T, Dout]; differentiable in xp, wgu, wdown, btab."""
-    act_code(act_name)
-    if xp.device.type == "cpu":
-        return fused_moe_ffn_plain(xp, wgu, wdown, btab, beh, use_bias, seed, rate, act_name)
-    if xp.device.type != "cuda":
-        raise ValueError(f"fused_moe_ffn runs on cuda or cpu, not {xp.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xp, wgu, wdown, btab)):
-        return _FusedMoE.apply(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name)
-    return _launch_fwd(xp, wgu, wdown, btab, beh, seed, rate, use_bias, act_name)
+    return _fused(xp, wgu, wdown, btab, beh, seed, act_name, rate, use_bias, None, 0)
+
+
+def fused_moe_ffn_grouped(xp, wgu, wdown, btab, beh, groups: LevelRows, first: int,
+                          seed: int = 0, act_name: str = "silu", rate: float = 0.0,
+                          use_bias: bool = False) -> torch.Tensor:
+    """xp [P, T, D], wgu [E, D, 2F], wdown [E, F, Dout], btab [E, NB, 2F],
+    beh [P, T] int and the row table `groups` of T rows -> [P, T, Dout]: a
+    row of level l (0-based in the table) at position p through expert
+    first + l * P + p, zero where that is outside [0, E) and at rows of no
+    level (module docstring); differentiable in xp, wgu, wdown, btab."""
+    return _fused(xp, wgu, wdown, btab, beh, seed, act_name, rate, use_bias, groups, first)

@@ -12,7 +12,7 @@ step saves for its backward
 (`torch.autograd.graph.saved_tensors_hooks`, each storage once) by dtype
 and shape, the census from which `train/memory.py` counts its per-token
 terms, and prints `estimate_train_hbm_bytes` beside the peak. The same for
-Qwen3MoeAction at the flagship widths (h and i once per behavior level) at
+Qwen3MoeAction at the flagship widths (h and i once a layer, grouped) at
 phase 8's batch of 256 x 21 blocks and at B 16 x S 8190, remat off: the
 estimate away from the geometry it was fitted at. Prints the card's name
 and power limit; writes every record as JSON to `--out`.

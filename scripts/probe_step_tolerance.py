@@ -13,9 +13,10 @@ the worst grad's max |d| / max |plain|) on three geometries:
     geometry of `tests/test_torch_kernels_gpu.py`.
 Sound runs over five seeds in bf16 and fp32, then planted faults in the
 kernel path (bf16, mb and gputest, two seeds), each made by wrapping the
-wrapper the model calls: the third behavior level's pass dropped, the third
-level run with the second level's experts, the MoE dropout left out or on
-another seed, the behavior bias dropped, the attention dropout left out.
+wrapper the model calls (MoeAction's grouped MoE launch): the third
+behavior level's output dropped, the third level run with the second
+level's experts, the MoE dropout left out or on another seed, the behavior
+bias dropped, the attention dropout left out.
 A limit between the largest sound reading and the smallest fault reading
 catches these faults (`tests/test_torch_step_tolerance.py` checks that on
 the CPU at a tiny size). Prints one row a run, then the extremes.
@@ -38,12 +39,14 @@ FAULTS = ("drop_level3", "level3_runs_level2", "moe_dropout_off", "moe_seed_off"
 @contextlib.contextmanager
 def planted(kind: str):
     """While the block runs, the kernel path carries the fault `kind`."""
+    import torch
+
     from gamer_tpu_torch.modules import layers as L
     from gamer_tpu_torch.modules import moe as MOE
     from gamer_tpu_torch.ops import fused_attention as FA
+    from gamer_tpu_torch.ops.fused_moe import TM
 
-    moe0, attn0 = MOE.fused_moe_ffn, FA.fused_mask_attention
-    calls, prev = [0], {}
+    moe0, attn0 = MOE.fused_moe_ffn_grouped, FA.fused_mask_attention
 
     class AttentionOps:
         """`ops.fused_attention` as `modules.layers` sees it, with the
@@ -52,18 +55,23 @@ def planted(kind: str):
         def __getattr__(self, name):
             return getattr(FA, name)
 
-    def moe(xp, wgu, wd, btab, beh, seed=0, act="silu", rate=0.0, use_bias=False):
-        level = calls[0] % 3  # MoeAction calls the levels in order, layer by layer
-        calls[0] += 1
-        if kind == "drop_level3" and level == 2:
-            return moe0(xp, wgu, wd, btab, beh, seed, act, rate, use_bias) * 0
-        if kind == "level3_runs_level2" and level == 2:
-            wgu, wd, btab = prev["w"]
+    def moe(xp, wgu, wd, btab, beh, groups, first, seed=0, act="silu", rate=0.0,
+            use_bias=False):
+        P = xp.shape[0]
+        if kind == "level3_runs_level2":  # the third level's experts are the second's
+            idx = torch.arange(wgu.shape[0], device=wgu.device)
+            idx[first + 2 * P:first + 3 * P] -= P
+            wgu, wd, btab = wgu[idx], wd[idx], btab[idx]
         rate = 0.0 if kind == "moe_dropout_off" else rate
         seed = seed + 1 if kind == "moe_seed_off" else seed
         use_bias = False if kind == "behavior_bias_off" else use_bias
-        prev["w"] = (wgu, wd, btab)
-        return moe0(xp, wgu, wd, btab, beh, seed, act, rate, use_bias)
+        out = moe0(xp, wgu, wd, btab, beh, groups, first, seed, act, rate, use_bias)
+        if kind == "drop_level3":  # the third level's rows give zero
+            placed = groups.rows >= 0
+            level = torch.full((xp.shape[1],), -1, dtype=torch.int32, device=xp.device)
+            level[groups.rows[placed].long()] = groups.tile_level.repeat_interleave(TM)[placed]
+            out = out * (level != 2).to(out.dtype)[None, :, None]
+        return out
 
     def attn(*args):
         args = list(args)
@@ -73,11 +81,11 @@ def planted(kind: str):
 
     ops = AttentionOps()
     ops.fused_mask_attention = attn
-    MOE.fused_moe_ffn, L.fa = moe, ops
+    MOE.fused_moe_ffn_grouped, L.fa = moe, ops
     try:
         yield
     finally:
-        MOE.fused_moe_ffn, L.fa = moe0, FA
+        MOE.fused_moe_ffn_grouped, L.fa = moe0, FA
 
 
 def main() -> int:

@@ -5,7 +5,8 @@
 Imports `chip_smoke.py` and `gamer_tpu_torch` from `<tree>` (a checkout,
 e.g. a `git archive` of another commit unpacked into a git-ignored
 directory), builds its kernel libraries and runs the named phases with the
-launch counters and TF32 off as the script does: 2d (`dropout_phase`), 2e
+launch counters and TF32 off as the script does: 2 (`kernel_phase`), 2b
+(`backward_phase`), 2g (`grouped_moe_phase`), 2d (`dropout_phase`), 2e
 (`optimizer_phase`), 2f (`qk_norm_rope_phase`), 3 (`eval_phase`), 4 (`search_phase`), 5
 (`train_phase`), 7 (`task_phase`), 8 (`seq_phase`), 9 (`remat_phase`), 10
 (`encdec_phase`), 11
@@ -48,7 +49,13 @@ def main(argv: list[str]) -> int:
     step_ms = 0.0
     for phase in phases:
         t = time.perf_counter()
-        if phase == "2d":
+        if phase == "2":
+            cs.kernel_phase(dev)
+        elif phase == "2b":
+            cs.backward_phase(dev)
+        elif phase == "2g":
+            cs.grouped_moe_phase(dev, card)
+        elif phase == "2d":
             cs.dropout_phase(dev, card)
         elif phase == "2e":
             cs.optimizer_phase(dev, card)
@@ -77,8 +84,8 @@ def main(argv: list[str]) -> int:
         elif phase == "14":
             cs.model_axis_phase(dev, counters, card)
         else:
-            raise ValueError(f"unknown phase {phase!r}; one of 2d, 2e, 2f, 3, 4, 5, 7, 8, 9, 10, "
-                             "11, 12, 13, 14")
+            raise ValueError(f"unknown phase {phase!r}; one of 2, 2b, 2g, 2d, 2e, 2f, 3, 4, 5, 7, 8, "
+                             "9, 10, 11, 12, 13, 14")
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     return 0
 

@@ -2,7 +2,9 @@
 i.e. the kernel's plain version, against the JAX Pallas kernel in interpret
 mode, and PositionRoutedMLP's periodic, fused and one-hot paths against the
 JAX module. fp32, tolerance 1e-5; bf16 inputs through the kernel and its VJP;
-the weight-gradient products' splits over T."""
+the weight-gradient products' splits over T. MoeAction's grouped launch:
+its row table's invariants, and its plain version against the per-level
+passes with the masked sum, bit for bit, whole and on a rank's experts."""
 
 import jax
 import jax.numpy as jnp
@@ -251,3 +253,129 @@ def test_unknown_activation_raises_value_error():
         FM.fused_moe_ffn(*args, act_name="swish")
     with pytest.raises(ValueError, match="swish"):
         FM.fused_moe_ffn_plain(*args, act_name="swish")
+
+
+# ---- MoeAction's grouped launch (`fused_moe_ffn_grouped`): the row table and
+# the plain version against one pass per behavior level
+
+def _levels(kind: str, T: int, NB: int, rng) -> np.ndarray:
+    """[T] block levels 0..NB (0: a pad block): "mixed" (every level and pad
+    blocks), "missing" (no level 2), "one" (level NB only, no pad)."""
+    if kind == "one":
+        return np.full(T, NB, np.int64)
+    lv = rng.integers(0, NB + 1, T)
+    if kind == "missing":
+        lv[lv == 2] = 1
+    return lv
+
+
+@pytest.mark.parametrize("kind", ["mixed", "missing", "one"])
+@pytest.mark.parametrize("T,NB", [(1, 3), (63, 3), (200, 3), (6144, 3), (777, 1), (300, 5)])
+def test_level_rows_invariants(T, NB, kind):
+    """Every row of a level appears exactly once, in its level's run and in
+    row order; rows of no level (0, or past NB) are absent; each run starts
+    on a 128-row boundary, so no 64-row tile holds two levels; tiles past
+    the runs have level -1; the tiles fit the static bound."""
+    rng = np.random.default_rng(T + NB)
+    lv = _levels(kind, T, NB, rng)
+    lv[rng.integers(0, T, max(1, T // 50))] = NB + 1  # ids past the levels: no expert
+    g = FM.level_rows(torch.as_tensor(lv), NB)
+    rows, tile_level, level_tile = (t.numpy() for t in g)
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in g)
+    assert len(tile_level) == FM.row_tiles(T, NB) and len(rows) == len(tile_level) * FM.TM
+    assert len(tile_level) == 2 * (-(-T // FM.GROUP_ROWS) + NB - 1)
+    assert level_tile[0] == 0 and (np.diff(level_tile) % 2 == 0).all()
+    assert level_tile[-1] <= len(tile_level)
+    for a in range(1, NB + 1):
+        run = rows[level_tile[a - 1] * FM.TM:level_tile[a] * FM.TM]
+        members = np.flatnonzero(lv == a)
+        assert len(run) == -(-len(members) // FM.GROUP_ROWS) * FM.GROUP_ROWS
+        assert np.array_equal(run, np.concatenate([members, -np.ones(len(run) - len(members))]))
+        assert (tile_level[level_tile[a - 1]:level_tile[a]] == a - 1).all()
+    assert (tile_level[level_tile[-1]:] == -1).all() and (rows[level_tile[-1] * FM.TM:] == -1).all()
+    real = rows[rows >= 0]
+    assert len(real) == len(set(real)) == ((lv >= 1) & (lv <= NB)).sum()
+
+
+def _grouped_inputs(kind: str, T: int, P: int = 5, NB: int = 3, D: int = 32, F: int = 48,
+                    seed: int = 0):
+    """xp [P, T, D], stacked weights of P * NB + 1 experts (expert 0 the pad
+    expert), behavior ids [P, T] and block levels [T] (`_levels`)."""
+    rng = np.random.default_rng(seed)
+    E, NBH = P * NB + 1, NB + 1
+    t = lambda *shape, scale=1.0: torch.as_tensor(
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+    xp, wgu, wd = t(P, T, D), t(E, D, 2 * F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+    btab = t(E, NBH, 2 * F, scale=0.3)
+    beh = torch.as_tensor(rng.integers(0, NBH, (P, T)).astype(np.int32))
+    return xp, wgu, wd, btab, beh, torch.as_tensor(_levels(kind, T, NB, rng))
+
+
+def _per_level(xp, wgu, wd, btab, beh, lv, NB, use_bias, seed, rate):
+    """One plain pass over every row per level a with experts P(a-1)+1..Pa,
+    each kept where the row's level is a: the ungrouped MoeAction path."""
+    P = xp.shape[0]
+    out = torch.zeros((), dtype=xp.dtype)
+    for a in range(1, NB + 1):
+        w = slice(P * (a - 1) + 1, P * a + 1)
+        y = FM.fused_moe_ffn_plain(xp, wgu[w], wd[w], btab[w], beh, use_bias, seed, rate)
+        out = out + y * (lv == a).to(xp.dtype)[None, :, None]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["mixed", "missing", "one"])
+@pytest.mark.parametrize("rate,use_bias", [(0.0, False), (0.2, False), (0.2, True), (0.0, True)])
+def test_grouped_plain_matches_per_level_passes(rate, use_bias, kind):
+    """The grouped plain version (one gather, pass and scatter a level, the
+    row table of `level_rows`) equals the three per-level plain passes with
+    the masked sum, bit for bit in fp32: the output (pad blocks exactly
+    zero) and dx; the weight grads (sums over other sets of rows) within
+    1e-5. T 130: not a multiple of the 64-row tile."""
+    NB, seed = 3, 77
+    xp, wgu, wd, btab, beh, lv = _grouped_inputs(kind, 130, NB=NB, seed=len(kind))
+    groups = FM.level_rows(lv, NB)
+    leaves = [t.clone().requires_grad_(True) for t in (xp, wgu, wd, btab)]
+    got = FM.fused_moe_ffn_grouped(*leaves, beh, groups, 1, seed, "silu", rate, use_bias)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (xp, wgu, wd, btab)]
+    want = _per_level(*ref_leaves, beh, lv, NB, use_bias, seed, rate)
+    assert torch.equal(got, want)
+    assert (got[:, lv == 0] == 0).all() and (got[:, lv > 0].abs() > 0).any()
+    gout = torch.randn(got.shape, generator=torch.Generator().manual_seed(3))
+    grads = torch.autograd.grad(got, leaves, gout, allow_unused=True, materialize_grads=True)
+    ref = torch.autograd.grad(want, ref_leaves, gout, allow_unused=True, materialize_grads=True)
+    assert torch.equal(grads[0], ref[0])
+    for name, g, r in zip(("dwgu", "dwd", "dbtab"), grads[1:], ref[1:]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, msg=name)
+    assert (grads[1][0] == 0).all()  # the pad expert takes no row
+    plain = FM.fused_moe_ffn_grouped_bwd_plain(xp, wgu, wd, btab, beh, groups, 1, gout, seed,
+                                               rate, use_bias)
+    for g, r in zip(plain, grads):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_grouped_plain_on_a_ranks_experts(n):
+    """The model axis (`modules/moe.py`): rank m holds experts [m E/n,
+    (m+1) E/n) of E = 16 and runs the grouped version with first = 1 - m E/n;
+    each rank's output equals the per-level passes at the (level, position)
+    pairs whose expert it holds and zero elsewhere, and the ranks' outputs
+    sum to the whole, bit for bit (dropout 0.2, bias)."""
+    P, NB, seed, rate = 5, 3, 11, 0.2
+    xp, wgu, wd, btab, beh, lv = _grouped_inputs("mixed", 99, P=P, NB=NB, seed=n)
+    E = wgu.shape[0]
+    groups = FM.level_rows(lv, NB)
+    whole = FM.fused_moe_ffn_grouped(xp, wgu, wd, btab, beh, groups, 1, seed, "silu", rate, True)
+    assert torch.equal(whole, _per_level(xp, wgu, wd, btab, beh, lv, NB, True, seed, rate))
+    total = 0
+    for m in range(n):
+        e0, e1 = m * E // n, (m + 1) * E // n
+        w = slice(e0, e1)
+        part = FM.fused_moe_ffn_grouped(xp, wgu[w], wd[w], btab[w], beh, groups, 1 - e0, seed,
+                                        "silu", rate, True)
+        held = torch.zeros((P, len(lv)), dtype=torch.bool)
+        for a in range(1, NB + 1):
+            experts = P * (a - 1) + 1 + torch.arange(P)
+            held[:, lv == a] = ((experts >= e0) & (experts < e1))[:, None]
+        assert torch.equal(part, torch.where(held[..., None], whole, 0.0))
+        total = total + part
+    assert torch.equal(total, whole)

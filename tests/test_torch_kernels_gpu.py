@@ -578,16 +578,126 @@ def test_qwen3multi_hidden_512_training_step(dev):
     kernels = tuple(_step_counters().values())[:6]  # a, b, h, i, j, k
     for f in kernels:
         f.launches = 0
+    grouped = trace.counter("moe.grouped")
     loss, _ = loss_fn(batch, torch.Generator().manual_seed(0))
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert [f.launches for f in kernels] == [12, 12, 8, 8, 1, 1]
+    assert trace.counter("moe.grouped") == grouped, "the flagship's MoE takes the ungrouped launch"
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 
-# ---- Qwen3MoeAction: one h and one i launch per behavior level on every
-# sparse layer (the factorized periodic path), kernel path against plain path
+# ---- Qwen3MoeAction: one grouped h and one grouped i launch on every sparse
+# layer over the blocks ordered by level, against one launch per behavior
+# level with the masked sum; kernel path against plain path
+
+def _grouped_case(dev, dtype, B=256, n=24, P=5, NB=3, D=256, F=512, seed=0, pad=0.19):
+    """The h20 cell's MoE shapes (B 256 x S 120: T = 6144 blocks of 5
+    positions, D 256, F 512, 3 levels, injection's 4 bias rows): xp, the
+    P * NB + 1 experts' weights, behavior ids, gout, and block levels with a
+    share `pad` of pad blocks (level 0)."""
+    rng = np.random.default_rng(seed)
+    T, E = B * n, P * NB + 1
+    t = lambda *shape, scale=1.0: torch.as_tensor(
+        (rng.standard_normal(shape) * scale).astype(np.float32), device=dev).to(dtype)
+    xp, wgu, wd = t(P, T, D), t(E, D, 2 * F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+    btab, gout = t(E, NB + 1, 2 * F, scale=0.3), t(P, T, D)
+    beh = torch.as_tensor(rng.integers(0, NB + 1, (P, T)).astype(np.int32), device=dev)
+    lv = rng.integers(1, NB + 1, T)
+    lv[rng.random(T) < pad] = 0
+    return xp, wgu, wd, btab, beh, gout, torch.as_tensor(lv, device=dev)
+
+
+def _per_level_launches(xp, wgu, wd, btab, beh, gout, lv, NB, seed, rate):
+    """Three ungrouped launches of h and of i, one a level a with experts
+    P(a-1)+1..Pa, kept by the masked sum (i takes gout masked to the level's
+    rows): (out, dx, dwgu, dwd, dbtab), the weight grads of all experts."""
+    P = xp.shape[0]
+    out, dx = 0, 0
+    dws = [torch.zeros_like(w) for w in (wgu, wd, btab)]
+    for a in range(1, NB + 1):
+        w = slice(P * (a - 1) + 1, P * a + 1)
+        mask = (lv == a).to(xp.dtype)[None, :, None]
+        y = FM._launch_fwd(xp, wgu[w], wd[w], btab[w], beh, seed, rate, True)
+        out = out + y * mask
+        grads = FM.fused_moe_ffn_bwd(xp, wgu[w], wd[w], btab[w], beh, gout * mask, seed, rate,
+                                     True)
+        dx = dx + grads[0]
+        for d, g in zip(dws, grads[1:]):
+            d[w] = g
+    return out, dx, *dws
+
+
+# weight grads: fp32 sums over other sets and orders of rows, then one
+# rounding to the dtype: a bf16 value may round one step (2^-7 of itself)
+# the other way; fp32 differs in the order of the sums alone
+GROUPED_WGRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.parametrize("dtype,D,F", [
+    (torch.float32, 256, 512), (torch.bfloat16, 256, 512),  # the h20 cell's widths
+    (torch.bfloat16, 320, 512),  # h's streamed route (bf16 D > 256)
+    (torch.bfloat16, 200, 344),  # the wrapper's zero padding to multiples of 16
+    (torch.float32, 520, 128),  # fp32 h with x streamed (D > 512)
+])
+def test_moe_grouped_kernels_match_per_level_launches(dev, dtype, D, F):
+    """Grouped h and i (`fused_moe_ffn_grouped`, the row table of
+    `level_rows`) against three ungrouped launches with the masked sum, at
+    the h20 cell's rows (B 256 x S 120) on every route, dropout 0.1,
+    injection: the output and dx bit-identical (the same per-row
+    arithmetic, rows of pad blocks exactly zero), dWgu, dWd and dbtab within
+    GROUPED_WGRAD_TOL of each tensor's largest; the pad expert 0 gets zero
+    grads; the counters `moe.grouped` and `moe.grouped_tiles` move by 1 and
+    the table's tiles."""
+    NB, seed, rate = 3, 4321, 0.1
+    xp, wgu, wd, btab, beh, gout, lv = _grouped_case(dev, dtype, D=D, F=F)
+    want = _per_level_launches(xp, wgu, wd, btab, beh, gout, lv, NB, seed, rate)
+    groups = FM.level_rows(lv, NB)
+    before = trace.counter("moe.grouped"), trace.counter("moe.grouped_tiles")
+    out = FM._launch_fwd(xp, wgu, wd, btab, beh, seed, rate, True, "silu", groups, 1)
+    grads = FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, seed, rate, True, "silu", groups, 1)
+    torch.cuda.synchronize()
+    assert (trace.counter("moe.grouped") - before[0],
+            trace.counter("moe.grouped_tiles") - before[1]) == (1, groups.tile_level.numel())
+    assert torch.equal(out, want[0]) and torch.equal(grads[0], want[1])
+    assert (out[:, lv == 0] == 0).all() and (grads[0][:, lv == 0] == 0).all()
+    for name, got, ref in zip(("dwgu", "dwd", "dbtab"), grads[1:], want[2:]):
+        assert (got[0] == 0).all(), name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= GROUPED_WGRAD_TOL[dtype] * ref.float().abs().max().item(), (name, err)
+
+
+def test_moe_grouped_step_replays_on_other_level_mixes(dev):
+    """One CUDA graph captures the grouped step (the row table, h, i) on
+    static inputs; replayed on two batches with different level mixes (one
+    with a level missing, one with pad blocks at 40%), its output and grads
+    are bit-identical to the eager grouped launches on each batch."""
+    NB, seed, rate = 3, 99, 0.1
+    batches = [_grouped_case(dev, torch.bfloat16, seed=s, pad=p) for s, p in ((1, 0.19),
+                                                                              (2, 0.4))]
+    batches[0][-1][batches[0][-1] == 2] = 1  # no level 2
+
+    def step(xp, wgu, wd, btab, beh, gout, lv):
+        groups = FM.level_rows(lv, NB)
+        out = FM._launch_fwd(xp, wgu, wd, btab, beh, seed, rate, True, "silu", groups, 1)
+        return (out, *FM.fused_moe_ffn_bwd(xp, wgu, wd, btab, beh, gout, seed, rate, True,
+                                           "silu", groups, 1))
+
+    static = [t.clone() for t in batches[0]]
+    step(*static)  # warm-up: the libraries load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step(*static)
+    for batch in batches:
+        for s_, b in zip(static, batch):
+            s_.copy_(b)
+        graph.replay()
+        want = step(*batch)
+        torch.cuda.synchronize()
+        for got, ref in zip(outs, want):
+            assert torch.equal(got, ref)
 
 def _moe_action_config(**kw):
     """Qwen3MoeAction at the presets' widths (hidden 256, 8 layers, 6/3
@@ -610,12 +720,12 @@ def _step_counters():
         "qk_norm_rope_fwd", "qk_norm_rope_bwd")}
 
 
-def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
+def test_moe_action_step_launches_h_and_i_once_a_layer(dev):
     """A bf16 training step on CUDA with moe_impl "auto" launches kernels h
-    and i num_behavior (3) times on each of the 8 sparse layers: a 8, b 8,
-    h 24, i 24, j 1, k 1, the hash dropout's K1 and K2 at the 16
-    residual sites, and N1 and N2 once an attention block (8); loss and
-    grads finite."""
+    and i once on each of the 8 sparse layers, grouped over the behavior
+    levels: a 8, b 8, h 8, i 8, j 1, k 1, the hash dropout's K1 and K2 at
+    the 16 residual sites, and N1 and N2 once an attention block (8); the
+    counter `moe.grouped` moves by 8; loss and grads finite."""
     from gamer_tpu_torch.entry import make_batch
     from gamer_tpu_torch.models.generative.qwen_family import QwenFamilyModel
     from gamer_tpu_torch.tasks.train_smb_decoder import make_loss_fn
@@ -626,11 +736,13 @@ def test_moe_action_step_launches_h_and_i_per_behavior_level(dev):
     counters = _step_counters()
     for f in counters.values():
         f.launches = 0
+    grouped = trace.counter("moe.grouped")
     loss, _ = make_loss_fn(model, cfg, deterministic=False)(make_batch(cfg, 8, 24),
                                                              torch.Generator().manual_seed(0))
     loss.backward()
     torch.cuda.synchronize()
-    assert [f.launches for f in counters.values()] == [8, 8, 24, 24, 1, 1, 16, 16, 8, 8]
+    assert [f.launches for f in counters.values()] == [8, 8, 8, 8, 1, 1, 16, 16, 8, 8]
+    assert trace.counter("moe.grouped") - grouped == 8
     assert torch.isfinite(loss)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
